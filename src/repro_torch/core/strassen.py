@@ -1,0 +1,333 @@
+"""Rectangular TN Strassen ``C = alpha·AᵀB`` (port of ``repro.core.strassen``).
+
+The paper's FastStrassen with the TN form kept all the way down: with
+``X = Aᵀ`` split into quadrants, each of the seven products is again a TN
+product of combinations of ``A`` blocks in their own orientation, so ``Aᵀ``
+is never formed. Odd sizes take one root pad to multiples of ``2^L`` and
+one crop; interior levels split exactly in half.
+
+Leaf dispatch:
+
+* ``'unrolled'`` — the recursion calls ``base_dot`` once per leaf.
+* ``'batched'`` — level-synchronous: the operands are transposed once into
+  the leaf-block-major layout (``_to_blocks``), each level *encodes* the
+  seven ±1 combinations into a stack with a leading leaf axis, all ``7^L``
+  leaves run as ONE batched ``base_dot``, and each level *decodes* back.
+  The same elementwise adds run on the same values, so with a base whose
+  per-output summation order does not depend on the batch (the CUDA
+  kernel's) the two dispatches agree bitwise.
+* ``'fused'`` is not ported yet and raises ``NotImplementedError``.
+
+The base defaults to :func:`repro_torch.kernels.ops.gemm_tn`, which runs
+the CUDA kernel on a CUDA tensor and the plain matmul on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.gemm_tn import gemm_tn_plain
+from repro_torch.tune import defaults as _defaults
+from repro_torch.tune.defaults import DEFAULT_N_BASE
+
+__all__ = ["strassen_tn", "DEFAULT_N_BASE", "resolve_tunables", "tree_depth"]
+
+FUSED_NOT_PORTED = (
+    "leaf_dispatch='fused' is not ported yet: it needs the gemm_tn_fused and "
+    "syrk_gather kernels (ROADMAP.md, remaining queue item 1)"
+)
+
+
+def resolve_tunables(n_base, variant, packed_block, leaf_dispatch):
+    """Fill unset tunables from the static defaults — the reference's
+    "pinned" regime, the only one until the planner is ported. Returns
+    ``(n_base, variant, packed_block, leaf_dispatch)``."""
+    n_base = _defaults.DEFAULT_N_BASE if n_base is None else n_base
+    variant = _defaults.DEFAULT_VARIANT if variant is None else variant
+    packed_block = _defaults.DEFAULT_PACKED_BLOCK if packed_block is None else packed_block
+    leaf_dispatch = _defaults.DEFAULT_LEAF_DISPATCH if leaf_dispatch is None else leaf_dispatch
+    if leaf_dispatch == "fused":
+        raise NotImplementedError(FUSED_NOT_PORTED)
+    if leaf_dispatch not in ("unrolled", "batched"):
+        raise ValueError(
+            f"unknown leaf_dispatch {leaf_dispatch!r}; use 'unrolled' or 'batched'"
+        )
+    if variant not in ("strassen", "winograd"):
+        raise ValueError(f"unknown variant {variant!r}")
+    return n_base, variant, packed_block, leaf_dispatch
+
+
+def _dot_tn(a, b, acc_dtype):
+    """Plain ``AᵀB`` over the last two dims (leading dims are batch), with
+    an ``acc_dtype`` accumulator — ``torch.matmul``, ``Aᵀ`` a view."""
+    return gemm_tn_plain(a, b, out_dtype=acc_dtype)
+
+
+def default_base_dot(acc_dtype):
+    """The leaf engine when the caller passes none: ``ops.gemm_tn``."""
+    return functools.partial(ops.gemm_tn, out_dtype=acc_dtype)
+
+
+# ---------------------------------------------------------------------------
+# root padding
+# ---------------------------------------------------------------------------
+
+
+def tree_depth(dims, n_base: int) -> int:
+    """Levels the recursion performs: smallest ``L`` with
+    ``min(⌈d/2^L⌉) ≤ n_base``."""
+    L = 0
+    while min(-(-d // (1 << L)) for d in dims) > n_base:
+        L += 1
+    return L
+
+
+def _pad_root(x, L: int):
+    """Zero-pad the last two dims up to multiples of ``2^L``."""
+    step = 1 << L
+    m, n = x.shape[-2:]
+    pm, pn = (-m) % step, (-n) % step
+    if pm or pn:
+        x = F.pad(x, (0, pn, 0, pm))
+    return x
+
+
+def _quadrants(x):
+    m2, n2 = x.shape[-2] // 2, x.shape[-1] // 2
+    return x[..., :m2, :n2], x[..., :m2, n2:], x[..., m2:, :n2], x[..., m2:, n2:]
+
+
+def _block2(c11, c12, c21, c22):
+    return torch.cat([torch.cat([c11, c12], -1), torch.cat([c21, c22], -1)], -2)
+
+
+# ---------------------------------------------------------------------------
+# unrolled leaf dispatch: one base_dot per leaf
+# ---------------------------------------------------------------------------
+
+
+def _rec_strassen(a, b, n_base, base_dot, acc_dtype):
+    """Classical Strassen recursion on the TN product (7 mults, 18 adds);
+    operands arrive root-padded."""
+    m, n = a.shape[-2:]
+    k = b.shape[-1]
+    if min(m, n, k) <= n_base:
+        return base_dot(a, b)
+    a11, a12, a21, a22 = _quadrants(a)
+    b11, b12, b21, b22 = _quadrants(b)
+    rec = functools.partial(_rec_strassen, n_base=n_base, base_dot=base_dot,
+                            acc_dtype=acc_dtype)
+    m1 = rec(a11 + a22, b11 + b22)
+    m2 = rec(a12 + a22, b11)
+    m3 = rec(a11, b12 - b22)
+    m4 = rec(a22, b21 - b11)
+    m5 = rec(a11 + a21, b22)
+    m6 = rec(a12 - a11, b11 + b12)
+    m7 = rec(a21 - a22, b21 + b22)
+    # the reference's balanced association (keeps the dispatches bitwise)
+    c11 = (m1 + m4) + (m7 - m5)
+    c12 = m3 + m5
+    c21 = m2 + m4
+    c22 = (m1 - m2) + (m3 + m6)
+    return _block2(c11, c12, c21, c22)
+
+
+def _rec_winograd(a, b, n_base, base_dot, acc_dtype):
+    """Strassen-Winograd recursion (7 mults, 15 adds)."""
+    m, n = a.shape[-2:]
+    k = b.shape[-1]
+    if min(m, n, k) <= n_base:
+        return base_dot(a, b)
+    a11, a12, a21, a22 = _quadrants(a)
+    b11, b12, b21, b22 = _quadrants(b)
+    rec = functools.partial(_rec_winograd, n_base=n_base, base_dot=base_dot,
+                            acc_dtype=acc_dtype)
+    s1 = a12 + a22
+    s2 = s1 - a11
+    s3 = a11 - a12
+    s4 = a21 - s2
+    t1 = b12 - b11
+    t2 = b22 - t1
+    t3 = b22 - b12
+    t4 = t2 - b21
+    p1 = rec(a11, b11)
+    p2 = rec(a21, b21)
+    p3 = rec(s4, b22)
+    p4 = rec(a22, t4)
+    p5 = rec(s1, t1)
+    p6 = rec(s2, t2)
+    p7 = rec(s3, t3)
+    u2 = p1 + p6
+    u3 = u2 + p7
+    u4 = u2 + p5
+    return _block2(p1 + p2, u4 + p3, u3 - p4, u3 + p5)
+
+
+# ---------------------------------------------------------------------------
+# batched leaf dispatch: level-synchronous encode → one dot → decode
+#
+# Stack layout (block-major): (S, R, C, *batch, mb, nb) — leaf axis first,
+# then the leaf-block grid, then operand batch dims. One encode level turns
+# S into 7S (child s·7+t is product t of parent s) and halves R, C.
+# ---------------------------------------------------------------------------
+
+
+def _to_blocks(x, L):
+    """(*batch, M, N) → block-major (2^L, 2^L, *batch, M/2^L, N/2^L)."""
+    R = 1 << L
+    *batch, M, N = x.shape
+    nbd = len(batch)
+    x = x.reshape(*batch, R, M // R, R, N // R)
+    x = torch.movedim(x, nbd, 0)
+    return torch.movedim(x, nbd + 2, 1)
+
+
+def _unblock(x):
+    """(S, R, C, *batch, h, w) → (S, *batch, R·h, C·w)."""
+    S, R, C = x.shape[:3]
+    batch = tuple(x.shape[3:-2])
+    h, w = x.shape[-2:]
+    nbd = len(batch)
+    perm = (0,) + tuple(range(3, 3 + nbd)) + (1, 3 + nbd, 2, 4 + nbd)
+    return x.permute(perm).reshape(S, *batch, R * h, C * w)
+
+
+def _quadrants_b(x):
+    m2, n2 = x.shape[1] // 2, x.shape[2] // 2
+    return x[:, :m2, :n2], x[:, :m2, n2:], x[:, m2:, :n2], x[:, m2:, n2:]
+
+
+def _stack7(parts):
+    e = torch.stack(parts, dim=1)
+    return e.reshape(e.shape[0] * 7, *e.shape[2:])
+
+
+def _encode_strassen(A, B):
+    a11, a12, a21, a22 = _quadrants_b(A)
+    b11, b12, b21, b22 = _quadrants_b(B)
+    ea = _stack7([a11 + a22, a12 + a22, a11, a22, a11 + a21, a12 - a11, a21 - a22])
+    eb = _stack7([b11 + b22, b11, b12 - b22, b21 - b11, b22, b11 + b12, b21 + b22])
+    return ea, eb
+
+
+def _encode_winograd(A, B):
+    a11, a12, a21, a22 = _quadrants_b(A)
+    b11, b12, b21, b22 = _quadrants_b(B)
+    s1 = a12 + a22
+    s2 = s1 - a11
+    s3 = a11 - a12
+    s4 = a21 - s2
+    t1 = b12 - b11
+    t2 = b22 - t1
+    t3 = b22 - b12
+    t4 = t2 - b21
+    return (_stack7([a11, a21, s4, a22, s1, s2, s3]),
+            _stack7([b11, b21, b22, t4, t1, t2, t3]))
+
+
+def _cat_quads(c11, c12, c21, c22):
+    top = torch.cat([c11, c12], dim=2)
+    bot = torch.cat([c21, c22], dim=2)
+    return torch.cat([top, bot], dim=1)
+
+
+def _decode_strassen(P):
+    """(7S, R, C, ...) products → (S, 2R, 2C, ...)."""
+    P = P.reshape(P.shape[0] // 7, 7, *P.shape[1:])
+    m1, m2, m3, m4, m5, m6, m7 = (P[:, t] for t in range(7))
+    c11 = (m1 + m4) + (m7 - m5)
+    c12 = m3 + m5
+    c21 = m2 + m4
+    c22 = (m1 - m2) + (m3 + m6)
+    return _cat_quads(c11, c12, c21, c22)
+
+
+def _decode_winograd(P):
+    P = P.reshape(P.shape[0] // 7, 7, *P.shape[1:])
+    p1, p2, p3, p4, p5, p6, p7 = (P[:, t] for t in range(7))
+    u2 = p1 + p6
+    u3 = u2 + p7
+    u4 = u2 + p5
+    return _cat_quads(p1 + p2, u4 + p3, u3 - p4, u3 + p5)
+
+
+def _encode_fns(variant):
+    if variant == "strassen":
+        return _encode_strassen, _decode_strassen
+    return _encode_winograd, _decode_winograd
+
+
+def _leaf_dot(base_dot, A, B):
+    """A whole leaf stack ``(S, *batch, m, n) × (S, *batch, m, k)`` as ONE
+    batched base call: flattened to the kernels' one leading dim."""
+    S = A.shape[0]
+    batch = tuple(A.shape[1:-2])
+    out = base_dot(A.reshape(-1, *A.shape[-2:]), B.reshape(-1, *B.shape[-2:]))
+    return out.reshape(S, *batch, *out.shape[-2:])
+
+
+def _strassen_batched(a, b, L, base_dot, variant):
+    """Level-synchronous Strassen on root-padded operands."""
+    if L == 0:
+        return base_dot(a, b)
+    enc, dec = _encode_fns(variant)
+    A, B = _to_blocks(a, L)[None], _to_blocks(b, L)[None]
+    for _ in range(L):
+        A, B = enc(A, B)
+    P = _leaf_dot(base_dot, A[:, 0, 0], B[:, 0, 0])[:, None, None]
+    for _ in range(L):
+        P = dec(P)
+    return _unblock(P)[0]
+
+
+def strassen_tn(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    alpha: float = 1.0,
+    c: Optional[torch.Tensor] = None,
+    beta: float = 1.0,
+    n_base: Optional[int] = None,
+    variant: Optional[str] = None,
+    leaf_dispatch: Optional[str] = None,
+    base_dot: Optional[Callable] = None,
+    acc_dtype=torch.float32,
+) -> torch.Tensor:
+    """``C = alpha·AᵀB (+ beta·C)`` via rectangular TN Strassen.
+
+    ``a: (..., m, n)``, ``b: (..., m, k)`` with matching leading batch dims.
+    Unset tunables take the static defaults (``n_base=512``,
+    ``variant='strassen'``, ``leaf_dispatch='unrolled'``). ``base_dot(a, b)
+    -> aᵀb`` must accept one leading batch dim; it defaults to
+    ``ops.gemm_tn`` (CUDA kernel on the card, plain matmul on the CPU).
+    """
+    if a.ndim < 2 or b.ndim < 2 or a.ndim != b.ndim:
+        raise ValueError(f"strassen_tn expects 2-D+ operands, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.shape[-2] != b.shape[-2] or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(
+            f"contracting/batch dims mismatch: A is {tuple(a.shape)}, B is {tuple(b.shape)}"
+        )
+    n_base, variant, _, leaf_dispatch = resolve_tunables(n_base, variant, None, leaf_dispatch)
+    if base_dot is None:
+        base_dot = default_base_dot(acc_dtype)
+    m, n = a.shape[-2:]
+    k = b.shape[-1]
+    L = tree_depth((m, n, k), n_base)
+    if L:
+        a, b = _pad_root(a, L), _pad_root(b, L)
+    if leaf_dispatch == "batched":
+        out = _strassen_batched(a, b, L, base_dot, variant)
+    else:
+        rec = _rec_strassen if variant == "strassen" else _rec_winograd
+        out = rec(a, b, n_base=n_base, base_dot=base_dot, acc_dtype=acc_dtype)
+    out = out[..., :n, :k]
+    if alpha != 1.0:
+        out = alpha * out
+    if c is not None:
+        out = out + (beta * c if beta != 1.0 else c)
+    return out

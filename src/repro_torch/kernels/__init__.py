@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+* ``syrk``    — lower-tile ``alpha·AᵀA``, dense (dual write) or packed
+  (``csrc/syrk.cu``; replaces ``repro.kernels.syrk.syrk_pallas``).
+* ``gemm_tn`` — ``alpha·AᵀB`` without forming ``Aᵀ`` (``csrc/gemm_tn.cu``;
+  replaces ``gemm_tn_pallas``).
+* ``potrf``   — lower Cholesky factor of SPD tiles (``csrc/potrf.cu``;
+  replaces ``potrf_pallas``).
+* ``trsm``    — triangular panel solve (``csrc/trsm.cu``; replaces
+  ``trsm_pallas``).
+
+Contracts shared by all four, as in the reference package:
+
+* **Device routing** (the counterpart of interpret mode): a CUDA operand
+  launches the kernel or raises; a CPU operand runs the plain version.
+* **Batched grid**: an optional leading stack dim is a grid dimension of
+  one launch, never a Python loop of launches.
+* **Summation order**: each kernel sums every output in an order that
+  depends on neither the batch index nor the batch size, so a stack and its
+  entries launched one by one agree bitwise on the card.
+
+The kernels build at first use (``_build.load``); importing this package
+needs no CUDA toolkit.
+"""
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import gemm_tn, potrf, syrk, trsm
+
+__all__ = ["ops", "gemm_tn", "syrk", "potrf", "trsm"]

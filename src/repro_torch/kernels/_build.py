@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``repro_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` — one ``nvcc -c`` per source, all started together — and linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The library lives
+in ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
+the sources and flags, so a fresh checkout builds it at first use and an
+unchanged one reuses it.
+
+Nothing here runs at import: the first kernel launch calls :func:`load`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["load", "build", "check", "source_hash", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "librepro_torch_kernels.so"
+
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry points: name -> argtypes (all return the launch's cudaError_t as int)
+SIGNATURES = {
+    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, P),
+    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, P),
+    "potrf_f32": (P, P, I, I, P),
+    "trsm_f32": (P, P, P, I, I, I, LL, I, P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            "repro_torch build only where the CUDA toolkit is installed"
+        )
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    """Hash of every kernel source and header plus the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    srcs, hdrs = _sources()
+    for path in srcs + hdrs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile every source in parallel and link the shared library.
+
+    Returns ``(library path, seconds, compiler log)``; raises
+    ``RuntimeError`` with the compiler's output if any step fails.
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        log = (out_dir / "build.log").read_text() if (out_dir / "build.log").exists() else ""
+        return lib, 0.0, log
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    srcs, _ = _sources()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(srcs, objs)
+        ]
+        logs, failed = [], []
+        for s, proc in zip(srcs, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {s.name}\n{out}")
+            if proc.returncode:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        staged = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *map(str, objs), "-o", str(staged)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        log = "\n".join(logs)
+        (out_dir / "build.log").write_text(log)
+        os.replace(staged, lib)
+    return lib, time.perf_counter() - t0, log
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library and declare every entry point."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

@@ -1,0 +1,63 @@
+"""Diagonal-tile Cholesky ``A = L·Lᵀ`` — CUDA kernel and plain version.
+
+Port of ``repro.kernels.potrf.potrf_pallas``; the kernel is
+``csrc/potrf.cu``. ``a: (n, n)`` or ``(B, n, n)`` SPD tiles; the output's
+strict upper half is zero. The kernel holds a tile's lower triangle in
+shared memory, which bounds it at ``n ≤ 256`` (132 KB).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["potrf_plain", "potrf_cuda", "MAX_N"]
+
+MAX_N = 256
+
+
+def _check(a):
+    if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"potrf expects (n, n) or (B, n, n) SPD input, got {tuple(a.shape)}")
+
+
+def potrf_plain(a, *, out_dtype=torch.float32):
+    """Plain PyTorch unblocked right-looking recurrence — the kernel's
+    column loop written with tensor slices:
+
+        L[j,j] = sqrt(A[j,j]);  L[j+1:,j] = A[j+1:,j] / L[j,j]
+        A[j+1:,j+1:] -= L[j+1:,j]·L[j+1:,j]ᵀ
+    """
+    _check(a)
+    acc = torch.float64 if torch.float64 in (a.dtype, out_dtype) else torch.float32
+    x = a.to(acc).clone()
+    for j in range(x.shape[-1]):
+        d = torch.sqrt(x[..., j, j])
+        below = x[..., j + 1:, j] / d[..., None]
+        x[..., j, j] = d
+        x[..., j + 1:, j] = below
+        x[..., j + 1:, j + 1:] -= below[..., :, None] * below[..., None, :]
+    return torch.tril(x).to(out_dtype)
+
+
+def potrf_cuda(a, *, out_dtype=torch.float32):
+    """Launch ``csrc/potrf.cu`` once on the current stream."""
+    from repro_torch.kernels import _build
+
+    _check(a)
+    if a.dtype != torch.float32 or out_dtype != torch.float32:
+        raise TypeError(f"potrf kernel takes and writes float32, got {a.dtype} -> {out_dtype}")
+    if not a.is_contiguous():
+        raise ValueError("potrf kernel needs contiguous tiles; pass .contiguous()")
+    n = a.shape[-1]
+    if n > MAX_N:
+        raise ValueError(f"potrf kernel takes tiles up to {MAX_N}, got n={n}")
+    batch = a.shape[0] if a.ndim == 3 else 1
+    if min(batch, n) == 0:
+        raise ValueError(f"potrf kernel takes no empty stack: {tuple(a.shape)}")
+    out = torch.empty_like(a)
+    lib = _build.load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.potrf_f32(a.data_ptr(), out.data_ptr(), batch, n, stream)
+    _build.check(err, "potrf")
+    return out

@@ -1,0 +1,93 @@
+"""Symmetric product ``C = alpha·AᵀA`` — CUDA kernel and plain version.
+
+Port of ``repro.kernels.syrk.syrk_pallas``; the kernel is ``csrc/syrk.cu``.
+``A: (m, n)`` or ``(B, m, n)``. Only lower tile pairs are computed; the
+grid enumerates them as ``t = i(i+1)/2 + j`` and recovers ``(i, j)`` with
+:func:`tri_coords`, the map shared with the reference's ``_tri_coords``.
+
+* ``out='dense'``: ``(..., n, n)``, bitwise symmetric (lower tiles and
+  their transposes written once each from the accumulator).
+* ``out='packed'``: ``(..., T, bn, bn)`` with ``bn = default_block_size(n,
+  blocks[1])``, returned by :mod:`repro_torch.kernels.ops` as a
+  :class:`~repro_torch.core.symmetric.SymmetricMatrix`; diagonal tiles are
+  ``sym_tile``'d, pad entries are zero.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
+
+__all__ = ["tri_coords", "syrk_plain", "syrk_cuda"]
+
+
+def tri_coords(t):
+    """Packed triangular index ``t`` → ``(i, j)``, ``j ≤ i``: a float32
+    square root and an integer correction — the arithmetic of the kernel's
+    device function, on numpy integer arrays."""
+    t = np.asarray(t, np.int64)
+    tf = t.astype(np.float32)
+    root = np.sqrt(np.float32(8.0) * tf + np.float32(1.0))
+    i = np.floor((root - np.float32(1.0)) / np.float32(2.0)).astype(np.int64)
+    i = np.where((i + 1) * (i + 2) // 2 <= t, i + 1, i)
+    i = np.where(i * (i + 1) // 2 > t, i - 1, i)
+    return i, t - i * (i + 1) // 2
+
+
+def _check(a, out):
+    if a.ndim not in (2, 3):
+        raise ValueError(f"syrk expects (m, n) or (B, m, n) input, got {tuple(a.shape)}")
+    if out not in ("dense", "packed"):
+        raise ValueError(f"unknown output mode {out!r}; use 'dense' or 'packed'")
+
+
+def syrk_plain(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn=None):
+    """Plain PyTorch ``alpha·AᵀA``: one matmul, lower half mirrored up.
+
+    ``out='packed'`` packs that dense result on the ``bn`` grid, so packed
+    and dense agree bitwise here as they do in the kernel.
+    """
+    _check(a, out)
+    acc = torch.float64 if torch.float64 in (a.dtype, out_dtype) else torch.float32
+    x = a.to(acc)
+    c = torch.matmul(x.transpose(-1, -2), x)
+    if alpha != 1.0:
+        c = alpha * c
+    c = sym_tile(c.to(out_dtype))
+    if out == "dense":
+        return c
+    return SymmetricMatrix.from_dense_lower(c, bn).blocks
+
+
+def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn=None):
+    """Launch ``csrc/syrk.cu`` once on the current stream. Returns the raw
+    ``(..., n, n)`` or ``(..., T, bn, bn)`` tensor."""
+    from repro_torch.kernels import _build
+
+    _check(a, out)
+    if a.dtype != torch.float32 or out_dtype != torch.float32:
+        raise TypeError(f"syrk kernel takes and writes float32, got {a.dtype} -> {out_dtype}")
+    if a.stride(-1) != 1 and a.shape[-1] > 1:
+        raise ValueError("syrk kernel needs a unit column stride; pass .contiguous()")
+    m, n = a.shape[-2:]
+    batch = a.shape[0] if a.ndim == 3 else 1
+    if min(batch, m, n) == 0:
+        raise ValueError(f"syrk kernel takes no empty operand: {tuple(a.shape)}")
+    sab = a.stride(0) if a.ndim == 3 else 0
+    lead = tuple(a.shape[:-2])
+    if out == "packed":
+        nb = -(-n // bn)
+        c = torch.empty((*lead, nb * (nb + 1) // 2, bn, bn), dtype=torch.float32,
+                        device=a.device)
+    else:
+        bn = 0
+        c = torch.empty((*lead, n, n), dtype=torch.float32, device=a.device)
+    lib = _build.load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
+                           float(alpha), int(out == "packed"), bn, stream)
+    _build.check(err, "syrk")
+    return c

@@ -1,0 +1,92 @@
+"""Blocked forward/backward substitution against a packed Cholesky factor
+(port of ``repro.solve.triangular``).
+
+    forward  (L·y = b):     y_i = L[i,i]⁻¹·(b_i − Σ_{j<i} L[i,j]·y_j)
+    backward (Lᵀ·x = y):    x_i = L[i,i]⁻ᵀ·(y_i − Σ_{j>i} L[j,i]ᵀ·x_j)
+
+The Σ terms are one float32 block einsum per step; the diagonal solves go
+to ``ops.trsm`` on the transposed right-hand-side tile (the CUDA kernel on
+a CUDA tensor, its plain version on a CPU one). ``solve_cholesky``
+composes the two into ``A·x = b`` for ``A = L·Lᵀ``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.solve.cholesky import CholeskyFactor, _acc, _flat_call
+
+__all__ = ["solve_triangular", "solve_cholesky"]
+
+
+def _left_solve_kernel(l, c, *, transpose: bool):
+    """Left solve on ``(..., bn, r)`` tiles through the right-sided trsm:
+
+        L·y = c   ⇔  yᵀ·Lᵀ = cᵀ    (trsm transpose=True)
+        Lᵀ·y = c  ⇔  yᵀ·L  = cᵀ    (trsm transpose=False)
+    """
+    ct = c.transpose(-1, -2).contiguous()
+    yt = _flat_call(lambda lf, cf: ops.trsm(lf, cf, transpose=not transpose), l, ct)
+    return yt.transpose(-1, -2)
+
+
+def solve_triangular(
+    f: CholeskyFactor,
+    b: torch.Tensor,
+    *,
+    transpose: bool = False,
+    base_trsm: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Solve ``L·y = b`` (``transpose=False``) or ``Lᵀ·x = b`` against the
+    packed factor, blockwise. ``b``: ``(..., n)`` or ``(..., n, r)``;
+    returns the same shape. ``base_trsm(l, c, transpose=...)`` solves the
+    left diagonal-tile system on ``(..., bn, r)`` tiles."""
+    nb, bn, n = f.nb, f.bn, f.n
+    vector = b.ndim == f.blocks.ndim - 2
+    if vector:
+        b = b[..., None]
+    if b.shape[-2] != n:
+        raise ValueError(f"rhs rows {b.shape[-2]} != factor n {n}")
+    pad = nb * bn - n
+    if pad:
+        b = F.pad(b, (0, 0, 0, pad))
+    batch = tuple(b.shape[:-2])
+    r = b.shape[-1]
+    bs = b.reshape(*batch, nb, bn, r)
+    solve_diag = base_trsm or _left_solve_kernel
+
+    xs: dict = {}
+    order = range(nb) if not transpose else range(nb - 1, -1, -1)
+    for i in order:
+        c = bs[..., i, :, :]
+        if not transpose:
+            done = range(i)
+            if done:
+                lt = torch.stack([f.block(i, j) for j in done], dim=0)
+                xt = torch.stack([xs[j] for j in done], dim=0)
+                c = c - torch.einsum("k...ab,k...br->...ar", _acc(lt), _acc(xt))
+        else:
+            done = range(i + 1, nb)
+            if done:
+                lt = torch.stack([f.block(j, i) for j in done], dim=0)
+                xt = torch.stack([xs[j] for j in done], dim=0)
+                c = c - torch.einsum("k...ba,k...br->...ar", _acc(lt), _acc(xt))
+        xs[i] = solve_diag(f.block(i, i), c, transpose=transpose)
+
+    x = torch.cat([xs[i] for i in range(nb)], dim=-2)[..., :n, :]
+    return x[..., 0] if vector else x
+
+
+def solve_cholesky(
+    f: CholeskyFactor,
+    b: torch.Tensor,
+    *,
+    base_trsm: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Full SPD solve ``A·x = b`` given the packed factor ``A = L·Lᵀ``."""
+    y = solve_triangular(f, b, transpose=False, base_trsm=base_trsm)
+    return solve_triangular(f, y, transpose=True, base_trsm=base_trsm)

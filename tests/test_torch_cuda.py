@@ -1,0 +1,138 @@
+"""The port's CUDA kernels on the card: each against its plain version, the
+wrappers' input checks, and the bitwise contracts that hold only where the
+kernels sum in a batch-independent order.
+
+Every test here needs an NVIDIA card and ``nvcc`` (the kernels build at
+first use) and skips without one; on the card run
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: ``8·√k·eps·max|ref|`` for contraction length k (float32).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import ata, strassen_tn
+from repro_torch.kernels import ops
+from repro_torch.kernels.gemm_tn import gemm_tn_plain
+from repro_torch.kernels.potrf import potrf_plain
+from repro_torch.kernels.syrk import syrk_plain
+from repro_torch.kernels.trsm import trsm_plain
+from repro_torch.solve import cholesky, lstsq
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dev):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+
+def _close(got, ref, k):
+    err = float((got - ref).abs().max())
+    tol = 8 * math.sqrt(k) * 1.19e-7 * float(ref.abs().max())
+    assert err <= tol, f"max abs err {err:.3e} > tol {tol:.3e}"
+
+
+def _spd(rng, batch, n, dev):
+    x = torch.as_tensor(rng.standard_normal((batch, 2 * n, n)), device=dev)
+    return (x.transpose(1, 2) @ x / (2 * n) + torch.eye(n, device=dev, dtype=x.dtype)).float()
+
+
+@pytest.mark.parametrize("b,m,n,k", [(1, 8, 128, 128), (3, 40, 100, 60), (2, 513, 257, 129)])
+def test_gemm_tn_kernel_matches_plain(dev, b, m, n, k):
+    rng = np.random.default_rng(m)
+    a, c = _t(rng, (b, m, n), dev), _t(rng, (b, m, k), dev)
+    got = ops.gemm_tn(a, c, alpha=-2.0)
+    _close(got, gemm_tn_plain(a, c, alpha=-2.0), m)
+    assert torch.equal(got[-1], ops.gemm_tn(a[-1], c[-1], alpha=-2.0))
+    # a column-sliced view passes uncopied (row stride ≠ width)
+    _close(ops.gemm_tn(a[0, :, 1:], c[0]), gemm_tn_plain(a[0, :, 1:], c[0]), m)
+
+
+@pytest.mark.parametrize("b,m,n,req", [(1, 8, 128, 128), (3, 70, 200, 128), (2, 300, 700, 256)])
+def test_syrk_kernel_matches_plain(dev, b, m, n, req):
+    rng = np.random.default_rng(n)
+    a = _t(rng, (b, m, n), dev)
+    dense = ops.syrk(a)
+    _close(dense, syrk_plain(a), m)
+    assert torch.equal(dense, dense.transpose(-1, -2))
+    packed = ops.syrk(a, blocks=(512, req), out="packed")
+    _close(packed.blocks, syrk_plain(a, out="packed", bn=packed.bn), m)
+    assert torch.equal(packed.to_dense(), dense)
+
+
+@pytest.mark.parametrize("n", [8, 104, 128, 256])
+def test_potrf_kernel_matches_plain(dev, n):
+    s = _spd(np.random.default_rng(n), 3, n, dev)
+    got = ops.potrf(s)
+    _close(got, potrf_plain(s), n)
+    assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("m,n", [(8, 16), (300, 128), (70, 256)])
+def test_trsm_kernel_matches_plain(dev, transpose, m, n):
+    rng = np.random.default_rng(m + n)
+    l = potrf_plain(_spd(rng, 4, n, dev))
+    b = _t(rng, (4, m, n), dev)
+    _close(ops.trsm(l, b, transpose=transpose), trsm_plain(l, b, transpose=transpose), n)
+    le = l[0].expand(4, n, n)  # batch stride 0: no copy
+    _close(ops.trsm(le, b, transpose=transpose), trsm_plain(le, b, transpose=transpose), n)
+
+
+def test_wrappers_reject_what_kernels_do_not_take(dev):
+    a = torch.zeros(16, 8, device=dev)
+    with pytest.raises(TypeError):
+        ops.gemm_tn(a.double(), a.double())
+    with pytest.raises(TypeError):
+        ops.gemm_tn(a, a, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.gemm_tn(a.t(), a.t())          # column stride ≠ 1
+    with pytest.raises(ValueError):
+        ops.syrk(torch.zeros(0, 8, device=dev))
+    with pytest.raises(ValueError):
+        ops.potrf(torch.eye(264, device=dev))
+    with pytest.raises(ValueError):
+        ops.trsm(torch.eye(8, device=dev).t(), torch.zeros(3, 8, device=dev))  # tile not contiguous
+    with pytest.raises(ValueError):
+        ops.gemm_tn(a, torch.zeros(16, 8))  # one operand on the CPU
+
+
+def test_dispatches_bitwise_on_card(dev):
+    rng = np.random.default_rng(1)
+    a = _t(rng, (700, 520), dev)
+    b = _t(rng, (700, 390), dev)
+    u = ata(a, n_base=64, out="packed")
+    bt = ata(a, n_base=64, out="packed", leaf_dispatch="batched")
+    assert torch.equal(u.blocks, bt.blocks)
+    assert torch.equal(u.to_dense(), ata(a, n_base=64))
+    assert torch.equal(strassen_tn(a, b, n_base=64),
+                       strassen_tn(a, b, n_base=64, leaf_dispatch="batched"))
+
+
+def test_lstsq_runs_every_kernel(dev):
+    rng = np.random.default_rng(2)
+    a, b = _t(rng, (2100, 1100), dev), _t(rng, (2100, 4), dev)
+    ops.reset_launches()
+    x = lstsq(a, b, ridge=1e-3)
+    torch.cuda.synchronize()
+    assert min(ops.launches.values()) > 0, ops.launches
+    ad = a.double()
+    x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1100, device=dev, dtype=torch.float64),
+                             ad.T @ b.double())
+    assert float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)) <= 1e-3
+    g = ata(a, out="packed").add_scaled_identity(1.0)
+    assert torch.equal(cholesky(g).blocks, cholesky(g.to_dense(), packed_block=128).blocks)

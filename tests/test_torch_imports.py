@@ -1,0 +1,100 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or the reference package ``repro``."""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _top(name: str) -> str:
+    return name.split(".")[0]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES if "src" in p.parts}
+    for mod in ("repro_torch/__init__.py", "repro_torch/backend.py", "repro_torch/convert.py",
+                "repro_torch/tune/defaults.py", "repro_torch/core/reference.py",
+                "repro_torch/core/symmetric.py", "repro_torch/core/strassen.py",
+                "repro_torch/core/ata.py", "repro_torch/kernels/_build.py",
+                "repro_torch/kernels/ops.py", "repro_torch/kernels/gemm_tn.py",
+                "repro_torch/kernels/syrk.py", "repro_torch/kernels/potrf.py",
+                "repro_torch/kernels/trsm.py", "repro_torch/solve/cholesky.py",
+                "repro_torch/solve/triangular.py", "repro_torch/solve/lstsq.py"):
+        assert mod in names, mod
+    for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _top(m) in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_ast_scan_catches_forbidden_imports(tmp_path):
+    """The scan itself: each forbidden form is found, the port's own name is not."""
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import jax.numpy as jnp\nfrom repro.core import ata\nimport repro\n"
+        "from repro_torch import lstsq\n__import__('jax')\n"
+    )
+    tops = [_top(m) for m in _imported_modules(probe)]
+    assert tops.count("jax") == 2 and tops.count("repro") == 2 and "repro_torch" in tops
+
+
+def test_package_imports_without_jax():
+    """Importing the port with JAX made unimportable still works."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.convert, repro_torch.kernels._build\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_tf32_disabled_at_import():
+    import repro_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """On a machine without a card the script exits non-zero and prints no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal path is not reachable")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

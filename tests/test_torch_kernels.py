@@ -1,0 +1,201 @@
+"""The port's kernel wrappers on the CPU (their plain versions) against the
+reference's Pallas kernels in interpret mode, on the same numpy inputs.
+
+On a CPU tensor each ``repro_torch.kernels.ops`` wrapper runs the kernel's
+plain PyTorch version; the CUDA kernels themselves run only on the card
+(``chip_smoke.py``). Tolerance: for a product with contraction length k,
+``|port − ref| ≤ 8·√k·eps·max|ref|`` with float32 ``eps = 1.19e-7`` — the
+two sides sum in different orders. The reference's own fixed 1e-5 is too
+tight for float32 at these lengths and is not used.
+"""
+
+from __future__ import annotations
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import reference as jref
+from repro.kernels.gemm_tn import gemm_tn_pallas
+from repro.kernels.potrf import potrf_pallas
+from repro.kernels.syrk import syrk_pallas
+from repro.kernels.trsm import trsm_pallas
+from repro_torch.core import reference as tref
+from repro_torch.core.symmetric import SymmetricMatrix
+from repro_torch.kernels import ops
+
+EPS32 = 1.19e-7
+
+
+def assert_scaled_close(got, want, k):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    tol = 8 * math.sqrt(k) * EPS32 * np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert err <= tol, f"max abs err {err:.3e} > tol {tol:.3e} (k={k})"
+
+
+def _f32(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _spd(rng, batch, n):
+    x = rng.standard_normal((batch, 2 * n, n))
+    s = np.einsum("bmi,bmj->bij", x, x) / (2 * n) + np.eye(n)
+    return s.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128), (40, 100, 60), (3, 70, 200, 130),
+                                   (2, 257, 129, 65), (5, 64, 96, 48)])
+def test_gemm_tn_plain_matches_pallas(shape):
+    *bt, m, n, k = shape
+    rng = np.random.default_rng(sum(shape))
+    a, b = _f32(rng, (*bt, m, n)), _f32(rng, (*bt, m, k))
+    with jax.enable_x64(False):
+        want = gemm_tn_pallas(jnp.asarray(a), jnp.asarray(b), alpha=-1.5,
+                              blocks=(64, 128, 128), interpret=True)
+    got = ops.gemm_tn(torch.as_tensor(a), torch.as_tensor(b), alpha=-1.5)
+    assert got.dtype == torch.float32
+    assert_scaled_close(got, want, m)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (40, 100), (3, 70, 200), (2, 130, 300)])
+def test_syrk_dense_plain_matches_pallas(shape):
+    *bt, m, n = shape
+    rng = np.random.default_rng(sum(shape))
+    a = _f32(rng, (*bt, m, n))
+    with jax.enable_x64(False):
+        want = syrk_pallas(jnp.asarray(a), alpha=0.5, blocks=(64, 128), interpret=True)
+    got = ops.syrk(torch.as_tensor(a), alpha=0.5)
+    assert_scaled_close(got, want, m)
+    g = got.numpy()
+    np.testing.assert_array_equal(g, np.swapaxes(g, -1, -2))  # bitwise symmetric
+
+
+@pytest.mark.parametrize("shape,request_bn", [((70, 200), 128),     # ragged: bn 104
+                                              ((2, 64, 256), 128),
+                                              ((40, 100), 256),
+                                              ((3, 33, 150), 64)])
+def test_syrk_packed_plain_matches_pallas(shape, request_bn):
+    *bt, m, n = shape
+    rng = np.random.default_rng(sum(shape) + request_bn)
+    a = _f32(rng, (*bt, m, n))
+    with jax.enable_x64(False):
+        want = syrk_pallas(jnp.asarray(a), blocks=(64, request_bn), interpret=True,
+                           out="packed")
+        wb, wbn = np.asarray(want.blocks), want.bn
+    got = ops.syrk(torch.as_tensor(a), blocks=(64, request_bn), out="packed")
+    assert isinstance(got, SymmetricMatrix) and got.bn == wbn
+    if (n, request_bn) == (200, 128):
+        assert got.bn == 104
+    assert_scaled_close(got.blocks, wb, m)
+    # packed and dense agree bitwise inside the port
+    np.testing.assert_array_equal(got.to_dense().numpy(),
+                                  ops.syrk(torch.as_tensor(a)).numpy())
+
+
+@pytest.mark.parametrize("n", [8, 64, 104, 128])
+def test_potrf_plain_matches_pallas(n):
+    rng = np.random.default_rng(n)
+    s = _spd(rng, 3, n)
+    with jax.enable_x64(False):
+        want = potrf_pallas(jnp.asarray(s), interpret=True)
+    got = ops.potrf(torch.as_tensor(s))
+    assert_scaled_close(got, want, n)
+    assert not np.triu(got.numpy(), 1).any()  # factor-tile contract
+    single = ops.potrf(torch.as_tensor(s[1]))
+    np.testing.assert_array_equal(single.numpy(), got[1].numpy())
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("m", [8, 24, 300])
+@pytest.mark.parametrize("n", [16, 64])
+def test_trsm_plain_matches_pallas(transpose, m, n):
+    rng = np.random.default_rng(m * n + transpose)
+    with jax.enable_x64(False):
+        ls = np.array(potrf_pallas(jnp.asarray(_spd(rng, 4, n)), interpret=True))
+        b = _f32(rng, (4, m, n))
+        want = trsm_pallas(jnp.asarray(ls), jnp.asarray(b), transpose=transpose,
+                           interpret=True)
+    got = ops.trsm(torch.as_tensor(ls), torch.as_tensor(b), transpose=transpose)
+    assert_scaled_close(got, want, n)
+
+
+def test_trsm_expanded_factor_matches_stacked():
+    """A factor broadcast over the panel (the walk's expand) solves like the
+    same factor repeated."""
+    rng = np.random.default_rng(7)
+    l = ops.potrf(torch.as_tensor(_spd(rng, 1, 32)[0]))
+    p = torch.as_tensor(_f32(rng, (5, 32, 32)))
+    np.testing.assert_array_equal(
+        ops.trsm(l.expand(5, 32, 32), p).numpy(),
+        ops.trsm(l.repeat(5, 1, 1), p).numpy())
+
+
+def test_cpu_wrappers_launch_nothing():
+    """On CPU tensors the wrappers run the plain versions: no launch counted."""
+    ops.reset_launches()
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(_f32(rng, (16, 24)))
+    ops.syrk(a)
+    ops.gemm_tn(a, a)
+    l = ops.potrf(ops.syrk(a) + 24 * torch.eye(24))
+    ops.trsm(l, a)
+    assert ops.launches == {"syrk": 0, "gemm_tn": 0, "potrf": 0, "trsm": 0}
+
+
+def test_wrapper_shape_errors():
+    a = torch.zeros(2, 16, 8)
+    with pytest.raises(ValueError):
+        ops.gemm_tn(a, torch.zeros(3, 16, 8))
+    with pytest.raises(ValueError):
+        ops.gemm_tn(a, torch.zeros(16, 8))
+    with pytest.raises(ValueError):
+        ops.syrk(a, out="full")
+    with pytest.raises(ValueError):
+        ops.potrf(torch.zeros(4, 5))
+    with pytest.raises(ValueError):
+        ops.trsm(torch.eye(4), torch.zeros(3, 5))
+
+
+def test_mixed_devices_raise():
+    meta = torch.zeros(16, 8, device="meta")
+    with pytest.raises(ValueError):
+        ops.gemm_tn(torch.zeros(16, 8), meta)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 5, 3), (67, 53, 41), (100, 200, 50), (512, 512, 512),
+                                   (4096, 1024, 2048), (8192, 8192, 8192)])
+@pytest.mark.parametrize("n_base", [8, 32, 128, 512])
+def test_flop_counters_equal_reference(m, n, k, n_base):
+    assert tref.strassen_tn_flops(m, n, k, n_base) == jref.strassen_tn_flops(m, n, k, n_base)
+    assert (tref.strassen_tn_flops_winograd(m, n, k, n_base)
+            == jref.strassen_tn_flops_winograd(m, n, k, n_base))
+    for w in (False, True):
+        assert tref.ata_flops(m, n, n_base, w) == jref.ata_flops(m, n, n_base, w)
+    assert tref.classical_syrk_flops(m, n) == jref.classical_syrk_flops(m, n)
+    assert tref.classical_gemm_flops(m, n, k) == jref.classical_gemm_flops(m, n, k)
+
+
+@pytest.mark.parametrize("n", [1, 8, 104, 128, 600, 4096])
+def test_solver_flop_counters_equal_reference(n):
+    assert tref.potrf_flops(min(n, 600)) == jref.potrf_flops(min(n, 600))
+    for r in (1, 8, 128):
+        assert tref.trsm_flops(n, r) == jref.trsm_flops(n, r)
+    for bn in (8, 32, 128):
+        assert tref.blocked_potrf_flops(n, bn) == jref.blocked_potrf_flops(n, bn)
+
+
+def test_reference_oracles_match():
+    rng = np.random.default_rng(9)
+    a, b, c = _f32(rng, (30, 20)), _f32(rng, (30, 10)), _f32(rng, (20, 10))
+    with jax.enable_x64(False):
+        want_g = jref.gemm_tn_ref(jnp.asarray(a), jnp.asarray(b), 2.0, jnp.asarray(c), -1.0)
+        want_s = jref.syrk_ref(jnp.asarray(a), 0.5)
+    assert_scaled_close(tref.gemm_tn_ref(torch.as_tensor(a), torch.as_tensor(b), 2.0,
+                                         torch.as_tensor(c), -1.0), want_g, 30)
+    assert_scaled_close(tref.syrk_ref(torch.as_tensor(a), 0.5), want_s, 30)
