@@ -12,13 +12,19 @@ phase fails):
              shapes, held against its plain PyTorch version on the same
              inputs (tolerance ``8·√k·eps·max|ref|``), timed beside the
              plain version and one PyTorch library call;
+             The fused kernels are also held bitwise against ``gemm_tn`` /
+             ``syrk`` on the materialized combined / stacked operands;
 3. ata     — ``ata(a, out="packed")`` at ``a: 8192×8192`` float32 under the
-             unrolled and the batched leaf dispatch: bitwise equal to each
-             other, and within 1e-4 (relative Frobenius, lower triangle) of
-             the float64 product;
-4. lstsq   — ``lstsq(a, b, ridge=1e-3)`` at ``a: 16384×4096``,
+             unrolled, batched and fused leaf dispatch: bitwise equal to
+             each other, each with its exact kernel launch counts and peak
+             device memory (the fused one at least one 1430-leaf operand
+             stack below the batched one), and within 1e-4 (relative
+             Frobenius, lower triangle) of the float64 product;
+4. strassen — ``strassen_tn`` at 4096³, fused (one launch) bitwise equal
+             to unrolled;
+5. lstsq   — ``lstsq(a, b, ridge=1e-3)`` at ``a: 16384×4096``,
              ``b: 16384×8``, within 1e-3 of the float64 solution of the
-             ridge normal equations, with every kernel launched (> 0).
+             ridge normal equations, with each of its four kernels launched.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -183,6 +189,9 @@ def phase_kernels(checks, ops, plain):
     log("  syrk packed.to_dense() == dense: bitwise")
     pms = time_ms(lambda: ops.syrk(a, out="packed"))
     log(f"  syrk packed (2048,1000) ms={pms:.3f}")
+    del a, packed, ref
+
+    phase_fused_kernels(checks, ops, plain, rng)
 
     # potrf: the walk's single 128 tile, and stacks of 128 and 104 tiles
     s1 = spd_tiles(rng, 1, 128)[0]
@@ -235,6 +244,99 @@ def phase_kernels(checks, ops, plain):
         f"bound_ms={bms:.6f} ({by}); r=8 panel ms={r8_ms:.4f}")
 
 
+def phase_fused_kernels(checks, ops, plain, rng):
+    """gemm_tn_fused and syrk_gather at the launches of ata 8192² fused."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ata import _level_tables
+    from repro_torch.core.reference import classical_gemm_flops
+    from repro_torch.core.strassen import _to_blocks
+    from repro_torch.kernels.gemm_tn import combine_fused_operands
+
+    def live_blocks(rows, cols, sgn):
+        return len({(int(r), int(c)) for r, c, g in zip(rows.ravel(), cols.ravel(), sgn.ravel())
+                    if g})
+
+    # gemm_tn_fused: ata 8192² level 1 — 686 leaves of 512³, W = 8 slots,
+    # read from the root grid (the reference's G=2, T=343 launch)
+    a = cuda_tensor(rng, (8192, 8192))
+    ab = _to_blocks(a, 4)[None]
+    tables = _level_tables(4, 1)
+    got = ops.gemm_tn_fused(ab, ab, tables)
+    ref = plain["gemm_tn_fused"](ab, ab, tables)
+    err = checks.compare("gemm_tn_fused ata 8192² level 1 (686 leaves of 512³, W=8)",
+                         got, ref, 512)
+    del ref
+    torch.cuda.empty_cache()
+    xa = combine_fused_operands(ab, *tables[0])
+    xb = combine_fused_operands(ab, *tables[1])
+    if not torch.equal(got, ops.gemm_tn(xa, xb)):
+        raise AssertionError("gemm_tn_fused != gemm_tn on the combined operands")
+    log("  gemm_tn_fused == gemm_tn on the materialized combined operands: bitwise")
+    del got
+    ms = time_ms(lambda: ops.gemm_tn_fused(ab, ab, tables))
+    plain_ms = time_ms(lambda: plain["gemm_tn_fused"](ab, ab, tables), runs=3)
+    lib_ms = time_ms(lambda: torch.bmm(xa.transpose(1, 2), xb))
+    leaves = tables[0][0].shape[0]
+    flops = leaves * classical_gemm_flops(512, 512, 512)
+    blk = 4 * 512 * 512
+    nbytes = blk * (live_blocks(*tables[0]) + live_blocks(*tables[1]) + leaves)
+    bms, by = bound(flops, nbytes)
+    checks.rows["gemm_tn_fused"] = dict(
+        shape=f"ata 8192² level 1: root grid (16,16,512,512), {leaves} leaves, W=8",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    log(f"  gemm_tn_fused ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+        f"(torch.bmm on the combined stacks) bound_ms={bms:.3f} ({by}) "
+        f"rate={flops / ms / 1e9:.2f} TFLOP/s")
+    del xa, xb
+    torch.cuda.empty_cache()
+
+    # syrk_gather: the 256 diagonal leaves of ata 8192², (R=16, S=256)
+    ab = ab[0]
+    s = np.arange(256)
+    rows, cols = s % 16, s // 16
+    got = ops.syrk_gather(ab, rows, cols)
+    err = checks.compare("syrk_gather ata 8192² diagonal (R=16, S=256)",
+                         got, plain["syrk_gather"](ab, rows, cols), 512)
+    D = ab.transpose(0, 1).reshape(256, *ab.shape[-2:])
+    if not torch.equal(got, ops.syrk(D)):
+        raise AssertionError("syrk_gather != syrk on the stacked leaves")
+    log("  syrk_gather == syrk on the materialized stacked leaves: bitwise")
+    del got
+    ms = time_ms(lambda: ops.syrk_gather(ab, rows, cols))
+    plain_ms = time_ms(lambda: plain["syrk_gather"](ab, rows, cols))
+    lib_ms = time_ms(lambda: torch.matmul(D.transpose(1, 2), D))
+    bms, by = bound(256 * 512 * 512 * 513, 4 * 256 * 2 * 512 * 512)
+    checks.rows["syrk_gather"] = dict(
+        shape="root grid (16,16,512,512), S=256", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    log(f"  syrk_gather ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+        f"(torch.matmul on the stacked leaves) bound_ms={bms:.3f} ({by})")
+    del D, ab, a
+    torch.cuda.empty_cache()
+
+    # ragged leaves (130 columns) with a batch of 3, against plain and gemm_tn / syrk
+    a = cuda_tensor(rng, (3, 1000, 520))
+    ab = _to_blocks(a, 2)
+    tables = _level_tables(2, 1)
+    got = ops.gemm_tn_fused(ab[None], ab[None], tables, alpha=-0.5)
+    checks.compare("gemm_tn_fused ragged (3,1000,520) L=2 level 1", got,
+                   plain["gemm_tn_fused"](ab[None], ab[None], tables, alpha=-0.5), 250)
+    xa, xb = (combine_fused_operands(ab[None], *t) for t in tables)
+    want = ops.gemm_tn(xa.reshape(-1, 250, 130), xb.reshape(-1, 250, 130), alpha=-0.5)
+    if not torch.equal(got, want.reshape(got.shape)):
+        raise AssertionError("gemm_tn_fused ragged != gemm_tn on the combined operands")
+    s = np.arange(16)
+    got = ops.syrk_gather(ab, s % 4, s // 4)
+    checks.compare("syrk_gather ragged (3,1000,520) L=2", got,
+                   plain["syrk_gather"](ab, s % 4, s // 4), 250)
+    D = ab.transpose(0, 1).reshape(16 * 3, 250, 130)
+    if not torch.equal(got.reshape(D.shape[0], 130, 130), ops.syrk(D)):
+        raise AssertionError("syrk_gather ragged != syrk on the stacked leaves")
+    log("  ragged batched cases == gemm_tn / syrk on materialized operands: bitwise")
+
+
 def phase_ata(ops):
     import numpy as np
     import torch
@@ -245,25 +347,55 @@ def phase_ata(ops):
     log("phase ata 8192x8192 float32, packed, n_base=512")
     rng = np.random.default_rng(SEED + 1)
     a = cuda_tensor(rng, (8192, 8192))
-    results, times = {}, {}
-    for ld in ("unrolled", "batched"):
+    results, times, peaks, launch_counts = {}, {}, {}, {}
+    # (syrk, gemm_tn, syrk_gather, gemm_tn_fused) launches of one call
+    want = {"unrolled": (256, 1430, 0, 0), "batched": (1, 1, 0, 0), "fused": (0, 0, 1, 4)}
+    for ld in ("unrolled", "batched", "fused"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         ops.reset_launches()
         results[ld] = ata(a, out="packed", leaf_dispatch=ld)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        peaks[ld] = peak - base
+        launch_counts[ld] = counts
         log(f"  {ld}: launches {counts}")
-        want = {"unrolled": (256, 1430), "batched": (1, 1)}[ld]
-        if (counts["syrk"], counts["gemm_tn"]) != want:
-            raise AssertionError(f"ata {ld}: launches {counts}, expected syrk/gemm_tn {want}")
+        log(f"  {ld}: max_memory_allocated {peak} B, {peaks[ld]} B above the "
+            f"{base} B held before the call")
+        got = tuple(counts[k] for k in ("syrk", "gemm_tn", "syrk_gather", "gemm_tn_fused"))
+        if got != want[ld]:
+            raise AssertionError(f"ata {ld}: launches {counts}, expected "
+                                 f"syrk/gemm_tn/syrk_gather/gemm_tn_fused {want[ld]}")
         times[ld] = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld), runs=3)
         rate = ata_flops(8192, 8192, 512) / times[ld] / 1e9
         log(f"  {ld}: ms={times[ld]:.2f} rate={rate:.2f} TFLOP/s (ata_flops)")
-        torch.cuda.empty_cache()
-    pu, pb = results["unrolled"], results["batched"]
-    if not torch.equal(pu.blocks, pb.blocks):
-        raise AssertionError("ata: unrolled and batched dispatches differ")
-    log("  unrolled == batched: bitwise")
-    del results, pb
+    # the fused dispatch's launches one by one: one gemm_tn_fused per ATA
+    # level (W = 2^(L-ℓ) slots), then syrk_gather
+    from repro_torch.core.ata import _level_tables
+    from repro_torch.core.strassen import _to_blocks
+
+    ab = _to_blocks(a, 4)
+    s = np.arange(256)
+    split = {f"gemm_tn_fused_L{lev}_ms": time_ms(
+        lambda: ops.gemm_tn_fused(ab[None], ab[None], _level_tables(4, lev)))
+        for lev in range(1, 5)}
+    split["syrk_gather_ms"] = time_ms(lambda: ops.syrk_gather(ab, s % 16, s // 16))
+    log("  fused launches timed alone " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    del ab
+    torch.cuda.empty_cache()
+    pu, pb, pf = results["unrolled"], results["batched"], results["fused"]
+    if not torch.equal(pu.blocks, pb.blocks) or not torch.equal(pu.blocks, pf.blocks):
+        raise AssertionError("ata: the unrolled, batched and fused dispatches differ")
+    log("  unrolled == batched == fused: bitwise")
+    stack = 1430 * 512 * 512 * 4
+    if peaks["batched"] - peaks["fused"] < stack:
+        raise AssertionError(f"ata fused peak {peaks['fused']} B is not one operand stack "
+                             f"({stack} B) below batched {peaks['batched']} B")
+    log(f"  fused peak is {peaks['batched'] - peaks['fused']} B below batched "
+        f"(one operand stack: {stack} B)")
+    del results, pb, pf
     torch.cuda.empty_cache()
     ad = a.double()
     g = torch.tril(ad.T @ ad)
@@ -276,8 +408,39 @@ def phase_ata(ops):
     torch.cuda.empty_cache()
     lib_ms = time_ms(lambda: torch.matmul(a.T, a), runs=3)
     log(f"  library_ms torch.matmul(a.T, a) float32: {lib_ms:.2f}")
-    return dict(unrolled_ms=times["unrolled"], batched_ms=times["batched"],
-                library_ms=lib_ms, rel_err=rel)
+    return launch_counts["fused"], dict(
+        unrolled_ms=times["unrolled"], batched_ms=times["batched"], fused_ms=times["fused"],
+        unrolled_peak_bytes=peaks["unrolled"], batched_peak_bytes=peaks["batched"],
+        fused_peak_bytes=peaks["fused"], library_ms=lib_ms, rel_err=rel, fused_split=split)
+
+
+def phase_strassen(ops):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import strassen_tn
+
+    log("phase strassen_tn 4096³ float32, n_base=512: fused vs unrolled")
+    rng = np.random.default_rng(SEED + 3)
+    a = cuda_tensor(rng, (4096, 4096))
+    b = cuda_tensor(rng, (4096, 4096))
+    out, times = {}, {}
+    for ld in ("unrolled", "fused"):
+        ops.reset_launches()
+        out[ld] = strassen_tn(a, b, leaf_dispatch=ld)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        log(f"  {ld}: launches {counts}")
+        want = {"unrolled": (343, 0), "fused": (0, 1)}[ld]
+        if (counts["gemm_tn"], counts["gemm_tn_fused"]) != want:
+            raise AssertionError(f"strassen_tn {ld}: launches {counts}, expected "
+                                 f"gemm_tn/gemm_tn_fused {want}")
+        times[ld] = time_ms(lambda: strassen_tn(a, b, leaf_dispatch=ld), runs=3)
+        log(f"  {ld}: ms={times[ld]:.2f}")
+    if not torch.equal(out["unrolled"], out["fused"]):
+        raise AssertionError("strassen_tn: fused differs from unrolled")
+    log("  unrolled == fused: bitwise")
+    return dict(unrolled_ms=times["unrolled"], fused_ms=times["fused"])
 
 
 def phase_lstsq(ops):
@@ -298,7 +461,7 @@ def phase_lstsq(ops):
     torch.cuda.synchronize()
     counts = dict(ops.launches)
     log(f"  launches {counts}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in ("syrk", "gemm_tn", "potrf", "trsm")) <= 0:
         raise AssertionError(f"lstsq: a kernel was never launched: {counts}")
     if x.shape != (4096, 8) or not bool(torch.isfinite(x).all()):
         raise AssertionError("lstsq: output not finite or of the wrong shape")
@@ -340,41 +503,48 @@ def main() -> int:
 
     import repro_torch  # noqa: F401  (sets the float32 matmul precision)
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.gemm_tn import gemm_tn_plain
+    from repro_torch.kernels.gemm_tn import gemm_tn_fused_plain, gemm_tn_plain
     from repro_torch.kernels.potrf import potrf_plain
-    from repro_torch.kernels.syrk import syrk_plain
+    from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain
     from repro_torch.kernels.trsm import trsm_plain
 
     log("phase build")
     lib, secs, blog = _build.build()
     log(f"  built {os.path.relpath(lib, ROOT)} in {secs:.1f} s")
     for line in blog.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("registers", "spill", "error", "entry function")):
             log("  " + line.strip())
     _build.load()
 
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
-             "trsm": trsm_plain}
+             "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
+             "syrk_gather": syrk_gather_plain}
     checks = Checks(ops.launches)
     phase_kernels(checks, ops, plain)
     torch.cuda.empty_cache()
-    ata_res = phase_ata(ops)
+    fused_counts, ata_res = phase_ata(ops)
+    torch.cuda.empty_cache()
+    strassen_res = phase_strassen(ops)
     torch.cuda.empty_cache()
     counts, lstsq_res = phase_lstsq(ops)
-    log("end_to_end " + json.dumps({"ata_8192": ata_res, "lstsq_16384x4096x8": lstsq_res}))
+    log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
+                                    "lstsq_16384x4096x8": lstsq_res}))
 
-    replaces = {
-        "gemm_tn": "src/repro/kernels/gemm_tn.py:78",
-        "syrk": "src/repro/kernels/syrk.py:136",
-        "potrf": "src/repro/kernels/potrf.py:65",
-        "trsm": "src/repro/kernels/trsm.py:80",
+    # name -> (source, replaced TPU kernel, launches on the path that runs it:
+    # lstsq for the first four, ata 8192² fused for the last two)
+    table = {
+        "gemm_tn": ("gemm_tn.cu", "src/repro/kernels/gemm_tn.py:78", counts),
+        "syrk": ("syrk.cu", "src/repro/kernels/syrk.py:136", counts),
+        "potrf": ("potrf.cu", "src/repro/kernels/potrf.py:65", counts),
+        "trsm": ("trsm.cu", "src/repro/kernels/trsm.py:80", counts),
+        "gemm_tn_fused": ("gemm_tn_fused.cu", "src/repro/kernels/gemm_tn.py:199", fused_counts),
+        "syrk_gather": ("syrk.cu", "src/repro/kernels/syrk.py:259", fused_counts),
     }
     kernels = []
-    for name in ("gemm_tn", "syrk", "potrf", "trsm"):
-        row = checks.rows[name]
+    for name, (src, replaces, path_counts) in table.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": counts[name], **row,
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+            "replaces": replaces, "launches": path_counts[name], **checks.rows[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,12 @@ Leaf dispatch: ``'unrolled'`` calls the bases once per leaf (``4^L``
 diagonal syrks and ``Σ_ℓ 2^{2ℓ-1}·7^{L-ℓ}`` Strassen leaves);
 ``'batched'`` runs the same tree level-synchronously — all diagonal leaves
 as ONE ``base_syrk`` call and every Strassen leaf as ONE ``base_dot`` call —
-and decodes into the identical node tree. ``'fused'`` is not ported yet.
+and decodes into the identical node tree. ``'fused'`` keeps that decode but
+builds no operand stack: with the default bases, one ``ops.gemm_tn_fused``
+launch per ATA level reads the root-padded input through per-leaf slot
+tables, and one ``ops.syrk_gather`` launch computes every diagonal leaf;
+with caller bases, each leaf operand is combined from slices of the input
+and each leaf is one base call. Classical variant only.
 
 The bases default to ``ops.syrk``/``ops.gemm_tn``: the CUDA kernels for a
 CUDA input, their plain versions for a CPU input. The root assembly writes
@@ -29,15 +34,19 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.strassen import (
     DEFAULT_N_BASE,
+    _block_getter,
+    _combine_slots,
     _encode_fns,
     _leaf_dot,
     _pad_root,
     _rec_strassen,
     _rec_winograd,
+    _slot_tables,
     _to_blocks,
     _unblock,
     default_base_dot,
@@ -116,21 +125,74 @@ def _accum_axis1(x):
     return acc
 
 
-def _ata_level_sync(a, L, *, variant, base_syrk, base_dot):
-    """The whole ATA tree with batched leaves: every off-diagonal Strassen
-    leaf of every level in ONE ``base_dot`` call, all ``4^L`` diagonal
-    leaves in ONE ``base_syrk`` call, decoded into the same _TriNode tree.
-    ``a`` arrives root-padded (both dims divisible by ``2^L``)."""
+@functools.lru_cache(maxsize=None)
+def _level_tables(L, lev):
+    """Slot tables of ATA level ``lev`` in root-grid coordinates.
+
+    One row per (slab parent ``p``, Strassen leaf ``t``), parent-major like
+    the encode stacks (``p·7^{L-ℓ} + t``): the level's ``_slot_tables(L-ℓ)``
+    shifted to parent ``p``'s block rows and its right (A side) or left (B
+    side) block columns of the ``2^L × 2^L`` root grid. Handing these to
+    ``ops.gemm_tn_fused`` with the root grid is the reference's per-level
+    call on that level's block grids, without building the grids.
+    """
+    R, Rl, H = 1 << L, 1 << lev, 1 << (lev - 1)
+    q = R // Rl
+    (ar, ac, asg), (br, bc, bsg) = _slot_tables(L - lev)
+    h, rb = np.divmod(np.arange(H * Rl), Rl)
+    shift_r = (rb * q)[:, None, None]
+
+    def side(rows, cols, sgn, which):
+        shift_c = ((2 * h + which) * q)[:, None, None]
+        T, W = rows.shape
+        flat = lambda x: x.reshape(H * Rl * T, W).astype(np.int32)
+        return (flat(rows[None] + shift_r), flat(cols[None] + shift_c),
+                flat(np.broadcast_to(sgn[None], (H * Rl, T, W))))
+
+    return side(ar, ac, asg, 1), side(br, bc, bsg, 0)
+
+
+def _combine_level(a, L, lev):
+    """Fused leaf operands of ATA level ``lev`` as sums of slices of ``a``,
+    one (A, B) pair per row of :func:`_level_tables`; every slot block is a
+    view of the root-padded input, so no operand stack is materialized."""
+    get = _block_getter(a, L)
+    sides = []
+    for rows, cols, sgn in _level_tables(L, lev):
+        sides.append([_combine_slots(get, r, c, g) for r, c, g in zip(rows, cols, sgn)])
+    return sides
+
+
+def _ata_level_sync(a, L, *, variant, base_syrk, base_dot, fused=False, kernels=None):
+    """The whole ATA tree level-synchronously: every off-diagonal Strassen
+    leaf, all ``4^L`` diagonal leaves, decoded into the same _TriNode tree.
+    ``a`` arrives root-padded (both dims divisible by ``2^L``).
+
+    * batched (``fused=False``): every Strassen leaf in ONE ``base_dot``
+      call on encoded operand stacks, the diagonal in ONE ``base_syrk``;
+    * fused with ``kernels = (fused_dot, gather_syrk)``: one ``fused_dot``
+      launch per level and one ``gather_syrk`` launch, both reading views of
+      ``a`` through slot and gather tables;
+    * fused without kernels: one ``base_dot`` per leaf on operands combined
+      from slices of ``a``; the diagonal as in the batched path.
+    """
     if L == 0:
         return base_syrk(a)
     batch = tuple(a.shape[:-2])
     enc, dec = _encode_fns(variant)
     R = 1 << L
-    ab = _to_blocks(a, L)           # (R, R, *batch, mL, nL)
+    ab = _to_blocks(a, L)           # (R, R, *batch, mL, nL): a view of a
     mL, nL = ab.shape[-2:]
 
-    parts_a, parts_b, sizes = [], [], []
+    parts_a, parts_b, sizes, P_levels = [], [], [], []
     for lev in range(1, L + 1):
+        if fused and kernels is not None:
+            P_levels.append(kernels[0](ab[None], ab[None], _level_tables(L, lev)))
+            continue
+        if fused:
+            la, lb = _combine_level(a, L, lev)
+            P_levels.append(torch.stack([base_dot(x, y) for x, y in zip(la, lb)]))
+            continue
         Rl, H = 1 << lev, 1 << (lev - 1)
         q = R // Rl
         g = ab.reshape(Rl, q, H, 2, q, *batch, mL, nL)
@@ -143,12 +205,17 @@ def _ata_level_sync(a, L, *, variant, base_syrk, base_dot):
         parts_a.append(A[:, 0, 0])
         parts_b.append(B[:, 0, 0])
         sizes.append(A.shape[0])
-    P = _leaf_dot(base_dot, torch.cat(parts_a, 0), torch.cat(parts_b, 0))
-    P_levels = list(torch.split(P, sizes, dim=0))
+    if not fused:
+        P = _leaf_dot(base_dot, torch.cat(parts_a, 0), torch.cat(parts_b, 0))
+        P_levels = list(torch.split(P, sizes, dim=0))
 
     # diagonal leaves ordered (column block i, slab r)
-    D = ab.transpose(0, 1).reshape(R * R, *batch, mL, nL)
-    Dp = base_syrk(D.reshape(-1, mL, nL))
+    if fused and kernels is not None:
+        s = np.arange(R * R)
+        Dp = kernels[1](ab, s % R, s // R)
+    else:
+        D = ab.transpose(0, 1).reshape(R * R, *batch, mL, nL)
+        Dp = base_syrk(D.reshape(-1, mL, nL))
     Dp = Dp.reshape(R, R, *batch, *Dp.shape[-2:])
     diag = _accum_axis1(Dp)  # (2^L, *batch, nL, nL)
 
@@ -238,6 +305,10 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
         raise ValueError(f"unknown output mode {out!r}; use 'dense' or 'packed'")
     n_base, variant, packed_block, leaf_dispatch = resolve_tunables(
         n_base, variant, packed_block, leaf_dispatch)
+    kernels = None
+    if leaf_dispatch == "fused" and base_syrk is None and base_dot is None:
+        kernels = (functools.partial(ops.gemm_tn_fused, out_dtype=acc_dtype),
+                   functools.partial(ops.syrk_gather, out_dtype=acc_dtype))
     if base_syrk is None:
         base_syrk = default_base_syrk(acc_dtype)
     if base_dot is None:
@@ -246,9 +317,10 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
     n = a.shape[-1]
     L = tree_depth(a.shape[-2:], n_base)
     ap = _pad_root(a, L) if L else a
-    if leaf_dispatch == "batched":
+    if leaf_dispatch in ("batched", "fused"):
         node = _ata_level_sync(ap, L, variant=variant, base_syrk=base_syrk,
-                               base_dot=base_dot)
+                               base_dot=base_dot, fused=leaf_dispatch == "fused",
+                               kernels=kernels)
     else:
         strassen_rec = _rec_strassen if variant == "strassen" else _rec_winograd
         node = _rec_ata([ap], n_base=n_base, base_syrk=base_syrk,
@@ -302,7 +374,9 @@ def ata(
     defaults (``n_base=512``, ``variant='strassen'``,
     ``leaf_dispatch='unrolled'``, ``packed_block=128``). ``base_syrk(a) ->
     aᵀa`` (full, bitwise-symmetric tile) and ``base_dot(a, b) -> aᵀb`` must
-    accept one leading batch dim.
+    accept one leading batch dim. ``leaf_dispatch='fused'`` with neither
+    base given runs ``ops.gemm_tn_fused`` once per level and
+    ``ops.syrk_gather`` once.
     """
     if a.ndim != 2:
         raise ValueError(f"ata expects a 2-D operand, got shape {tuple(a.shape)}")

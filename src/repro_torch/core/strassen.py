@@ -16,7 +16,14 @@ Leaf dispatch:
   The same elementwise adds run on the same values, so with a base whose
   per-output summation order does not depend on the batch (the CUDA
   kernel's) the two dispatches agree bitwise.
-* ``'fused'`` is not ported yet and raises ``NotImplementedError``.
+* ``'fused'`` — no operand stack at all: per-leaf ±1 slot tables
+  (:func:`_slot_tables`) say which root blocks each leaf operand sums, and
+  with no caller ``base_dot`` ONE ``ops.gemm_tn_fused`` launch gathers and
+  combines them inside the kernel and runs every leaf product. With a
+  caller ``base_dot`` the combinations are built per leaf as slices of the
+  root-padded operand (:func:`_combine_slots`) and each leaf is one
+  ``base_dot`` call. The decode is the batched dispatch's. Classical
+  variant only.
 
 The base defaults to :func:`repro_torch.kernels.ops.gemm_tn`, which runs
 the CUDA kernel on a CUDA tensor and the plain matmul on a CPU tensor.
@@ -27,6 +34,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,11 +45,6 @@ from repro_torch.tune.defaults import DEFAULT_N_BASE
 
 __all__ = ["strassen_tn", "DEFAULT_N_BASE", "resolve_tunables", "tree_depth"]
 
-FUSED_NOT_PORTED = (
-    "leaf_dispatch='fused' is not ported yet: it needs the gemm_tn_fused and "
-    "syrk_gather kernels (ROADMAP.md, remaining queue item 1)"
-)
-
 
 def resolve_tunables(n_base, variant, packed_block, leaf_dispatch):
     """Fill unset tunables from the static defaults — the reference's
@@ -51,14 +54,18 @@ def resolve_tunables(n_base, variant, packed_block, leaf_dispatch):
     variant = _defaults.DEFAULT_VARIANT if variant is None else variant
     packed_block = _defaults.DEFAULT_PACKED_BLOCK if packed_block is None else packed_block
     leaf_dispatch = _defaults.DEFAULT_LEAF_DISPATCH if leaf_dispatch is None else leaf_dispatch
-    if leaf_dispatch == "fused":
-        raise NotImplementedError(FUSED_NOT_PORTED)
-    if leaf_dispatch not in ("unrolled", "batched"):
+    if leaf_dispatch not in ("unrolled", "batched", "fused"):
         raise ValueError(
-            f"unknown leaf_dispatch {leaf_dispatch!r}; use 'unrolled' or 'batched'"
+            f"unknown leaf_dispatch {leaf_dispatch!r}; use 'unrolled', 'batched' or 'fused'"
         )
     if variant not in ("strassen", "winograd"):
         raise ValueError(f"unknown variant {variant!r}")
+    if leaf_dispatch == "fused" and variant != "strassen":
+        raise ValueError(
+            "leaf_dispatch='fused' supports variant='strassen' only: "
+            "Winograd's chained within-level combinations do not fit the "
+            "per-leaf ±1 slot tables"
+        )
     return n_base, variant, packed_block, leaf_dispatch
 
 
@@ -285,6 +292,128 @@ def _strassen_batched(a, b, L, base_dot, variant):
     return _unblock(P)[0]
 
 
+# ---------------------------------------------------------------------------
+# fused leaf dispatch: per-leaf ±1 slot tables instead of operand stacks
+#
+# Every classical-Strassen leaf operand is a signed sum of root leaf blocks:
+# one level doubles the slot count (the first and second term of each of
+# the seven combinations), so a leaf of an L-level tree has W = 2^L slots.
+# x − y ≡ x + (−y) and −(x + y) ≡ (−x) + (−y) in IEEE arithmetic, and
+# slicing commutes with the elementwise adds, so the slot tree evaluated in
+# `_combine_slots`' balanced order gives the recursion's operands bitwise.
+# ---------------------------------------------------------------------------
+
+_FUSED_A_COMBOS = ((0, 3, 1), (1, 3, 1), (0, None, 0), (3, None, 0),
+                   (0, 2, 1), (1, 0, -1), (2, 3, -1))
+_FUSED_B_COMBOS = ((0, 3, 1), (0, None, 0), (1, 3, -1), (2, 0, -1),
+                   (3, None, 0), (0, 1, 1), (2, 3, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_tables(L: int):
+    """Per-leaf ±1 coefficient tables of the fused dispatch.
+
+    Returns ``((a_rows, a_cols, a_sgn), (b_rows, b_cols, b_sgn))`` — six
+    ``(7**L, 2**L)`` int32 arrays. Row ``s`` describes leaf product ``s``
+    (the ``_stack7`` order: the level-1 digit is the most significant
+    base-7 digit); sign 0 marks a dead slot.
+    """
+
+    def build(combos):
+        R = 1 << L
+        r, c = np.indices((R, R))
+        # (S, rows, cols, slots, {row, col, sign}) — starts as the identity
+        slots = np.stack([r, c, np.ones((R, R), np.int64)], axis=-1)
+        slots = slots[None, :, :, None, :]
+        for _ in range(L):
+            S, Rg, Cg, W, _ = slots.shape
+            h, w = Rg // 2, Cg // 2
+            quad = (slots[:, :h, :w], slots[:, :h, w:],
+                    slots[:, h:, :w], slots[:, h:, w:])
+            parts = []
+            for p, q, sg in combos:
+                first = quad[p]
+                if q is None:
+                    second = np.zeros_like(first)
+                else:
+                    second = quad[q].copy()
+                    second[..., 2] *= sg
+                parts.append(np.concatenate([first, second], axis=3))
+            slots = np.stack(parts, axis=1).reshape(S * 7, h, w, 2 * W, 3)
+        slots = slots[:, 0, 0]
+        return (slots[..., 0].astype(np.int32),
+                slots[..., 1].astype(np.int32),
+                slots[..., 2].astype(np.int32))
+
+    return build(_FUSED_A_COMBOS), build(_FUSED_B_COMBOS)
+
+
+def _combine_slots(get_block, rows, cols, sgn):
+    """One leaf operand from its slot table: the perfect binary add tree of
+    the unrolled recursion. ``get_block(r, c)`` fetches root leaf block
+    (r, c); dead (sign-0) slots drop out, so exactly the adds the unrolled
+    recursion performs on this operand run."""
+
+    def ev(lo, hi):
+        if hi - lo == 1:
+            s = int(sgn[lo])
+            if s == 0:
+                return None
+            blk = get_block(int(rows[lo]), int(cols[lo]))
+            return -blk if s < 0 else blk
+        mid = (lo + hi) // 2
+        left, right = ev(lo, mid), ev(mid, hi)
+        if left is None:
+            return right
+        if right is None:
+            return left
+        return left + right
+
+    return ev(0, len(sgn))
+
+
+def _block_getter(x, L):
+    """Leaf-block fetcher in ``_to_blocks`` coordinates, as direct slices
+    of the unblocked operand (views, no block-major copy)."""
+    mb, nb = x.shape[-2] >> L, x.shape[-1] >> L
+
+    def get(r, c):
+        return x[..., r * mb:(r + 1) * mb, c * nb:(c + 1) * nb]
+
+    return get
+
+
+def _strassen_fused(a, b, L, base_dot, fused_dot=None):
+    """Fused-operand Strassen on root-padded operands: slot-table gather
+    and combine per leaf, then the batched dispatch's decode.
+
+    With ``fused_dot`` (``ops.gemm_tn_fused``) the gather and combine run
+    in ONE kernel launch against ``_to_blocks`` views of the operands;
+    otherwise each leaf operand is combined from slices and each leaf is
+    one ``base_dot`` call — only the product stack is materialized.
+    """
+    if L == 0:
+        return base_dot(a, b)
+    if fused_dot is not None:
+        batch = tuple(a.shape[:-2])
+        if len(batch) > 1:  # the kernel takes one batch dim
+            a, b = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+        P = fused_dot(_to_blocks(a, L)[None], _to_blocks(b, L)[None], _slot_tables(L))
+        P = P.reshape(P.shape[0], *batch, *P.shape[-2:])
+    else:
+        (ar, ac, asg), (br, bc, bsg) = _slot_tables(L)
+        ga, gb = _block_getter(a, L), _block_getter(b, L)
+        P = torch.stack([
+            base_dot(_combine_slots(ga, ar[s], ac[s], asg[s]),
+                     _combine_slots(gb, br[s], bc[s], bsg[s]))
+            for s in range(7 ** L)
+        ])
+    P = P[:, None, None]
+    for _ in range(L):
+        P = _decode_strassen(P)
+    return _unblock(P)[0]
+
+
 def strassen_tn(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -305,6 +434,8 @@ def strassen_tn(
     ``variant='strassen'``, ``leaf_dispatch='unrolled'``). ``base_dot(a, b)
     -> aᵀb`` must accept one leading batch dim; it defaults to
     ``ops.gemm_tn`` (CUDA kernel on the card, plain matmul on the CPU).
+    ``leaf_dispatch='fused'`` with no ``base_dot`` runs every leaf in one
+    ``ops.gemm_tn_fused`` launch.
     """
     if a.ndim < 2 or b.ndim < 2 or a.ndim != b.ndim:
         raise ValueError(f"strassen_tn expects 2-D+ operands, got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -313,8 +444,11 @@ def strassen_tn(
             f"contracting/batch dims mismatch: A is {tuple(a.shape)}, B is {tuple(b.shape)}"
         )
     n_base, variant, _, leaf_dispatch = resolve_tunables(n_base, variant, None, leaf_dispatch)
+    fused_dot = None
     if base_dot is None:
         base_dot = default_base_dot(acc_dtype)
+        if leaf_dispatch == "fused":
+            fused_dot = functools.partial(ops.gemm_tn_fused, out_dtype=acc_dtype)
     m, n = a.shape[-2:]
     k = b.shape[-1]
     L = tree_depth((m, n, k), n_base)
@@ -322,6 +456,8 @@ def strassen_tn(
         a, b = _pad_root(a, L), _pad_root(b, L)
     if leaf_dispatch == "batched":
         out = _strassen_batched(a, b, L, base_dot, variant)
+    elif leaf_dispatch == "fused":
+        out = _strassen_fused(a, b, L, base_dot, fused_dot)
     else:
         rec = _rec_strassen if variant == "strassen" else _rec_winograd
         out = rec(a, b, n_base=n_base, base_dot=base_dot, acc_dtype=acc_dtype)

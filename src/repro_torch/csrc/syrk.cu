@@ -25,6 +25,13 @@
 //            filled by the mirror writes of the lower ones.
 // Rows and columns past n load as zero, so pad entries of a packed block are
 // exact zeros, as in the reference.
+//
+// syrk_gather_f32 also replaces syrk_gather_pallas (src/repro/kernels/syrk.py),
+// the diagonal leaves of the fused leaf dispatch: the same dense grid, but
+// stack entry s = e / inner starts at its own element offset offs[s] (block
+// (rows[s], cols[s]) of the caller's block-major grid, computed by the
+// wrapper), so the gathered (S, ...) stack is never copied. The arithmetic
+// per entry is the dense syrk's, so the two agree bitwise on the same leaf.
 #include <cuda_runtime.h>
 
 #include "tn_tile.cuh"
@@ -33,7 +40,8 @@ namespace repro_torch {
 
 __global__ void __launch_bounds__(kThreads)
     syrk_kernel(const float* __restrict__ a, float* __restrict__ c, int batch, int m, int n,
-                long long sab, long long lda, float alpha, int packed, int bn, int sub) {
+                long long sab, long long lda, float alpha, int packed, int bn, int sub,
+                const long long* __restrict__ offs, int inner) {
   __shared__ __align__(16) TnSmem sm;
   int bi, bj;
   tri_coords(blockIdx.x, bi, bj);
@@ -54,7 +62,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
     float acc[kMicro][kMicro];
-    const float* ab = a + bt * sab;
+    const float* ab = offs ? a + offs[bt / inner] + (long long)(bt % inner) * sab
+                           : a + (long long)bt * sab;
     tn_tile(TnOperand{ab, lda, r0, rlim}, TnOperand{ab, lda, c0, clim}, m, sm, acc);
     // dst(i, j) is element (i, j) of the n x n matrix (dense) or of storage
     // block t (packed); (i, j) below are coordinates within that target.
@@ -114,6 +123,24 @@ extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long 
   if (t_total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>(t_total), sub * sub, batch < 65535 ? batch : 65535);
   repro_torch::syrk_kernel<<<grid, repro_torch::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, c, batch, m, n, sab, lda, alpha, packed, bn, sub);
+      a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, nullptr, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c is (S, inner, n, n): entry (s, b) is the dense syrk of the m x n leaf at
+// a + offs[s] + b * sab (row stride lda).
+extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, int S, int inner,
+                               int m, int n, long long sab, long long lda, float alpha,
+                               void* stream) {
+  using repro_torch::kTile;
+  const long long nblk = (n + kTile - 1) / kTile;
+  const long long t_total = nblk * (nblk + 1) / 2;
+  const long long entries = (long long)S * inner;
+  if (t_total > 2147483647LL || entries > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int batch = static_cast<int>(entries);
+  dim3 grid(static_cast<unsigned>(t_total), 1, batch < 65535 ? batch : 65535);
+  repro_torch::syrk_kernel<<<grid, repro_torch::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, c, batch, m, n, sab, lda, alpha, 0, 0, 1, offs, inner);
   return static_cast<int>(cudaGetLastError());
 }

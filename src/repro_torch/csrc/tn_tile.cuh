@@ -1,4 +1,4 @@
-// Shared TN tile engine of the gemm_tn and syrk kernels.
+// Shared TN tile engine of the gemm_tn, gemm_tn_fused and syrk kernels.
 //
 // One CTA of 256 threads computes a 128 x 128 tile of C = X^T Y, where
 // X (m x nx) and Y (m x ny) are row-major with unit column stride; the tile
@@ -42,15 +42,29 @@ struct TnSmem {
   float ys[2][kDepth][kTile];
 };
 
-// Accumulates acc[ii][jj] = sum_l X[l, x.col0 + ty*8 + ii] * Y[l, y.col0 + tx*8 + jj].
+// Row loader of a plain operand: element (l, col) at p[l * ld + col].
+struct RowLoad {
+  const float* p;
+  long long ld;
+  __device__ __forceinline__ float operator()(int l, int col) const {
+    return p[(long long)l * ld + col];
+  }
+};
+
+// Accumulates acc[ii][jj] = sum_l X(l, x0 + ty*8 + ii) * Y(l, y0 + tx*8 + jj),
+// where X(l, col) = lx(l, col) for l < m and col < xlim and 0 otherwise (Y
+// likewise). A loader is any callable float(int l, int col): RowLoad reads a
+// strided operand, the fused kernel's loader sums signed slot blocks.
 //
 // The next slab is fetched into registers while the current one is being
 // multiplied out of shared memory, and shared memory is double-buffered, so
 // one __syncthreads per slab suffices: a thread that writes buffer b at slab
 // s has passed the barrier of slab s-1, which every thread reaches only
 // after it finished reading buffer b at slab s-2.
-__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int m,
-                                        TnSmem& sm, float acc[kMicro][kMicro]) {
+template <class LX, class LY>
+__device__ __forceinline__ void tn_tile_with(const LX& lx, int x0, int xlim, const LY& ly, int y0,
+                                             int ylim, int m, TnSmem& sm,
+                                             float acc[kMicro][kMicro]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int lrow = tid / 32;  // slab row this thread loads
@@ -67,9 +81,9 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
     const bool lok = l < m;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int cx = x.col0 + lcol + 32 * e, cy = y.col0 + lcol + 32 * e;
-      px[e] = (lok && cx < x.col_lim) ? x.p[(long long)l * x.ld + cx] : 0.0f;
-      py[e] = (lok && cy < y.col_lim) ? y.p[(long long)l * y.ld + cy] : 0.0f;
+      const int cx = x0 + lcol + 32 * e, cy = y0 + lcol + 32 * e;
+      px[e] = (lok && cx < xlim) ? lx(l, cx) : 0.0f;
+      py[e] = (lok && cy < ylim) ? ly(l, cy) : 0.0f;
     }
   };
 
@@ -98,6 +112,13 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
     }
     buf ^= 1;
   }
+}
+
+// The plain form: X and Y are strided row-major operands.
+__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int m,
+                                        TnSmem& sm, float acc[kMicro][kMicro]) {
+  tn_tile_with(RowLoad{x.p, x.ld}, x.col0, x.col_lim, RowLoad{y.p, y.ld}, y.col0, y.col_lim, m,
+               sm, acc);
 }
 
 // Packed lower-triangular tile enumeration t = i(i+1)/2 + j (j <= i): a

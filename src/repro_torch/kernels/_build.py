@@ -37,7 +37,9 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (all return the launch's cudaError_t as int)
 SIGNATURES = {
     "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, P),
+    "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P),
     "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, P),
+    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, P),
     "potrf_f32": (P, P, I, I, P),
     "trsm_f32": (P, P, P, I, I, I, LL, I, P),
 }

@@ -1,16 +1,28 @@
-"""TN matmul ``C = alpha·AᵀB`` — CUDA kernel and plain version.
+"""TN matmul ``C = alpha·AᵀB`` — CUDA kernels and plain versions.
 
-Port of ``repro.kernels.gemm_tn.gemm_tn_pallas``; the kernel is
-``csrc/gemm_tn.cu``. ``A: (m, n)`` or ``(B, m, n)``, ``B: (m, k)`` or
-``(B, m, k)``; a leading batch dim is the kernel's ``blockIdx.z``, so a
-whole Strassen leaf stack is one launch.
+* ``gemm_tn``: port of ``repro.kernels.gemm_tn.gemm_tn_pallas``; the kernel
+  is ``csrc/gemm_tn.cu``. ``A: (m, n)`` or ``(B, m, n)``, ``B: (m, k)`` or
+  ``(B, m, k)``; a leading batch dim is the kernel's ``blockIdx.z``, so a
+  whole Strassen leaf stack is one launch.
+* ``gemm_tn_fused``: port of ``gemm_tn_fused_pallas``; the kernel is
+  ``csrc/gemm_tn_fused.cu``. The operands are block-major leaf grids
+  ``(G, R, C, [B,] mb, ·)`` (any strides, unit column stride) and six
+  ``(T, W)`` slot tables; leaf ``g·T + t`` multiplies the balanced ± sums of
+  its ``W`` slot blocks, combined inside the kernel. The wrapper turns the
+  tables into per-(leaf, slot) element offsets on the host, so the kernel
+  reads views of the caller's operand without a copy.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes"]
+__all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "combine_fused_operands",
+           "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "FUSED_MAX_SLOTS"]
+
+# slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
+FUSED_MAX_SLOTS = 32
 
 
 def check_tn_shapes(a, b):
@@ -69,4 +81,122 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
         err = lib.gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
                               sab, lda, sbb, ldb, float(alpha), stream)
     _build.check(err, "gemm_tn")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# fused-operand leaf launch (leaf_dispatch='fused')
+# ---------------------------------------------------------------------------
+
+
+def _fused_tables(a_blocks, b_blocks, tables):
+    """Validate the grids and tables; returns ``((rows, cols, sgn) × 2, T, W)``
+    as int64 numpy arrays."""
+    if a_blocks.ndim not in (5, 6) or a_blocks.ndim != b_blocks.ndim:
+        raise ValueError(f"bad fused block grids: {tuple(a_blocks.shape)} x {tuple(b_blocks.shape)}")
+    if a_blocks.shape[:-1] != b_blocks.shape[:-1]:
+        raise ValueError(f"bad fused block grids: {tuple(a_blocks.shape)} x {tuple(b_blocks.shape)}")
+    (ar, ac, asg), (br, bc, bsg) = tables
+    sides = tuple(tuple(np.asarray(x, np.int64) for x in side)
+                  for side in ((ar, ac, asg), (br, bc, bsg)))
+    shape = sides[0][0].shape
+    if len(shape) != 2 or any(x.shape != shape for side in sides for x in side):
+        raise ValueError("fused slot tables must be six arrays of one (T, W) shape")
+    R, C = a_blocks.shape[1:3]
+    for rows, cols, sgn in sides:
+        live = sgn != 0
+        if (rows[live].min(initial=0) < 0 or rows[live].max(initial=0) >= R
+                or cols[live].min(initial=0) < 0 or cols[live].max(initial=0) >= C):
+            raise ValueError(f"fused slot table indexes outside the ({R}, {C}) block grid")
+        if not np.isin(sgn, (-1, 0, 1)).all():
+            raise ValueError("fused slot signs must be -1, 0 or +1")
+    return sides, shape[0], shape[1]
+
+
+def combine_fused_operands(blocks, rows, cols, sgn, dtype=None):
+    """Materialize the combined leaf operands of one side of a fused launch.
+
+    ``blocks``: ``(G, R, C, [B,] mb, w)``; ``rows``/``cols``/``sgn``:
+    ``(T, W)``. Returns ``(G·T, [B,] mb, w)``: leaf ``g·T + t`` is the
+    balanced pairwise sum over the ``W`` signed slot blocks — the order of
+    ``core.strassen._combine_slots`` (a dead slot adds an exact zero).
+    """
+    dtype = blocks.dtype if dtype is None else dtype
+    dev = blocks.device
+    rows = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+    cols = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
+    sgn = torch.as_tensor(np.asarray(sgn), device=dev).to(dtype)
+    G, T, W = blocks.shape[0], rows.shape[0], rows.shape[1]
+    if W & (W - 1):
+        raise ValueError(f"slot count {W} is not a power of two")
+    x = blocks[:, rows, cols].to(dtype)                 # (G, T, W, [B,] mb, w)
+    x = x * sgn.reshape(1, T, W, *([1] * (x.ndim - 3)))
+    while x.shape[2] > 1:
+        x = x[:, :, 0::2] + x[:, :, 1::2]
+    return x[:, :, 0].reshape(G * T, *x.shape[3:])
+
+
+def gemm_tn_fused_plain(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
+                        out_dtype=torch.float32):
+    """Plain PyTorch fused leaf launch: combine every leaf operand, then
+    one batched TN matmul. Returns ``(G·T, [B,] n, k)``."""
+    (sa, sb), _, _ = _fused_tables(a_blocks, b_blocks, tables)
+    acc = _acc_dtype(a_blocks.dtype, b_blocks.dtype, out_dtype)
+    xa = combine_fused_operands(a_blocks, *sa, acc)
+    xb = combine_fused_operands(b_blocks, *sb, acc)
+    lead = xa.shape[:-2]
+    out = gemm_tn_plain(xa.reshape(-1, *xa.shape[-2:]), xb.reshape(-1, *xb.shape[-2:]),
+                        alpha=alpha, out_dtype=out_dtype)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+def _grid_strides(x):
+    """(group, block-row, block-col, batch, row) element strides of a
+    float32 CUDA block grid with unit column stride."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"gemm_tn_fused kernel takes float32 grids, got {x.dtype}")
+    if x.stride(-1) != 1 and x.shape[-1] > 1:
+        raise ValueError("gemm_tn_fused kernel needs a unit column stride")
+    sb = x.stride(3) if x.ndim == 6 else 0
+    return x.stride(0), x.stride(1), x.stride(2), sb, x.stride(-2)
+
+
+def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
+                       out_dtype=torch.float32):
+    """Launch ``csrc/gemm_tn_fused.cu`` once on the current stream."""
+    from repro_torch.kernels import _build
+
+    sides, T, W = _fused_tables(a_blocks, b_blocks, tables)
+    if out_dtype != torch.float32:
+        raise TypeError(f"gemm_tn_fused kernel writes float32, got out_dtype={out_dtype}")
+    if a_blocks.device != b_blocks.device:
+        raise ValueError(f"operands on {a_blocks.device} and {b_blocks.device}")
+    if W & (W - 1) or W > FUSED_MAX_SLOTS:
+        raise ValueError(f"gemm_tn_fused kernel takes 1, 2, 4, ... {FUSED_MAX_SLOTS} slots, got {W}")
+    G = a_blocks.shape[0]
+    batch = a_blocks.shape[3] if a_blocks.ndim == 6 else 1
+    m, n = a_blocks.shape[-2:]
+    k = b_blocks.shape[-1]
+    if min(G, T, batch, m, n, k) == 0:
+        raise ValueError("gemm_tn_fused kernel takes no empty operands")
+    offs, sgns, ld, sb = [], [], [], []
+    for x, (rows, cols, sgn) in zip((a_blocks, b_blocks), sides):
+        sg, sr, sc, sbat, srow = _grid_strides(x)
+        g = np.arange(G, dtype=np.int64)[:, None, None]
+        offs.append((g * sg + rows[None] * sr + cols[None] * sc).reshape(G * T, W))
+        sgns.append(np.broadcast_to(sgn[None], (G, T, W)).reshape(G * T, W))
+        ld.append(srow)
+        sb.append(sbat)
+    dev = a_blocks.device
+    off = torch.as_tensor(np.stack(offs), device=dev)               # (2, G·T, W) int64
+    sgn = torch.as_tensor(np.stack(sgns).astype(np.int32), device=dev)
+    lead = (G * T, batch) if a_blocks.ndim == 6 else (G * T,)
+    c = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gemm_tn_fused_f32(a_blocks.data_ptr(), b_blocks.data_ptr(), off.data_ptr(),
+                                    sgn.data_ptr(), c.data_ptr(), G * T, batch, W, m, n, k,
+                                    sb[0], ld[0], sb[1], ld[1], float(alpha), stream)
+    _build.check(err, "gemm_tn_fused")
     return c

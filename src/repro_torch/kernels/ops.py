@@ -9,8 +9,7 @@ Each wrapper takes the reference's signature and routes by device:
 A leading batch dim is one launch for the whole stack. Each wrapper counts
 its kernel launches in :data:`launches` (plain ints, incremented right
 after a launch and nowhere else), so a run can show that its path went
-through the kernels. ``gemm_tn_fused`` and ``syrk_gather`` of the reference
-are not ported yet (ROADMAP.md).
+through the kernels.
 """
 
 from __future__ import annotations
@@ -25,10 +24,12 @@ from repro_torch.kernels import syrk as _syrk
 from repro_torch.kernels import trsm as _trsm
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
-__all__ = ["syrk", "gemm_tn", "potrf", "trsm", "launches", "reset_launches"]
+__all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
+           "reset_launches"]
 
 # kernel name -> CUDA launches since the last reset_launches()
-launches = {"syrk": 0, "gemm_tn": 0, "potrf": 0, "trsm": 0}
+launches = {"syrk": 0, "gemm_tn": 0, "gemm_tn_fused": 0, "syrk_gather": 0, "potrf": 0,
+            "trsm": 0}
 
 
 def reset_launches() -> None:
@@ -65,6 +66,41 @@ def gemm_tn(a, b, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32):
         launches["gemm_tn"] += 1
         return c
     return _gemm_tn.gemm_tn_plain(a, b, alpha=alpha, out_dtype=out_dtype)
+
+
+def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None,
+                  out_dtype=torch.float32):
+    """All ``G·T`` fused-operand Strassen leaf products in ONE launch.
+
+    ``a_blocks``/``b_blocks``: block-major leaf grids ``(G, R, C, [B,] mb,
+    n)`` and ``(G, R, C, [B,] mb, k)`` (``core.strassen._to_blocks``
+    layout, any strides); ``tables``: ``((a_rows, a_cols, a_sgn), (b_rows,
+    b_cols, b_sgn))``, six ``(T, W)`` int arrays (``_slot_tables``). Leaf
+    ``g·T + t`` multiplies the balanced ± sums of its slot blocks; returns
+    ``(G·T, [B,] n, k)``. ``blocks`` is accepted for signature parity.
+    """
+    del blocks
+    if on_cuda(a_blocks, b_blocks):
+        c = _gemm_tn.gemm_tn_fused_cuda(a_blocks, b_blocks, tables, alpha=alpha,
+                                        out_dtype=out_dtype)
+        launches["gemm_tn_fused"] += 1
+        return c
+    return _gemm_tn.gemm_tn_fused_plain(a_blocks, b_blocks, tables, alpha=alpha,
+                                        out_dtype=out_dtype)
+
+
+def syrk_gather(a_blocks, rows, cols, *, alpha: float = 1.0, blocks=None,
+                out_dtype=torch.float32):
+    """Dense ``alpha·ÂᵀÂ`` of every gathered leaf ``Â = a_blocks[rows[s],
+    cols[s]]`` in ONE launch: ``(R, C, [B,] mL, nL)`` → ``(S, [B,] nL,
+    nL)``, each tile bitwise symmetric. ``blocks`` is accepted for
+    signature parity."""
+    del blocks
+    if on_cuda(a_blocks):
+        c = _syrk.syrk_gather_cuda(a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
+        launches["syrk_gather"] += 1
+        return c
+    return _syrk.syrk_gather_plain(a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
 
 
 def potrf(a, *, out_dtype=torch.float32):

@@ -11,6 +11,12 @@ grid enumerates them as ``t = i(i+1)/2 + j`` and recovers ``(i, j)`` with
   blocks[1])``, returned by :mod:`repro_torch.kernels.ops` as a
   :class:`~repro_torch.core.symmetric.SymmetricMatrix`; diagonal tiles are
   ``sym_tile``'d, pad entries are zero.
+
+``syrk_gather`` (port of ``syrk_gather_pallas``, same kernel file) is the
+dense mode over gathered leaves: ``C[s] = alpha·ÂᵀÂ`` with ``Â =
+a_blocks[rows[s], cols[s]]`` of a block-major grid ``(R, C, [B,] mL, nL)``.
+Each stack entry starts at its own element offset, computed on the host,
+so the ``(S, …)`` stack of the batched dispatch is never copied.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
 
-__all__ = ["tri_coords", "syrk_plain", "syrk_cuda"]
+__all__ = ["tri_coords", "syrk_plain", "syrk_cuda", "syrk_gather_plain", "syrk_gather_cuda"]
 
 
 def tri_coords(t):
@@ -90,4 +96,56 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
         err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
                            float(alpha), int(out == "packed"), bn, stream)
     _build.check(err, "syrk")
+    return c
+
+
+def _gather_index(a_blocks, rows, cols):
+    if a_blocks.ndim not in (4, 5):
+        raise ValueError(f"bad gathered block grid: {tuple(a_blocks.shape)}")
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    if rows.ndim != 1 or rows.shape != cols.shape:
+        raise ValueError(f"gather tables must be two (S,) arrays, got {rows.shape}, {cols.shape}")
+    R, C = a_blocks.shape[:2]
+    if rows.size and (rows.min() < 0 or rows.max() >= R or cols.min() < 0 or cols.max() >= C):
+        raise ValueError(f"gather tables index outside the ({R}, {C}) block grid")
+    return rows, cols
+
+
+def syrk_gather_plain(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torch.float32):
+    """Plain PyTorch gathered syrk: stack the leaves, then :func:`syrk_plain`
+    dense. Returns ``(S, [B,] nL, nL)``."""
+    rows, cols = _gather_index(a_blocks, rows, cols)
+    dev = a_blocks.device
+    stacked = a_blocks[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)]
+    out = syrk_plain(stacked.reshape(-1, *stacked.shape[-2:]), alpha=alpha, out_dtype=out_dtype)
+    return out.reshape(*stacked.shape[:-2], *out.shape[-2:])
+
+
+def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torch.float32):
+    """Launch the gathered entry of ``csrc/syrk.cu`` once on the current
+    stream: the dense syrk grid with a per-entry base offset."""
+    from repro_torch.kernels import _build
+
+    rows, cols = _gather_index(a_blocks, rows, cols)
+    if a_blocks.dtype != torch.float32 or out_dtype != torch.float32:
+        raise TypeError(f"syrk_gather kernel takes and writes float32, got "
+                        f"{a_blocks.dtype} -> {out_dtype}")
+    if a_blocks.stride(-1) != 1 and a_blocks.shape[-1] > 1:
+        raise ValueError("syrk_gather kernel needs a unit column stride")
+    m, n = a_blocks.shape[-2:]
+    S = rows.shape[0]
+    batch = a_blocks.shape[2] if a_blocks.ndim == 5 else 1
+    if min(S, batch, m, n) == 0:
+        raise ValueError(f"syrk_gather kernel takes no empty operand: {tuple(a_blocks.shape)}")
+    sab = a_blocks.stride(2) if a_blocks.ndim == 5 else 0
+    dev = a_blocks.device
+    off = torch.as_tensor(rows * a_blocks.stride(0) + cols * a_blocks.stride(1), device=dev)
+    lead = (S, batch) if a_blocks.ndim == 5 else (S,)
+    c = torch.empty((*lead, n, n), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S, batch,
+                                  m, n, sab, a_blocks.stride(-2), float(alpha), stream)
+    _build.check(err, "syrk_gather")
     return c

@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ata, strassen_tn
+from repro_torch.core import ata, ata_batched, strassen_tn
+from repro_torch.core.ata import _level_tables
+from repro_torch.core.strassen import _pad_root, _slot_tables, _to_blocks
 from repro_torch.kernels import ops
-from repro_torch.kernels.gemm_tn import gemm_tn_plain
+from repro_torch.kernels.gemm_tn import combine_fused_operands, gemm_tn_fused_plain, gemm_tn_plain
 from repro_torch.kernels.potrf import potrf_plain
-from repro_torch.kernels.syrk import syrk_plain
+from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain
 from repro_torch.kernels.trsm import trsm_plain
 from repro_torch.solve import cholesky, lstsq
 
@@ -129,10 +131,89 @@ def test_lstsq_runs_every_kernel(dev):
     ops.reset_launches()
     x = lstsq(a, b, ridge=1e-3)
     torch.cuda.synchronize()
-    assert min(ops.launches.values()) > 0, ops.launches
+    assert min(ops.launches[k] for k in ("syrk", "gemm_tn", "potrf", "trsm")) > 0, ops.launches
     ad = a.double()
     x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1100, device=dev, dtype=torch.float64),
                              ad.T @ b.double())
     assert float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)) <= 1e-3
     g = ata(a, out="packed").add_scaled_identity(1.0)
     assert torch.equal(cholesky(g).blocks, cholesky(g.to_dense(), packed_block=128).blocks)
+
+
+def _fused_vs_gemm_tn(ab, tables, alpha):
+    """The fused launch against its plain version, and bitwise against
+    gemm_tn on the materialized combined operands."""
+    got = ops.gemm_tn_fused(ab, ab, tables, alpha=alpha)
+    _close(got, gemm_tn_fused_plain(ab, ab, tables, alpha=alpha), ab.shape[-2])
+    xa, xb = (combine_fused_operands(ab, *t) for t in tables)
+    want = ops.gemm_tn(xa.reshape(-1, *xa.shape[-2:]), xb.reshape(-1, *xb.shape[-2:]),
+                       alpha=alpha)
+    assert torch.equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("shape,L,lev", [((512, 512), 2, 1), ((3, 1000, 520), 2, 1),
+                                         ((2, 700, 390), 3, 1), ((700, 390), 3, 2)])
+def test_gemm_tn_fused_kernel_ata_levels(dev, shape, L, lev):
+    """ATA level launches over the root grid: ragged leaves (130, 49 or 98
+    columns), a batch of 2 or 3."""
+    rng = np.random.default_rng(sum(shape) + lev)
+    ab = _to_blocks(_pad_root(_t(rng, shape, dev), L), L)[None]
+    _fused_vs_gemm_tn(ab, _level_tables(L, lev), -2.0)
+
+
+@pytest.mark.parametrize("L", [0, 1, 2, 3, 4, 5])
+def test_gemm_tn_fused_kernel_every_slot_count(dev, L):
+    """Strassen slot tables with W = 1 … 32: every instantiation of the kernel."""
+    rng = np.random.default_rng(L)
+    ab = _to_blocks(_t(rng, (9 << L, 5 << L), dev), L)[None]
+    _fused_vs_gemm_tn(ab, _slot_tables(L), 1.0)
+
+
+@pytest.mark.parametrize("shape,L", [((512, 512), 2), ((2, 1000, 520), 2), ((300, 700), 1)])
+def test_syrk_gather_kernel_matches_plain(dev, shape, L):
+    rng = np.random.default_rng(sum(shape))
+    ab = _to_blocks(_pad_root(_t(rng, shape, dev), L), L)
+    R = 1 << L
+    for rows, cols in ((np.arange(R * R) % R, np.arange(R * R) // R),
+                       (rng.integers(0, R, 5), rng.integers(0, R, 5))):
+        got = ops.syrk_gather(ab, rows, cols, alpha=0.5)
+        _close(got, syrk_gather_plain(ab, rows, cols, alpha=0.5), ab.shape[-2])
+        stacked = ab[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)]
+        want = ops.syrk(stacked.reshape(-1, *ab.shape[-2:]), alpha=0.5)
+        assert torch.equal(got, want.reshape(got.shape))
+        assert torch.equal(got, got.transpose(-1, -2))
+
+
+def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
+    grid = torch.zeros(1, 2, 2, 8, 8, device=dev)
+    with pytest.raises(TypeError):
+        ops.gemm_tn_fused(grid.double(), grid.double(), _slot_tables(1))
+    wide = ((np.zeros((1, 64), np.int32),) * 2 + (np.ones((1, 64), np.int32),),) * 2
+    with pytest.raises(ValueError):
+        ops.gemm_tn_fused(grid, grid, wide)                 # 64 slots: not instantiated
+    with pytest.raises(TypeError):
+        ops.syrk_gather(grid[0].double(), np.array([0]), np.array([0]))
+
+
+def test_ata_fused_bitwise_on_card(dev):
+    """An odd shape at the default n_base (L = 2): the three dispatches agree
+    bitwise; fused launches only the fused kernels, once per level and once."""
+    rng = np.random.default_rng(3)
+    a = _t(rng, (3000, 2000), dev)
+    out = {}
+    for ld in ("unrolled", "batched", "fused"):
+        ops.reset_launches()
+        out[ld] = ata(a, n_base=512, out="packed", leaf_dispatch=ld)
+        torch.cuda.synchronize()
+        if ld == "fused":
+            assert ops.launches == {"syrk": 0, "gemm_tn": 0, "gemm_tn_fused": 2,
+                                    "syrk_gather": 1, "potrf": 0, "trsm": 0}, ops.launches
+    assert torch.equal(out["unrolled"].blocks, out["batched"].blocks)
+    assert torch.equal(out["unrolled"].blocks, out["fused"].blocks)
+    ab = _t(rng, (2, 300, 260), dev)
+    assert torch.equal(ata_batched(ab, n_base=64), ata_batched(ab, n_base=64, leaf_dispatch="fused"))
+    x, y = _t(rng, (700, 520), dev), _t(rng, (700, 390), dev)
+    ops.reset_launches()
+    f = strassen_tn(x, y, n_base=64, leaf_dispatch="fused")
+    assert ops.launches["gemm_tn_fused"] == 1 and ops.launches["gemm_tn"] == 0
+    assert torch.equal(strassen_tn(x, y, n_base=64), f)

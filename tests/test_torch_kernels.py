@@ -145,7 +145,12 @@ def test_cpu_wrappers_launch_nothing():
     ops.gemm_tn(a, a)
     l = ops.potrf(ops.syrk(a) + 24 * torch.eye(24))
     ops.trsm(l, a)
-    assert ops.launches == {"syrk": 0, "gemm_tn": 0, "potrf": 0, "trsm": 0}
+    grid = a.reshape(2, 8, 2, 12).movedim(2, 1)
+    ops.gemm_tn_fused(grid[None], grid[None], ((np.zeros((1, 1), np.int32),) * 2
+                                               + (np.ones((1, 1), np.int32),),) * 2)
+    ops.syrk_gather(grid, np.array([0, 1]), np.array([1, 0]))
+    assert ops.launches == {"syrk": 0, "gemm_tn": 0, "gemm_tn_fused": 0, "syrk_gather": 0,
+                            "potrf": 0, "trsm": 0}
 
 
 def test_wrapper_shape_errors():

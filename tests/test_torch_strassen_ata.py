@@ -187,11 +187,13 @@ def test_tree_depth_and_leaf_counts():
 
 
 def test_unported_options_raise():
+    """Options the port refuses: the fused dispatch with the Winograd
+    variant (as the reference does), and unknown names."""
     a = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ata(a, n_base=4, leaf_dispatch="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        strassen_tn(a, a, n_base=4, leaf_dispatch="fused")
+    with pytest.raises(ValueError, match="fused"):
+        ata(a, n_base=4, variant="winograd", leaf_dispatch="fused")
+    with pytest.raises(ValueError, match="fused"):
+        strassen_tn(a, a, n_base=4, variant="winograd", leaf_dispatch="fused")
     with pytest.raises(ValueError):
         ata(a, leaf_dispatch="nope")
     with pytest.raises(ValueError):
