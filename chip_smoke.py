@@ -13,7 +13,11 @@ phase fails):
              inputs (tolerance ``8·√k·eps·max|ref|``), timed beside the
              plain version and one PyTorch library call;
              The fused kernels are also held bitwise against ``gemm_tn`` /
-             ``syrk`` on the materialized combined / stacked operands;
+             ``syrk`` on the materialized combined / stacked operands,
+             gemm_tn_fused at each level of ata 8192² with its rate; potrf
+             on stacks of n ∈ {1, 33, 104, 128, 256}; and a line of
+             registers, shared memory and occupancy of the two redesigned
+             kernels (gemm_tn_fused, potrf);
 3. ata     — ``ata(a, out="packed")`` at ``a: 8192×8192`` float32 under the
              unrolled, batched and fused leaf dispatch: bitwise equal to
              each other, each with its exact kernel launch counts and peak
@@ -82,6 +86,23 @@ def time_ms(fn, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 50) -> float:
+    """Device time of one ``fn()``: ``launches`` calls captured in a CUDA
+    graph, replayed, median over five replays, divided by ``launches`` — no
+    host time between launches."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+    return time_ms(graph.replay) / launches
+
+
 def bound(flops: float, nbytes: float):
     """(least time in ms, what bounds it) for the work on an H100."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -130,6 +151,7 @@ def phase_kernels(checks, ops, plain):
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.core.reference import classical_gemm_flops, potrf_flops, trsm_flops
     from repro_torch.core.symmetric import default_block_size
 
@@ -192,6 +214,7 @@ def phase_kernels(checks, ops, plain):
     del a, packed, ref
 
     phase_fused_kernels(checks, ops, plain, rng)
+    phase_fused_levels(checks, ops, rng)
 
     # potrf: the walk's single 128 tile, and stacks of 128 and 104 tiles
     s1 = spd_tiles(rng, 1, 128)[0]
@@ -199,18 +222,24 @@ def phase_kernels(checks, ops, plain):
     err = checks.compare("potrf (128,128)", got, ref, 128)
     if torch.triu(got, 1).any():
         raise AssertionError("potrf: strict upper half not zero")
-    for nb_, n_ in ((32, 128), (32, 104)):
+    for nb_, n_ in ((32, 128), (32, 104), (16, 1), (16, 33), (8, 256)):
         s = spd_tiles(rng, nb_, n_)
-        checks.compare(f"potrf ({nb_},{n_},{n_})", ops.potrf(s), plain["potrf"](s), n_)
+        got_s = ops.potrf(s)
+        checks.compare(f"potrf ({nb_},{n_},{n_})", got_s, plain["potrf"](s), n_)
+        if torch.triu(got_s, 1).any():
+            raise AssertionError(f"potrf ({nb_},{n_},{n_}): strict upper half not zero")
     ms = time_ms(lambda: ops.potrf(s1), runs=20)
     plain_ms = time_ms(lambda: plain["potrf"](s1))
     lib_ms = time_ms(lambda: torch.linalg.cholesky(s1), runs=20)
+    device_ms = graph_ms(lambda: ops.potrf(s1))
     bms, by = bound(potrf_flops(128), 4 * 2 * 128 * 128)
     checks.rows["potrf"] = dict(
         shape="(128,128)", max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by, device_ms=device_ms,
+        resources={n_: _build.resources("potrf_info", n_) for n_ in (128, 256)})
     log(f"  potrf ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bms:.6f} ({by})")
+        f"bound_ms={bms:.6f} ({by}) device_ms={device_ms:.4f} (CUDA graph of 50 launches)")
+    log("  resources potrf " + json.dumps(checks.rows["potrf"]["resources"]))
 
     # trsm: the panel (31 panels against one expanded factor), both
     # transposes, and the substitutions' r = 8 row panel
@@ -252,6 +281,7 @@ def phase_fused_kernels(checks, ops, plain, rng):
     from repro_torch.core.ata import _level_tables
     from repro_torch.core.reference import classical_gemm_flops
     from repro_torch.core.strassen import _to_blocks
+    from repro_torch.kernels import _build
     from repro_torch.kernels.gemm_tn import combine_fused_operands
 
     def live_blocks(rows, cols, sgn):
@@ -285,7 +315,10 @@ def phase_fused_kernels(checks, ops, plain, rng):
     bms, by = bound(flops, nbytes)
     checks.rows["gemm_tn_fused"] = dict(
         shape=f"ata 8192² level 1: root grid (16,16,512,512), {leaves} leaves, W=8",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        resources={w: _build.resources("gemm_tn_fused_info", w) for w in (1, 2, 4, 8, 16, 32)})
+    log("  resources gemm_tn_fused (by slot count W) "
+        + json.dumps(checks.rows["gemm_tn_fused"]["resources"]))
     log(f"  gemm_tn_fused ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
         f"(torch.bmm on the combined stacks) bound_ms={bms:.3f} ({by}) "
         f"rate={flops / ms / 1e9:.2f} TFLOP/s")
@@ -335,6 +368,39 @@ def phase_fused_kernels(checks, ops, plain, rng):
     if not torch.equal(got.reshape(D.shape[0], 130, 130), ops.syrk(D)):
         raise AssertionError("syrk_gather ragged != syrk on the stacked leaves")
     log("  ragged batched cases == gemm_tn / syrk on materialized operands: bitwise")
+
+
+def phase_fused_levels(checks, ops, rng):
+    """gemm_tn_fused at each of the four levels of ata 8192² (W = 8, 4, 2,
+    1), bitwise against gemm_tn on that level's materialized combined
+    operands, both timed, with the fused launch's rate."""
+    import torch
+
+    from repro_torch.core.ata import _level_tables
+    from repro_torch.core.reference import classical_gemm_flops
+    from repro_torch.core.strassen import _to_blocks
+    from repro_torch.kernels.gemm_tn import combine_fused_operands
+
+    a = cuda_tensor(rng, (8192, 8192))
+    ab = _to_blocks(a, 4)[None]
+    levels = {}
+    for lev in range(1, 5):
+        tables = _level_tables(4, lev)
+        leaves, w = tables[0][0].shape
+        xa = combine_fused_operands(ab, *tables[0])
+        xb = combine_fused_operands(ab, *tables[1])
+        if not torch.equal(ops.gemm_tn_fused(ab, ab, tables), ops.gemm_tn(xa, xb)):
+            raise AssertionError(f"gemm_tn_fused level {lev} != gemm_tn on the combined operands")
+        ms = time_ms(lambda: ops.gemm_tn_fused(ab, ab, tables))
+        tn_ms = time_ms(lambda: ops.gemm_tn(xa, xb))
+        rate = leaves * classical_gemm_flops(512, 512, 512) / ms / 1e9
+        levels[lev] = dict(leaves=leaves, W=w, ms=ms, gemm_tn_ms=tn_ms, tflops=rate)
+        log(f"  gemm_tn_fused level {lev} ({leaves} leaves, W={w}) == gemm_tn on the combined "
+            f"operands: bitwise; ms={ms:.3f} gemm_tn_ms={tn_ms:.3f} "
+            f"ratio={ms / tn_ms:.2f} rate={rate:.2f} TFLOP/s")
+        del xa, xb
+        torch.cuda.empty_cache()
+    checks.rows["gemm_tn_fused"]["levels"] = levels
 
 
 def phase_ata(ops):
@@ -440,7 +506,14 @@ def phase_strassen(ops):
     if not torch.equal(out["unrolled"], out["fused"]):
         raise AssertionError("strassen_tn: fused differs from unrolled")
     log("  unrolled == fused: bitwise")
-    return dict(unrolled_ms=times["unrolled"], fused_ms=times["fused"])
+    # the fused dispatch's one launch alone: 343 leaves of 512³, W = 8
+    from repro_torch.core.strassen import _slot_tables, _to_blocks
+
+    ab, bb, tables = _to_blocks(a, 3)[None], _to_blocks(b, 3)[None], _slot_tables(3)
+    kernel_ms = time_ms(lambda: ops.gemm_tn_fused(ab, bb, tables))
+    log(f"  gemm_tn_fused launch alone (343 leaves, W=8): ms={kernel_ms:.3f}")
+    return dict(unrolled_ms=times["unrolled"], fused_ms=times["fused"],
+                gemm_tn_fused_ms=kernel_ms)
 
 
 def phase_lstsq(ops):

@@ -11,89 +11,327 @@
 // into element offsets of the caller's block grid, so the grid is read as the
 // view it is (the root-padded operand) and no operand stack is written.
 //
-// What bounds it on the H100: operations. The level-1 launch of ata 8192^2 is
-// 686 leaves of 512^3 (184 GFLOP) on 0.27 GB of input; the ceiling is the
-// 67 TFLOP/s of the float32 FMA units.
+// Contracts. Every output is one fmaf chain over l = 0, 1, ..., m-1 in
+// depth-8 slabs, exactly gemm_tn's (tn_tile.cuh), and every combined element
+// is the pairwise __fadd_rn tree of core.strassen._combine_slots (span 1, 2,
+// 4, ...; a dead, sign-0 slot passes its partner through; sign -1 negates).
+// The kernel is therefore bitwise equal to gemm_tn on the materialized
+// combined operands. That rules out the tensor cores (wgmma sums in its own
+// order): this is a float32 FMA kernel.
 //
-// What the design does about it: the CTA, tile and slab loop are gemm_tn's
-// (tn_tile_with in tn_tile.cuh), so every output is the same single fmaf
-// chain over l; only the element fetch differs. It loads the W slot values
-// of an element, negates those of sign -1, and adds them pairwise in the
-// order of core.strassen._combine_slots: span 1, 2, 4, ..., a dead (sign-0)
-// slot passing its partner through. __fadd_rn keeps each add a separately
-// rounded IEEE add. The combined element is therefore bitwise the value the
-// unrolled recursion's elementwise adds produce, and the product bitwise
-// gemm_tn's on the pre-combined operands. The price is W loads per element
-// (served mostly from L2: the slots of neighbouring leaves overlap).
+// What bounds it on the H100. The FMA work is gemm_tn's (the level-1 launch
+// of ata 8192^2 is 686 leaves of 512^3, 184 GFLOP, 2.75 ms at the 67 TFLOP/s
+// float32 peak), so operations bound it; what the first version lost was the
+// combine: each of the 16 CTAs of a 512^2 leaf summed its own X and Y
+// stripes from all W slot blocks (686 x 16 x 4 MiB = 46 GB through L2 at
+// level 1), the W loads went through registers (178 of them, one CTA per
+// SM) and nothing hid their latency; the per-element fetch also re-read the
+// slot table.
+//
+// What this design does about it:
+// * Thread block clusters. The X stripe of a tile row is needed by every CTA
+//   of that row, the Y stripe of a tile column by every CTA of that column.
+//   In a C x C cluster each CTA combines 1/C of its X stripe and of its Y
+//   stripe per stage and stores the combined values into the stage buffer
+//   of every CTA that needs them: its own shared memory and, through
+//   distributed shared memory (cooperative_groups::this_cluster()
+//   .map_shared_rank), its partners'. A stripe is so combined once per
+//   cluster. W >= 4 runs 4 x 4 clusters (a whole 512^2 leaf; 16 CTAs is the
+//   H100's non-portable cluster size): level 1 moves 11.5 GB through L2
+//   instead of 46. W = 2 runs 2 x 2 clusters. W = 1 has nothing to combine
+//   and runs without a cluster (C = 1), each CTA copying its own stripes.
+// * An async copy ring. The raw slot slabs of a thread's share arrive by
+//   cp.async (16 B copies where every offset is 16 B aligned, as the root
+//   grid's always are; 4 B copies otherwise) into a ring of up to 4 stages
+//   in dynamic shared memory, kStages - 1 stages ahead. Each thread copies
+//   exactly the W raw quads it later combines, so the ring needs no block
+//   barrier: cp.async.wait_group orders a thread's own copies.
+// * One barrier per stage of R = 2 depth-8 slabs (R = 1 at W = 1). In a
+//   cluster it is split into arrive (after the combine of stage s+1) and
+//   wait (after the multiply of stage s), which hides the barrier's latency
+//   behind the FMA loop; three combined buffers make the split safe (a CTA
+//   writing stage s+1 into a partner may find it still multiplying stage s,
+//   never stage s-2). A CTA alone (W = 1) multiplies, then meets one
+//   __syncthreads, with two buffers.
+// * The ring depth is the deepest (at most 4) that lets two CTAs share an
+//   SM; __launch_bounds__ then holds registers at 128. At W = 8 that is two
+//   stages of two slabs (four depth-8 slabs): stage s+1 is in flight while s
+//   is combined and s-1 multiplied. W = 16 and 32 fit one CTA an SM, with a
+//   ring of two stages and of one.
+// * The slot base pointers and signs are computed once per leaf entry into
+//   shared memory; a copy is one pointer add. The combine is a compile-time
+//   tree over W, so W = 32 keeps log2(W) + 1 partial sums live, not 32.
+// * Ragged edges: the grid is rounded up to whole clusters; a CTA whose tile
+//   lies beyond the edge still copies and combines its share (its partners
+//   need it) and arrives at every cluster barrier; it only writes nothing.
+//   Rows at or beyond m and columns at or beyond the limit combine to 0, and
+//   the multiply runs exactly gemm_tn's depth-8 slabs, so the zero rows past
+//   m are the same. Entries stride over gridDim.z <= 65535; a cluster's CTAs
+//   share blockIdx.z.
+//
+// The shape per W (cluster edge, slabs a stage) was chosen by measurement
+// on the H100 among no cluster, 2 x 2 and 4 x 4 clusters and 1 or 2 slabs a
+// stage (tools/fused_shapes.py). Resources (nvcc -Xptxas -v and
+// chip_smoke.py's resources line, from cudaFuncGetAttributes and
+// cudaOccupancyMaxActiveClusters) and times: PERF.md.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "tn_tile.cuh"
 
 namespace repro_torch {
+namespace fused {
 
-// One fused operand of the current leaf: W slot offsets and signs, held in
-// shared memory for the CTA.
-template <int W>
-struct SlotSum {
-  const float* p;        // grid base plus the batch entry's offset
-  const long long* off;  // W element offsets
-  const int* sgn;        // W signs in {-1, 0, +1}
-  long long ld;          // row stride
+namespace cg = cooperative_groups;
 
-  __device__ __forceinline__ float operator()(int l, int col) const {
-    const long long idx = (long long)l * ld + col;
-    float v[W];
-    bool live[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const int s = sgn[w];
-      live[w] = s != 0;
-      const float x = live[w] ? p[off[w] + idx] : 0.0f;
-      v[w] = s < 0 ? -x : x;
-    }
-#pragma unroll
-    for (int span = 1; span < W; span *= 2) {
-#pragma unroll
-      for (int i = 0; i < W; i += 2 * span) {
-        if (live[i] && live[i + span]) {
-          v[i] = __fadd_rn(v[i], v[i + span]);
-        } else if (live[i + span]) {
-          v[i] = v[i + span];
-        }
-        live[i] = live[i] || live[i + span];
-      }
-    }
-    return v[0];
-  }
+// Shared-memory plan of one CTA for W slots, a C x C cluster and R depth-8
+// slabs per stage (one barrier a stage). In a cluster (C > 1) the barrier's
+// arrive comes before the multiply and wait after it, which needs three
+// combined buffers; a CTA alone meets one __syncthreads after it, with two.
+template <int W, int C, int R>
+struct Plan {
+  static constexpr int kRows = kDepth * R;                // slab rows of one stage
+  static constexpr int kCols = kTile / C;                 // stripe columns a CTA combines
+  static constexpr int kQuads = kCols / 4;                // float4 per stage row
+  static constexpr int kSideQuads = kRows * kQuads;       // float4 per side per stage
+  static constexpr int kAllQuads = 2 * kSideQuads;
+  static constexpr int kQuadsPerThread = (kAllQuads + kThreads - 1) / kThreads;
+  static constexpr int kRawFloats = 2 * W * kRows * kCols;  // one raw stage, both sides
+  static constexpr int kBufs = C > 1 ? 3 : 2;             // combined stage buffers
+  static constexpr int kBufFloats = 2 * kRows * kTile;    // X and Y of one combined stage
+  static constexpr int bytes(int stages) { return (stages * kRawFloats + kBufs * kBufFloats) * 4; }
+  // The deepest ring (4 stages at most) that lets two CTAs share an SM, or
+  // failing that the deepest that fits one CTA.
+  static constexpr int kPair = 112 * 1024, kAlone = 220 * 1024;
+  static constexpr int kStages = bytes(4) <= kPair ? 4 : bytes(3) <= kPair ? 3
+                               : bytes(2) <= kPair ? 2 : bytes(4) <= kAlone ? 4
+                               : bytes(3) <= kAlone ? 3 : bytes(2) <= kAlone ? 2 : 1;
+  static constexpr int kSmemBytes = bytes(kStages);
+  static constexpr int kMinBlocks = kSmemBytes <= kPair ? 2 : 1;
+  static_assert(kSmemBytes <= kAlone, "shared memory of one CTA");
 };
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// A partial sum of the slot tree: its value and whether any slot under it
+// is live.
+struct Part {
+  float4 v;
+  bool live;
+};
+
+// The tree over slots [w0, w0 + N): the left half, then the right half, then
+// one add — the pairwise order of core.strassen._combine_slots.
+template <int N>
+__device__ __forceinline__ Part slot_tree(const float* raw, int slot_stride, const int* sgn,
+                                          int w0) {
+  if constexpr (N == 1) {
+    const int s = sgn[w0];
+    Part p{make_float4(0.f, 0.f, 0.f, 0.f), s != 0};
+    if (p.live) {
+      const float4 x = *reinterpret_cast<const float4*>(raw + w0 * slot_stride);
+      p.v = s < 0 ? make_float4(-x.x, -x.y, -x.z, -x.w) : x;
+    }
+    return p;
+  } else {
+    Part l = slot_tree<N / 2>(raw, slot_stride, sgn, w0);
+    const Part r = slot_tree<N / 2>(raw, slot_stride, sgn, w0 + N / 2);
+    if (l.live && r.live) {
+      l.v = make_float4(__fadd_rn(l.v.x, r.v.x), __fadd_rn(l.v.y, r.v.y),
+                        __fadd_rn(l.v.z, r.v.z), __fadd_rn(l.v.w, r.v.w));
+    } else if (r.live) {
+      l.v = r.v;
+    }
+    l.live = l.live || r.live;
+    return l;
+  }
+}
+
+template <int W, int C, int R>
+__global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
     gemm_tn_fused_kernel(const float* __restrict__ a, const float* __restrict__ b,
                          const long long* __restrict__ off, const int* __restrict__ sgn,
                          float* __restrict__ c, int leaves, int inner, int m, int n, int k,
-                         long long sab, long long lda, long long sbb, long long ldb,
-                         float alpha) {
-  __shared__ __align__(16) TnSmem sm;
-  __shared__ long long s_off[2][W];
+                         long long sab, long long lda, long long sbb, long long ldb, float alpha,
+                         int vec16) {
+  using P = Plan<W, C, R>;
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                                   // [kStages][2][W][kRows][kCols]
+  float* bufs = smem + P::kStages * P::kRawFloats;     // [kBufs][2][kRows][kTile]
+  __shared__ const float* s_base[2][W];                // slot bases of this entry
   __shared__ int s_sgn[2][W];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const dim3 cidx = cluster.block_index();             // (cx, cy, 0) inside the cluster
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.y * kTile;  // rows of C = columns of the X leaf
   const int c0 = blockIdx.x * kTile;  // columns of C = columns of the Y leaf
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  // A quad of the CTA's share: side 0 is X (the stripe of tile row
+  // blockIdx.y, split over the cluster's x), side 1 is Y (the stripe of tile
+  // column blockIdx.x, split over the cluster's y). Thread tid owns quads
+  // tid, tid + kThreads, ...
+  struct Quad {
+    int side, rr, scol, col, lim;
+    long long ld;
+  };
+  auto quad = [&](int qi) {
+    Quad q;
+    q.side = qi / P::kSideQuads;
+    q.rr = (qi % P::kSideQuads) / P::kQuads;
+    const int part = q.side == 0 ? cidx.x : cidx.y;
+    q.scol = part * P::kCols + 4 * (qi % P::kQuads);
+    q.col = (q.side == 0 ? r0 : c0) + q.scol;
+    q.lim = q.side == 0 ? n : k;
+    q.ld = q.side == 0 ? lda : ldb;
+    return q;
+  };
+
   const long long entries = (long long)leaves * inner;
+  const int stages = (m + P::kRows - 1) / P::kRows;
+  unsigned seq = 0;  // combined stages produced so far: selects the buffer
+
+  cluster_arrive();  // every CTA of the cluster runs before any remote store
+  cluster_wait();
   for (long long e = blockIdx.z; e < entries; e += gridDim.z) {
     const long long leaf = e / inner;
     const long long bt = e % inner;
-    if (threadIdx.x < 2 * W) {  // the block loads its own slot indices
-      const int side = threadIdx.x / W, w = threadIdx.x % W;
-      const long long i = ((long long)side * leaves + leaf) * W + w;
-      s_off[side][w] = off[i];
-      s_sgn[side][w] = sgn[i];
+    if (tid < 2 * W) {  // the slot bases of this entry, once
+      const int sd = tid / W, w = tid % W;
+      const long long i = ((long long)sd * leaves + leaf) * W + w;
+      s_sgn[sd][w] = sgn[i];
+      s_base[sd][w] = (sd == 0 ? a + bt * sab : b + bt * sbb) + off[i];
     }
     __syncthreads();
+
+    // Copy stage st of this thread's quads, all live slots, into ring slot
+    // st % kStages. One commit group per stage, empty or not.
+    auto copy_stage = [&](int st) {
+#pragma unroll
+      for (int u = 0; u < P::kQuadsPerThread; ++u) {
+        const int qi = tid + u * kThreads;
+        const Quad q = quad(qi);
+        const int l = st * P::kRows + q.rr;
+        const int avail = q.lim - q.col;
+        if (qi < P::kAllQuads && st < stages && l < m && avail > 0) {
+          float* d = raw + (st % P::kStages) * P::kRawFloats +
+                     ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
+          const long long roff = (long long)l * q.ld + q.col;
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            if (!s_sgn[q.side][w]) continue;
+            const float* src = s_base[q.side][w] + roff;
+            float* dw = d + w * P::kRows * P::kCols;
+            if (vec16) {
+              cp_async16(dw, src, 4 * (avail < 4 ? avail : 4));
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (j < avail) cp_async4(dw + j, src + j);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    for (int st = 0; st < P::kStages - 1; ++st) copy_stage(st);
     float acc[kMicro][kMicro];
-    tn_tile_with(SlotSum<W>{a + bt * sab, s_off[0], s_sgn[0], lda}, r0, n,
-                 SlotSum<W>{b + bt * sbb, s_off[1], s_sgn[1], ldb}, c0, k, m, sm, acc);
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = 0.0f;
+
+    for (int s = 0; s <= stages; ++s) {
+      if (s < stages) {  // combine stage s into buffer seq % kBufs of every sharer
+        copy_stage(s + P::kStages - 1);
+        cp_async_wait<P::kStages - 1>();
+        const int boff = (seq % P::kBufs) * P::kBufFloats;
+#pragma unroll
+        for (int u = 0; u < P::kQuadsPerThread; ++u) {
+          const int qi = tid + u * kThreads;
+          if (qi >= P::kAllQuads) continue;
+          const Quad q = quad(qi);
+          const float* src = raw + (s % P::kStages) * P::kRawFloats +
+                             ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
+          const Part t = slot_tree<W>(src, P::kRows * P::kCols, s_sgn[q.side], 0);
+          const int l = s * P::kRows + q.rr;
+          float4 v = (t.live && l < m) ? t.v : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (q.col + 0 >= q.lim) v.x = 0.0f;
+          if (q.col + 1 >= q.lim) v.y = 0.0f;
+          if (q.col + 2 >= q.lim) v.z = 0.0f;
+          if (q.col + 3 >= q.lim) v.w = 0.0f;
+          // the buffers of the C CTAs that share the stripe: the cluster
+          // row for X, the cluster column for Y
+          float* local = bufs + boff + (q.side * P::kRows + q.rr) * kTile + q.scol;
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            const unsigned rank = q.side == 0 ? j + cidx.y * C : cidx.x + j * C;
+            float* d = rank == cluster.block_rank() ? local : cluster.map_shared_rank(local, rank);
+            *reinterpret_cast<float4*>(d) = v;
+          }
+        }
+        ++seq;
+      }
+      if constexpr (C > 1) cluster_arrive();
+      if (s > 0) {  // multiply stage s-1: gemm_tn's depth-8 outer products
+        const unsigned prev = seq - 1 - (s < stages ? 1 : 0);  // stage s-1's buffer
+        const float* xs = bufs + (prev % P::kBufs) * P::kBufFloats;
+        const float* ys = xs + P::kRows * kTile;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          // only the depth-8 slabs gemm_tn runs: the same zero rows past m
+          if (((s - 1) * R + r) * kDepth >= m) break;
+#pragma unroll
+          for (int kk = r * kDepth; kk < (r + 1) * kDepth; ++kk) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&xs[kk * kTile + ty * 8]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&xs[kk * kTile + ty * 8 + 4]);
+            const float4 b0 = *reinterpret_cast<const float4*>(&ys[kk * kTile + tx * 8]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&ys[kk * kTile + tx * 8 + 4]);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+              for (int jj = 0; jj < kMicro; ++jj)
+                acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
+          }
+        }
+      }
+      if constexpr (C > 1) {
+        cluster_wait();
+      } else {
+        __syncthreads();  // a CTA alone: the block barrier is the whole barrier
+      }
+    }
+
     float* ce = c + e * n * k;
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii) {
@@ -105,41 +343,143 @@ __global__ void __launch_bounds__(kThreads)
         if (j < k) ce[(long long)i * k + j] = alpha * acc[ii][jj];
       }
     }
-    __syncthreads();  // the next entry reuses the shared buffers and slot tables
+    // The next entry's slot bases overwrite s_base only after the cluster
+    // barrier above, which every thread of this CTA passed after its last
+    // read of them.
   }
 }
 
-template <int W>
-static int launch(dim3 grid, cudaStream_t stream, const float* a, const float* b,
-                  const long long* off, const int* sgn, float* c, int leaves, int inner, int m,
-                  int n, int k, long long sab, long long lda, long long sbb, long long ldb,
-                  float alpha) {
-  gemm_tn_fused_kernel<W><<<grid, kThreads, 0, stream>>>(a, b, off, sgn, c, leaves, inner, m, n,
-                                                         k, sab, lda, sbb, ldb, alpha);
+// Sets the kernel's attributes (once per device; they hold for every later
+// launch) and fills the launch configuration of a grid of ceil(k/128) x
+// ceil(n/128) tiles rounded up to whole clusters.
+template <int W, int C, int R>
+static cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int n, int k,
+                             long long entries, cudaStream_t stream) {
+  using P = Plan<W, C, R>;
+  constexpr int kDevices = 64;
+  static bool attributes_set[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kDevices || !attributes_set[device]) {
+    err = cudaFuncSetAttribute(gemm_tn_fused_kernel<W, C, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
+    if (err == cudaSuccess && C * C > 8)
+      err = cudaFuncSetAttribute(gemm_tn_fused_kernel<W, C, R>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    if (device < kDevices) attributes_set[device] = true;
+  }
+  const int tiles_k = (k + kTile - 1) / kTile, tiles_n = (n + kTile - 1) / kTile;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((tiles_k + C - 1) / C * C, (tiles_n + C - 1) / C * C,
+                     static_cast<unsigned>(entries < 65535 ? entries : 65535));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = P::kSmemBytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = C;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int W, int C, int R>
+static int launch(cudaStream_t stream, const float* a, const float* b, const long long* off,
+                  const int* sgn, float* c, int leaves, int inner, int m, int n, int k,
+                  long long sab, long long lda, long long sbb, long long ldb, float alpha,
+                  int vec16) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<W, C, R>(cfg, attr, n, k, (long long)leaves * inner, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, gemm_tn_fused_kernel<W, C, R>, a, b, off, sgn, c, leaves, inner, m,
+                           n, k, sab, lda, sbb, ldb, alpha, vec16);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out: registers per thread, static shared bytes, dynamic shared bytes,
+// local (spill) bytes, resident CTAs per SM, resident clusters on the card,
+// ring stages, cluster edge, depth-8 slabs a stage.
+template <int W, int C, int R>
+static int info(int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<W, C, R>(cfg, attr, 512, 512, 1, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, gemm_tn_fused_kernel<W, C, R>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_tn_fused_kernel<W, C, R>,
+                                                      kThreads, Plan<W, C, R>::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveClusters(&clusters, gemm_tn_fused_kernel<W, C, R>, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = Plan<W, C, R>::kSmemBytes;
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  out[4] = per_sm;
+  out[5] = clusters;
+  out[6] = Plan<W, C, R>::kStages;
+  out[7] = C;
+  out[8] = R;
+  return 0;
+}
+
+}  // namespace fused
 }  // namespace repro_torch
+
+namespace {
+// The shape each slot count runs with: cluster edge and depth-8 slabs a
+// stage (measured on the H100 by tools/fused_shapes.py, see PERF.md).
+template <int W>
+struct Shape {
+  static constexpr int C = W == 1 ? 1 : W == 2 ? 2 : 4;
+  static constexpr int R = W == 1 ? 1 : 2;
+};
+}  // namespace
 
 // off: (2, leaves, w) int64 element offsets (A side, then B side); sgn: the
 // same shape in int32. c: (leaves, inner, n, k). w is 1, 2, 4, 8, 16 or 32.
+// vec16: every slot base, batch stride and row stride is a multiple of 4
+// floats from a 16 B aligned pointer, so the raw slabs copy in 16 B quads.
 extern "C" int gemm_tn_fused_f32(const float* a, const float* b, const long long* off,
                                  const int* sgn, float* c, int leaves, int inner, int w, int m,
                                  int n, int k, long long sab, long long lda, long long sbb,
-                                 long long ldb, float alpha, void* stream) {
-  using repro_torch::kTile;
-  using repro_torch::launch;
-  const long long entries = (long long)leaves * inner;
-  dim3 grid((k + kTile - 1) / kTile, (n + kTile - 1) / kTile,
-            static_cast<unsigned>(entries < 65535 ? entries : 65535));
+                                 long long ldb, float alpha, int vec16, void* stream) {
+  using repro_torch::fused::launch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FUSED_CASE(W)                                                                     \
+  case W:                                                                                       \
+    return launch<W, Shape<W>::C, Shape<W>::R>(s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, \
+                                               lda, sbb, ldb, alpha, vec16);
   switch (w) {
-    case 1: return launch<1>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
-    case 2: return launch<2>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
-    case 4: return launch<4>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
-    case 8: return launch<8>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
-    case 16: return launch<16>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
-    case 32: return launch<32>(grid, s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, lda, sbb, ldb, alpha);
+    REPRO_FUSED_CASE(1)
+    REPRO_FUSED_CASE(2)
+    REPRO_FUSED_CASE(4)
+    REPRO_FUSED_CASE(8)
+    REPRO_FUSED_CASE(16)
+    REPRO_FUSED_CASE(32)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FUSED_CASE
+}
+
+// Resources of the instantiation for w slots (see fused::info); out holds 9 ints.
+extern "C" int gemm_tn_fused_info(int w, int* out) {
+  using repro_torch::fused::info;
+  switch (w) {
+    case 1: return info<1, Shape<1>::C, Shape<1>::R>(out);
+    case 2: return info<2, Shape<2>::C, Shape<2>::R>(out);
+    case 4: return info<4, Shape<4>::C, Shape<4>::R>(out);
+    case 8: return info<8, Shape<8>::C, Shape<8>::R>(out);
+    case 16: return info<16, Shape<16>::C, Shape<16>::R>(out);
+    case 32: return info<32, Shape<32>::C, Shape<32>::R>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

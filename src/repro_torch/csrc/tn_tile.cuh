@@ -1,4 +1,5 @@
-// Shared TN tile engine of the gemm_tn, gemm_tn_fused and syrk kernels.
+// Shared TN tile engine of the gemm_tn and syrk kernels (gemm_tn_fused.cu
+// runs the same depth-8 FMA loop on its own combined slabs).
 //
 // One CTA of 256 threads computes a 128 x 128 tile of C = X^T Y, where
 // X (m x nx) and Y (m x ny) are row-major with unit column stride; the tile
@@ -53,8 +54,8 @@ struct RowLoad {
 
 // Accumulates acc[ii][jj] = sum_l X(l, x0 + ty*8 + ii) * Y(l, y0 + tx*8 + jj),
 // where X(l, col) = lx(l, col) for l < m and col < xlim and 0 otherwise (Y
-// likewise). A loader is any callable float(int l, int col): RowLoad reads a
-// strided operand, the fused kernel's loader sums signed slot blocks.
+// likewise). A loader is any callable float(int l, int col); RowLoad reads a
+// strided operand.
 //
 // The next slab is fetched into registers while the current one is being
 // multiplied out of shared memory, and shared memory is double-buffered, so

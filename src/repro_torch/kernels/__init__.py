@@ -5,7 +5,7 @@
 * ``gemm_tn`` — ``alpha·AᵀB`` without forming ``Aᵀ`` (``csrc/gemm_tn.cu``;
   replaces ``gemm_tn_pallas``).
 * ``gemm_tn_fused`` — every Strassen leaf product of a fused level, the
-  ±1 slot combinations summed in the kernel's loads
+  ±1 slot combinations summed inside the kernel, once per CTA cluster
   (``csrc/gemm_tn_fused.cu``; replaces ``gemm_tn_fused_pallas``).
 * ``syrk_gather`` — dense syrk of gathered diagonal leaves
   (``csrc/syrk.cu``; replaces ``syrk_gather_pallas``).

@@ -23,7 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "build", "check", "source_hash", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
+__all__ = ["load", "build", "check", "resources", "source_hash", "CSRC", "BUILD_ROOT",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,14 +35,25 @@ NVCC_FLAGS = (
 LIB_NAME = "librepro_torch_kernels.so"
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: name -> argtypes (all return the launch's cudaError_t as int)
+# C entry points: name -> argtypes (all return a cudaError_t as int). The
+# *_info entry points fill an int array with a kernel's resources.
 SIGNATURES = {
     "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, P),
-    "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P),
+    "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, P),
+    "gemm_tn_fused_info": (I, P),
     "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, P),
     "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, P),
     "potrf_f32": (P, P, I, I, P),
+    "potrf_info": (I, P),
     "trsm_f32": (P, P, P, I, I, I, LL, I, P),
+}
+# what each *_info entry point writes, in order
+RESOURCE_FIELDS = {
+    "gemm_tn_fused_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                           "local_bytes", "ctas_per_sm", "active_clusters", "ring_stages",
+                           "cluster_edge", "stage_slabs"),
+    "potrf_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                   "ctas_per_sm"),
 }
 
 
@@ -136,3 +148,14 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def resources(entry: str, arg: int) -> dict:
+    """A kernel's registers, shared memory and occupancy on the current card,
+    as its ``*_info`` entry point reads them (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and, for clusters,
+    ``cudaOccupancyMaxActiveClusters``)."""
+    fields = RESOURCE_FIELDS[entry]
+    out = (ctypes.c_int * len(fields))()
+    check(getattr(load(), entry)(arg, out), entry)
+    return dict(zip(fields, out))

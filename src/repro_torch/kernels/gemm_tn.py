@@ -15,11 +15,13 @@
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
 __all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "combine_fused_operands",
-           "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "FUSED_MAX_SLOTS"]
+           "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
 
 # slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
 FUSED_MAX_SLOTS = 32
@@ -161,16 +163,78 @@ def _grid_strides(x):
     return x.stride(0), x.stride(1), x.stride(2), sb, x.stride(-2)
 
 
+def fused_launch_tables(a_blocks, b_blocks, sides, T, W):
+    """Host preparation of a ``gemm_tn_fused`` launch.
+
+    Returns ``(off, sgn, lds, sbs, vec16)``: ``off`` the ``(2, G·T, W)``
+    int64 element offsets of every (side, leaf, slot) block in its grid,
+    ``sgn`` the matching int32 signs, the row and batch strides of the two
+    grids, and ``vec16``: whether every slot base, batch stride and row
+    stride is a multiple of 4 floats from a 16-byte aligned pointer, so the
+    kernel may copy its raw slabs in 16-byte quads (else it copies floats).
+    """
+    G = a_blocks.shape[0]
+    offs, sgns, lds, sbs = [], [], [], []
+    vec16 = True
+    for x, (rows, cols, sgn) in zip((a_blocks, b_blocks), sides):
+        sg, sr, sc, sbat, srow = _grid_strides(x)
+        g = np.arange(G, dtype=np.int64)[:, None, None]
+        off = (g * sg + rows[None] * sr + cols[None] * sc).reshape(G * T, W)
+        offs.append(off)
+        sgns.append(np.broadcast_to(sgn[None], (G, T, W)).reshape(G * T, W))
+        lds.append(srow)
+        sbs.append(sbat)
+        vec16 = vec16 and x.data_ptr() % 16 == 0 and srow % 4 == 0 and sbat % 4 == 0 \
+            and not (off % 4).any()
+    return np.stack(offs), np.stack(sgns).astype(np.int32), lds, sbs, vec16
+
+
+# device launch tables per (tables object, grid shapes and strides, pointer
+# alignment, device), most recent last; each entry pins its tables object
+_DEVICE_TABLES: OrderedDict = OrderedDict()
+_DEVICE_TABLES_MAX = 32
+
+
+def _device_launch_tables(a_blocks, b_blocks, tables):
+    """:func:`fused_launch_tables` with ``off``/``sgn`` on the grids' device.
+
+    Returns ``((rows, cols, sgn) × 2, T, W, off, sgn, lds, sbs, vec16)``.
+    Kept per tables object, which is treated as immutable: the slot and
+    level tables are cached (``_slot_tables``, ``_level_tables``), so the
+    launches of one level pass the same object and a repeated launch
+    validates nothing anew and copies nothing to the card (a copy from
+    pageable host memory would also wait for the stream). The entry holds
+    the object, so its ``id`` is not reused while it is kept.
+    """
+    key = (id(tables), tuple(a_blocks.shape), a_blocks.stride(), a_blocks.data_ptr() % 16,
+           tuple(b_blocks.shape), b_blocks.stride(), b_blocks.data_ptr() % 16,
+           str(a_blocks.device))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is not None and hit[0] is tables:
+        _DEVICE_TABLES.move_to_end(key)
+        return hit[1]
+    sides, T, W = _fused_tables(a_blocks, b_blocks, tables)
+    off, sgn, lds, sbs, vec16 = fused_launch_tables(a_blocks, b_blocks, sides, T, W)
+    dev = a_blocks.device
+    out = (sides, T, W, torch.as_tensor(off, device=dev), torch.as_tensor(sgn, device=dev),
+           lds, sbs, vec16)
+    _DEVICE_TABLES[key] = (tables, out)
+    _DEVICE_TABLES.move_to_end(key)
+    if len(_DEVICE_TABLES) > _DEVICE_TABLES_MAX:
+        _DEVICE_TABLES.popitem(last=False)
+    return out
+
+
 def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
                        out_dtype=torch.float32):
     """Launch ``csrc/gemm_tn_fused.cu`` once on the current stream."""
     from repro_torch.kernels import _build
 
-    sides, T, W = _fused_tables(a_blocks, b_blocks, tables)
-    if out_dtype != torch.float32:
-        raise TypeError(f"gemm_tn_fused kernel writes float32, got out_dtype={out_dtype}")
     if a_blocks.device != b_blocks.device:
         raise ValueError(f"operands on {a_blocks.device} and {b_blocks.device}")
+    sides, T, W, off, sgn, ld, sb, vec16 = _device_launch_tables(a_blocks, b_blocks, tables)
+    if out_dtype != torch.float32:
+        raise TypeError(f"gemm_tn_fused kernel writes float32, got out_dtype={out_dtype}")
     if W & (W - 1) or W > FUSED_MAX_SLOTS:
         raise ValueError(f"gemm_tn_fused kernel takes 1, 2, 4, ... {FUSED_MAX_SLOTS} slots, got {W}")
     G = a_blocks.shape[0]
@@ -179,17 +243,7 @@ def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
     k = b_blocks.shape[-1]
     if min(G, T, batch, m, n, k) == 0:
         raise ValueError("gemm_tn_fused kernel takes no empty operands")
-    offs, sgns, ld, sb = [], [], [], []
-    for x, (rows, cols, sgn) in zip((a_blocks, b_blocks), sides):
-        sg, sr, sc, sbat, srow = _grid_strides(x)
-        g = np.arange(G, dtype=np.int64)[:, None, None]
-        offs.append((g * sg + rows[None] * sr + cols[None] * sc).reshape(G * T, W))
-        sgns.append(np.broadcast_to(sgn[None], (G, T, W)).reshape(G * T, W))
-        ld.append(srow)
-        sb.append(sbat)
     dev = a_blocks.device
-    off = torch.as_tensor(np.stack(offs), device=dev)               # (2, G·T, W) int64
-    sgn = torch.as_tensor(np.stack(sgns).astype(np.int32), device=dev)
     lead = (G * T, batch) if a_blocks.ndim == 6 else (G * T,)
     c = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
     lib = _build.load()
@@ -197,6 +251,7 @@ def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gemm_tn_fused_f32(a_blocks.data_ptr(), b_blocks.data_ptr(), off.data_ptr(),
                                     sgn.data_ptr(), c.data_ptr(), G * T, batch, W, m, n, k,
-                                    sb[0], ld[0], sb[1], ld[1], float(alpha), stream)
+                                    sb[0], ld[0], sb[1], ld[1], float(alpha), int(vec16),
+                                    stream)
     _build.check(err, "gemm_tn_fused")
     return c

@@ -2,8 +2,9 @@
 
 Port of ``repro.kernels.potrf.potrf_pallas``; the kernel is
 ``csrc/potrf.cu``. ``a: (n, n)`` or ``(B, n, n)`` SPD tiles; the output's
-strict upper half is zero. The kernel holds a tile's lower triangle in
-shared memory, which bounds it at ``n ≤ 256`` (132 KB).
+strict upper half is zero. The kernel holds a tile's lower triangle and one
+32-column panel in shared memory, which bounds it at ``n ≤ 256`` (161 KB),
+and factors it in panels of 32 columns, one CTA per tile.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ def potrf_cuda(a, *, out_dtype=torch.float32):
     batch = a.shape[0] if a.ndim == 3 else 1
     if min(batch, n) == 0:
         raise ValueError(f"potrf kernel takes no empty stack: {tuple(a.shape)}")
+    if a.device.index != torch.cuda.current_device():
+        # the kernel launches on the current device: make it the tile's
+        with torch.cuda.device(a.device):
+            return potrf_cuda(a, out_dtype=out_dtype)
     out = torch.empty_like(a)
-    lib = _build.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.potrf_f32(a.data_ptr(), out.data_ptr(), batch, n, stream)
+    err = _build.load().potrf_f32(a.data_ptr(), out.data_ptr(), batch, n,
+                                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "potrf")
     return out

@@ -5,5 +5,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "cuda: needs an NVIDIA card with the CUDA toolkit (skips without one); "
-        "run with `python -m pytest -m cuda tests/test_torch_cuda.py`",
+        "run with `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`",
     )

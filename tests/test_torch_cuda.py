@@ -5,7 +5,7 @@ kernels sum in a batch-independent order.
 Every test here needs an NVIDIA card and ``nvcc`` (the kernels build at
 first use) and skips without one; on the card run
 
-    python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: ``8·√k·eps·max|ref|`` for contraction length k (float32).
 """
@@ -22,7 +22,8 @@ from repro_torch.core import ata, ata_batched, strassen_tn
 from repro_torch.core.ata import _level_tables
 from repro_torch.core.strassen import _pad_root, _slot_tables, _to_blocks
 from repro_torch.kernels import ops
-from repro_torch.kernels.gemm_tn import combine_fused_operands, gemm_tn_fused_plain, gemm_tn_plain
+from repro_torch.kernels.gemm_tn import (_fused_tables, combine_fused_operands,
+                                         fused_launch_tables, gemm_tn_fused_plain, gemm_tn_plain)
 from repro_torch.kernels.potrf import potrf_plain
 from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain
 from repro_torch.kernels.trsm import trsm_plain
@@ -76,12 +77,18 @@ def test_syrk_kernel_matches_plain(dev, b, m, n, req):
     assert torch.equal(packed.to_dense(), dense)
 
 
-@pytest.mark.parametrize("n", [8, 104, 128, 256])
+@pytest.mark.parametrize("n", [1, 8, 31, 32, 33, 104, 128, 200, 256])
 def test_potrf_kernel_matches_plain(dev, n):
+    """Panel edges (31, 32, 33), ragged last panels (104, 200), the largest
+    tile, a stack of 3 and a single tile."""
     s = _spd(np.random.default_rng(n), 3, n, dev)
     got = ops.potrf(s)
     _close(got, potrf_plain(s), n)
     assert not torch.triu(got, 1).any()
+    one = ops.potrf(s[1].contiguous())
+    _close(one, potrf_plain(s[1]), n)
+    assert not torch.triu(one, 1).any()
+    assert torch.equal(one, got[1])   # a stack entry is the tile factored alone
 
 
 @pytest.mark.parametrize("transpose", [True, False])
@@ -140,12 +147,13 @@ def test_lstsq_runs_every_kernel(dev):
     assert torch.equal(cholesky(g).blocks, cholesky(g.to_dense(), packed_block=128).blocks)
 
 
-def _fused_vs_gemm_tn(ab, tables, alpha):
+def _fused_vs_gemm_tn(ab, tables, alpha, bb=None):
     """The fused launch against its plain version, and bitwise against
     gemm_tn on the materialized combined operands."""
-    got = ops.gemm_tn_fused(ab, ab, tables, alpha=alpha)
-    _close(got, gemm_tn_fused_plain(ab, ab, tables, alpha=alpha), ab.shape[-2])
-    xa, xb = (combine_fused_operands(ab, *t) for t in tables)
+    bb = ab if bb is None else bb
+    got = ops.gemm_tn_fused(ab, bb, tables, alpha=alpha)
+    _close(got, gemm_tn_fused_plain(ab, bb, tables, alpha=alpha), ab.shape[-2])
+    xa, xb = combine_fused_operands(ab, *tables[0]), combine_fused_operands(bb, *tables[1])
     want = ops.gemm_tn(xa.reshape(-1, *xa.shape[-2:]), xb.reshape(-1, *xb.shape[-2:]),
                        alpha=alpha)
     assert torch.equal(got, want.reshape(got.shape))
@@ -161,12 +169,50 @@ def test_gemm_tn_fused_kernel_ata_levels(dev, shape, L, lev):
     _fused_vs_gemm_tn(ab, _level_tables(L, lev), -2.0)
 
 
+def _unaligned(rng, shape, dev):
+    """A contiguous operand that starts one float past a 16-byte boundary."""
+    flat = _t(rng, (math.prod(shape) + 1,), dev)
+    return flat[1:].view(shape)
+
+
+def _vec16(ab, bb, tables):
+    """Whether the kernel copies these grids in 16-byte quads."""
+    sides, T, W = _fused_tables(ab, bb, tables)
+    return fused_launch_tables(ab, bb, sides, T, W)[-1]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("L", [0, 1, 2, 3, 4, 5])
-def test_gemm_tn_fused_kernel_every_slot_count(dev, L):
-    """Strassen slot tables with W = 1 … 32: every instantiation of the kernel."""
+def test_gemm_tn_fused_kernel_every_slot_count(dev, L, aligned):
+    """Strassen slot tables with W = 1 … 32: every instantiation of the
+    kernel, with the 16-byte and the 4-byte copy paths."""
     rng = np.random.default_rng(L)
-    ab = _to_blocks(_t(rng, (9 << L, 5 << L), dev), L)[None]
+    make = _t if aligned else _unaligned
+    ab = _to_blocks(make(rng, (9 << L, 5 << L), dev), L)[None]
+    assert aligned or not _vec16(ab, ab, _slot_tables(L))
     _fused_vs_gemm_tn(ab, _slot_tables(L), 1.0)
+
+
+@pytest.mark.parametrize("n,k,batch,aligned,vec16", [
+    (384, 640, 1, True, True),     # 3 x 5 tiles: a cluster row and column half beyond the edge
+    (640, 132, 3, True, True),     # 5 x 2 tiles, a batch of 3
+    (640, 130, 3, True, False),    # 130-column blocks: offsets not 16-byte multiples
+    (130, 390, 3, False, False),   # ragged 130/390 columns, unaligned start
+    (257, 129, 1, False, False),   # one column past a tile on both axes
+])
+@pytest.mark.parametrize("L", [0, 1, 2])
+def test_gemm_tn_fused_kernel_partial_clusters(dev, n, k, batch, aligned, vec16, L):
+    """Tile counts that are odd along either axis leave part of a CTA
+    cluster beyond the edge: those CTAs still combine their share. W = 1, 2
+    and 4 slots run without a cluster, in 2 x 2 and in 4 x 4 clusters."""
+    rng = np.random.default_rng(n + k + batch + L)
+    make = _t if aligned else _unaligned
+    x = make(rng, (batch, 40 << L, n << L), dev)
+    y = make(rng, (batch, 40 << L, k << L), dev)
+    ab, bb = _to_blocks(x, L)[None], _to_blocks(y, L)[None]
+    tables = _slot_tables(L)
+    assert _vec16(ab, bb, tables) == vec16
+    _fused_vs_gemm_tn(ab, tables, 0.5, bb)
 
 
 @pytest.mark.parametrize("shape,L", [((512, 512), 2), ((2, 1000, 520), 2), ((300, 700), 1)])
@@ -217,3 +263,16 @@ def test_ata_fused_bitwise_on_card(dev):
     f = strassen_tn(x, y, n_base=64, leaf_dispatch="fused")
     assert ops.launches["gemm_tn_fused"] == 1 and ops.launches["gemm_tn"] == 0
     assert torch.equal(strassen_tn(x, y, n_base=64), f)
+
+
+@pytest.mark.parametrize("n", [200, 1000])
+def test_cholesky_packed_and_dense_bitwise_on_card(dev, n):
+    """The walk factors a packed gram and its dense square bitwise alike,
+    through the panel-blocked potrf (a ragged last block at n = 200)."""
+    rng = np.random.default_rng(n)
+    a = _t(rng, (3 * n, n), dev)
+    g = ata(a, out="packed").add_scaled_identity(1.0)
+    ops.reset_launches()
+    packed = cholesky(g)
+    assert ops.launches["potrf"] > 0
+    assert torch.equal(packed.blocks, cholesky(g.to_dense(), packed_block=g.bn).blocks)

@@ -328,3 +328,71 @@ def test_fused_wrappers_reject_bad_tables():
         ops.syrk_gather(grid[0], np.array([0, 2]), np.array([0, 0]))
     with pytest.raises(ValueError):
         ops.syrk_gather(grid[0, 0], np.array([0]), np.array([0]))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_fused_launch_tables_address_every_slot_block(batched):
+    """The kernel's (side, leaf, slot) element offsets point at the slot
+    blocks the tables name, in the grid the caller passed (a view)."""
+    from repro_torch.kernels.gemm_tn import _fused_tables, fused_launch_tables
+
+    rng = np.random.default_rng(5)
+    shape = (2, 64, 96) if batched else (64, 96)
+    a = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+    ab = tstr._to_blocks(a, 2)[None]
+    tables = _level_tables(2, 1)
+    sides, T, W = _fused_tables(ab, ab, tables)
+    off, sgn, lds, sbs, vec16 = fused_launch_tables(ab, ab, sides, T, W)
+    assert off.shape == (2, T, W) and sgn.shape == (2, T, W) and sgn.dtype == np.int32
+    assert vec16 and lds == [96, 96] and sbs == ([64 * 96] * 2 if batched else [0, 0])
+    flat = a.reshape(-1)
+    for side, (rows, cols, sg) in enumerate(sides):
+        assert (sgn[side] == sg).all()
+        for t in range(T):
+            for w in range(W):
+                blk = ab[0, rows[t, w], cols[t, w]]
+                first = blk.reshape(-1)[0] if not batched else blk[0, 0, 0]
+                assert float(flat[off[side, t, w]]) == float(first)
+
+
+def test_fused_launch_tables_choose_the_copy_width():
+    """16-byte copies only where every slot base, row stride and batch
+    stride is a multiple of 4 floats from a 16-byte aligned pointer."""
+    from repro_torch.kernels.gemm_tn import _fused_tables, fused_launch_tables
+
+    def vec16(x, L):
+        ab = tstr._to_blocks(x, L)[None]
+        tables = tstr._slot_tables(L)
+        sides, T, W = _fused_tables(ab, ab, tables)
+        return fused_launch_tables(ab, ab, sides, T, W)[-1]
+
+    base = torch.zeros(1 + 64 * 64)
+    assert vec16(base[:4096].view(64, 64), 2)
+    assert not vec16(base[1:].view(64, 64), 2)          # starts 4 bytes past 16
+    assert not vec16(torch.zeros(64, 40), 2)           # 10-column blocks
+    assert not vec16(torch.zeros(64, 66)[:, :64], 2)   # row stride 66
+    assert vec16(torch.zeros(3, 64, 64), 1)
+    odd_batch = torch.zeros(3 * 4097).as_strided((3, 64, 64), (4097, 64, 1))
+    assert not vec16(odd_batch, 1)                     # batch stride 4097
+
+
+def test_fused_device_tables_kept_per_tables_object():
+    """A repeated launch with the same (cached) tables object reuses its
+    device tables; another object, alignment, stride or level gets its own,
+    with the same contents for equal tables."""
+    from repro_torch.kernels.gemm_tn import _device_launch_tables
+
+    base = torch.zeros(1 + 64 * 64)
+    ab = tstr._to_blocks(base[:4096].view(64, 64), 2)[None]
+    tables = _level_tables(2, 1)
+    first = _device_launch_tables(ab, ab, tables)
+    assert _device_launch_tables(ab, ab, _level_tables(2, 1)) is first and first[-1]
+    copy = tuple(tuple(np.array(x) for x in s) for s in tables)
+    again = _device_launch_tables(ab, ab, copy)
+    assert again is not first
+    assert all(torch.equal(x, y) for x, y in zip(again[3:5], first[3:5]))
+    shifted = tstr._to_blocks(base[1:].view(64, 64), 2)[None]
+    other = _device_launch_tables(shifted, shifted, tables)
+    assert other is not first and not other[-1]
+    level2 = _device_launch_tables(ab, ab, _level_tables(2, 2))
+    assert level2[2] == 1 and level2 is not first
