@@ -15,9 +15,11 @@ phase fails):
              The fused kernels are also held bitwise against ``gemm_tn`` /
              ``syrk`` on the materialized combined / stacked operands,
              gemm_tn_fused at each level of ata 8192² with its rate; potrf
-             on stacks of n ∈ {1, 33, 104, 128, 256}; and a line of
-             registers, shared memory and occupancy of the two redesigned
-             kernels (gemm_tn_fused, potrf);
+             on stacks of n ∈ {1, 33, 104, 128, 256}; potrf's and trsm's
+             device times (CUDA graphs), trsm's beside
+             ``solve_triangular``'s; and lines of registers, shared memory
+             and occupancy of the redesigned kernels (gemm_tn_fused, potrf,
+             gemm_tn, trsm);
 3. ata     — ``ata(a, out="packed")`` at ``a: 8192×8192`` float32 under the
              unrolled, batched and fused leaf dispatch: bitwise equal to
              each other, each with its exact kernel launch counts and peak
@@ -170,9 +172,11 @@ def phase_kernels(checks, ops, plain):
     bms, by = bound(1430 * classical_gemm_flops(512, 512, 512), 4 * 1430 * 3 * 512 * 512)
     checks.rows["gemm_tn"] = dict(
         shape="(1430,512,512)x(1430,512,512)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        resources={f"vec16={v}": _build.resources("gemm_tn_info", v) for v in (1, 0)})
     log(f"  gemm_tn ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
         f"bound_ms={bms:.3f} ({by}) rate={1430 * classical_gemm_flops(512, 512, 512) / ms / 1e9:.2f} TFLOP/s")
+    log("  resources gemm_tn " + json.dumps(checks.rows["gemm_tn"]["resources"]))
     del a, b
     a = cuda_tensor(rng, (7, 1000, 520))
     b = cuda_tensor(rng, (7, 1000, 390))
@@ -264,13 +268,27 @@ def phase_kernels(checks, ops, plain):
     lib_ms = time_ms(lambda: torch.linalg.solve_triangular(lu, p, upper=True, left=False),
                      runs=20)
     r8_ms = time_ms(lambda: ops.trsm(l1, r8, transpose=False), runs=20)
+    # device times: CUDA graphs of 50 launches, the kernel and the library
+    # call on the panel and on the substitutions' r = 8 rows (X·L = R)
+    device_ms = graph_ms(lambda: ops.trsm(lx, p))
+    lib_device_ms = graph_ms(lambda: torch.linalg.solve_triangular(lu, p, upper=True, left=False))
+    r8_device_ms = graph_ms(lambda: ops.trsm(l1, r8, transpose=False))
+    r8_lib_device_ms = graph_ms(
+        lambda: torch.linalg.solve_triangular(l1, r8, upper=False, left=False))
     bms, by = bound(31 * trsm_flops(128, 128), 4 * (128 * 128 + 2 * 31 * 128 * 128))
     checks.rows["trsm"] = dict(
         shape="(128,128) expanded x (31,128,128), transpose=True", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-        r8_ms=r8_ms)
+        device_ms=device_ms, library_device_ms=lib_device_ms, r8_ms=r8_ms,
+        r8_device_ms=r8_device_ms, r8_library_device_ms=r8_lib_device_ms,
+        resources={f"n={n_},m={m_}": _build.resources("trsm_info", n_, m_)
+                   for n_, m_ in ((128, 128), (128, 8), (256, 300))})
     log(f"  trsm ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bms:.6f} ({by}); r=8 panel ms={r8_ms:.4f}")
+        f"bound_ms={bms:.6f} ({by}); device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f}; r=8 panel ms={r8_ms:.4f} "
+        f"device_ms={r8_device_ms:.4f} library_device_ms={r8_lib_device_ms:.4f} "
+        f"(CUDA graphs of 50 launches)")
+    log("  resources trsm " + json.dumps(checks.rows["trsm"]["resources"]))
 
 
 def phase_fused_kernels(checks, ops, plain, rng):

@@ -1,64 +1,109 @@
 // gemm_tn: C[b] = alpha * A[b]^T B[b] in float32, for a whole batch in one launch.
 //
-// Replaces: gemm_tn_pallas in src/repro/kernels/gemm_tn.py (the Pallas TN
+// Replaces: gemm_tn_pallas in src/repro/kernels/gemm_tn.py:78 (the Pallas TN
 // matmul that is the leaf of every Strassen product).
 //
 // What bounds it on the H100: operations. A Strassen leaf is 512 x 512 x 512
 // (2 * 512^3 = 268 MFLOP on 3 MiB), far above the card's float32 balance
 // point (67 TFLOP/s over 3.35 TB/s, about 20 flops per byte), so the ceiling
-// is the 67 TFLOP/s of the float32 FMA units outside the tensor cores.
+// is the 67 TFLOP/s of the float32 FMA units outside the tensor cores. The
+// first version reached 39 TFLOP/s against cuBLAS's 51: bank conflicts on
+// its shared-memory reads paced the FMA loop, its copies ran through
+// registers, and it stored scalars (PERF.md).
 //
-// What the design does about it: each CTA keeps a 128 x 128 output tile in
-// registers (8 x 8 per thread), so every float loaded from shared memory
-// feeds 8 FMAs and every float loaded from device memory feeds 128; the next
-// depth-8 slab is fetched while the current one is multiplied. The TPU
-// kernel's sequential "arbitrary" contraction grid axis is the loop inside
-// tn_tile; nothing carries between CTAs. The grid is (k-tiles, n-tiles,
-// batch), so a whole Strassen leaf stack is one launch, and ragged edges are
-// masked in the loads instead of padded copies. Tensor cores (TF32) are left
-// for a later change: they would change the rounding of every leaf.
+// What the design does about it: the tile engine of tn_tile.cuh — a
+// 128 x 128 tile a CTA, 8 x 8 accumulators a thread, warps of 32 x 64 with
+// conflict-free LDS.128 reads, and a 3-stage cp.async ring of depth-32
+// slabs with one barrier a stage — then float4 stores of each output row
+// segment where k allows it (k % 4 == 0), scalar masked stores otherwise.
+// Two CTAs share an SM (96 KiB of ring each, at most 128 registers). The
+// grid is (k-tiles, n-tiles, batch), so a whole Strassen leaf stack is one
+// launch; entries past 65535 stride over gridDim.z. Ragged edges are
+// zero-filled by the copies instead of padded. The summation order is the
+// engine's (one fmaf chain over depth-8 slabs), so gemm_tn_fused stays
+// bitwise equal to this kernel. Tensor cores (TF32) are left out: they
+// would change the rounding of every leaf.
 #include <cuda_runtime.h>
 
 #include "tn_tile.cuh"
 
 namespace repro_torch {
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kVec16>
+__global__ void __launch_bounds__(kThreads, 2)
     gemm_tn_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ c, int batch, int m, int n, int k, long long sab,
                    long long lda, long long sbb, long long ldb, float alpha) {
-  __shared__ __align__(16) TnSmem sm;
+  extern __shared__ __align__(16) float smem[];
+  const TnMap map;
   const int r0 = blockIdx.y * kTile;  // rows of C = columns of A
   const int c0 = blockIdx.x * kTile;  // columns of C = columns of B
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const bool vec_out = (k & 3) == 0;  // every row segment 16 B aligned
   for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
     float acc[kMicro][kMicro];
-    tn_tile(TnOperand{a + bt * sab, lda, r0, n}, TnOperand{b + bt * sbb, ldb, c0, k}, m, sm,
-            acc);
+    tn_tile<kVec16>(TnOperand{a + bt * sab, lda, r0, n}, TnOperand{b + bt * sbb, ldb, c0, k}, m,
+                    smem, map, acc);
     float* cb = c + (long long)bt * n * k;
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii) {
-      const int i = r0 + ty * 8 + ii;
+      const int i = r0 + map.row(ii);
       if (i >= n) continue;
 #pragma unroll
-      for (int jj = 0; jj < kMicro; ++jj) {
-        const int j = c0 + tx * 8 + jj;
-        if (j < k) cb[(long long)i * k + j] = alpha * acc[ii][jj];
+      for (int h = 0; h < kMicro; h += 4) {
+        const int j = c0 + map.col(h);
+        float* dst = cb + (long long)i * k + j;
+        if (vec_out && j < k) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(alpha * acc[ii][h], alpha * acc[ii][h + 1], alpha * acc[ii][h + 2],
+                          alpha * acc[ii][h + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j + e < k) dst[e] = alpha * acc[ii][h + e];
+        }
       }
     }
-    __syncthreads();  // the next batch entry reuses the shared buffers
+    __syncthreads();  // the next batch entry refills the ring
   }
+}
+
+// The instance's dynamic shared-memory opt-in, once per device.
+template <bool kVec16>
+static cudaError_t opt_in() {
+  static bool done[kMaxDevices] = {};
+  return tn_opt_in(reinterpret_cast<const void*>(gemm_tn_kernel<kVec16>), kTnSmemBytes, done);
+}
+
+template <bool kVec16>
+static int launch(const float* a, const float* b, float* c, int batch, int m, int n, int k,
+                  long long sab, long long lda, long long sbb, long long ldb, float alpha,
+                  cudaStream_t stream) {
+  cudaError_t err = opt_in<kVec16>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((k + kTile - 1) / kTile, (n + kTile - 1) / kTile, batch < 65535 ? batch : 65535);
+  gemm_tn_kernel<kVec16><<<grid, kThreads, kTnSmemBytes, stream>>>(a, b, c, batch, m, n, k, sab,
+                                                                   lda, sbb, ldb, alpha);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
 
+// vec16: both bases 16 B aligned and every row and batch stride a multiple
+// of 4 floats (the wrapper decides), so the ring fills in 16 B copies.
 extern "C" int gemm_tn_f32(const float* a, const float* b, float* c, int batch, int m, int n,
                            int k, long long sab, long long lda, long long sbb, long long ldb,
-                           float alpha, void* stream) {
-  dim3 grid((k + repro_torch::kTile - 1) / repro_torch::kTile,
-            (n + repro_torch::kTile - 1) / repro_torch::kTile, batch < 65535 ? batch : 65535);
-  repro_torch::gemm_tn_kernel<<<grid, repro_torch::kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(a, b, c, batch, m, n, k, sab,
-                                                                     lda, sbb, ldb, alpha);
-  return static_cast<int>(cudaGetLastError());
+                           float alpha, int vec16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec16 ? repro_torch::launch<true>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, s)
+               : repro_torch::launch<false>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, s);
+}
+
+// out: the tn_info fields of the 16 B (vec16 = 1) or 4 B instance; 7 ints.
+extern "C" int gemm_tn_info(int vec16, int* out) {
+  using namespace repro_torch;
+  cudaError_t err = vec16 ? opt_in<true>() : opt_in<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tn_info(vec16 ? reinterpret_cast<const void*>(gemm_tn_kernel<true>)
+                                         : reinterpret_cast<const void*>(gemm_tn_kernel<false>),
+                                   out));
 }

@@ -12,9 +12,11 @@
 // What the design does about it: the grid visits only lower tile pairs, so
 // the upper half of C costs no arithmetic. blockIdx.x enumerates them as
 // t = i(i+1)/2 + j and recovers (i, j) with the reference's float sqrt and
-// integer correction (tri_coords). Each CTA runs the shared 128 x 128 TN
-// tile engine with A as both operands, then writes the tile and its
-// transpose straight from the registers (the TPU kernel's dual write):
+// integer correction (tri_coords). Each CTA runs the 128 x 128 TN tile
+// engine of tn_tile.cuh, which gemm_tn also runs (warp-tiled, conflict-free
+// shared-memory reads behind a cp.async ring), with A as both operands, then
+// writes the tile and its transpose straight from the registers through the
+// engine's thread map (the TPU kernel's dual write):
 //   dense  — (i, j) are 128-tiles of the n x n output; a diagonal tile keeps
 //            its lower half and mirrors it up (sym_tile), so the output is
 //            bitwise symmetric with no pass over the square afterwards;
@@ -38,11 +40,13 @@
 
 namespace repro_torch {
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kVec16>
+__global__ void __launch_bounds__(kThreads, 2)
     syrk_kernel(const float* __restrict__ a, float* __restrict__ c, int batch, int m, int n,
                 long long sab, long long lda, float alpha, int packed, int bn, int sub,
                 const long long* __restrict__ offs, int inner) {
-  __shared__ __align__(16) TnSmem sm;
+  extern __shared__ __align__(16) float smem[];
+  const TnMap map;
   int bi, bj;
   tri_coords(blockIdx.x, bi, bj);
   int p = bi, q = bj, rlim = n, clim = n, r0, c0;
@@ -59,12 +63,12 @@ __global__ void __launch_bounds__(kThreads)
     c0 = q * kTile;
   }
   const long long t_total = (long long)gridDim.x;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
     float acc[kMicro][kMicro];
     const float* ab = offs ? a + offs[bt / inner] + (long long)(bt % inner) * sab
                            : a + (long long)bt * sab;
-    tn_tile(TnOperand{ab, lda, r0, rlim}, TnOperand{ab, lda, c0, clim}, m, sm, acc);
+    tn_tile<kVec16>(TnOperand{ab, lda, r0, rlim}, TnOperand{ab, lda, c0, clim}, m, smem, map,
+                    acc);
     // dst(i, j) is element (i, j) of the n x n matrix (dense) or of storage
     // block t (packed); (i, j) below are coordinates within that target.
     float* dst;
@@ -85,11 +89,11 @@ __global__ void __launch_bounds__(kThreads)
     const bool diag_block = packed ? (bi == bj) : true;
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii) {
-      const int i = i0 + ty * 8 + ii;
+      const int i = i0 + map.row(ii);
       if (i >= ilim) continue;
 #pragma unroll
       for (int jj = 0; jj < kMicro; ++jj) {
-        const int j = j0 + tx * 8 + jj;
+        const int j = j0 + map.col(jj);
         if (j >= ilim) continue;
         const float v = alpha * acc[ii][jj];
         if (!diag_block) {  // off-diagonal storage block: full tile
@@ -104,12 +108,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kVec16>
+static int launch(dim3 grid, const float* a, float* c, int batch, int m, int n, long long sab,
+                  long long lda, float alpha, int packed, int bn, int sub, const long long* offs,
+                  int inner, cudaStream_t stream) {
+  static bool opted_in[kMaxDevices] = {};
+  cudaError_t err =
+      tn_opt_in(reinterpret_cast<const void*>(syrk_kernel<kVec16>), kTnSmemBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  syrk_kernel<kVec16><<<grid, kThreads, kTnSmemBytes, stream>>>(a, c, batch, m, n, sab, lda,
+                                                                alpha, packed, bn, sub, offs, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static int launch(int vec16, dim3 grid, const float* a, float* c, int batch, int m, int n,
+                  long long sab, long long lda, float alpha, int packed, int bn, int sub,
+                  const long long* offs, int inner, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec16 ? launch<true>(grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, offs,
+                              inner, s)
+               : launch<false>(grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, offs,
+                               inner, s);
+}
+
 }  // namespace repro_torch
 
 // packed == 0: c is (batch, n, n); the grid covers the lower 128-tile pairs.
 // packed == 1: c is (batch, T, bn, bn) with T = nb(nb+1)/2, nb = ceil(n/bn).
+// vec16: a 16 B aligned, lda and sab multiples of 4 floats (16 B copies).
 extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long long sab,
-                        long long lda, float alpha, int packed, int bn, void* stream) {
+                        long long lda, float alpha, int packed, int bn, int vec16, void* stream) {
   using repro_torch::kTile;
   int sub = 1;
   long long nblk;
@@ -122,15 +150,15 @@ extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long 
   const long long t_total = nblk * (nblk + 1) / 2;
   if (t_total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>(t_total), sub * sub, batch < 65535 ? batch : 65535);
-  repro_torch::syrk_kernel<<<grid, repro_torch::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, nullptr, 1);
-  return static_cast<int>(cudaGetLastError());
+  return repro_torch::launch(vec16, grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub,
+                             nullptr, 1, stream);
 }
 
 // c is (S, inner, n, n): entry (s, b) is the dense syrk of the m x n leaf at
-// a + offs[s] + b * sab (row stride lda).
+// a + offs[s] + b * sab (row stride lda). vec16 as for syrk_f32, and every
+// offs[s] a multiple of 4 floats.
 extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, int S, int inner,
-                               int m, int n, long long sab, long long lda, float alpha,
+                               int m, int n, long long sab, long long lda, float alpha, int vec16,
                                void* stream) {
   using repro_torch::kTile;
   const long long nblk = (n + kTile - 1) / kTile;
@@ -140,7 +168,6 @@ extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, 
     return static_cast<int>(cudaErrorInvalidValue);
   const int batch = static_cast<int>(entries);
   dim3 grid(static_cast<unsigned>(t_total), 1, batch < 65535 ? batch : 65535);
-  repro_torch::syrk_kernel<<<grid, repro_torch::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, c, batch, m, n, sab, lda, alpha, 0, 0, 1, offs, inner);
-  return static_cast<int>(cudaGetLastError());
+  return repro_torch::launch(vec16, grid, a, c, batch, m, n, sab, lda, alpha, 0, 0, 1, offs,
+                             inner, stream);
 }

@@ -1,24 +1,49 @@
-// Shared TN tile engine of the gemm_tn and syrk kernels (gemm_tn_fused.cu
-// runs the same depth-8 FMA loop on its own combined slabs).
+// Shared TN tile engine of the gemm_tn, syrk and syrk_gather kernels.
 //
-// One CTA of 256 threads computes a 128 x 128 tile of C = X^T Y, where
-// X (m x nx) and Y (m x ny) are row-major with unit column stride; the tile
-// covers C rows [r0, r0+128) (columns of X) and C columns [c0, c0+128)
-// (columns of Y). Each thread keeps an 8 x 8 block of float32 accumulators
-// in registers. The contraction runs as one loop inside the CTA over
-// depth-8 slabs: X[l0:l0+8, r0:r0+128] and Y[l0:l0+8, c0:c0+128] are
-// contiguous along their rows, so a warp loads 32 consecutive floats
-// (coalesced) and the slab lands in shared memory already in the "k-major"
-// layout the outer-product loop reads. X^T is never formed.
+// Replaces the inner loop of gemm_tn_pallas (src/repro/kernels/gemm_tn.py:78)
+// and of the syrk kernels (src/repro/kernels/syrk.py): one CTA of 256
+// threads computes a 128 x 128 tile of C = X^T Y, where X (m x nx) and Y
+// (m x ny) are row-major with unit column stride. The tile covers C rows
+// [r0, r0+128) (columns of X) and C columns [c0, c0+128) (columns of Y);
+// each thread keeps an 8 x 8 block of float32 accumulators in registers.
+// X^T is never formed: slab rows X[l, r0:r0+128] are contiguous, so they
+// land in shared memory already in the k-major layout the multiply reads.
 //
-// Ragged edges are masked in the loads: entries at or beyond a limit load
-// as 0, which adds an exact 0 to the sums, so no padded copy is needed.
+// What bounds it on the H100: the float32 FMA pipe (67 TFLOP/s outside the
+// tensor cores), provided shared memory and the copies keep up. The first
+// engine did not: its threads sat on a flat 16 x 16 grid with 8 contiguous
+// columns each, so every float4 read of Y put quarter-warp lanes 32 bytes
+// apart (a 2-way bank conflict on every read, the shared-memory pipe
+// pacing the loop); each slab went through registers with scalar loads and
+// stores that took issue slots from the FMAs; and two buffers meant one
+// block barrier every 8 rows. It ran at 39 TFLOP/s (PERF.md).
 //
-// Summation order: every output is one fmaf chain over l = 0, 1, ..., m-1,
-// whatever the tile, the batch index or the batch size. Two launches that
-// see the same operands therefore give bitwise-equal outputs, and because
-// fmaf(x, y, s) == fmaf(y, x, s), C[i][j] and C[j][i] of a syrk are
-// bitwise equal too.
+// What this engine does about it:
+// * Warp tiling without bank conflicts. Warp w owns 32 rows x 64 columns of
+//   the tile, its lanes 4 x 8; thread (ty, tx) holds rows 4*ty + {0..3} and
+//   64 + 4*ty + {0..3}, columns 4*tx + {0..3} and 64 + 4*tx + {0..3}
+//   (TnMap). Each quarter-warp shares one ty and has 8 consecutive tx, so
+//   every LDS.128 of the multiply reads 128 contiguous bytes (Y) or one
+//   broadcast address (X): no bank conflicts.
+// * An async copy ring. kStages stages of kSlab rows of X and Y each sit in
+//   dynamic shared memory, filled by cp.async, kStages - 1 stages ahead of
+//   the multiply, with one block barrier per stage; 3 stages of 32 rows
+//   (96 KiB) measured fastest on the H100 among 2 to 4 stages of 8, 16 and
+//   32 rows (PERF.md): deeper stages cost fewer barriers. 16-byte copies
+//   where the host found every base, row stride and batch stride a
+//   multiple of 4 floats (kVec16), 4-byte copies otherwise. Rows at or past
+//   m and columns at or past a limit are zero-filled through the copy's
+//   source size, so the loop has no mask branch.
+// * The epilogues use TnMap; gemm_tn stores float4 rows where it can.
+//
+// Summation order, the contract every caller relies on: every output is one
+// fmaf chain over l = 0, 1, ... in ascending order, over the depth-8 slabs
+// that start below m (l < ceil(m/8)*8, rows past m being exact zeros),
+// whatever the tile, the batch index, the batch size or kSlab. Two launches
+// that see the same operands therefore give bitwise-equal outputs;
+// gemm_tn_fused.cu runs the same depth-8 chain on its combined slabs and is
+// bitwise equal to gemm_tn; and because fmaf(x, y, s) == fmaf(y, x, s),
+// C[i][j] and C[j][i] of a syrk are bitwise equal too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,9 +51,14 @@
 namespace repro_torch {
 
 constexpr int kTile = 128;    // output tile edge
-constexpr int kDepth = 8;     // contraction slab depth
-constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kDepth = 8;     // summation slab: the fmaf chain runs over whole depth-8 slabs
+constexpr int kThreads = 256; // 8 warps of 32 x 64 outputs, 8 x 8 a thread
 constexpr int kMicro = 8;
+constexpr int kSlab = 32;     // rows of X and of Y in one ring stage (four depth-8 slabs)
+constexpr int kStages = 3;    // ring depth: 96 KiB, two CTAs an SM
+constexpr int kStageFloats = 2 * kSlab * kTile;
+constexpr int kTnSmemBytes = kStages * kStageFloats * static_cast<int>(sizeof(float));
+constexpr int kMaxDevices = 64;
 
 struct TnOperand {
   const float* p;  // element (0, 0) of this batch entry
@@ -37,89 +67,163 @@ struct TnOperand {
   int col_lim;     // columns at or beyond this load as 0
 };
 
-// Shared-memory staging of one CTA: two slabs of X and of Y (double buffer).
-struct TnSmem {
-  float xs[2][kDepth][kTile];
-  float ys[2][kDepth][kTile];
+// The thread -> output map of the engine: accumulator acc[ii][jj] is tile
+// element (row(ii), col(jj)). Every epilogue goes through it.
+struct TnMap {
+  int ty, tx;
+  __device__ __forceinline__ TnMap() {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    tx = (warp % 2) * 8 + lane % 8;
+    ty = (warp / 2) * 4 + lane / 8;
+  }
+  __device__ __forceinline__ int row(int ii) const { return 4 * ty + (ii & 3) + (ii & 4) * 16; }
+  __device__ __forceinline__ int col(int jj) const { return 4 * tx + (jj & 3) + (jj & 4) * 16; }
 };
 
-// Row loader of a plain operand: element (l, col) at p[l * ld + col].
-struct RowLoad {
-  const float* p;
+__device__ __forceinline__ void tn_copy16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tn_copy4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tn_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void tn_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One thread's share of a stage of one operand: rows rr, rr + 8, ... of the
+// slab, the four columns starting at col0 + cq (quad tid % 32).
+struct TnCopy {
+  const float* base;  // the operand's element (0, 0): a valid source for empty copies
+  const float* src;   // element (0, col0 + cq), or base if no column is live
   long long ld;
-  __device__ __forceinline__ float operator()(int l, int col) const {
-    return p[(long long)l * ld + col];
+  int avail;          // live columns of the quad, 0..4
+
+  __device__ __forceinline__ TnCopy(const TnOperand& o, int cq) {
+    base = o.p;
+    ld = o.ld;
+    const int lim = o.col_lim - (o.col0 + cq);
+    avail = lim < 0 ? 0 : lim > 4 ? 4 : lim;
+    src = avail ? o.p + o.col0 + cq : o.p;
+  }
+
+  template <bool kVec16>
+  __device__ __forceinline__ void stage(float* dst, int l, int m) const {
+    const bool live = l < m && avail > 0;
+    const float* row = live ? src + (long long)l * ld : base;
+    if constexpr (kVec16) {
+      tn_copy16(dst, row, live ? 4 * avail : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool on = live && e < avail;
+        tn_copy4(dst + e, on ? row + e : base, on ? 4 : 0);
+      }
+    }
   }
 };
 
-// Accumulates acc[ii][jj] = sum_l X(l, x0 + ty*8 + ii) * Y(l, y0 + tx*8 + jj),
-// where X(l, col) = lx(l, col) for l < m and col < xlim and 0 otherwise (Y
-// likewise). A loader is any callable float(int l, int col); RowLoad reads a
-// strided operand.
-//
-// The next slab is fetched into registers while the current one is being
-// multiplied out of shared memory, and shared memory is double-buffered, so
-// one __syncthreads per slab suffices: a thread that writes buffer b at slab
-// s has passed the barrier of slab s-1, which every thread reaches only
-// after it finished reading buffer b at slab s-2.
-template <class LX, class LY>
-__device__ __forceinline__ void tn_tile_with(const LX& lx, int x0, int xlim, const LY& ly, int y0,
-                                             int ylim, int m, TnSmem& sm,
-                                             float acc[kMicro][kMicro]) {
+// acc[ii][jj] = sum_l X(l, x.col0 + map.row(ii)) * Y(l, y.col0 + map.col(jj)),
+// X(l, col) being 0 for l >= m or col >= x.col_lim (Y likewise). smem holds
+// kTnSmemBytes. The caller meets a __syncthreads() between two calls (the
+// ring of the next call overwrites stages the last one may still read).
+template <bool kVec16>
+__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int m, float* smem,
+                                        const TnMap& map, float acc[kMicro][kMicro]) {
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int lrow = tid / 32;  // slab row this thread loads
-  const int lcol = tid % 32;  // first column it loads (then +32, +64, +96)
+  const int rr = tid / 32, cq = 4 * (tid % 32);
+  const TnCopy cx(x, cq), cy(y, cq);
 
 #pragma unroll
   for (int ii = 0; ii < kMicro; ++ii)
 #pragma unroll
     for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = 0.0f;
 
-  float px[4], py[4];
-  auto fetch = [&](int l0) {
-    const int l = l0 + lrow;
-    const bool lok = l < m;
+  // stage s holds slab rows [s*kSlab, (s+1)*kSlab) of X, then of Y
+  auto copy = [&](int s) {
+    float* xs = smem + (s % kStages) * kStageFloats;
+    float* ys = xs + kSlab * kTile;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cx = x0 + lcol + 32 * e, cy = y0 + lcol + 32 * e;
-      px[e] = (lok && cx < xlim) ? lx(l, cx) : 0.0f;
-      py[e] = (lok && cy < ylim) ? ly(l, cy) : 0.0f;
+    for (int u = 0; u < kSlab / 8; ++u) {
+      const int r = rr + 8 * u, l = s * kSlab + r;
+      cx.stage<kVec16>(xs + r * kTile + cq, l, m);
+      cy.stage<kVec16>(ys + r * kTile + cq, l, m);
     }
   };
 
-  fetch(0);
-  int buf = 0;
-  for (int l0 = 0; l0 < m; l0 += kDepth) {
+  const int slabs = (m + kSlab - 1) / kSlab;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sm.xs[buf][lrow][lcol + 32 * e] = px[e];
-      sm.ys[buf][lrow][lcol + 32 * e] = py[e];
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slabs) copy(s);
+    tn_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    tn_wait<kStages - 2>();  // stage s has landed (this thread's copies) ...
+    __syncthreads();         // ... everyone's, and stage s-1 is no longer read
+    if (s + kStages - 1 < slabs) copy(s + kStages - 1);
+    tn_commit();
+    const float* xs = smem + (s % kStages) * kStageFloats;
+    const float* ys = xs + kSlab * kTile;
+#pragma unroll
+    for (int h = 0; h < kSlab / kDepth; ++h) {
+      if (s * kSlab + h * kDepth >= m) break;  // only the depth-8 slabs that start below m
+#pragma unroll
+      for (int kk = h * kDepth; kk < (h + 1) * kDepth; ++kk) {
+        const float* xr = xs + kk * kTile + 4 * map.ty;
+        const float* yr = ys + kk * kTile + 4 * map.tx;
+        const float4 a0 = *reinterpret_cast<const float4*>(xr);
+        const float4 a1 = *reinterpret_cast<const float4*>(xr + 64);
+        const float4 b0 = *reinterpret_cast<const float4*>(yr);
+        const float4 b1 = *reinterpret_cast<const float4*>(yr + 64);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
+      }
     }
-    __syncthreads();
-    if (l0 + kDepth < m) fetch(l0 + kDepth);
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.xs[buf][kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sm.xs[buf][kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sm.ys[buf][kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sm.ys[buf][kk][tx * 8 + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int ii = 0; ii < kMicro; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
-    }
-    buf ^= 1;
   }
 }
 
-// The plain form: X and Y are strided row-major operands.
-__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int m,
-                                        TnSmem& sm, float acc[kMicro][kMicro]) {
-  tn_tile_with(RowLoad{x.p, x.ld}, x.col0, x.col_lim, RowLoad{y.p, y.ld}, y.col0, y.col_lim, m,
-               sm, acc);
+// Opts a kernel in to `bytes` of dynamic shared memory on the current
+// device, once per device: `done` is the calling instance's own flags.
+inline cudaError_t tn_opt_in(const void* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return err;
+}
+
+// A tile kernel's resources on the current device: registers per thread,
+// static shared bytes, dynamic shared bytes, local (spill) bytes, resident
+// CTAs per SM, ring stages, rows a stage.
+inline cudaError_t tn_info(const void* kernel, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kTnSmemBytes);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = kTnSmemBytes;
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  out[4] = per_sm;
+  out[5] = kStages;
+  out[6] = kSlab;
+  return cudaSuccess;
 }
 
 // Packed lower-triangular tile enumeration t = i(i+1)/2 + j (j <= i): a

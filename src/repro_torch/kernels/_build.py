@@ -38,22 +38,28 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (all return a cudaError_t as int). The
 # *_info entry points fill an int array with a kernel's resources.
 SIGNATURES = {
-    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, P),
+    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, P),
+    "gemm_tn_info": (I, P),
     "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, P),
     "gemm_tn_fused_info": (I, P),
-    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, P),
-    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, P),
+    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, P),
+    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, P),
     "potrf_f32": (P, P, I, I, P),
     "potrf_info": (I, P),
     "trsm_f32": (P, P, P, I, I, I, LL, I, P),
+    "trsm_info": (I, I, P),
 }
 # what each *_info entry point writes, in order
 RESOURCE_FIELDS = {
+    "gemm_tn_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                     "ctas_per_sm", "ring_stages", "stage_rows"),
     "gemm_tn_fused_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                            "local_bytes", "ctas_per_sm", "active_clusters", "ring_stages",
                            "cluster_edge", "stage_slabs"),
     "potrf_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                    "ctas_per_sm"),
+    "trsm_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                  "ctas_per_sm", "rows_per_warp"),
 }
 
 
@@ -150,12 +156,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def resources(entry: str, arg: int) -> dict:
+def resources(entry: str, *args: int) -> dict:
     """A kernel's registers, shared memory and occupancy on the current card,
     as its ``*_info`` entry point reads them (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and, for clusters,
-    ``cudaOccupancyMaxActiveClusters``)."""
+    ``cudaOccupancyMaxActiveClusters``). ``args`` select the instance: the
+    entry point's int arguments before its output array."""
     fields = RESOURCE_FIELDS[entry]
     out = (ctypes.c_int * len(fields))()
-    check(getattr(load(), entry)(arg, out), entry)
+    check(getattr(load(), entry)(*args, out), entry)
     return dict(zip(fields, out))

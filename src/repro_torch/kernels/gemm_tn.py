@@ -20,7 +20,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-__all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "combine_fused_operands",
+__all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
            "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
 
 # slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
@@ -60,6 +60,14 @@ def _operand(x):
     return sb, x.stride(-2)
 
 
+def vec16(x, *strides) -> bool:
+    """Whether the tile engine (``csrc/tn_tile.cuh``) may fill its ring from
+    ``x`` in 16-byte copies: a 16-byte aligned base and every stride (row,
+    batch, entry offsets) a multiple of 4 floats. Otherwise it copies
+    floats."""
+    return x.data_ptr() % 16 == 0 and all(int(s) % 4 == 0 for s in strides)
+
+
 def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
     """Launch ``csrc/gemm_tn.cu`` once on the current stream."""
     from repro_torch.kernels import _build
@@ -76,12 +84,15 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
         raise ValueError(f"gemm_tn kernel takes no empty operands: {tuple(a.shape)} x {tuple(b.shape)}")
     sab, lda = _operand(a)
     sbb, ldb = _operand(b)
+    if a.device.index != torch.cuda.current_device():
+        # the kernel launches on the current device: make it the operands'
+        with torch.cuda.device(a.device):
+            return gemm_tn_cuda(a, b, alpha=alpha, out_dtype=out_dtype)
     c = torch.empty((*a.shape[:-2], n, k), dtype=torch.float32, device=a.device)
-    lib = _build.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
-                              sab, lda, sbb, ldb, float(alpha), stream)
+    v16 = vec16(a, sab, lda) and vec16(b, sbb, ldb)
+    err = _build.load().gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
+                                    sab, lda, sbb, ldb, float(alpha), int(v16),
+                                    torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gemm_tn")
     return c
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
+from repro_torch.kernels.gemm_tn import vec16
 
 __all__ = ["tri_coords", "syrk_plain", "syrk_cuda", "syrk_gather_plain", "syrk_gather_cuda"]
 
@@ -91,10 +92,11 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
         bn = 0
         c = torch.empty((*lead, n, n), dtype=torch.float32, device=a.device)
     lib = _build.load()
+    v16 = vec16(a, sab, a.stride(-2))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
-                           float(alpha), int(out == "packed"), bn, stream)
+                           float(alpha), int(out == "packed"), bn, int(v16), stream)
     _build.check(err, "syrk")
     return c
 
@@ -139,13 +141,15 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
         raise ValueError(f"syrk_gather kernel takes no empty operand: {tuple(a_blocks.shape)}")
     sab = a_blocks.stride(2) if a_blocks.ndim == 5 else 0
     dev = a_blocks.device
-    off = torch.as_tensor(rows * a_blocks.stride(0) + cols * a_blocks.stride(1), device=dev)
+    off_host = rows * a_blocks.stride(0) + cols * a_blocks.stride(1)
+    off = torch.as_tensor(off_host, device=dev)
     lead = (S, batch) if a_blocks.ndim == 5 else (S,)
     c = torch.empty((*lead, n, n), dtype=torch.float32, device=dev)
     lib = _build.load()
+    v16 = vec16(a_blocks, sab, a_blocks.stride(-2)) and not (off_host % 4).any()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S, batch,
-                                  m, n, sab, a_blocks.stride(-2), float(alpha), stream)
+                                  m, n, sab, a_blocks.stride(-2), float(alpha), int(v16), stream)
     _build.check(err, "syrk_gather")
     return c

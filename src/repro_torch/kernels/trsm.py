@@ -67,12 +67,13 @@ def trsm_cuda(l, b, *, transpose: bool = True, out_dtype=torch.float32):
     batch = b.shape[0] if b.ndim == 3 else 1
     if min(batch, m, n) == 0:
         raise ValueError(f"trsm kernel takes no empty panel: {tuple(b.shape)}")
+    if b.device.index != torch.cuda.current_device():
+        # the kernel launches on the current device: make it the panel's
+        with torch.cuda.device(b.device):
+            return trsm_cuda(l, b, transpose=transpose, out_dtype=out_dtype)
     slb = l.stride(0) if l.ndim == 3 else 0
     x = torch.empty_like(b)
-    lib = _build.load()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.trsm_f32(l.data_ptr(), b.data_ptr(), x.data_ptr(), batch, m, n, slb,
-                           int(bool(transpose)), stream)
+    err = _build.load().trsm_f32(l.data_ptr(), b.data_ptr(), x.data_ptr(), batch, m, n, slb,
+                                 int(bool(transpose)), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "trsm")
     return x

@@ -23,7 +23,8 @@ from repro_torch.core.ata import _level_tables
 from repro_torch.core.strassen import _pad_root, _slot_tables, _to_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.gemm_tn import (_fused_tables, combine_fused_operands,
-                                         fused_launch_tables, gemm_tn_fused_plain, gemm_tn_plain)
+                                         fused_launch_tables, gemm_tn_fused_plain, gemm_tn_plain,
+                                         vec16)
 from repro_torch.kernels.potrf import potrf_plain
 from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain
 from repro_torch.kernels.trsm import trsm_plain
@@ -65,6 +66,57 @@ def test_gemm_tn_kernel_matches_plain(dev, b, m, n, k):
     _close(ops.gemm_tn(a[0, :, 1:], c[0]), gemm_tn_plain(a[0, :, 1:], c[0]), m)
 
 
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 15, 17, 33, 513])
+def test_gemm_tn_kernel_depths_and_ragged_edges(dev, m):
+    """Contraction lengths around the depth-8 summation slabs and the
+    depth-16 ring stages; n and k of 1 and one short of and one past a
+    128 tile; a batch of 2. Within tolerance of the plain version, bitwise
+    equal to gemm_tn_fused on W = 1 tables of the same operands (the same
+    fmaf chain over the same depth-8 slabs), and bitwise equal to each batch
+    entry launched alone."""
+    rng = np.random.default_rng(m)
+    for n, k in ((1, 129), (127, 1), (129, 127), (127, 129)):
+        a, b = _t(rng, (2, m, n), dev), _t(rng, (2, m, k), dev)
+        got = ops.gemm_tn(a, b, alpha=0.75)
+        _close(got, gemm_tn_plain(a, b, alpha=0.75), m)
+        fused = ops.gemm_tn_fused(a[None, None, None], b[None, None, None], _slot_tables(0),
+                                  alpha=0.75)
+        assert torch.equal(got, fused.reshape(got.shape)), (n, k)
+        assert torch.equal(got[1], ops.gemm_tn(a[1], b[1], alpha=0.75)), (n, k)
+
+
+def test_gemm_tn_kernel_unaligned_views(dev):
+    """A base one float past a 16-byte boundary and an odd row stride make
+    the engine copy floats instead of 16-byte quads; the product is bitwise
+    the one of the aligned operands."""
+    rng = np.random.default_rng(11)
+    m, n, k = 70, 200, 132
+    a, b = _t(rng, (3, m, n), dev), _t(rng, (3, m, k), dev)
+    assert vec16(a, a.stride(0), a.stride(1)) and vec16(b, b.stride(0), b.stride(1))
+    want = ops.gemm_tn(a, b)
+    ua = torch.empty(a.numel() + 1, device=dev)[1:].view(a.shape)
+    ua.copy_(a)
+    wide = torch.empty(3, m, k + 1, device=dev)[..., :k]   # row stride 133
+    wide.copy_(b)
+    assert not vec16(ua, ua.stride(0), ua.stride(1))
+    assert not vec16(wide, wide.stride(0), wide.stride(1))
+    got = ops.gemm_tn(ua, wide)
+    _close(got, gemm_tn_plain(a, b), m)
+    assert torch.equal(got, want)
+    assert torch.equal(ops.gemm_tn(a, wide), want)
+
+
+def test_gemm_tn_kernel_batch_past_grid_limit(dev):
+    """65,537 entries: the grid's z extent stops at 65,535 and the rest of
+    the stack strides over it."""
+    rng = np.random.default_rng(12)
+    a, b = _t(rng, (65537, 3, 5), dev), _t(rng, (65537, 3, 4), dev)
+    got = ops.gemm_tn(a, b)
+    _close(got, gemm_tn_plain(a, b), 3)
+    for e in (0, 65534, 65535, 65536):
+        assert torch.equal(got[e], ops.gemm_tn(a[e], b[e])), e
+
+
 @pytest.mark.parametrize("b,m,n,req", [(1, 8, 128, 128), (3, 70, 200, 128), (2, 300, 700, 256)])
 def test_syrk_kernel_matches_plain(dev, b, m, n, req):
     rng = np.random.default_rng(n)
@@ -100,6 +152,22 @@ def test_trsm_kernel_matches_plain(dev, transpose, m, n):
     _close(ops.trsm(l, b, transpose=transpose), trsm_plain(l, b, transpose=transpose), n)
     le = l[0].expand(4, n, n)  # batch stride 0: no copy
     _close(ops.trsm(le, b, transpose=transpose), trsm_plain(le, b, transpose=transpose), n)
+
+
+@pytest.mark.parametrize("m", [1, 8, 12, 33, 300])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 100, 128, 200, 256])
+def test_trsm_kernel_panel_edges(dev, n, m):
+    """The 32-column panels: one column short of, at and past a panel edge,
+    ragged last panels (100, 200) and the largest factor; row counts that
+    run 1 (m <= 8) and 4 rows a warp, with idle warps (m = 12) and several
+    CTAs (m = 300); both transposes, own factors and one factor expanded
+    over the stack."""
+    rng = np.random.default_rng(1000 * n + m)
+    ls = potrf_plain(_spd(rng, 3, n, dev))
+    b = _t(rng, (3, m, n), dev)
+    for tr in (True, False):
+        for l in (ls, ls[1].expand(3, n, n)):
+            _close(ops.trsm(l, b, transpose=tr), trsm_plain(l, b, transpose=tr), n)
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):

@@ -125,6 +125,72 @@ def test_trsm_plain_matches_pallas(transpose, m, n):
     assert_scaled_close(got, want, n)
 
 
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n", [31, 32, 33, 63, 64, 65])
+def test_trsm_plain_matches_pallas_panel_edges(transpose, m, n):
+    """The CUDA kernel solves in panels of 32 columns (ascending, or
+    descending for ``transpose=False``): its plain version against the
+    reference at one panel, one column short of and past a panel, and the
+    r = 1 and r = 8 row counts of the substitutions."""
+    rng = np.random.default_rng(31 * n + m + transpose)
+    with jax.enable_x64(False):
+        ls = np.array(potrf_pallas(jnp.asarray(_spd(rng, 2, n)), interpret=True))
+        b = _f32(rng, (2, m, n))
+        want = trsm_pallas(jnp.asarray(ls), jnp.asarray(b), transpose=transpose,
+                           interpret=True)
+    got = ops.trsm(torch.as_tensor(ls), torch.as_tensor(b), transpose=transpose)
+    assert_scaled_close(got, want, n)
+
+
+def _entry_points():
+    """``name -> argument count`` of every ``extern "C" int name(...)`` in
+    the port's CUDA sources."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        for match in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            args = [a for a in match.group(2).split(",") if a.strip()]
+            assert match.group(1) not in found, f"{match.group(1)} defined twice"
+            found[match.group(1)] = len(args)
+    return found
+
+
+def test_c_entry_points_match_signatures():
+    """ctypes passes exactly the declared arguments: an entry point whose
+    declaration lost or gained one would be called with the wrong values
+    (or a pointer cut to 32 bits) without an error. Every C entry point has
+    a signature of its own length, every signature an entry point, and
+    every ``*_info`` entry point its resource fields."""
+    from repro_torch.kernels import _build
+
+    found = _entry_points()
+    assert found, "no extern \"C\" entry points found"
+    assert set(found) == set(_build.SIGNATURES), (sorted(found), sorted(_build.SIGNATURES))
+    for name, count in found.items():
+        assert len(_build.SIGNATURES[name]) == count, (name, count, _build.SIGNATURES[name])
+    infos = {name for name in found if name.endswith("_info")}
+    assert infos == set(_build.RESOURCE_FIELDS), (sorted(infos), sorted(_build.RESOURCE_FIELDS))
+    assert {"gemm_tn_info", "trsm_info"} <= infos
+
+
+def test_vec16_decides_the_copy_path():
+    """The tile engine fills its ring in 16-byte copies only from a 16-byte
+    aligned base with every stride a multiple of 4 floats."""
+    from repro_torch.kernels.gemm_tn import vec16
+
+    flat = torch.zeros(4 * 64 + 8)
+    base = flat[: 4 * 64].view(4, 64)
+    assert base.data_ptr() % 16 == 0 and vec16(base, 64, 0)
+    assert not vec16(flat[1:4 * 64 + 1].view(4, 64), 64, 0)   # base one float past 16 B
+    assert not vec16(flat[:4 * 63].view(4, 63), 63, 0)        # odd row stride
+    assert not vec16(base, 64, 6)                              # batch stride 6 floats
+
+
 def test_trsm_expanded_factor_matches_stacked():
     """A factor broadcast over the panel (the walk's expand) solves like the
     same factor repeated."""
