@@ -15,11 +15,14 @@ phase fails):
              The fused kernels are also held bitwise against ``gemm_tn`` /
              ``syrk`` on the materialized combined / stacked operands,
              gemm_tn_fused at each level of ata 8192² with its rate; potrf
-             on stacks of n ∈ {1, 33, 104, 128, 256}; potrf's and trsm's
-             device times (CUDA graphs), trsm's beside
-             ``solve_triangular``'s; and lines of registers, shared memory
-             and occupancy of the redesigned kernels (gemm_tn_fused, potrf,
-             gemm_tn, trsm);
+             on stacks of n ∈ {1, 33, 104, 128, 256}; syrk on lstsq's
+             single (2048, 512) leaf, split over a cluster of
+             ``syrk_splits`` CTAs a tile, a batch entry bitwise against its
+             single launch there; device times (CUDA graphs; syrk_gather
+             20 launches back to back) of syrk, syrk_gather, potrf and
+             trsm, each beside its library call's;
+             and lines of registers, shared memory and occupancy of the
+             redesigned kernels (gemm_tn_fused, potrf, gemm_tn, trsm, syrk);
 3. ata     — ``ata(a, out="packed")`` at ``a: 8192×8192`` float32 under the
              unrolled, batched and fused leaf dispatch: bitwise equal to
              each other, each with its exact kernel launch counts and peak
@@ -105,6 +108,29 @@ def graph_ms(fn, launches: int = 50) -> float:
     return time_ms(graph.replay) / launches
 
 
+def burst_ms(fn, launches: int = 20) -> float:
+    """Device time of one ``fn()`` that cannot be captured in a CUDA graph
+    (it copies a table from the host): ``launches`` calls queued back to back
+    between two CUDA events, median over five bursts, divided by
+    ``launches``. Valid for calls whose host time is well below their device
+    time, so the device never waits between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def bound(flops: float, nbytes: float):
     """(least time in ms, what bounds it) for the work on an H100."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -156,6 +182,7 @@ def phase_kernels(checks, ops, plain):
     from repro_torch.kernels import _build
     from repro_torch.core.reference import classical_gemm_flops, potrf_flops, trsm_flops
     from repro_torch.core.symmetric import default_block_size
+    from repro_torch.kernels.syrk import syrk_splits
 
     rng = np.random.default_rng(SEED)
     log("phase kernels")
@@ -187,7 +214,9 @@ def phase_kernels(checks, ops, plain):
         raise AssertionError("gemm_tn: batch entry differs from its single launch")
     log("  gemm_tn batched entry == single launch: bitwise")
 
-    # syrk: dense (256,512,512) — the ata 8192² diagonal leaves — and packed (2048,1000)
+    # syrk: dense (256,512,512) — the ata 8192² diagonal leaves — lstsq's
+    # single (2048,512) leaf, split over a cluster of syrk_splits CTAs a
+    # tile, and packed (2048,1000)
     a = cuda_tensor(rng, (256, 512, 512))
     got, ref = ops.syrk(a), plain["syrk"](a)
     err = checks.compare("syrk dense (256,512,512)", got, ref, 512)
@@ -198,13 +227,24 @@ def phase_kernels(checks, ops, plain):
     ms = time_ms(lambda: ops.syrk(a))
     plain_ms = time_ms(lambda: plain["syrk"](a))
     lib_ms = time_ms(lambda: torch.matmul(a.transpose(1, 2), a))
+    device_ms = graph_ms(lambda: ops.syrk(a), launches=20)
+    lib_device_ms = graph_ms(lambda: torch.matmul(a.transpose(1, 2), a), launches=20)
     bms, by = bound(256 * 512 * 512 * 513, 4 * 256 * 2 * 512 * 512)
-    checks.rows["syrk"] = dict(
-        shape="(256,512,512) dense", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by)
-    log(f"  syrk ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-        f"bound_ms={bms:.3f} ({by})")
     del a
+    single = syrk_single_leaf(checks, ops, plain, rng)
+    checks.rows["syrk"] = dict(
+        shape="(256,512,512) dense", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, device_ms=device_ms,
+        library_device_ms=lib_device_ms, splits=syrk_splits(512, 512),
+        single_2048x512=single,
+        resources={f"vec16={v},K={k}": _build.resources("syrk_info", v, k)
+                   for v in (1, 0) for k in (1, 2, 4, 8)})
+    log(f"  syrk ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+        f"bound_ms={bms:.3f} ({by}); device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f} (CUDA graphs of 20 launches), "
+        f"K={syrk_splits(512, 512)}")
+    log("  resources syrk (by copy width and cluster size K) "
+        + json.dumps(checks.rows["syrk"]["resources"]))
     a = cuda_tensor(rng, (2048, 1000))
     packed = ops.syrk(a, out="packed")
     bn = default_block_size(1000, 256)
@@ -291,6 +331,36 @@ def phase_kernels(checks, ops, plain):
     log("  resources trsm " + json.dumps(checks.rows["trsm"]["resources"]))
 
 
+def syrk_single_leaf(checks, ops, plain, rng):
+    """syrk on lstsq's gram leaf, one (2048, 512) slab a launch: against its
+    plain version, a batch entry bitwise against its single launch at that
+    split m, and the device time beside torch.matmul's and the bound."""
+    import torch
+
+    from repro_torch.kernels.syrk import syrk_splits
+
+    k = syrk_splits(2048, 512)
+    if k < 2:
+        raise AssertionError(f"syrk_splits(2048, 512) = {k}: lstsq's leaf is not split")
+    a = cuda_tensor(rng, (3, 2048, 512))
+    one = ops.syrk(a[1])
+    err = checks.compare(f"syrk dense single (2048,512) K={k}", one, plain["syrk"](a[1]), 2048)
+    if not torch.equal(ops.syrk(a)[1], one):
+        raise AssertionError("syrk: batch entry differs from its single launch at a split m")
+    log(f"  syrk batched entry == single launch at m=2048 (K={k}): bitwise")
+    x = a[1].contiguous()
+    del a
+    ms = time_ms(lambda: ops.syrk(x), runs=20)
+    device_ms = graph_ms(lambda: ops.syrk(x))
+    lib_device_ms = graph_ms(lambda: torch.matmul(x.T, x))
+    bms, by = bound(2048 * 512 * 513, 4 * (2048 * 512 + 512 * 512))
+    log(f"  syrk single (2048,512) K={k}: ms={ms:.4f} device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f} (CUDA graphs of 50 launches) "
+        f"bound_ms={bms:.4f} ({by})")
+    return dict(splits=k, max_abs_err=err, ms=ms, device_ms=device_ms,
+                library_device_ms=lib_device_ms, bound_ms=bms, bound_by=by)
+
+
 def phase_fused_kernels(checks, ops, plain, rng):
     """gemm_tn_fused and syrk_gather at the launches of ata 8192² fused."""
     import numpy as np
@@ -301,6 +371,7 @@ def phase_fused_kernels(checks, ops, plain, rng):
     from repro_torch.core.strassen import _to_blocks
     from repro_torch.kernels import _build
     from repro_torch.kernels.gemm_tn import combine_fused_operands
+    from repro_torch.kernels.syrk import syrk_splits
 
     def live_blocks(rows, cols, sgn):
         return len({(int(r), int(c)) for r, c, g in zip(rows.ravel(), cols.ravel(), sgn.ravel())
@@ -358,14 +429,31 @@ def phase_fused_kernels(checks, ops, plain, rng):
     ms = time_ms(lambda: ops.syrk_gather(ab, rows, cols))
     plain_ms = time_ms(lambda: plain["syrk_gather"](ab, rows, cols))
     lib_ms = time_ms(lambda: torch.matmul(D.transpose(1, 2), D))
+    device_ms = burst_ms(lambda: ops.syrk_gather(ab, rows, cols))
+    lib_device_ms = burst_ms(lambda: torch.matmul(D.transpose(1, 2), D))
     bms, by = bound(256 * 512 * 512 * 513, 4 * 256 * 2 * 512 * 512)
     checks.rows["syrk_gather"] = dict(
         shape="root grid (16,16,512,512), S=256", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        library_ms=lib_ms, bound_ms=bms, bound_by=by, device_ms=device_ms,
+        library_device_ms=lib_device_ms)
     log(f"  syrk_gather ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-        f"(torch.matmul on the stacked leaves) bound_ms={bms:.3f} ({by})")
+        f"(torch.matmul on the stacked leaves) bound_ms={bms:.3f} ({by}); "
+        f"device_ms={device_ms:.4f} library_device_ms={lib_device_ms:.4f} "
+        f"(20 launches back to back)")
     del D, ab, a
     torch.cuda.empty_cache()
+
+    # lstsq-sized leaves, split over clusters: gathered == syrk on the stack
+    a = cuda_tensor(rng, (4096, 1024))
+    ab = _to_blocks(a, 1)
+    s = np.arange(4)
+    got = ops.syrk_gather(ab, s % 2, s // 2)
+    checks.compare(f"syrk_gather (2,2,2048,512) K={syrk_splits(2048, 512)}", got,
+                   plain["syrk_gather"](ab, s % 2, s // 2), 2048)
+    if not torch.equal(got, ops.syrk(ab.transpose(0, 1).reshape(4, 2048, 512))):
+        raise AssertionError("syrk_gather != syrk on the stacked leaves at a split m")
+    log("  syrk_gather == syrk on the stacked (2048,512) leaves (split m): bitwise")
+    del a, ab, got
 
     # ragged leaves (130 columns) with a batch of 3, against plain and gemm_tn / syrk
     a = cuda_tensor(rng, (3, 1000, 520))

@@ -41,8 +41,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool vec_out = (k & 3) == 0;  // every row segment 16 B aligned
   for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
     float acc[kMicro][kMicro];
-    tn_tile<kVec16>(TnOperand{a + bt * sab, lda, r0, n}, TnOperand{b + bt * sbb, ldb, c0, k}, m,
-                    smem, map, acc);
+    tn_tile<kVec16>(TnOperand{a + bt * sab, lda, r0, n}, TnOperand{b + bt * sbb, ldb, c0, k}, 0,
+                    m, smem, map, acc);
     float* cb = c + (long long)bt * n * k;
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii) {

@@ -5,28 +5,59 @@
 //
 // What bounds it on the H100: operations, like gemm_tn. A diagonal leaf is
 // 512 x 512 over 512 rows (m n (n+1) = 134 MFLOP symmetric-aware on 2 MiB);
-// the packed (2048, 1000) call is about 2 GFLOP on 9 MB. Both sit well above
-// the float32 balance point, so the ceiling is the 67 TFLOP/s of the FMA
-// units.
+// lstsq's leaf is 512 x 512 over 2048 rows (538 MFLOP on 4 MiB). Both sit
+// well above the float32 balance point, so the ceiling is the 67 TFLOP/s of
+// the FMA units.
 //
-// What the design does about it: the grid visits only lower tile pairs, so
-// the upper half of C costs no arithmetic. blockIdx.x enumerates them as
-// t = i(i+1)/2 + j and recovers (i, j) with the reference's float sqrt and
-// integer correction (tri_coords). Each CTA runs the 128 x 128 TN tile
-// engine of tn_tile.cuh, which gemm_tn also runs (warp-tiled, conflict-free
-// shared-memory reads behind a cp.async ring), with A as both operands, then
-// writes the tile and its transpose straight from the registers through the
-// engine's thread map (the TPU kernel's dual write):
-//   dense  — (i, j) are 128-tiles of the n x n output; a diagonal tile keeps
-//            its lower half and mirrors it up (sym_tile), so the output is
-//            bitwise symmetric with no pass over the square afterwards;
-//   packed — (i, j) are storage blocks of edge bn (default_block_size, e.g.
-//            256 or 104); blockIdx.y picks one 128-tile of the block, since
-//            a 256 x 256 float32 accumulator does not fit one CTA's
-//            registers. Upper sub-tiles of a diagonal block are skipped and
-//            filled by the mirror writes of the lower ones.
-// Rows and columns past n load as zero, so pad entries of a packed block are
-// exact zeros, as in the reference.
+// What the design does about it:
+// * Lower tiles only. The grid visits lower tile pairs, enumerated as
+//   t = i(i+1)/2 + j and recovered with the reference's float sqrt and
+//   integer correction (tri_coords). Each CTA runs the 128 x 128 TN tile
+//   engine of tn_tile.cuh (warp-tiled, conflict-free shared-memory reads
+//   behind a cp.async ring) with A as both operands.
+// * Diagonal tiles skip their dead quadrant. On a tile whose rows and
+//   columns are the same indices, every thread's acc[ii < 4][jj >= 4] is
+//   strictly upper and never stored, so that tile runs the engine with
+//   kSkipUpper: 48 of the 64 FMAs a step. Both engine instances unroll one
+//   depth-8 slab (kCompact): with two whole-stage bodies the skip lost.
+// * A coalesced dual-write epilogue. The CTA stages alpha * acc in the
+//   ring's shared memory (64 KiB of its 96), 16-byte chunk c of tile row i
+//   at chunk c ^ ((i / 4) % 8), which keeps the register stores, the row
+//   reads and the 4 x 4 block reads below free of bank conflicts. Each lane
+//   then takes a 4 x 4 block (4 LDS.128), a warp 4 block rows x 8 block
+//   columns, and writes the block's rows and, transposed in registers, its
+//   mirror: float4 stores where ld is a multiple of 4 floats (whole 128 B
+//   lines for the rows, whole 32 B sectors for the mirror), scalar stores of
+//   the same runs otherwise. A diagonal target writes sym of the lower half
+//   (T[max(i,j)][min(i,j)]), so the output is bitwise symmetric with no pass
+//   over the square afterwards.
+// * A cluster-split contraction when the grid is small. m is split into K
+//   row ranges [r*chunk, (r+1)*chunk), chunk a multiple of 32; the K CTAs
+//   of one output tile form a thread-block cluster along x (grid
+//   (T*K, sub^2, batch)). Each runs the engine over its range and stages its
+//   partial; after one cluster barrier, CTA r sums its share of the tile's
+//   4 x 4 blocks over all K partials through distributed shared memory and
+//   writes them. No workspace in global memory, no second launch. K is a
+//   template parameter (one instance each for 1, 2, 4, 8), so the
+//   epilogue's loops are unrolled. lstsq's single (2048, 512) leaf has 10
+//   tiles: 10 CTAs on 132 SMs unsplit, 80 at K = 8.
+//
+// Summation order, the contract of every output: with p_r the engine's
+// fmaf chain over rows [r*chunk, min(m, (r+1)*chunk)) (tn_tile.cuh),
+//   C = (...((alpha*p_0 + alpha*p_1) + alpha*p_2) ... + alpha*p_{K-1}),
+// rank order, each product and sum rounded once (__fmul_rn, __fadd_rn).
+// K = splits is chosen by the wrapper (repro_torch.kernels.syrk.syrk_splits)
+// from (m, n) alone, and chunk from (m, K) here, so a batch entry equals its
+// single launch, packed equals dense, and syrk_gather equals syrk on the
+// stacked leaves, bitwise. At K = 1 an output is alpha * p_0.
+//
+// Output targets: dense — (i, j) are 128-tiles of the n x n output; packed —
+// (i, j) are storage blocks of edge bn (default_block_size, e.g. 256 or
+// 104) and blockIdx.y picks one 128-tile of the block. Upper sub-tiles of a
+// diagonal block are skipped and filled by the mirror writes of the lower
+// ones; off-diagonal storage blocks write the tile only. Rows and columns
+// past n load as zero, so pad entries of a packed block are exact zeros, as
+// in the reference.
 //
 // syrk_gather_f32 also replaces syrk_gather_pallas (src/repro/kernels/syrk.py),
 // the diagonal leaves of the fused leaf dispatch: the same dense grid, but
@@ -36,108 +67,257 @@
 // per entry is the dense syrk's, so the two agree bitwise on the same leaf.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "tn_tile.cuh"
 
 namespace repro_torch {
 
-template <bool kVec16>
-__global__ void __launch_bounds__(kThreads, 2)
-    syrk_kernel(const float* __restrict__ a, float* __restrict__ c, int batch, int m, int n,
-                long long sab, long long lda, float alpha, int packed, int bn, int sub,
-                const long long* __restrict__ offs, int inner) {
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocks = kTile / 4;                       // 4 x 4 blocks a tile edge
+constexpr int kGroups = (kBlocks / 4) * (kBlocks / 8);   // warp groups of 4 x 8 blocks
+
+struct SyrkArgs {
+  const float* a;
+  float* c;
+  const long long* offs;  // per-entry element offsets (syrk_gather), or null
+  long long sab, lda;     // batch and row strides of a, in elements
+  int batch, inner;       // entries; entry e reads a + offs[e / inner] + (e % inner) * sab
+  int m, n;
+  float alpha;
+  int packed, bn, sub;    // packed: storage block edge, 128-tiles a block edge
+  int chunk;              // CTA r of a cluster of K sums rows [r*chunk, (r+1)*chunk)
+  int vec_out;            // ld a multiple of 4 floats and c 16 B aligned: float4 stores
+};
+
+// Float index of 16-byte chunk c (columns 4c..4c+3) of row i of the staged
+// tile. The XOR keeps the 8 lanes of a quarter-warp on 8 distinct bank groups
+// whenever they share (i / 4) % 8 and hold 8 consecutive chunks, or hold
+// rows 4 apart at one chunk.
+__device__ __forceinline__ int staged(int i, int c) {
+  return i * kTile + 4 * (c ^ ((i >> 2) & 7));
+}
+
+// Where the tile goes: element (i, j) of the tile is dst[(i0 + i) * ld + j0 + j]
+// of a lim x lim target.
+struct Target {
+  float* dst;
+  long long ld;
+  int lim, i0, j0;
+  bool vec;
+};
+
+// Row i of the target from column j on: four values, float4 if allowed.
+__device__ __forceinline__ void put4(const Target& t, int i, int j, const float (&v)[4]) {
+  if (i >= t.lim) return;
+  float* p = t.dst + (long long)i * t.ld + j;
+  if (t.vec) {  // lim % 4 == 0 and j % 4 == 0: the run is all in or all out
+    if (j < t.lim) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      if (j + f < t.lim) p[f] = v[f];
+  }
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address of this CTA's `p` in the CTA of rank `rank`.
+// Volatile, so it stays after the cluster barrier that precedes it (kept out
+// of the registers of the main loop).
+__device__ __forceinline__ unsigned cluster_address(const float* p, int rank) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ float4 load_cluster4(unsigned address) {
+  float4 v;
+  asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(address));
+  return v;
+}
+
+template <bool kVec16, int kSplits>
+__global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
   extern __shared__ __align__(16) float smem[];
   const TnMap map;
+  const int t = blockIdx.x / kSplits, rank = blockIdx.x % kSplits;  // rank in the cluster
   int bi, bj;
-  tri_coords(blockIdx.x, bi, bj);
-  int p = bi, q = bj, rlim = n, clim = n, r0, c0;
-  if (packed) {
-    p = blockIdx.y / sub;
-    q = blockIdx.y % sub;
-    if (bi == bj && p < q) return;  // filled by the mirror of sub-tile (q, p)
-    r0 = bi * bn + p * kTile;
-    c0 = bj * bn + q * kTile;
-    rlim = min(n, (bi + 1) * bn);
-    clim = min(n, (bj + 1) * bn);
+  tri_coords(t, bi, bj);
+  int p = bi, q = bj, rlim = g.n, clim = g.n, r0, c0;
+  if (g.packed) {
+    p = blockIdx.y / g.sub;
+    q = blockIdx.y % g.sub;
+    if (bi == bj && p < q) return;  // the whole cluster: filled by the mirror of (q, p)
+    r0 = bi * g.bn + p * kTile;
+    c0 = bj * g.bn + q * kTile;
+    rlim = min(g.n, (bi + 1) * g.bn);
+    clim = min(g.n, (bj + 1) * g.bn);
   } else {
     r0 = p * kTile;
     c0 = q * kTile;
   }
-  const long long t_total = (long long)gridDim.x;
-  for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
+  const bool diag = bi == bj && p == q;            // rows and columns are the same indices
+  const bool sym = !g.packed || bi == bj;          // the target is symmetric: mirror writes
+  const int l0 = rank * g.chunk;
+  const int l1 = max(l0, min(g.m, l0 + g.chunk));
+  const long long t_total = (long long)gridDim.x / kSplits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int bt = blockIdx.z; bt < g.batch; bt += gridDim.z) {
+    const float* ab = g.offs ? g.a + g.offs[bt / g.inner] + (long long)(bt % g.inner) * g.sab
+                             : g.a + (long long)bt * g.sab;
     float acc[kMicro][kMicro];
-    const float* ab = offs ? a + offs[bt / inner] + (long long)(bt % inner) * sab
-                           : a + (long long)bt * sab;
-    tn_tile<kVec16>(TnOperand{ab, lda, r0, rlim}, TnOperand{ab, lda, c0, clim}, m, smem, map,
-                    acc);
-    // dst(i, j) is element (i, j) of the n x n matrix (dense) or of storage
-    // block t (packed); (i, j) below are coordinates within that target.
-    float* dst;
-    int ld, ilim, i0, j0;
-    if (packed) {
-      dst = c + ((long long)bt * t_total + blockIdx.x) * bn * bn;
-      ld = bn;
-      ilim = bn;
-      i0 = p * kTile;
-      j0 = q * kTile;
+    const TnOperand x{ab, g.lda, r0, rlim}, y{ab, g.lda, c0, clim};
+    if (diag)
+      tn_tile<kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+    else
+      tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+    __syncthreads();  // every warp is done with the ring: stage the partial over it
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(smem + staged(map.row(ii), map.tx + 16 * h)) = make_float4(
+            __fmul_rn(g.alpha, acc[ii][4 * h]), __fmul_rn(g.alpha, acc[ii][4 * h + 1]),
+            __fmul_rn(g.alpha, acc[ii][4 * h + 2]), __fmul_rn(g.alpha, acc[ii][4 * h + 3]));
+    if constexpr (kSplits > 1)
+      cluster_sync_all();  // every partial of the cluster is staged
+    else
+      __syncthreads();
+
+    Target tg;
+    if (g.packed) {
+      tg = Target{g.c + ((long long)bt * t_total + t) * g.bn * g.bn, g.bn, g.bn, p * kTile,
+                  q * kTile, g.vec_out != 0};
     } else {
-      dst = c + (long long)bt * n * n;
-      ld = n;
-      ilim = n;
-      i0 = r0;
-      j0 = c0;
+      tg = Target{g.c + (long long)bt * g.n * g.n, g.n, g.n, r0, c0, g.vec_out != 0};
     }
-    const bool diag_block = packed ? (bi == bj) : true;
+    // Warp group w covers block rows 4*(w/4) + {0..3} and block columns
+    // 8*(w%4) + {0..7}; lane (lane/8, lane%8) one 4 x 4 block of it. CTA r
+    // of the cluster takes groups (u*K + r)*8 + warp. The trip counts and
+    // the rank loop below are compile-time, so the loads of every block a
+    // warp writes can be in flight together (the same loop with K a
+    // run-time value ran 6% slower at K = 1, PERF.md).
 #pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) {
-      const int i = i0 + map.row(ii);
-      if (i >= ilim) continue;
+    for (int u = 0; u < (kGroups + kSplits * kWarps - 1) / (kSplits * kWarps); ++u) {
+      const int w = (u * kSplits + rank) * kWarps + warp;
+      if (kSplits * kWarps > kGroups && w >= kGroups) break;  // K = 8: ranks 4..7 have none
+      const int I = 4 * (w / 4) + lane / 8, J = 8 * (w % 4) + lane % 8;
+      float v[4][4];
 #pragma unroll
-      for (int jj = 0; jj < kMicro; ++jj) {
-        const int j = j0 + map.col(jj);
-        if (j >= ilim) continue;
-        const float v = alpha * acc[ii][jj];
-        if (!diag_block) {  // off-diagonal storage block: full tile
-          dst[(long long)i * ld + j] = v;
-        } else if (p > q || i >= j) {  // lower half of a symmetric target
-          dst[(long long)i * ld + j] = v;
-          dst[(long long)j * ld + i] = v;
+      for (int r = 0; r < kSplits; ++r) {  // the fixed rank order of the contract
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* at = smem + staged(4 * I + e, J);
+          const float4 u4 = kSplits == 1 ? *reinterpret_cast<const float4*>(at)
+                                         : load_cluster4(cluster_address(at, r));
+          if (r == 0) {
+            v[e][0] = u4.x, v[e][1] = u4.y, v[e][2] = u4.z, v[e][3] = u4.w;
+          } else {
+            v[e][0] = __fadd_rn(v[e][0], u4.x), v[e][1] = __fadd_rn(v[e][1], u4.y);
+            v[e][2] = __fadd_rn(v[e][2], u4.z), v[e][3] = __fadd_rn(v[e][3], u4.w);
+          }
+        }
+      }
+      const int i = tg.i0 + 4 * I, j = tg.j0 + 4 * J;
+      if (diag && I == J) {  // on the diagonal: the lower half, mirrored in place
+        float s[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) s[e][f] = e >= f ? v[e][f] : v[f][e];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) put4(tg, i + e, j, s[e]);
+      } else if (!diag || I > J) {  // strictly upper blocks: the mirror of (J, I)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) put4(tg, i + e, j, v[e]);
+        if (sym) {
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const float col[4] = {v[0][f], v[1][f], v[2][f], v[3][f]};
+            put4(tg, j + f, i, col);
+          }
         }
       }
     }
-    __syncthreads();  // the next batch entry reuses the shared buffers
+    if constexpr (kSplits > 1)
+      cluster_sync_all();  // no CTA of the cluster reads a partial or exits before all are done
+    else if (bt + gridDim.z < g.batch)
+      __syncthreads();     // the next entry refills the ring
   }
 }
 
-template <bool kVec16>
-static int launch(dim3 grid, const float* a, float* c, int batch, int m, int n, long long sab,
-                  long long lda, float alpha, int packed, int bn, int sub, const long long* offs,
-                  int inner, cudaStream_t stream) {
-  static bool opted_in[kMaxDevices] = {};
-  cudaError_t err =
-      tn_opt_in(reinterpret_cast<const void*>(syrk_kernel<kVec16>), kTnSmemBytes, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  syrk_kernel<kVec16><<<grid, kThreads, kTnSmemBytes, stream>>>(a, c, batch, m, n, sab, lda,
-                                                                alpha, packed, bn, sub, offs, inner);
-  return static_cast<int>(cudaGetLastError());
+using SyrkKernel = void (*)(SyrkArgs);
+
+// The instance for a split K in {1, 2, 4, 8} (null otherwise), and its
+// dynamic shared-memory opt-in, once per instance and device.
+static SyrkKernel instance(int vec16, int splits, cudaError_t* err) {
+  static bool done[2][4][kMaxDevices] = {};
+  SyrkKernel k[2][4] = {{syrk_kernel<false, 1>, syrk_kernel<false, 2>, syrk_kernel<false, 4>,
+                         syrk_kernel<false, 8>},
+                        {syrk_kernel<true, 1>, syrk_kernel<true, 2>, syrk_kernel<true, 4>,
+                         syrk_kernel<true, 8>}};
+  const int idx = splits == 1 ? 0 : splits == 2 ? 1 : splits == 4 ? 2 : splits == 8 ? 3 : -1;
+  if (idx < 0) {
+    *err = cudaErrorInvalidValue;
+    return nullptr;
+  }
+  const int v = vec16 ? 1 : 0;
+  *err = tn_opt_in(reinterpret_cast<const void*>(k[v][idx]), kTnSmemBytes, done[v][idx]);
+  return *err == cudaSuccess ? k[v][idx] : nullptr;
 }
 
-static int launch(int vec16, dim3 grid, const float* a, float* c, int batch, int m, int n,
-                  long long sab, long long lda, float alpha, int packed, int bn, int sub,
-                  const long long* offs, int inner, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec16 ? launch<true>(grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, offs,
-                              inner, s)
-               : launch<false>(grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub, offs,
-                               inner, s);
+static void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, dim3 grid, int splits,
+                      cudaStream_t stream) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kTnSmemBytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1;  // K = 1: a plain launch, no cluster
+}
+
+// Grid (T * K, sub^2, batch), clusters of K along x; chunk from (m, K).
+static int launch(int vec16, long long tiles, int sub, int splits, SyrkArgs g, void* stream) {
+  cudaError_t err;
+  const SyrkKernel kernel = instance(vec16, splits, &err);
+  if (kernel == nullptr) return static_cast<int>(err);
+  if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (g.m + splits - 1) / splits;
+  g.chunk = (per + kSlab - 1) / kSlab * kSlab;
+  const int ld = g.packed ? g.bn : g.n;
+  g.vec_out = ld % 4 == 0 && reinterpret_cast<std::uintptr_t>(g.c) % 16 == 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const dim3 grid(static_cast<unsigned>(tiles * splits), sub * sub,
+                  g.batch < 65535 ? g.batch : 65535);
+  configure(cfg, attr, grid, splits, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, kernel, g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
 
 // packed == 0: c is (batch, n, n); the grid covers the lower 128-tile pairs.
 // packed == 1: c is (batch, T, bn, bn) with T = nb(nb+1)/2, nb = ceil(n/bn).
+// splits: K in {1, 2, 4, 8}, the CTAs (one cluster) that share each output tile.
 // vec16: a 16 B aligned, lda and sab multiples of 4 floats (16 B copies).
 extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long long sab,
-                        long long lda, float alpha, int packed, int bn, int vec16, void* stream) {
+                        long long lda, float alpha, int packed, int bn, int splits, int vec16,
+                        void* stream) {
   using repro_torch::kTile;
   int sub = 1;
   long long nblk;
@@ -147,27 +327,56 @@ extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long 
   } else {
     nblk = (n + kTile - 1) / kTile;
   }
-  const long long t_total = nblk * (nblk + 1) / 2;
-  if (t_total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(t_total), sub * sub, batch < 65535 ? batch : 65535);
-  return repro_torch::launch(vec16, grid, a, c, batch, m, n, sab, lda, alpha, packed, bn, sub,
-                             nullptr, 1, stream);
+  repro_torch::SyrkArgs g{};
+  g.a = a, g.c = c, g.offs = nullptr, g.sab = sab, g.lda = lda, g.batch = batch, g.inner = 1;
+  g.m = m, g.n = n, g.alpha = alpha, g.packed = packed, g.bn = packed ? bn : 0, g.sub = sub;
+  return repro_torch::launch(vec16, nblk * (nblk + 1) / 2, sub, splits, g, stream);
 }
 
 // c is (S, inner, n, n): entry (s, b) is the dense syrk of the m x n leaf at
-// a + offs[s] + b * sab (row stride lda). vec16 as for syrk_f32, and every
-// offs[s] a multiple of 4 floats.
+// a + offs[s] + b * sab (row stride lda). splits and vec16 as for syrk_f32,
+// and every offs[s] a multiple of 4 floats.
 extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, int S, int inner,
-                               int m, int n, long long sab, long long lda, float alpha, int vec16,
-                               void* stream) {
+                               int m, int n, long long sab, long long lda, float alpha, int splits,
+                               int vec16, void* stream) {
   using repro_torch::kTile;
   const long long nblk = (n + kTile - 1) / kTile;
-  const long long t_total = nblk * (nblk + 1) / 2;
   const long long entries = (long long)S * inner;
-  if (t_total > 2147483647LL || entries > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int batch = static_cast<int>(entries);
-  dim3 grid(static_cast<unsigned>(t_total), 1, batch < 65535 ? batch : 65535);
-  return repro_torch::launch(vec16, grid, a, c, batch, m, n, sab, lda, alpha, 0, 0, 1, offs,
-                             inner, stream);
+  if (entries > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  repro_torch::SyrkArgs g{};
+  g.a = a, g.c = c, g.offs = offs, g.sab = sab, g.lda = lda;
+  g.batch = static_cast<int>(entries), g.inner = inner;
+  g.m = m, g.n = n, g.alpha = alpha, g.packed = 0, g.bn = 0, g.sub = 1;
+  return repro_torch::launch(vec16, nblk * (nblk + 1) / 2, 1, splits, g, stream);
+}
+
+// out: registers per thread, static shared bytes, dynamic shared bytes,
+// local (spill) bytes, resident CTAs per SM, cluster size (= splits), and
+// resident clusters of that size on the card, for the 16 B (vec16 = 1) or
+// 4 B instance.
+extern "C" int syrk_info(int vec16, int splits, int* out) {
+  using namespace repro_torch;
+  cudaError_t err;
+  const void* kernel = reinterpret_cast<const void*>(instance(vec16, splits, &err));
+  if (kernel == nullptr) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kTnSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  configure(cfg, attr, dim3(10 * splits, 1, 1), splits, nullptr);
+  cfg.numAttrs = 1;  // the query counts clusters of one CTA too
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = kTnSmemBytes;
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  out[4] = per_sm;
+  out[5] = splits;
+  out[6] = clusters;
+  return 0;
 }

@@ -34,16 +34,30 @@
 //   multiple of 4 floats (kVec16), 4-byte copies otherwise. Rows at or past
 //   m and columns at or past a limit are zero-filled through the copy's
 //   source size, so the loop has no mask branch.
-// * The epilogues use TnMap; gemm_tn stores float4 rows where it can.
+// * The epilogues use TnMap: gemm_tn stores float4 rows from the registers,
+//   syrk stages the tile in the ring's shared memory first (syrk.cu).
 //
-// Summation order, the contract every caller relies on: every output is one
-// fmaf chain over l = 0, 1, ... in ascending order, over the depth-8 slabs
-// that start below m (l < ceil(m/8)*8, rows past m being exact zeros),
-// whatever the tile, the batch index, the batch size or kSlab. Two launches
-// that see the same operands therefore give bitwise-equal outputs;
-// gemm_tn_fused.cu runs the same depth-8 chain on its combined slabs and is
-// bitwise equal to gemm_tn; and because fmaf(x, y, s) == fmaf(y, x, s),
-// C[i][j] and C[j][i] of a syrk are bitwise equal too.
+// Summation order, the contract every caller relies on: tn_tile sums rows
+// [l0, l1) of the operands (l0 a multiple of kSlab) as one fmaf chain over
+// l = l0, l0 + 1, ... in ascending order, over the depth-8 slabs that start
+// below l1 (rows past l1 being exact zeros), whatever the tile, the batch
+// index, the batch size or kSlab. gemm_tn calls it with [0, m): every
+// output is one chain. syrk splits m into K(m, n) ranges and adds the K
+// chains in one fixed order (syrk.cu), K being a function of (m, n) alone.
+// Two launches that see the same operands therefore give bitwise-equal
+// outputs; gemm_tn_fused.cu runs the same depth-8 chain on its combined
+// slabs and is bitwise equal to gemm_tn; and because fmaf(x, y, s) ==
+// fmaf(y, x, s), C[i][j] and C[j][i] of a syrk are bitwise equal too.
+//
+// kSkipUpper (syrk's diagonal tiles only): every thread's acc[ii < 4][jj >= 4]
+// is tile element (row < 64, column >= 64), strictly above the diagonal of a
+// tile whose rows and columns are the same indices. Those 16 of the 64
+// accumulators are left at zero, their FMAs never issued; the caller must
+// not store them. kCompact unrolls one depth-8 slab of the multiply instead
+// of a whole stage of four: syrk inlines two instances of the loop (with
+// and without kSkipUpper), and two fully unrolled ones (37 and 28 KB of
+// code) ran slower than one (PERF.md). Both off by default: gemm_tn compiles
+// as without them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -131,13 +145,15 @@ struct TnCopy {
   }
 };
 
-// acc[ii][jj] = sum_l X(l, x.col0 + map.row(ii)) * Y(l, y.col0 + map.col(jj)),
-// X(l, col) being 0 for l >= m or col >= x.col_lim (Y likewise). smem holds
-// kTnSmemBytes. The caller meets a __syncthreads() between two calls (the
-// ring of the next call overwrites stages the last one may still read).
-template <bool kVec16>
-__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int m, float* smem,
-                                        const TnMap& map, float acc[kMicro][kMicro]) {
+// acc[ii][jj] = sum_{l0 <= l < l1} X(l, x.col0 + map.row(ii)) * Y(l, y.col0 + map.col(jj)),
+// X(l, col) being 0 for col >= x.col_lim (Y likewise); l0 <= l1, l0 a
+// multiple of kSlab. smem holds kTnSmemBytes. The caller meets a
+// __syncthreads() between two calls, and before it overwrites the ring (the
+// next call's copies land in stages the last one may still read).
+template <bool kVec16, bool kSkipUpper = false, bool kCompact = false>
+__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int l0, int l1,
+                                        float* smem, const TnMap& map,
+                                        float acc[kMicro][kMicro]) {
   const int tid = threadIdx.x;
   const int rr = tid / 32, cq = 4 * (tid % 32);
   const TnCopy cx(x, cq), cy(y, cq);
@@ -147,19 +163,20 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
 #pragma unroll
     for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = 0.0f;
 
-  // stage s holds slab rows [s*kSlab, (s+1)*kSlab) of X, then of Y
+  // stage s holds slab rows l0 + [s*kSlab, (s+1)*kSlab) of X, then of Y
   auto copy = [&](int s) {
     float* xs = smem + (s % kStages) * kStageFloats;
     float* ys = xs + kSlab * kTile;
 #pragma unroll
     for (int u = 0; u < kSlab / 8; ++u) {
-      const int r = rr + 8 * u, l = s * kSlab + r;
-      cx.stage<kVec16>(xs + r * kTile + cq, l, m);
-      cy.stage<kVec16>(ys + r * kTile + cq, l, m);
+      const int r = rr + 8 * u, l = l0 + s * kSlab + r;
+      cx.stage<kVec16>(xs + r * kTile + cq, l, l1);
+      cy.stage<kVec16>(ys + r * kTile + cq, l, l1);
     }
   };
 
-  const int slabs = (m + kSlab - 1) / kSlab;
+  const int rows = l1 - l0;
+  const int slabs = (rows + kSlab - 1) / kSlab;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs) copy(s);
@@ -172,9 +189,9 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
     tn_commit();
     const float* xs = smem + (s % kStages) * kStageFloats;
     const float* ys = xs + kSlab * kTile;
-#pragma unroll
+#pragma unroll (kCompact ? 1 : kSlab / kDepth)
     for (int h = 0; h < kSlab / kDepth; ++h) {
-      if (s * kSlab + h * kDepth >= m) break;  // only the depth-8 slabs that start below m
+      if (s * kSlab + h * kDepth >= rows) break;  // only the depth-8 slabs that start below l1
 #pragma unroll
       for (int kk = h * kDepth; kk < (h + 1) * kDepth; ++kk) {
         const float* xr = xs + kk * kTile + 4 * map.ty;
@@ -188,7 +205,10 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
 #pragma unroll
         for (int ii = 0; ii < kMicro; ++ii)
 #pragma unroll
-          for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
+          for (int jj = 0; jj < kMicro; ++jj) {
+            if (kSkipUpper && ii < kMicro / 2 && jj >= kMicro / 2) continue;
+            acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
+          }
       }
     }
   }

@@ -42,8 +42,9 @@ SIGNATURES = {
     "gemm_tn_info": (I, P),
     "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, P),
     "gemm_tn_fused_info": (I, P),
-    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, P),
-    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, P),
+    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, I, P),
+    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, I, P),
+    "syrk_info": (I, I, P),
     "potrf_f32": (P, P, I, I, P),
     "potrf_info": (I, P),
     "trsm_f32": (P, P, P, I, I, I, LL, I, P),
@@ -56,6 +57,8 @@ RESOURCE_FIELDS = {
     "gemm_tn_fused_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                            "local_bytes", "ctas_per_sm", "active_clusters", "ring_stages",
                            "cluster_edge", "stage_slabs"),
+    "syrk_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                  "ctas_per_sm", "cluster_size", "active_clusters"),
     "potrf_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                    "ctas_per_sm"),
     "trsm_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",

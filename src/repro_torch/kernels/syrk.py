@@ -17,6 +17,10 @@ dense mode over gathered leaves: ``C[s] = alpha·ÂᵀÂ`` with ``Â =
 a_blocks[rows[s], cols[s]]`` of a block-major grid ``(R, C, [B,] mL, nL)``.
 Each stack entry starts at its own element offset, computed on the host,
 so the ``(S, …)`` stack of the batched dispatch is never copied.
+
+Both launches split the contraction over :func:`syrk_splits` ``(m, n)``
+CTAs per output tile (a thread-block cluster), the one input that decides
+the kernel's summation order besides the operands.
 """
 
 from __future__ import annotations
@@ -27,7 +31,30 @@ import torch
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
 from repro_torch.kernels.gemm_tn import vec16
 
-__all__ = ["tri_coords", "syrk_plain", "syrk_cuda", "syrk_gather_plain", "syrk_gather_cuda"]
+__all__ = ["tri_coords", "syrk_splits", "syrk_plain", "syrk_cuda", "syrk_gather_plain",
+           "syrk_gather_cuda"]
+
+# The split rule's constants (tools/kernel_variants.py times the choices).
+RESIDENT_CTAS = 264     # 132 SMs x 2 CTAs (96 KiB of ring each)
+SPLIT_ROWS = 256        # rows a CTA sums at least, once split
+UNSPLIT_MAX_ROWS = 512  # m at or below this runs unsplit (K = 1)
+MAX_SPLITS = 8          # the portable cluster size
+
+
+def syrk_splits(m: int, n: int) -> int:
+    """CTAs ``K`` (a power of two in [1, 8]) that share each output tile of
+    the syrk kernels, each summing a range of ``≥ SPLIT_ROWS`` of the ``m``
+    rows, as long as the ``K·T`` CTAs of one entry (``T`` lower 128-tile
+    pairs of ``n``) fit on the card at once. A function of ``(m, n)`` alone
+    — never of the batch, the output mode or the gather — so every dispatch
+    that computes a leaf sums it in the same order. Does not fall as ``m``
+    grows."""
+    if m <= UNSPLIT_MAX_ROWS:
+        return 1
+    nb = -(-n // 128)
+    tiles = nb * (nb + 1) // 2
+    k = max(1, min(MAX_SPLITS, m // SPLIT_ROWS, RESIDENT_CTAS // tiles))
+    return 1 << (k.bit_length() - 1)
 
 
 def tri_coords(t):
@@ -96,7 +123,8 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
-                           float(alpha), int(out == "packed"), bn, int(v16), stream)
+                           float(alpha), int(out == "packed"), bn, syrk_splits(m, n), int(v16),
+                           stream)
     _build.check(err, "syrk")
     return c
 
@@ -150,6 +178,7 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S, batch,
-                                  m, n, sab, a_blocks.stride(-2), float(alpha), int(v16), stream)
+                                  m, n, sab, a_blocks.stride(-2), float(alpha),
+                                  syrk_splits(m, n), int(v16), stream)
     _build.check(err, "syrk_gather")
     return c

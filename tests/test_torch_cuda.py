@@ -26,7 +26,8 @@ from repro_torch.kernels.gemm_tn import (_fused_tables, combine_fused_operands,
                                          fused_launch_tables, gemm_tn_fused_plain, gemm_tn_plain,
                                          vec16)
 from repro_torch.kernels.potrf import potrf_plain
-from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain
+from repro_torch.kernels import _build
+from repro_torch.kernels.syrk import syrk_gather_plain, syrk_plain, syrk_splits
 from repro_torch.kernels.trsm import trsm_plain
 from repro_torch.solve import cholesky, lstsq
 
@@ -127,6 +128,64 @@ def test_syrk_kernel_matches_plain(dev, b, m, n, req):
     packed = ops.syrk(a, blocks=(512, req), out="packed")
     _close(packed.blocks, syrk_plain(a, out="packed", bn=packed.bn), m)
     assert torch.equal(packed.to_dense(), dense)
+
+
+@pytest.mark.parametrize("n", [1, 100, 128, 129, 512])
+@pytest.mark.parametrize("m", [1, 8, 31, 255, 256, 257, 513, 2048, 4100])
+def test_syrk_kernel_split_edges(dev, m, n):
+    """Across the edges of the contraction split K = syrk_splits(m, n) and of
+    the 128-tile grid: dense and packed against the plain version, and the
+    bitwise contracts — symmetric, packed == dense, batch entry == its single
+    launch."""
+    rng = np.random.default_rng(m * 1000 + n)
+    a = _t(rng, (2, m, n), dev)
+    dense = ops.syrk(a, alpha=0.5)
+    _close(dense, syrk_plain(a, alpha=0.5), m)
+    assert torch.equal(dense, dense.transpose(-1, -2))
+    packed = ops.syrk(a, alpha=0.5, out="packed")
+    _close(packed.blocks, syrk_plain(a, alpha=0.5, out="packed", bn=packed.bn), m)
+    assert torch.equal(packed.to_dense(), dense)
+    assert torch.equal(ops.syrk(a[1].contiguous(), alpha=0.5), dense[1])
+
+
+def test_syrk_gather_equals_syrk_at_split_m(dev):
+    """Gathered leaves of lstsq's size (m = 2048, K = 8) and a batched grid
+    (m = 1050) sum in the order of syrk on the stacked leaves."""
+    rng = np.random.default_rng(15)
+    for x, L in ((_t(rng, (4096, 1024), dev), 1), (_t(rng, (2, 2100, 300), dev), 1)):
+        ab = _to_blocks(_pad_root(x, L), L)
+        assert syrk_splits(*ab.shape[-2:]) > 1
+        rows, cols = np.array([0, 1, 1, 0]), np.array([0, 0, 1, 1])
+        got = ops.syrk_gather(ab, rows, cols)
+        _close(got, syrk_gather_plain(ab, rows, cols), ab.shape[-2])
+        stacked = ab[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)]
+        want = ops.syrk(stacked.reshape(-1, *ab.shape[-2:]))
+        assert torch.equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("m", [700, 2048])
+def test_syrk_kernel_unaligned_ld_scalar_epilogue(dev, m):
+    """n = 129: rows are not 16-byte aligned, so the epilogue writes scalar
+    runs; split or not, the output matches and stays bitwise symmetric."""
+    rng = np.random.default_rng(m)
+    a = _t(rng, (m, 129), dev)
+    assert syrk_splits(m, 129) > 1
+    got = ops.syrk(a, alpha=-0.75)
+    _close(got, syrk_plain(a, alpha=-0.75), m)
+    assert torch.equal(got, got.T)
+    sub = ops.syrk(a[:, 1:])  # an unaligned view: 4-byte copies as well
+    _close(sub, syrk_plain(a[:, 1:]), m)
+
+
+def test_syrk_info_resources(dev):
+    """Every instance fits two CTAs an SM without spills, at every cluster
+    size the split uses."""
+    for v in (1, 0):
+        for k in (1, 2, 4, 8):
+            r = _build.resources("syrk_info", v, k)
+            assert r["registers"] <= 128 and r["local_bytes"] == 0, r
+            assert r["ctas_per_sm"] == 2 and r["cluster_size"] == k, r
+            assert r["active_clusters"] >= 1, r
 
 
 @pytest.mark.parametrize("n", [1, 8, 31, 32, 33, 104, 128, 200, 256])

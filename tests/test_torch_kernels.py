@@ -270,3 +270,84 @@ def test_reference_oracles_match():
     assert_scaled_close(tref.gemm_tn_ref(torch.as_tensor(a), torch.as_tensor(b), 2.0,
                                          torch.as_tensor(c), -1.0), want_g, 30)
     assert_scaled_close(tref.syrk_ref(torch.as_tensor(a), 0.5), want_s, 30)
+
+
+_SPLIT_MS = sorted({*range(1, 9000, 7), 32, 256, 511, 512, 513, 1024, 2047, 2048, 4100, 16384,
+                    100_000})
+
+
+@pytest.mark.parametrize("n", [1, 100, 129, 512, 1000, 1100, 2048, 4096])
+def test_syrk_splits_bounded_and_monotone_in_m(n):
+    """The syrk kernels' split K(m, n) is a power of two in [1, 8] (a portable
+    cluster) and does not fall as m grows."""
+    from repro_torch.kernels.syrk import syrk_splits
+
+    ks = [syrk_splits(m, n) for m in _SPLIT_MS]
+    assert all(1 <= k <= 8 and k & (k - 1) == 0 for k in ks), ks
+    assert all(a <= b for a, b in zip(ks, ks[1:])), ks
+    assert syrk_splits(512, 512) == 1          # the ata 8192² diagonal leaves stay unsplit
+    if n <= 512:
+        assert syrk_splits(2048, n) == 8       # lstsq's single leaf fills the card
+
+
+@pytest.fixture
+def stub_syrk_lib(monkeypatch):
+    """The syrk wrappers against a stand-in for the CUDA library that records
+    each entry point's arguments (no card needed)."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+def _syrk_launches(rng, m, n):
+    """(name, m, n) of each launch made: dense single, dense batched, packed
+    and gathered, all of one (m, n) leaf."""
+    from repro_torch.kernels.syrk import syrk_cuda, syrk_gather_cuda
+
+    a = torch.as_tensor(_f32(rng, (3, m, n)))
+    syrk_cuda(a[0])
+    syrk_cuda(a)
+    syrk_cuda(a, out="packed", bn=8 * (-(-n // 16)))
+    grid = torch.as_tensor(_f32(rng, (2, 2, m, n)))
+    syrk_gather_cuda(grid, np.array([0, 1, 1]), np.array([1, 0, 1]))
+
+
+@pytest.mark.parametrize("m,n", [(1100, 40), (2048, 24), (300, 17), (4100, 9)])
+def test_syrk_wrappers_pass_syrk_splits_alone(stub_syrk_lib, monkeypatch, m, n):
+    """Both C entry points get K from syrk_splits(m, n) and from nothing else:
+    the same value for a single leaf, a batch, packed output and a gather,
+    so every dispatch sums a leaf in one order."""
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    ksyrk = importlib.import_module("repro_torch.kernels.syrk")
+    rng = np.random.default_rng(m + n)
+    _syrk_launches(rng, m, n)
+    assert [c[0] for c in stub_syrk_lib] == ["syrk_f32"] * 3 + ["syrk_gather_f32"]
+    for name, args in stub_syrk_lib:
+        assert len(args) == len(_build.SIGNATURES[name]), name
+        assert args[10] == ksyrk.syrk_splits(m, n), (name, args)
+
+    asked = []
+    monkeypatch.setattr(ksyrk, "syrk_splits", lambda mm, nn: asked.append((mm, nn)) or 5)
+    stub_syrk_lib.clear()
+    _syrk_launches(rng, m, n)
+    assert asked == [(m, n)] * 4
+    assert all(args[10] == 5 for _, args in stub_syrk_lib)

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Time variants of the gemm_tn tile engine and ablations of the trsm kernel.
+"""Time variants of the gemm_tn tile engine and ablations of the trsm and
+syrk kernels.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py
+    PYTHONPATH=src python3 tools/kernel_variants.py [tn] [trsm] [syrk]
+
+(no argument: all three parts).
 
 The tile engine (``src/repro_torch/csrc/tn_tile.cuh``) fixes its copy ring
 at compile time: ``kStages`` stages of ``kSlab`` rows. This script copies
@@ -24,6 +27,20 @@ their device times
 (CUDA graphs of 50 launches) at the Cholesky panel (31,128,128) against an
 expanded factor and at the r = 8 substitution panel. An ablation computes
 a wrong answer; only its time is read.
+
+For ``csrc/syrk.cu`` it times the split K ∈ {1, 2, 4, 8} (the evidence for
+``syrk_splits``) at lstsq's single (2048, 512) leaf, the ata 8192² diagonal
+leaf alone (512, 512) and its batched stack (256, 512, 512), and three
+variants beside the shipped kernel: without the diagonal tiles' quadrant
+skip (one engine instance for every tile); with the staged epilogue
+replaced by the register-direct scalar dual write it replaced (K = 1 only:
+that epilogue cannot sum a cluster's partials); and with the multiply
+unrolled over a whole stage as gemm_tn's is (the shipped kernel unrolls
+one depth-8 slab). These compute the shipped values and are held bitwise
+against it. Two more leave out the mirror half of the output stores, or
+every global store of the epilogue (a wrong answer; only the time is
+read): what the output writes cost. Device times are CUDA graphs of 20
+launches, taken in turns.
 
 It needs an NVIDIA Hopper card and nvcc.
 """
@@ -61,6 +78,61 @@ TRSM = {
     "multiply_for_divide": [(" / d;", " * d;")],
     "divide_every_row": [("if constexpr (R == 1) {", "if constexpr (true) {")],
 }
+# the register-direct dual write that the staged epilogue of syrk.cu
+# replaced: alpha * acc straight from the engine's registers, the transposed
+# half one scalar a lane in 32 rows at once
+REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablation), K = 1 only
+    {
+      float* dst;
+      int ld, ilim, i0, j0;
+      if (g.packed) {
+        dst = g.c + ((long long)bt * t_total + t) * g.bn * g.bn;
+        ld = ilim = g.bn, i0 = p * kTile, j0 = q * kTile;
+      } else {
+        dst = g.c + (long long)bt * g.n * g.n;
+        ld = ilim = g.n, i0 = r0, j0 = c0;
+      }
+#pragma unroll
+      for (int ii = 0; ii < kMicro; ++ii) {
+        const int i = i0 + map.row(ii);
+        if (i >= ilim) continue;
+#pragma unroll
+        for (int jj = 0; jj < kMicro; ++jj) {
+          const int j = j0 + map.col(jj);
+          if (j >= ilim) continue;
+          const float v = __fmul_rn(g.alpha, acc[ii][jj]);
+          if (!sym) {
+            dst[(long long)i * ld + j] = v;
+          } else if (!diag || i >= j) {
+            dst[(long long)i * ld + j] = v;
+            dst[(long long)j * ld + i] = v;
+          }
+        }
+      }
+    }
+    __syncthreads();
+"""
+SYRK_LOOP = """    if (diag)
+      tn_tile<kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+    else
+      tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+"""
+SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
+                 "      __syncthreads();     // the next entry refills the ring\n")
+# name -> textual edits of syrk.cu (None: the shipped library)
+SYRK = {
+    "shipped": None,
+    "no_quadrant_skip": [
+        (SYRK_LOOP, "    tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
+    "full_unroll": [(SYRK_LOOP, SYRK_LOOP.replace(", true>", ">"))],
+    "register_epilogue": [SYRK_EPILOGUE],
+    "no_mirror": [("      if (sym) {\n", "      if (false) {\n")],
+    "no_global_stores": [("  if (i >= t.lim) return;", "  return;")],
+}
+# ablations that compute a wrong answer: timed, not held bitwise
+SYRK_WRONG = ("no_mirror", "no_global_stores")
+SYRK_SHAPES = {"single (2048,512)": (2048, 512), "single (512,512)": (512, 512),
+               "batched (256,512,512)": (256, 512, 512)}
 
 
 def sources(name, edits):
@@ -68,9 +140,15 @@ def sources(name, edits):
 
     out = os.path.join(ROOT, "build", "kernels", "variants", name)
     os.makedirs(out, exist_ok=True)
-    for f in ("tn_tile.cuh", "gemm_tn.cu", "trsm.cu"):
+    for f in ("tn_tile.cuh", "gemm_tn.cu", "trsm.cu", "syrk.cu"):
         text = (_build.CSRC / f).read_text()
         for old, new in edits.get(f, ()):
+            if f == "syrk.cu" and (old, new) == SYRK_EPILOGUE:  # splice between two anchors
+                start, end = text.find(old), text.find(new)
+                if start < 0 or end < 0:
+                    raise RuntimeError(f"{f} lost an epilogue anchor: update this script")
+                text = text[:start] + REGISTER_EPILOGUE + text[end + len(new):]
+                continue
             if old not in text:
                 raise RuntimeError(f"{f} no longer contains {old!r}: update this script")
             text = text.replace(old, new)
@@ -79,44 +157,13 @@ def sources(name, edits):
     return out
 
 
-def main() -> int:
-    import numpy as np
+def time_tn(libs, cs, rng):
+    """The engine's ring shapes and its ablation on the ata 8192² leaf stack."""
     import torch
 
-    import chip_smoke as cs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.potrf import potrf_plain
-
-    if not torch.cuda.is_available():
-        print("kernel_variants: needs an NVIDIA card", file=sys.stderr)
-        return 2
-    print(cs.card_line(), flush=True)
-    jobs = {}
-    for name, (slab, stages) in SHAPES.items():
-        d = sources("tn_" + name, {"tn_tile.cuh": [
-            (SLAB, f"constexpr int kSlab = {slab};"),
-            (STAGES, f"constexpr int kStages = {stages};")]})
-        jobs[("tn", name)] = (d, "gemm_tn.cu")
-    for name, edit in ENGINE_ABLATIONS.items():
-        jobs[("tn", name)] = (sources("tn_" + name, {"tn_tile.cuh": [edit]}), "gemm_tn.cu")
-    for name, edits in TRSM.items():
-        jobs[("trsm", name)] = (sources("trsm_" + name, {"trsm.cu": edits}), "trsm.cu")
-    procs = {key: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d, os.path.join(d, src), "-o",
-         os.path.join(d, "lib.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for key, (d, src) in jobs.items()}
-    libs = {}
-    for key, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(log)
-            raise RuntimeError(f"nvcc failed on {key}")
-        regs = [ln.split(":")[-1].strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"{key[0]} {key[1]}: {regs}", flush=True)
-        libs[key] = ctypes.CDLL(os.path.join(jobs[key][0], "lib.so"))
 
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    rng = np.random.default_rng(0)
     a = cs.cuda_tensor(rng, (1430, 512, 512))
     b = cs.cuda_tensor(rng, (1430, 512, 512))
     c = torch.empty_like(a)
@@ -142,9 +189,15 @@ def main() -> int:
     for name in list(runs) + list(runs)[::-1]:
         times.setdefault(name, []).append(cs.time_ms(runs[name]))
     print("gemm_tn (1430,512,512)² ms, in turns: " + json.dumps(times), flush=True)
-    del a, b, c
-    torch.cuda.empty_cache()
 
+
+def time_trsm(libs, cs, rng):
+    """The trsm ablations at the Cholesky panel and the r = 8 row panel."""
+    import torch
+
+    from repro_torch.kernels.potrf import potrf_plain
+
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     l1 = potrf_plain(cs.spd_tiles(rng, 1, 128)[0])
     lx = l1.expand(31, 128, 128)
     p = cs.cuda_tensor(rng, (31, 128, 128))
@@ -165,6 +218,104 @@ def main() -> int:
         ttimes.setdefault(name, []).append([cs.graph_ms(panel), cs.graph_ms(rows8)])
     print("trsm device ms [panel (31,128,128), r = 8], in turns: " + json.dumps(ttimes),
           flush=True)
+
+
+def time_syrk(libs, cs, rng):
+    """syrk's split K and its ablations at lstsq's and ata's leaf shapes."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.syrk import syrk_plain, syrk_splits
+
+    for label, shape in SYRK_SHAPES.items():
+        a = cs.cuda_tensor(rng, shape)
+        m, n = shape[-2:]
+        batch = shape[0] if len(shape) == 3 else 1
+        c = torch.empty((*shape[:-2], n, n), device="cuda")
+        ref = syrk_plain(a)
+        runs, shipped = {}, {}
+        for name in SYRK:  # "shipped" first: the others are held against it
+            lib = _build.load() if SYRK[name] is None else libs[("syrk", name)]
+            fn = lib.syrk_f32
+            fn.argtypes = list(_build.SIGNATURES["syrk_f32"])
+            for k in ((1,) if name == "register_epilogue" else (1, 2, 4, 8)):
+                def run(fn=fn, k=k):
+                    err = fn(a.data_ptr(), c.data_ptr(), batch, m, n, m * n, n, 1.0, 0, 0, k, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    _build.check(err, "syrk variant")
+                run()
+                torch.cuda.synchronize()
+                if name == "shipped":
+                    cs.Checks({}).compare(f"syrk {label} K={k}", c, ref, m)
+                    shipped[k] = c.clone()
+                elif name not in SYRK_WRONG and not torch.equal(c, shipped[k]):
+                    raise AssertionError(f"syrk {name} K={k} differs from the shipped kernel")
+                if name == "shipped" or k in (1, syrk_splits(m, n)):
+                    runs[f"{name} K={k}"] = run
+        runs["torch.matmul"] = lambda: torch.matmul(a.transpose(-1, -2), a)
+        times = {}
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault(name, []).append(round(cs.graph_ms(runs[name], 20), 5))
+        print(f"syrk {label} device ms (syrk_splits = {syrk_splits(m, n)}), in turns: "
+              + json.dumps(times), flush=True)
+        del a, c, ref, shipped
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    parts = set(sys.argv[1:]) or {"tn", "trsm", "syrk"}
+    if not parts <= {"tn", "trsm", "syrk"}:
+        print(f"kernel_variants: unknown parts {sorted(parts)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(cs.card_line(), flush=True)
+    jobs = {}
+    if "tn" in parts:
+        for name, (slab, stages) in SHAPES.items():
+            d = sources("tn_" + name, {"tn_tile.cuh": [
+                (SLAB, f"constexpr int kSlab = {slab};"),
+                (STAGES, f"constexpr int kStages = {stages};")]})
+            jobs[("tn", name)] = (d, "gemm_tn.cu")
+        for name, edit in ENGINE_ABLATIONS.items():
+            jobs[("tn", name)] = (sources("tn_" + name, {"tn_tile.cuh": [edit]}), "gemm_tn.cu")
+    if "trsm" in parts:
+        for name, edits in TRSM.items():
+            jobs[("trsm", name)] = (sources("trsm_" + name, {"trsm.cu": edits}), "trsm.cu")
+    if "syrk" in parts:
+        _build.load()
+        for name, edits in SYRK.items():
+            if edits is not None:
+                jobs[("syrk", name)] = (sources("syrk_" + name, {"syrk.cu": edits}), "syrk.cu")
+    procs = {key: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d, os.path.join(d, src), "-o",
+         os.path.join(d, "lib.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, (d, src) in jobs.items()}
+    libs = {}
+    for key, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            print(log)
+            raise RuntimeError(f"nvcc failed on {key}")
+        regs = [ln.split(":")[-1].strip() for ln in log.splitlines() if "Used" in ln]
+        print(f"{key[0]} {key[1]}: {regs}", flush=True)
+        libs[key] = ctypes.CDLL(os.path.join(jobs[key][0], "lib.so"))
+
+    rng = np.random.default_rng(0)
+    if "tn" in parts:
+        time_tn(libs, cs, rng)
+        torch.cuda.empty_cache()
+    if "trsm" in parts:
+        time_trsm(libs, cs, rng)
+    if "syrk" in parts:
+        time_syrk(libs, cs, rng)
     return 0
 
 
