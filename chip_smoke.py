@@ -33,7 +33,24 @@ phase fails):
              to unrolled;
 5. lstsq   — ``lstsq(a, b, ridge=1e-3)`` at ``a: 16384×4096``,
              ``b: 16384×8``, within 1e-3 of the float64 solution of the
-             ridge normal equations, with each of its four kernels launched.
+             ridge normal equations, with each of its four kernels launched;
+6. dtypes  — (after kernels) each of the six kernels on bfloat16 operands
+             at the shapes of phase 2, storing float32 and bfloat16,
+             against its plain version (the bound above, plus one
+             bfloat16 ulp for a bfloat16 store), with device times; ata
+             4096² in bfloat16 under the three dispatches within 2e-2
+             (the reference's bfloat16 rtol, normwise) of the float64
+             product, unrolled == batched bitwise; ata 4096² in float64 on
+             the card (plain bases, no launch) within ``8·√k·eps64`` of the
+             same call on the CPU;
+7. cg      — ``lstsq(a, b, ridge=1e-3, method="cg")`` on the lstsq
+             phase's data under ``torch.cuda.set_sync_debug_mode("error")``
+             (no host sync in the loop), within 1e-3 of the float64
+             solution, exactly ``iters + 1`` gemm_tn launches; the device
+             time of one (16384, 4096, 8) gemm_tn beside
+             ``torch.matmul(a.T, ap)`` and its bound;
+8. obs     — fused ata 8192² with spans off and on: times, span counts,
+             outputs bitwise equal, the metrics snapshot validated.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -58,6 +75,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 EPS32 = 1.19e-7
+EPS64 = 2.2e-16
+BF16_ULP = 2.0 ** -7
+# the reference's bfloat16 band (tests/test_kernels.py): rtol, here normwise
+BF16_RTOL = 2e-2
 SEED = 0
 
 
@@ -165,8 +186,16 @@ class Checks:
         self.launches = launches  # ops.launches: the wrappers' counters
 
     def compare(self, label, got, ref, k):
+        """Kernel against plain on the same operands. A bfloat16 output may
+        round the two float32 sums to neighbouring values: one bfloat16
+        ulp (2^-7 of the largest magnitude) more. bfloat16 operands need
+        nothing more: their products are exact in float32."""
+        if got.dtype != ref.dtype:
+            raise AssertionError(f"{label}: dtype {got.dtype} != plain {ref.dtype}")
+        bf16_out = str(got.dtype) == "torch.bfloat16"
+        got, ref = got.float(), ref.float()
         err = float((got - ref).abs().max())
-        tol = scaled_tol(k, ref)
+        tol = scaled_tol(k, ref) + (BF16_ULP * float(ref.abs().max()) if bf16_out else 0.0)
         ok = err <= tol
         log(f"  {label}: max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'} "
             f"launches={self.launches}")
@@ -196,13 +225,18 @@ def phase_kernels(checks, ops, plain):
     ms = time_ms(lambda: ops.gemm_tn(a, b))
     plain_ms = time_ms(lambda: plain["gemm_tn"](a, b))
     lib_ms = time_ms(lambda: torch.bmm(a.transpose(1, 2), b))
+    device_ms = graph_ms(lambda: ops.gemm_tn(a, b), launches=10)
+    lib_device_ms = graph_ms(lambda: torch.bmm(a.transpose(1, 2), b), launches=10)
     bms, by = bound(1430 * classical_gemm_flops(512, 512, 512), 4 * 1430 * 3 * 512 * 512)
     checks.rows["gemm_tn"] = dict(
         shape="(1430,512,512)x(1430,512,512)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, bound_ms=bms, bound_by=by, device_ms=device_ms,
+        library_device_ms=lib_device_ms,
         resources={f"vec16={v}": _build.resources("gemm_tn_info", v) for v in (1, 0)})
+    rate = 1430 * classical_gemm_flops(512, 512, 512) / ms / 1e9
     log(f"  gemm_tn ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-        f"bound_ms={bms:.3f} ({by}) rate={1430 * classical_gemm_flops(512, 512, 512) / ms / 1e9:.2f} TFLOP/s")
+        f"bound_ms={bms:.3f} ({by}) rate={rate:.2f} TFLOP/s; device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f} (CUDA graphs of 10)")
     log("  resources gemm_tn " + json.dumps(checks.rows["gemm_tn"]["resources"]))
     del a, b
     a = cuda_tensor(rng, (7, 1000, 520))
@@ -397,6 +431,8 @@ def phase_fused_kernels(checks, ops, plain, rng):
     ms = time_ms(lambda: ops.gemm_tn_fused(ab, ab, tables))
     plain_ms = time_ms(lambda: plain["gemm_tn_fused"](ab, ab, tables), runs=3)
     lib_ms = time_ms(lambda: torch.bmm(xa.transpose(1, 2), xb))
+    device_ms = graph_ms(lambda: ops.gemm_tn_fused(ab, ab, tables), launches=10)
+    lib_device_ms = graph_ms(lambda: torch.bmm(xa.transpose(1, 2), xb), launches=10)
     leaves = tables[0][0].shape[0]
     flops = leaves * classical_gemm_flops(512, 512, 512)
     blk = 4 * 512 * 512
@@ -405,12 +441,14 @@ def phase_fused_kernels(checks, ops, plain, rng):
     checks.rows["gemm_tn_fused"] = dict(
         shape=f"ata 8192² level 1: root grid (16,16,512,512), {leaves} leaves, W=8",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        device_ms=device_ms, library_device_ms=lib_device_ms,
         resources={w: _build.resources("gemm_tn_fused_info", w) for w in (1, 2, 4, 8, 16, 32)})
     log("  resources gemm_tn_fused (by slot count W) "
         + json.dumps(checks.rows["gemm_tn_fused"]["resources"]))
     log(f"  gemm_tn_fused ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
         f"(torch.bmm on the combined stacks) bound_ms={bms:.3f} ({by}) "
-        f"rate={flops / ms / 1e9:.2f} TFLOP/s")
+        f"rate={flops / ms / 1e9:.2f} TFLOP/s; device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f} (CUDA graphs of 10)")
     del xa, xb
     torch.cuda.empty_cache()
 
@@ -669,6 +707,323 @@ def phase_lstsq(ops):
     return counts, dict(ms=total_ms, rel_err=rel, **stages)
 
 
+def phase_dtypes(checks, ops, plain):
+    """bfloat16 through each of the six kernels at the main path's shapes,
+    stored as float32 and as bfloat16, against the plain versions, with
+    device times beside the float32 ones; then ata 4096² in bfloat16 under
+    the three dispatches and in float64 on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ata import _level_tables
+    from repro_torch.core.strassen import _to_blocks
+
+    log("phase dtypes: bfloat16 operands (float32 accumulation), float32 / bfloat16 stores")
+    rng = np.random.default_rng(SEED + 4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def both_outs(name, label, k, call, plain_call, timer=None):
+        """The kernel on bfloat16 operands into float32 and bfloat16, each
+        against its plain version; device time of the float32 store."""
+        row = {}
+        for out in (f32, bf16):
+            got = call(out)
+            row[f"max_abs_err_{str(out)[6:]}"] = checks.compare(
+                f"{name} bf16->{str(out)[6:]} {label}", got, plain_call(out), k)
+            del got
+        if timer is not None:
+            row["device_ms"] = timer(lambda: call(f32))
+            log(f"  {name} bf16 {label}: device_ms={row['device_ms']:.4f} "
+                f"(float32: {checks.rows[name].get('device_ms', 'not measured')})")
+        checks.rows[name]["bf16"] = row
+        torch.cuda.empty_cache()
+
+    a = cuda_tensor(rng, (1430, 512, 512)).to(bf16)
+    b = cuda_tensor(rng, (1430, 512, 512)).to(bf16)
+    both_outs("gemm_tn", "(1430,512,512)^2", 512, lambda o: ops.gemm_tn(a, b, out_dtype=o),
+              lambda o: plain["gemm_tn"](a, b, out_dtype=o),
+              lambda f: graph_ms(f, launches=10))
+    del a, b
+    a = cuda_tensor(rng, (256, 512, 512)).to(bf16)
+    both_outs("syrk", "(256,512,512) dense", 512, lambda o: ops.syrk(a, out_dtype=o),
+              lambda o: plain["syrk"](a, out_dtype=o), lambda f: graph_ms(f, launches=20))
+    x = cuda_tensor(rng, (2048, 512)).to(bf16)
+    packed = ops.syrk(x, out="packed")
+    err = checks.compare("syrk bf16 single (2048,512) packed", packed.blocks,
+                         plain["syrk"](x, out="packed", bn=packed.bn), 2048)
+    checks.rows["syrk"]["bf16"]["single_2048x512"] = dict(
+        max_abs_err=err, device_ms=graph_ms(lambda: ops.syrk(x)))
+    log(f"  syrk bf16 single (2048,512): device_ms="
+        f"{checks.rows['syrk']['bf16']['single_2048x512']['device_ms']:.4f}")
+    del a, x
+    root = cuda_tensor(rng, (8192, 8192)).to(bf16)
+    ab = _to_blocks(root, 4)
+    tables = _level_tables(4, 1)
+    both_outs("gemm_tn_fused", "ata 8192² level 1", 512,
+              lambda o: ops.gemm_tn_fused(ab[None], ab[None], tables, out_dtype=o),
+              lambda o: plain["gemm_tn_fused"](ab[None], ab[None], tables, out_dtype=o),
+              lambda f: graph_ms(f, launches=10))
+    s = np.arange(256)
+    both_outs("syrk_gather", "R=16 S=256", 512,
+              lambda o: ops.syrk_gather(ab, s % 16, s // 16, out_dtype=o),
+              lambda o: plain["syrk_gather"](ab, s % 16, s // 16, out_dtype=o), burst_ms)
+    del root, ab
+    torch.cuda.empty_cache()
+    s1 = spd_tiles(rng, 1, 128)[0].to(bf16)
+    both_outs("potrf", "(128,128)", 128, lambda o: ops.potrf(s1, out_dtype=o),
+              lambda o: plain["potrf"](s1, out_dtype=o), graph_ms)
+    for nb_, n_ in ((32, 104), (8, 256)):
+        st = spd_tiles(rng, nb_, n_).to(bf16)
+        checks.compare(f"potrf bf16 ({nb_},{n_},{n_})", ops.potrf(st), plain["potrf"](st), n_)
+    lx = plain["potrf"](spd_tiles(rng, 1, 128)[0]).to(bf16).expand(31, 128, 128)
+    p = cuda_tensor(rng, (31, 128, 128)).to(bf16)
+    both_outs("trsm", "(128,128) expanded x (31,128,128)", 128,
+              lambda o: ops.trsm(lx, p, out_dtype=o),
+              lambda o: plain["trsm"](lx, p, out_dtype=o), graph_ms)
+    r8 = cuda_tensor(rng, (8, 128)).to(bf16)
+    checks.compare("trsm bf16 r=8 (8,128) transpose=False",
+                   ops.trsm(lx[0], r8, transpose=False),
+                   plain["trsm"](lx[0], r8, transpose=False), 128)
+    phase_ata_dtypes(ops)
+
+
+def phase_ata_dtypes(ops):
+    """ata 4096² on the card in bfloat16 (three dispatches) and float64."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ata import ata
+
+    log("  ata 4096x4096, packed: bfloat16 under the three dispatches, float64")
+    rng = np.random.default_rng(SEED + 5)
+    a = cuda_tensor(rng, (4096, 4096)).bfloat16()
+    exact = torch.tril(a.double().T @ a.double())
+    results = {}
+    for ld in ("unrolled", "batched", "fused"):
+        ops.reset_launches()
+        results[ld] = ata(a, out="packed", leaf_dispatch=ld)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        rel = float(torch.linalg.norm(torch.tril(results[ld].to_dense().double()) - exact)
+                    / torch.linalg.norm(exact))
+        ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld), runs=3)
+        log(f"  ata bf16 {ld}: rel Frobenius error vs float64 {rel:.3e} (limit {BF16_RTOL}) "
+            f"ms={ms:.2f} launches {counts}")
+        if not rel <= BF16_RTOL:
+            raise AssertionError(f"ata bf16 {ld}: relative error {rel} > {BF16_RTOL}")
+        kernel = "syrk_gather" if ld == "fused" else "syrk"
+        if counts[kernel] < 1:
+            raise AssertionError(f"ata bf16 {ld}: no {kernel} launch")
+    if not torch.equal(results["unrolled"].blocks, results["batched"].blocks):
+        raise AssertionError("ata bf16: unrolled != batched")
+    log("  ata bf16 unrolled == batched: bitwise (fused combines in float32: no bitwise contract)")
+    del results, exact
+    torch.cuda.empty_cache()
+
+    a64 = a.double()
+    f64 = dict(out="packed", acc_dtype=torch.float64)
+    ops.reset_launches()
+    got = ata(a64, **f64)
+    torch.cuda.synchronize()
+    if any(ops.launches.values()) or got.blocks.dtype != torch.float64:
+        raise AssertionError(f"ata float64: launches {ops.launches}, dtype {got.blocks.dtype}")
+    want = ata(a64.cpu(), **f64).blocks
+    err = float((got.blocks.cpu() - want).abs().max())
+    tol = 8 * math.sqrt(4096) * EPS64 * float(want.abs().max())
+    ms = time_ms(lambda: ata(a64, **f64), runs=3)
+    log(f"  ata float64 on the card (plain bases, no launch): max_abs_err vs the CPU's "
+        f"{err:.3e} tol {tol:.3e} ms={ms:.2f}")
+    if not err <= tol:
+        raise AssertionError(f"ata float64: card and CPU differ by {err} > {tol}")
+
+
+def phase_cg(checks, ops, plain):
+    """lstsq(method='cg') at 16384×4096×8 on the lstsq phase's data: error
+    against the float64 solution, ms, gemm_tn launches per solve, all
+    under sync debug mode 'error'; the narrow gemm_tn held against its
+    plain version and timed on the device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.reference import cg_iteration_flops
+    from repro_torch.solve import lstsq
+    from repro_torch.tune import defaults
+
+    log("phase cg: lstsq(method='cg') a=16384x4096 b=16384x8 float32, ridge=1e-3")
+    rng = np.random.default_rng(SEED + 2)   # the lstsq phase's data
+    a = cuda_tensor(rng, (16384, 4096))
+    b = cuda_tensor(rng, (16384, 8))
+    ridge = 1e-3
+    iters = min(4096, defaults.CG_MAX_ITERS)
+    lstsq(a[:256, :64], b[:256], method="cg", iters=2)   # warm: nothing left to build or load
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = lstsq(a, b, ridge=ridge, method="cg")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    log(f"  launches {counts} (under set_sync_debug_mode('error'): no host sync)")
+    if counts["gemm_tn"] != iters + 1 or sum(counts.values()) != iters + 1:
+        raise AssertionError(f"cg: launches {counts}, expected {iters + 1} gemm_tn only")
+    if x.shape != (4096, 8) or not bool(torch.isfinite(x).all()):
+        raise AssertionError("cg: output not finite or of the wrong shape")
+    ad, bd = a.double(), b.double()
+    x64 = torch.linalg.solve(ad.T @ ad + ridge * torch.eye(4096, device="cuda",
+                                                          dtype=torch.float64), ad.T @ bd)
+    del ad, bd
+    rel = float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64))
+    log(f"  rel error vs float64 solve: {rel:.3e} (limit 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"cg: relative error {rel} > 1e-3")
+    ms = time_ms(lambda: lstsq(a, b, ridge=ridge, method="cg"), runs=3)
+    # the narrow gemm_tn of each iteration, alone: Aᵀ(A·p) at (16384, 4096, 8)
+    ap = a @ x
+    tn_err = checks.compare("gemm_tn narrow (16384,4096,8)", ops.gemm_tn(a, ap),
+                            plain["gemm_tn"](a, ap), 16384)
+    tn_ms = graph_ms(lambda: ops.gemm_tn(a, ap))
+    mm_ms = graph_ms(lambda: torch.matmul(a.T, ap))
+    bms, by = bound(2 * 16384 * 4096 * 8, 4 * (16384 * 4096 + 16384 * 8 + 4096 * 8))
+    rate = iters * cg_iteration_flops(16384, 4096, 8) / ms / 1e9
+    log(f"  ms={ms:.2f} ({iters} iterations, {rate:.2f} TFLOP/s by cg_iteration_flops); "
+        f"gemm_tn (16384,4096,8) device_ms={tn_ms:.4f} torch.matmul(a.T, ap) "
+        f"device_ms={mm_ms:.4f} bound_ms={bms:.4f} ({by}) (CUDA graphs of 50 launches)")
+    return counts, dict(ms=ms, rel_err=rel, iters=iters, gemm_tn_launches=counts["gemm_tn"],
+                        narrow_gemm_tn_max_abs_err=tn_err,
+                        narrow_gemm_tn_device_ms=tn_ms, narrow_matmul_device_ms=mm_ms,
+                        narrow_bound_ms=bms, narrow_bound_by=by)
+
+
+def obs_hooks_removed(ops):
+    """Context manager: every obs hook of the port's paths (counters,
+    gauges, spans, dispatch timing, the wrappers' ``_run``) replaced by
+    nothing, so a call's time with the hooks disabled can be held against
+    its time with no hooks at all in one process."""
+    import contextlib
+
+    from repro_torch import obs
+
+    null = contextlib.nullcontext()
+
+    def run(name, cuda, kernel, plain, *args, **kw):
+        out = (kernel if cuda else plain)(*args, **kw)
+        if cuda:
+            ops.launches[name] += 1
+        return out
+
+    stubs = [(obs.metrics, "inc", lambda *a, **k: None),
+             (obs.metrics, "set_gauge", lambda *a, **k: None),
+             (obs, "span", lambda *a, **k: null),
+             (obs, "dispatch_start", lambda *a, **k: None),
+             (obs, "dispatch_finish", lambda plan, t0, result: result),
+             (ops, "_run", run)]
+
+    @contextlib.contextmanager
+    def removed():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stubs]
+        try:
+            for mod, name, fn in stubs:
+                setattr(mod, name, fn)
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return removed()
+
+
+def hooks_cost(ops, fn, pairs: int = 10):
+    """Median over ``pairs`` interleaved pairs of (hooks disabled − hooks
+    removed) for one call of ``fn``: host enqueue ms and CUDA-event ms,
+    with each side's median."""
+    import time
+
+    import torch
+
+    def one():
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return host, start.elapsed_time(end)
+
+    fn()
+    with obs_hooks_removed(ops):
+        fn()
+    got = {"disabled": [], "removed": []}
+    for i in range(pairs):
+        for side in (("disabled", "removed") if i % 2 == 0 else ("removed", "disabled")):
+            if side == "removed":
+                with obs_hooks_removed(ops):
+                    got[side].append(one())
+            else:
+                got[side].append(one())
+    out = {}
+    for j, what in enumerate(("enqueue_ms", "ms")):
+        d = [x[j] for x in got["disabled"]]
+        r = [x[j] for x in got["removed"]]
+        out[what] = {"disabled": statistics.median(d), "removed": statistics.median(r),
+                     "median_diff": statistics.median(a - b for a, b in zip(d, r)),
+                     "pairs_disabled_higher": sum(a > b for a, b in zip(d, r))}
+    return out
+
+
+def phase_obs(ops):
+    """Fused ata 8192² with spans off and on: ms of each, span counts,
+    outputs bitwise equal; the snapshot after the run validated."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.ata import ata
+    from repro_torch.core.strassen import strassen_tn
+
+    log("phase obs: fused ata 8192x8192 with spans off and on")
+    rng = np.random.default_rng(SEED + 1)
+    a = cuda_tensor(rng, (8192, 8192))
+    obs.disable()
+    obs.trace.reset()
+    obs.metrics.reset()
+    off = ata(a, out="packed", leaf_dispatch="fused")
+    off_ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch="fused"), runs=3)
+    if obs.trace.span_counts():
+        raise AssertionError("obs: spans recorded while disabled")
+    obs.enable()
+    try:
+        obs.trace.reset()
+        on = ata(a, out="packed", leaf_dispatch="fused")
+        torch.cuda.synchronize()
+        spans = obs.trace.span_counts()
+        on_ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch="fused"), runs=3)
+        snap = obs.metrics.validate_snapshot(obs.metrics.snapshot())
+    finally:
+        obs.disable()
+    if not torch.equal(off.blocks, on.blocks):
+        raise AssertionError("obs: output differs with spans on")
+    want = {"ata": 1, "kernels.gemm_tn_fused": 4, "kernels.syrk_gather": 1}
+    if any(spans.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"obs: span counts {spans}, expected at least {want}")
+    if snap["calibration"]:
+        raise AssertionError("obs: a calibration row without a plan")
+    log(f"  spans off ms={off_ms:.2f} on ms={on_ms:.2f}; outputs bitwise equal; "
+        f"span counts of one call {json.dumps(spans)}")
+    log(f"  snapshot valid ({snap['schema']}): meta {json.dumps(snap['meta'])}, "
+        f"{len(snap['counters'])} counters, {sum(snap['spans'].values())} spans")
+    # what the hooks cost when disabled, on the unrolled dispatch (one
+    # wrapper call a leaf): shipped hooks against no hooks, interleaved
+    s = a[:4096, :4096].contiguous()
+    cost = {"ata_8192_unrolled": hooks_cost(ops, lambda: ata(a, out="packed")),
+            "strassen_tn_4096_unrolled": hooks_cost(ops, lambda: strassen_tn(s, s))}
+    log("  hooks disabled vs removed, 10 interleaved pairs: " + json.dumps(cost))
+    return dict(spans_off_ms=off_ms, spans_on_ms=on_ms, spans=spans, disabled_hooks_cost=cost)
+
+
 def main() -> int:
     import torch
 
@@ -701,13 +1056,24 @@ def main() -> int:
     checks = Checks(ops.launches)
     phase_kernels(checks, ops, plain)
     torch.cuda.empty_cache()
+    phase_dtypes(checks, ops, plain)
+    torch.cuda.empty_cache()
     fused_counts, ata_res = phase_ata(ops)
     torch.cuda.empty_cache()
     strassen_res = phase_strassen(ops)
     torch.cuda.empty_cache()
     counts, lstsq_res = phase_lstsq(ops)
+    torch.cuda.empty_cache()
+    cg_counts, cg_res = phase_cg(checks, ops, plain)
+    checks.rows["gemm_tn"]["cg_launches"] = cg_counts["gemm_tn"]
+    checks.rows["gemm_tn"]["narrow_16384x4096x8"] = {
+        k: cg_res[k] for k in ("narrow_gemm_tn_max_abs_err", "narrow_gemm_tn_device_ms",
+                               "narrow_matmul_device_ms", "narrow_bound_ms", "narrow_bound_by")}
+    torch.cuda.empty_cache()
+    obs_res = phase_obs(ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
-                                    "lstsq_16384x4096x8": lstsq_res}))
+                                    "lstsq_16384x4096x8": lstsq_res,
+                                    "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res}))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two)

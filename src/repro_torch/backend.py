@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes"]
 
 # Tensors made from nothing (zeros, converters, chip_smoke data) land here
 # unless the caller asks for another device.
@@ -32,3 +32,27 @@ def on_cuda(*tensors) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"operands on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def kernel_dtypes(*tensors, out_dtype, what: str):
+    """The operands of one CUDA launch in a common load type, and the
+    launch's ``dtypes`` code (bit 0: bfloat16 operands, bit 1: bfloat16
+    output; ``csrc/dtype.cuh``). The kernels load and store float32 or
+    bfloat16 and sum in float32, as the reference's Pallas kernels do;
+    float64 is not among them, as it is not among the reference's, and
+    raises ``TypeError``. Operands load as bfloat16 only if all are
+    bfloat16; a bfloat16 operand beside a float32 one is widened first,
+    which is exact."""
+    n16 = 0
+    for x in tensors:
+        if x.dtype is torch.bfloat16:
+            n16 += 1
+        elif x.dtype is not torch.float32:
+            raise TypeError(f"{what} kernel takes float32 or bfloat16 operands, got {x.dtype}")
+    if out_dtype is not torch.float32 and out_dtype is not torch.bfloat16:
+        raise TypeError(f"{what} kernel writes float32 or bfloat16, got out_dtype={out_dtype}")
+    load16 = n16 == len(tensors)
+    if n16 and not load16:
+        tensors = tuple(x.float() for x in tensors)
+    return tensors, int(load16) | (int(out_dtype is torch.bfloat16) << 1)
+

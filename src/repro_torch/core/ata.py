@@ -25,8 +25,10 @@ with caller bases, each leaf operand is combined from slices of the input
 and each leaf is one base call. Classical variant only.
 
 The bases default to ``ops.syrk``/``ops.gemm_tn``: the CUDA kernels for a
-CUDA input, their plain versions for a CPU input. The root assembly writes
-into its output buffer in place.
+CUDA input, their plain versions for a CPU input. With a float64 input or
+``acc_dtype`` they are the plain versions on every device, and the fused
+dispatch gathers instead of launching, as the reference's kernel-free
+defaults do. The root assembly writes into its output buffer in place.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from repro_torch.core.strassen import (
     _slot_tables,
     _to_blocks,
     _unblock,
-    default_base_dot,
     resolve_tunables,
     tree_depth,
 )
@@ -59,16 +60,11 @@ from repro_torch.core.symmetric import (
     sym_tile,
     write_packed_region,
 )
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.tune.defaults import DEFAULT_PACKED_BLOCK
 
 __all__ = ["ata", "ata_batched", "DEFAULT_N_BASE", "DEFAULT_PACKED_BLOCK"]
-
-
-def default_base_syrk(acc_dtype):
-    """The diagonal-leaf engine when the caller passes none: ``ops.syrk``
-    in dense mode (a full, bitwise-symmetric tile)."""
-    return functools.partial(ops.syrk, out_dtype=acc_dtype)
 
 
 class _TriNode(NamedTuple):
@@ -84,10 +80,11 @@ def _rec_ata(slabs, n_base, base_syrk, strassen_rec, base_dot, acc_dtype):
     n = slabs[0].shape[-1]
     m_max = max(s.shape[-2] for s in slabs)
     if n <= n_base or m_max <= n_base:
-        out = base_syrk(slabs[0])
-        for s in slabs[1:]:
-            out = out + base_syrk(s)
-        return out
+        with obs.span("ata.rec.base", n=n, slabs=len(slabs)):
+            out = base_syrk(slabs[0])
+            for s in slabs[1:]:
+                out = out + base_syrk(s)
+            return out
 
     halves = []
     for s in slabs:
@@ -104,12 +101,13 @@ def _rec_ata(slabs, n_base, base_syrk, strassen_rec, base_dot, acc_dtype):
                             acc_dtype=acc_dtype)
     st = functools.partial(strassen_rec, n_base=n_base, base_dot=base_dot,
                            acc_dtype=acc_dtype)
-    c11 = rec(left)
-    c22 = rec(right)
-    c21 = st(right[0], left[0])
-    for r, l in zip(right[1:], left[1:]):
-        c21 = c21 + st(r, l)
-    return _TriNode(c11, c21, c22)
+    with obs.span(f"ata.rec.n{n}", slabs=len(slabs)):
+        c11 = rec(left)
+        c22 = rec(right)
+        c21 = st(right[0], left[0])
+        for r, l in zip(right[1:], left[1:]):
+            c21 = c21 + st(r, l)
+        return _TriNode(c11, c21, c22)
 
 
 # ---------------------------------------------------------------------------
@@ -186,48 +184,54 @@ def _ata_level_sync(a, L, *, variant, base_syrk, base_dot, fused=False, kernels=
 
     parts_a, parts_b, sizes, P_levels = [], [], [], []
     for lev in range(1, L + 1):
-        if fused and kernels is not None:
-            P_levels.append(kernels[0](ab[None], ab[None], _level_tables(L, lev)))
-            continue
-        if fused:
-            la, lb = _combine_level(a, L, lev)
-            P_levels.append(torch.stack([base_dot(x, y) for x, y in zip(la, lb)]))
-            continue
-        Rl, H = 1 << lev, 1 << (lev - 1)
-        q = R // Rl
-        g = ab.reshape(Rl, q, H, 2, q, *batch, mL, nL)
-        right = torch.movedim(g[:, :, :, 1], 2, 0)   # (H, Rl, q, q, ...)
-        left = torch.movedim(g[:, :, :, 0], 2, 0)
-        A = right.reshape(H * Rl, q, q, *batch, mL, nL)
-        B = left.reshape(H * Rl, q, q, *batch, mL, nL)
-        for _ in range(L - lev):
-            A, B = enc(A, B)
-        parts_a.append(A[:, 0, 0])
-        parts_b.append(B[:, 0, 0])
-        sizes.append(A.shape[0])
+        with obs.span(f"ata.encode.L{lev}", fused=fused):
+            if fused and kernels is not None:
+                tables = _level_tables(L, lev)
+                with obs.span(f"ata.fused_dot.L{lev}", leaves=tables[0][0].shape[0]):
+                    P_levels.append(kernels[0](ab[None], ab[None], tables))
+                continue
+            if fused:
+                la, lb = _combine_level(a, L, lev)
+                P_levels.append(torch.stack([base_dot(x, y) for x, y in zip(la, lb)]))
+                continue
+            Rl, H = 1 << lev, 1 << (lev - 1)
+            q = R // Rl
+            g = ab.reshape(Rl, q, H, 2, q, *batch, mL, nL)
+            right = torch.movedim(g[:, :, :, 1], 2, 0)   # (H, Rl, q, q, ...)
+            left = torch.movedim(g[:, :, :, 0], 2, 0)
+            A = right.reshape(H * Rl, q, q, *batch, mL, nL)
+            B = left.reshape(H * Rl, q, q, *batch, mL, nL)
+            for _ in range(L - lev):
+                A, B = enc(A, B)
+            parts_a.append(A[:, 0, 0])
+            parts_b.append(B[:, 0, 0])
+            sizes.append(A.shape[0])
     if not fused:
-        P = _leaf_dot(base_dot, torch.cat(parts_a, 0), torch.cat(parts_b, 0))
+        with obs.span("ata.leaf_dot", leaves=sum(sizes)):
+            P = _leaf_dot(base_dot, torch.cat(parts_a, 0), torch.cat(parts_b, 0))
         P_levels = list(torch.split(P, sizes, dim=0))
 
     # diagonal leaves ordered (column block i, slab r)
-    if fused and kernels is not None:
-        s = np.arange(R * R)
-        Dp = kernels[1](ab, s % R, s // R)
-    else:
-        D = ab.transpose(0, 1).reshape(R * R, *batch, mL, nL)
-        Dp = base_syrk(D.reshape(-1, mL, nL))
+    with obs.span("ata.syrk_batch", leaves=R * R, fused=fused):
+        if fused and kernels is not None:
+            s = np.arange(R * R)
+            Dp = kernels[1](ab, s % R, s // R)
+        else:
+            D = ab.transpose(0, 1).reshape(R * R, *batch, mL, nL)
+            Dp = base_syrk(D.reshape(-1, mL, nL))
     Dp = Dp.reshape(R, R, *batch, *Dp.shape[-2:])
     diag = _accum_axis1(Dp)  # (2^L, *batch, nL, nL)
 
     c21 = {}
     for lev, p in zip(range(1, L + 1), P_levels):
-        p = p[:, None, None]
-        for _ in range(L - lev):
-            p = dec(p)
-        Rl, Hl = 1 << lev, 1 << (lev - 1)
-        q = R // Rl
-        p = _accum_axis1(p.reshape(Hl, Rl, q, q, *p.shape[3:]))
-        c21[lev] = _unblock(p)      # (H, *batch, N/2^ℓ, N/2^ℓ)
+        with obs.span(f"ata.decode.L{lev}"):
+            p = p[:, None, None]
+            for _ in range(L - lev):
+                p = dec(p)
+            Rl, Hl = 1 << lev, 1 << (lev - 1)
+            q = R // Rl
+            p = _accum_axis1(p.reshape(Hl, Rl, q, q, *p.shape[3:]))
+            c21[lev] = _unblock(p)      # (H, *batch, N/2^ℓ, N/2^ℓ)
 
     def build(lev, idx):
         if lev == L:
@@ -306,48 +310,59 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
     n_base, variant, packed_block, leaf_dispatch = resolve_tunables(
         n_base, variant, packed_block, leaf_dispatch)
     kernels = None
-    if leaf_dispatch == "fused" and base_syrk is None and base_dot is None:
-        kernels = (functools.partial(ops.gemm_tn_fused, out_dtype=acc_dtype),
-                   functools.partial(ops.syrk_gather, out_dtype=acc_dtype))
-    if base_syrk is None:
-        base_syrk = default_base_syrk(acc_dtype)
+    eng = ops.bases(a.dtype, acc_dtype)
+    if (leaf_dispatch == "fused" and base_syrk is None and base_dot is None
+            and eng.gemm_tn_fused is not None):
+        kernels = (functools.partial(eng.gemm_tn_fused, out_dtype=acc_dtype),
+                   functools.partial(eng.syrk_gather, out_dtype=acc_dtype))
+    if base_syrk is None:   # dense mode: a full, bitwise-symmetric tile
+        base_syrk = functools.partial(eng.syrk, out_dtype=acc_dtype)
     if base_dot is None:
-        base_dot = default_base_dot(acc_dtype)
+        base_dot = functools.partial(eng.gemm_tn, out_dtype=acc_dtype)
 
     n = a.shape[-1]
     L = tree_depth(a.shape[-2:], n_base)
-    ap = _pad_root(a, L) if L else a
-    if leaf_dispatch in ("batched", "fused"):
-        node = _ata_level_sync(ap, L, variant=variant, base_syrk=base_syrk,
-                               base_dot=base_dot, fused=leaf_dispatch == "fused",
-                               kernels=kernels)
-    else:
-        strassen_rec = _rec_strassen if variant == "strassen" else _rec_winograd
-        node = _rec_ata([ap], n_base=n_base, base_syrk=base_syrk,
-                        strassen_rec=strassen_rec, base_dot=base_dot,
-                        acc_dtype=acc_dtype)
+    obs.metrics.inc(f"dispatch.ata.{leaf_dispatch}")
+    # leaf accounting, the same under the three dispatches (the tree is a
+    # function of L only): 4^L diagonal syrk leaves, Σ_ℓ 2^{2ℓ-1}·7^{L-ℓ}
+    # off-diagonal Strassen leaves
+    obs.metrics.inc("ata.leaves.syrk", 4 ** L)
+    obs.metrics.inc("ata.leaves.strassen",
+                    sum(2 ** (2 * lev - 1) * 7 ** (L - lev) for lev in range(1, L + 1)))
+    t0 = obs.dispatch_start(None, a)   # no plan until the planner is ported
+    with obs.span("ata", m=a.shape[-2], n=n, levels=L, leaf_dispatch=leaf_dispatch):
+        ap = _pad_root(a, L) if L else a
+        if leaf_dispatch in ("batched", "fused"):
+            node = _ata_level_sync(ap, L, variant=variant, base_syrk=base_syrk,
+                                   base_dot=base_dot, fused=leaf_dispatch == "fused",
+                                   kernels=kernels)
+        else:
+            strassen_rec = _rec_strassen if variant == "strassen" else _rec_winograd
+            node = _rec_ata([ap], n_base=n_base, base_syrk=base_syrk,
+                            strassen_rec=strassen_rec, base_dot=base_dot,
+                            acc_dtype=acc_dtype)
 
-    if out == "packed":
-        result = _finalize_packed(node, n, packed_block)
+        if out == "packed":
+            result = _finalize_packed(node, n, packed_block)
+            if alpha != 1.0:
+                result = result.scale(alpha)
+            if c is not None:
+                if not isinstance(c, SymmetricMatrix):
+                    raise TypeError(
+                        "ata(..., out='packed') accumulates only into a "
+                        f"SymmetricMatrix c, got {type(c).__name__}"
+                    )
+                result = result.add(c.scale(beta) if beta != 1.0 else c)
+            return obs.dispatch_finish(None, t0, result)
+
+        result = _finalize_dense(node, n)
         if alpha != 1.0:
-            result = result.scale(alpha)
+            result = alpha * result
         if c is not None:
-            if not isinstance(c, SymmetricMatrix):
-                raise TypeError(
-                    "ata(..., out='packed') accumulates only into a "
-                    f"SymmetricMatrix c, got {type(c).__name__}"
-                )
-            result = result.add(c.scale(beta) if beta != 1.0 else c)
-        return result
-
-    result = _finalize_dense(node, n)
-    if alpha != 1.0:
-        result = alpha * result
-    if c is not None:
-        if isinstance(c, SymmetricMatrix):
-            c = c.to_dense()
-        result = result + (beta * c if beta != 1.0 else c)
-    return result
+            if isinstance(c, SymmetricMatrix):
+                c = c.to_dense()
+            result = result + (beta * c if beta != 1.0 else c)
+        return obs.dispatch_finish(None, t0, result)
 
 
 def ata(

@@ -20,6 +20,7 @@ __all__ = [
     "potrf_flops",
     "trsm_flops",
     "blocked_potrf_flops",
+    "cg_iteration_flops",
 ]
 
 
@@ -105,6 +106,15 @@ def blocked_potrf_flops(n: int, bn: int) -> int:
         total += rows * j * gemm
         total += rows * trsm_flops(bn, bn)
     return total
+
+
+def cg_iteration_flops(m: int, n: int, r: int) -> int:
+    """Exact flops of one CG iteration on the gram *operator*
+    ``x ↦ Aᵀ(A·x) + λx`` with ``r`` simultaneous right-hand sides: the two
+    TN products (``2mnr`` each — ``A·p`` then ``Aᵀ(Ap)``) plus the ridge
+    axpy and the 5 length-``n·r`` vector updates/dots of the textbook
+    iteration."""
+    return 2 * classical_gemm_flops(m, n, r) + 12 * n * r
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,7 +26,10 @@ Leaf dispatch:
   variant only.
 
 The base defaults to :func:`repro_torch.kernels.ops.gemm_tn`, which runs
-the CUDA kernel on a CUDA tensor and the plain matmul on a CPU tensor.
+the CUDA kernel on a CUDA tensor and the plain matmul on a CPU tensor. With
+a float64 operand or ``acc_dtype`` it is the plain matmul on every device
+(no kernel takes float64), and the fused dispatch gathers instead of
+launching — the reference's kernel-free default.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.gemm_tn import gemm_tn_plain
 from repro_torch.tune import defaults as _defaults
@@ -73,11 +77,6 @@ def _dot_tn(a, b, acc_dtype):
     """Plain ``AᵀB`` over the last two dims (leading dims are batch), with
     an ``acc_dtype`` accumulator — ``torch.matmul``, ``Aᵀ`` a view."""
     return gemm_tn_plain(a, b, out_dtype=acc_dtype)
-
-
-def default_base_dot(acc_dtype):
-    """The leaf engine when the caller passes none: ``ops.gemm_tn``."""
-    return functools.partial(ops.gemm_tn, out_dtype=acc_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +283,14 @@ def _strassen_batched(a, b, L, base_dot, variant):
         return base_dot(a, b)
     enc, dec = _encode_fns(variant)
     A, B = _to_blocks(a, L)[None], _to_blocks(b, L)[None]
-    for _ in range(L):
-        A, B = enc(A, B)
-    P = _leaf_dot(base_dot, A[:, 0, 0], B[:, 0, 0])[:, None, None]
-    for _ in range(L):
-        P = dec(P)
+    for lev in range(1, L + 1):
+        with obs.span(f"strassen.encode.L{lev}"):
+            A, B = enc(A, B)
+    with obs.span("strassen.leaf_dot", leaves=A.shape[0]):
+        P = _leaf_dot(base_dot, A[:, 0, 0], B[:, 0, 0])[:, None, None]
+    for lev in range(L, 0, -1):
+        with obs.span(f"strassen.decode.L{lev}"):
+            P = dec(P)
     return _unblock(P)[0]
 
 
@@ -394,23 +396,25 @@ def _strassen_fused(a, b, L, base_dot, fused_dot=None):
     """
     if L == 0:
         return base_dot(a, b)
-    if fused_dot is not None:
-        batch = tuple(a.shape[:-2])
-        if len(batch) > 1:  # the kernel takes one batch dim
-            a, b = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
-        P = fused_dot(_to_blocks(a, L)[None], _to_blocks(b, L)[None], _slot_tables(L))
-        P = P.reshape(P.shape[0], *batch, *P.shape[-2:])
-    else:
-        (ar, ac, asg), (br, bc, bsg) = _slot_tables(L)
-        ga, gb = _block_getter(a, L), _block_getter(b, L)
-        P = torch.stack([
-            base_dot(_combine_slots(ga, ar[s], ac[s], asg[s]),
-                     _combine_slots(gb, br[s], bc[s], bsg[s]))
-            for s in range(7 ** L)
-        ])
+    with obs.span("strassen.fused_leaves", leaves=7 ** L, kernel=fused_dot is not None):
+        if fused_dot is not None:
+            batch = tuple(a.shape[:-2])
+            if len(batch) > 1:  # the kernel takes one batch dim
+                a, b = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+            P = fused_dot(_to_blocks(a, L)[None], _to_blocks(b, L)[None], _slot_tables(L))
+            P = P.reshape(P.shape[0], *batch, *P.shape[-2:])
+        else:
+            (ar, ac, asg), (br, bc, bsg) = _slot_tables(L)
+            ga, gb = _block_getter(a, L), _block_getter(b, L)
+            P = torch.stack([
+                base_dot(_combine_slots(ga, ar[s], ac[s], asg[s]),
+                         _combine_slots(gb, br[s], bc[s], bsg[s]))
+                for s in range(7 ** L)
+            ])
     P = P[:, None, None]
-    for _ in range(L):
-        P = _decode_strassen(P)
+    for lev in range(L, 0, -1):
+        with obs.span(f"strassen.decode.L{lev}"):
+            P = _decode_strassen(P)
     return _unblock(P)[0]
 
 
@@ -446,24 +450,29 @@ def strassen_tn(
     n_base, variant, _, leaf_dispatch = resolve_tunables(n_base, variant, None, leaf_dispatch)
     fused_dot = None
     if base_dot is None:
-        base_dot = default_base_dot(acc_dtype)
-        if leaf_dispatch == "fused":
-            fused_dot = functools.partial(ops.gemm_tn_fused, out_dtype=acc_dtype)
+        eng = ops.bases(a.dtype, b.dtype, acc_dtype)
+        base_dot = functools.partial(eng.gemm_tn, out_dtype=acc_dtype)
+        if leaf_dispatch == "fused" and eng.gemm_tn_fused is not None:
+            fused_dot = functools.partial(eng.gemm_tn_fused, out_dtype=acc_dtype)
     m, n = a.shape[-2:]
     k = b.shape[-1]
     L = tree_depth((m, n, k), n_base)
-    if L:
-        a, b = _pad_root(a, L), _pad_root(b, L)
-    if leaf_dispatch == "batched":
-        out = _strassen_batched(a, b, L, base_dot, variant)
-    elif leaf_dispatch == "fused":
-        out = _strassen_fused(a, b, L, base_dot, fused_dot)
-    else:
-        rec = _rec_strassen if variant == "strassen" else _rec_winograd
-        out = rec(a, b, n_base=n_base, base_dot=base_dot, acc_dtype=acc_dtype)
-    out = out[..., :n, :k]
-    if alpha != 1.0:
-        out = alpha * out
-    if c is not None:
-        out = out + (beta * c if beta != 1.0 else c)
-    return out
+    obs.metrics.inc(f"dispatch.gemm_tn.{leaf_dispatch}")
+    obs.metrics.inc("gemm_tn.leaves", 7 ** L)
+    t0 = obs.dispatch_start(None, a)   # no plan until the planner is ported
+    with obs.span("strassen_tn", m=m, n=n, k=k, levels=L, leaf_dispatch=leaf_dispatch):
+        if L:
+            a, b = _pad_root(a, L), _pad_root(b, L)
+        if leaf_dispatch == "batched":
+            out = _strassen_batched(a, b, L, base_dot, variant)
+        elif leaf_dispatch == "fused":
+            out = _strassen_fused(a, b, L, base_dot, fused_dot)
+        else:
+            rec = _rec_strassen if variant == "strassen" else _rec_winograd
+            out = rec(a, b, n_base=n_base, base_dot=base_dot, acc_dtype=acc_dtype)
+        out = out[..., :n, :k]
+        if alpha != 1.0:
+            out = alpha * out
+        if c is not None:
+            out = out + (beta * c if beta != 1.0 else c)
+        return obs.dispatch_finish(None, t0, out)

@@ -1,4 +1,4 @@
-// gemm_tn: C[b] = alpha * A[b]^T B[b] in float32, for a whole batch in one launch.
+// gemm_tn: C[b] = alpha * A[b]^T B[b], summed in float32, for a whole batch in one launch.
 //
 // Replaces: gemm_tn_pallas in src/repro/kernels/gemm_tn.py:78 (the Pallas TN
 // matmul that is the leaf of every Strassen product).
@@ -23,27 +23,32 @@
 // engine's (one fmaf chain over depth-8 slabs), so gemm_tn_fused stays
 // bitwise equal to this kernel. Tensor cores (TF32) are left out: they
 // would change the rounding of every leaf.
+//
+// Operands are float32 or bfloat16 and the output float32 or bfloat16
+// (dtype.cuh): a bfloat16 operand rides the ring as loaded and is
+// converted in the multiply; every output is rounded once to its type.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "tn_tile.cuh"
 
 namespace repro_torch {
 
-template <bool kVec16>
+template <typename T, typename TO, bool kVec16>
 __global__ void __launch_bounds__(kThreads, 2)
-    gemm_tn_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ c, int batch, int m, int n, int k, long long sab,
-                   long long lda, long long sbb, long long ldb, float alpha) {
+    gemm_tn_kernel(const T* __restrict__ a, const T* __restrict__ b, TO* __restrict__ c,
+                   int batch, int m, int n, int k, long long sab, long long lda, long long sbb,
+                   long long ldb, float alpha) {
   extern __shared__ __align__(16) float smem[];
   const TnMap map;
   const int r0 = blockIdx.y * kTile;  // rows of C = columns of A
   const int c0 = blockIdx.x * kTile;  // columns of C = columns of B
-  const bool vec_out = (k & 3) == 0;  // every row segment 16 B aligned
+  const bool vec_out = (k & 3) == 0;  // every row segment 16 B (8 B bfloat16) aligned
   for (int bt = blockIdx.z; bt < batch; bt += gridDim.z) {
     float acc[kMicro][kMicro];
-    tn_tile<kVec16>(TnOperand{a + bt * sab, lda, r0, n}, TnOperand{b + bt * sbb, ldb, c0, k}, 0,
-                    m, smem, map, acc);
-    float* cb = c + (long long)bt * n * k;
+    tn_tile<T, kVec16>(TnOperand<T>{a + bt * sab, lda, r0, n},
+                       TnOperand<T>{b + bt * sbb, ldb, c0, k}, 0, m, smem, map, acc);
+    TO* cb = c + (long long)bt * n * k;
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii) {
       const int i = r0 + map.row(ii);
@@ -51,15 +56,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int h = 0; h < kMicro; h += 4) {
         const int j = c0 + map.col(h);
-        float* dst = cb + (long long)i * k + j;
+        TO* dst = cb + (long long)i * k + j;
+        const float v[4] = {alpha * acc[ii][h], alpha * acc[ii][h + 1], alpha * acc[ii][h + 2],
+                            alpha * acc[ii][h + 3]};
         if (vec_out && j < k) {
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(alpha * acc[ii][h], alpha * acc[ii][h + 1], alpha * acc[ii][h + 2],
-                          alpha * acc[ii][h + 3]);
+          store4(dst, v);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j + e < k) dst[e] = alpha * acc[ii][h + e];
+          for (int f = 0; f < 4; ++f)
+            if (j + f < k) store1(dst + f, v[f]);
         }
       }
     }
@@ -68,42 +73,56 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // The instance's dynamic shared-memory opt-in, once per device.
-template <bool kVec16>
+template <typename T, typename TO, bool kVec16>
 static cudaError_t opt_in() {
   static bool done[kMaxDevices] = {};
-  return tn_opt_in(reinterpret_cast<const void*>(gemm_tn_kernel<kVec16>), kTnSmemBytes, done);
+  return tn_opt_in(reinterpret_cast<const void*>(gemm_tn_kernel<T, TO, kVec16>), kTnSmemBytes,
+                   done);
 }
 
-template <bool kVec16>
-static int launch(const float* a, const float* b, float* c, int batch, int m, int n, int k,
+template <typename T, typename TO>
+static int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
                   long long sab, long long lda, long long sbb, long long ldb, float alpha,
-                  cudaStream_t stream) {
-  cudaError_t err = opt_in<kVec16>();
+                  int vec16, cudaStream_t stream) {
+  cudaError_t err = vec16 ? opt_in<T, TO, true>() : opt_in<T, TO, false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((k + kTile - 1) / kTile, (n + kTile - 1) / kTile, batch < 65535 ? batch : 65535);
-  gemm_tn_kernel<kVec16><<<grid, kThreads, kTnSmemBytes, stream>>>(a, b, c, batch, m, n, k, sab,
-                                                                   lda, sbb, ldb, alpha);
+  auto kernel = vec16 ? gemm_tn_kernel<T, TO, true> : gemm_tn_kernel<T, TO, false>;
+  kernel<<<grid, kThreads, kTnSmemBytes, stream>>>(static_cast<const T*>(a),
+                                                   static_cast<const T*>(b), static_cast<TO*>(c),
+                                                   batch, m, n, k, sab, lda, sbb, ldb, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
 
 // vec16: both bases 16 B aligned and every row and batch stride a multiple
-// of 4 floats (the wrapper decides), so the ring fills in 16 B copies.
-extern "C" int gemm_tn_f32(const float* a, const float* b, float* c, int batch, int m, int n,
+// of 16 bytes (the wrapper decides), so the ring fills in 16 B copies.
+// dtypes: bit 0 bfloat16 operands, bit 1 bfloat16 output (dtype.cuh).
+extern "C" int gemm_tn_f32(const void* a, const void* b, void* c, int batch, int m, int n,
                            int k, long long sab, long long lda, long long sbb, long long ldb,
-                           float alpha, int vec16, void* stream) {
+                           float alpha, int vec16, int dtypes, void* stream) {
+  using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec16 ? repro_torch::launch<true>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, s)
-               : repro_torch::launch<false>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, s);
+  switch (dtypes & (kLoadBf16 | kStoreBf16)) {
+    case 0:
+      return launch<float, float>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, vec16, s);
+    case kLoadBf16:
+      return launch<bf16, float>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, vec16, s);
+    case kStoreBf16:
+      return launch<float, bf16>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, vec16, s);
+    default:
+      return launch<bf16, bf16>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, vec16, s);
+  }
 }
 
-// out: the tn_info fields of the 16 B (vec16 = 1) or 4 B instance; 7 ints.
+// out: the tn_info fields of the float32 16 B (vec16 = 1) or 4 B instance; 7 ints.
 extern "C" int gemm_tn_info(int vec16, int* out) {
   using namespace repro_torch;
-  cudaError_t err = vec16 ? opt_in<true>() : opt_in<false>();
+  cudaError_t err = vec16 ? opt_in<float, float, true>() : opt_in<float, float, false>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tn_info(vec16 ? reinterpret_cast<const void*>(gemm_tn_kernel<true>)
-                                         : reinterpret_cast<const void*>(gemm_tn_kernel<false>),
-                                   out));
+  return static_cast<int>(
+      tn_info(vec16 ? reinterpret_cast<const void*>(gemm_tn_kernel<float, float, true>)
+                    : reinterpret_cast<const void*>(gemm_tn_kernel<float, float, false>),
+              out));
 }

@@ -74,9 +74,19 @@
 // stage (tools/fused_shapes.py). Resources (nvcc -Xptxas -v and
 // chip_smoke.py's resources line, from cudaFuncGetAttributes and
 // cudaOccupancyMaxActiveClusters) and times: PERF.md.
+//
+// Element types (dtype.cuh): the slot blocks are float32 or bfloat16 (the
+// template's T) and the output float32 or bfloat16. The raw ring holds T as
+// copied; the combine converts each raw quad to float32 and sums the slots
+// with the same __fadd_rn tree, so the combined operands the multiply reads
+// are float32 whatever T is, and a bfloat16 launch is the float32 launch on
+// the converted blocks. A bfloat16 quad is one 8-byte copy (4 elements);
+// the quad copies need every offset a multiple of 4 elements from a pointer
+// aligned to 4 elements, else elements are copied one by one.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "tn_tile.cuh"
 
 namespace repro_torch {
@@ -84,22 +94,25 @@ namespace fused {
 
 namespace cg = cooperative_groups;
 
-// Shared-memory plan of one CTA for W slots, a C x C cluster and R depth-8
-// slabs per stage (one barrier a stage). In a cluster (C > 1) the barrier's
-// arrive comes before the multiply and wait after it, which needs three
-// combined buffers; a CTA alone meets one __syncthreads after it, with two.
-template <int W, int C, int R>
+// Shared-memory plan of one CTA for slot blocks of type T, W slots, a C x C
+// cluster and R depth-8 slabs per stage (one barrier a stage). In a cluster
+// (C > 1) the barrier's arrive comes before the multiply and wait after it,
+// which needs three combined buffers; a CTA alone meets one __syncthreads
+// after it, with two.
+template <typename T, int W, int C, int R>
 struct Plan {
   static constexpr int kRows = kDepth * R;                // slab rows of one stage
   static constexpr int kCols = kTile / C;                 // stripe columns a CTA combines
-  static constexpr int kQuads = kCols / 4;                // float4 per stage row
-  static constexpr int kSideQuads = kRows * kQuads;       // float4 per side per stage
+  static constexpr int kQuads = kCols / 4;                // quads (4 elements) per stage row
+  static constexpr int kSideQuads = kRows * kQuads;       // quads per side per stage
   static constexpr int kAllQuads = 2 * kSideQuads;
   static constexpr int kQuadsPerThread = (kAllQuads + kThreads - 1) / kThreads;
-  static constexpr int kRawFloats = 2 * W * kRows * kCols;  // one raw stage, both sides
+  static constexpr int kRawElems = 2 * W * kRows * kCols;   // one raw stage, both sides
   static constexpr int kBufs = C > 1 ? 3 : 2;             // combined stage buffers
   static constexpr int kBufFloats = 2 * kRows * kTile;    // X and Y of one combined stage
-  static constexpr int bytes(int stages) { return (stages * kRawFloats + kBufs * kBufFloats) * 4; }
+  static constexpr int bytes(int stages) {
+    return stages * kRawElems * static_cast<int>(sizeof(T)) + kBufs * kBufFloats * 4;
+  }
   // The deepest ring (4 stages at most) that lets two CTAs share an SM, or
   // failing that the deepest that fits one CTA.
   static constexpr int kPair = 112 * 1024, kAlone = 220 * 1024;
@@ -117,9 +130,40 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, int byt
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// The quad of 4 elements at src, `avail` of them live (1..4), into dst: one
+// 16-byte (float32) or 8-byte (bfloat16) copy zero-filling the dead ones
+// where vec (the host's alignment check), else one copy an element — a
+// 4-byte cp.async for float32, a plain load for bfloat16 (cp.async copies 4,
+// 8 or 16 bytes).
+__device__ __forceinline__ void copy_quad(float* dst, const float* src, int avail, int vec) {
+  if (vec) {
+    cp_async16(dst, src, 4 * (avail < 4 ? avail : 4));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < avail) cp_async4(dst + j, src + j);
+  }
+}
+
+__device__ __forceinline__ void copy_quad(bf16* dst, const bf16* src, int avail, int vec) {
+  if (vec) {
+    cp_async8(dst, src, 2 * (avail < 4 ? avail : 4));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < avail) dst[j] = src[j];
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -148,14 +192,14 @@ struct Part {
 
 // The tree over slots [w0, w0 + N): the left half, then the right half, then
 // one add — the pairwise order of core.strassen._combine_slots.
-template <int N>
-__device__ __forceinline__ Part slot_tree(const float* raw, int slot_stride, const int* sgn,
+template <int N, typename T>
+__device__ __forceinline__ Part slot_tree(const T* raw, int slot_stride, const int* sgn,
                                           int w0) {
   if constexpr (N == 1) {
     const int s = sgn[w0];
     Part p{make_float4(0.f, 0.f, 0.f, 0.f), s != 0};
     if (p.live) {
-      const float4 x = *reinterpret_cast<const float4*>(raw + w0 * slot_stride);
+      const float4 x = load4(raw + w0 * slot_stride);
       p.v = s < 0 ? make_float4(-x.x, -x.y, -x.z, -x.w) : x;
     }
     return p;
@@ -173,18 +217,35 @@ __device__ __forceinline__ Part slot_tree(const float* raw, int slot_stride, con
   }
 }
 
-template <int W, int C, int R>
-__global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
-    gemm_tn_fused_kernel(const float* __restrict__ a, const float* __restrict__ b,
+// A thread's 8 x 8 outputs, rows i0.., columns j0.., of an n x k entry.
+template <typename TO>
+__device__ __forceinline__ void store_tile(TO* ce, const float (&acc)[kMicro][kMicro], int i0,
+                                           int j0, int n, int k, float alpha) {
+#pragma unroll
+  for (int ii = 0; ii < kMicro; ++ii) {
+    const int i = i0 + ii;
+    if (i >= n) continue;
+#pragma unroll
+    for (int jj = 0; jj < kMicro; ++jj) {
+      const int j = j0 + jj;
+      if (j < k) store1(ce + (long long)i * k + j, alpha * acc[ii][jj]);
+    }
+  }
+}
+
+template <typename T, int W, int C, int R>
+__global__ void __launch_bounds__(kThreads, (Plan<T, W, C, R>::kMinBlocks))
+    gemm_tn_fused_kernel(const T* __restrict__ a, const T* __restrict__ b,
                          const long long* __restrict__ off, const int* __restrict__ sgn,
-                         float* __restrict__ c, int leaves, int inner, int m, int n, int k,
+                         void* __restrict__ c, int leaves, int inner, int m, int n, int k,
                          long long sab, long long lda, long long sbb, long long ldb, float alpha,
-                         int vec16) {
-  using P = Plan<W, C, R>;
+                         int vec16, bool bf16_out) {
+  using P = Plan<T, W, C, R>;
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                                   // [kStages][2][W][kRows][kCols]
-  float* bufs = smem + P::kStages * P::kRawFloats;     // [kBufs][2][kRows][kTile]
-  __shared__ const float* s_base[2][W];                // slot bases of this entry
+  T* raw = reinterpret_cast<T*>(smem);                 // [kStages][2][W][kRows][kCols]
+  float* bufs = reinterpret_cast<float*>(raw + P::kStages * P::kRawElems);
+                                                       // [kBufs][2][kRows][kTile]
+  __shared__ const T* s_base[2][W];                    // slot bases of this entry
   __shared__ int s_sgn[2][W];
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -241,21 +302,13 @@ __global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
         const int l = st * P::kRows + q.rr;
         const int avail = q.lim - q.col;
         if (qi < P::kAllQuads && st < stages && l < m && avail > 0) {
-          float* d = raw + (st % P::kStages) * P::kRawFloats +
-                     ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
+          T* d = raw + (st % P::kStages) * P::kRawElems +
+                 ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
           const long long roff = (long long)l * q.ld + q.col;
 #pragma unroll
           for (int w = 0; w < W; ++w) {
             if (!s_sgn[q.side][w]) continue;
-            const float* src = s_base[q.side][w] + roff;
-            float* dw = d + w * P::kRows * P::kCols;
-            if (vec16) {
-              cp_async16(dw, src, 4 * (avail < 4 ? avail : 4));
-            } else {
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (j < avail) cp_async4(dw + j, src + j);
-            }
+            copy_quad(d + w * P::kRows * P::kCols, s_base[q.side][w] + roff, avail, vec16);
           }
         }
       }
@@ -279,8 +332,8 @@ __global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
           const int qi = tid + u * kThreads;
           if (qi >= P::kAllQuads) continue;
           const Quad q = quad(qi);
-          const float* src = raw + (s % P::kStages) * P::kRawFloats +
-                             ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
+          const T* src = raw + (s % P::kStages) * P::kRawElems +
+                         ((q.side * W) * P::kRows + q.rr) * P::kCols + (q.scol % P::kCols);
           const Part t = slot_tree<W>(src, P::kRows * P::kCols, s_sgn[q.side], 0);
           const int l = s * P::kRows + q.rr;
           float4 v = (t.live && l < m) ? t.v : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -332,16 +385,11 @@ __global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
       }
     }
 
-    float* ce = c + e * n * k;
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) {
-      const int i = r0 + ty * 8 + ii;
-      if (i >= n) continue;
-#pragma unroll
-      for (int jj = 0; jj < kMicro; ++jj) {
-        const int j = c0 + tx * 8 + jj;
-        if (j < k) ce[(long long)i * k + j] = alpha * acc[ii][jj];
-      }
+    // one branch on the output type, outside the stores
+    if (bf16_out) {
+      store_tile(static_cast<bf16*>(c) + e * n * k, acc, r0 + ty * 8, c0 + tx * 8, n, k, alpha);
+    } else {
+      store_tile(static_cast<float*>(c) + e * n * k, acc, r0 + ty * 8, c0 + tx * 8, n, k, alpha);
     }
     // The next entry's slot bases overwrite s_base only after the cluster
     // barrier above, which every thread of this CTA passed after its last
@@ -352,20 +400,20 @@ __global__ void __launch_bounds__(kThreads, (Plan<W, C, R>::kMinBlocks))
 // Sets the kernel's attributes (once per device; they hold for every later
 // launch) and fills the launch configuration of a grid of ceil(k/128) x
 // ceil(n/128) tiles rounded up to whole clusters.
-template <int W, int C, int R>
+template <typename T, int W, int C, int R>
 static cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int n, int k,
                              long long entries, cudaStream_t stream) {
-  using P = Plan<W, C, R>;
+  using P = Plan<T, W, C, R>;
   constexpr int kDevices = 64;
   static bool attributes_set[kDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kDevices || !attributes_set[device]) {
-    err = cudaFuncSetAttribute(gemm_tn_fused_kernel<W, C, R>,
+    err = cudaFuncSetAttribute(gemm_tn_fused_kernel<T, W, C, R>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
     if (err == cudaSuccess && C * C > 8)
-      err = cudaFuncSetAttribute(gemm_tn_fused_kernel<W, C, R>,
+      err = cudaFuncSetAttribute(gemm_tn_fused_kernel<T, W, C, R>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     if (device < kDevices) attributes_set[device] = true;
@@ -386,17 +434,18 @@ static cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   return cudaSuccess;
 }
 
-template <int W, int C, int R>
-static int launch(cudaStream_t stream, const float* a, const float* b, const long long* off,
-                  const int* sgn, float* c, int leaves, int inner, int m, int n, int k,
+template <typename T, int W, int C, int R>
+static int launch(cudaStream_t stream, const void* a, const void* b, const long long* off,
+                  const int* sgn, void* c, int leaves, int inner, int m, int n, int k,
                   long long sab, long long lda, long long sbb, long long ldb, float alpha,
-                  int vec16) {
+                  int vec16, bool bf16_out = false) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = configure<W, C, R>(cfg, attr, n, k, (long long)leaves * inner, stream);
+  cudaError_t err = configure<T, W, C, R>(cfg, attr, n, k, (long long)leaves * inner, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, gemm_tn_fused_kernel<W, C, R>, a, b, off, sgn, c, leaves, inner, m,
-                           n, k, sab, lda, sbb, ldb, alpha, vec16);
+  err = cudaLaunchKernelEx(&cfg, gemm_tn_fused_kernel<T, W, C, R>, static_cast<const T*>(a),
+                           static_cast<const T*>(b), off, sgn, c, leaves, inner, m, n, k, sab, lda,
+                           sbb, ldb, alpha, vec16, bf16_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -404,28 +453,29 @@ static int launch(cudaStream_t stream, const float* a, const float* b, const lon
 // out: registers per thread, static shared bytes, dynamic shared bytes,
 // local (spill) bytes, resident CTAs per SM, resident clusters on the card,
 // ring stages, cluster edge, depth-8 slabs a stage.
-template <int W, int C, int R>
+template <typename T, int W, int C, int R>
 static int info(int* out) {
+  using P = Plan<T, W, C, R>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = configure<W, C, R>(cfg, attr, 512, 512, 1, nullptr);
+  cudaError_t err = configure<T, W, C, R>(cfg, attr, 512, 512, 1, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, gemm_tn_fused_kernel<W, C, R>);
+  err = cudaFuncGetAttributes(&fa, gemm_tn_fused_kernel<T, W, C, R>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, clusters = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_tn_fused_kernel<W, C, R>,
-                                                      kThreads, Plan<W, C, R>::kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_tn_fused_kernel<T, W, C, R>,
+                                                      kThreads, P::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveClusters(&clusters, gemm_tn_fused_kernel<W, C, R>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, gemm_tn_fused_kernel<T, W, C, R>, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);
-  out[2] = Plan<W, C, R>::kSmemBytes;
+  out[2] = P::kSmemBytes;
   out[3] = static_cast<int>(fa.localSizeBytes);
   out[4] = per_sm;
   out[5] = clusters;
-  out[6] = Plan<W, C, R>::kStages;
+  out[6] = P::kStages;
   out[7] = C;
   out[8] = R;
   return 0;
@@ -447,39 +497,49 @@ struct Shape {
 // off: (2, leaves, w) int64 element offsets (A side, then B side); sgn: the
 // same shape in int32. c: (leaves, inner, n, k). w is 1, 2, 4, 8, 16 or 32.
 // vec16: every slot base, batch stride and row stride is a multiple of 4
-// floats from a 16 B aligned pointer, so the raw slabs copy in 16 B quads.
-extern "C" int gemm_tn_fused_f32(const float* a, const float* b, const long long* off,
-                                 const int* sgn, float* c, int leaves, int inner, int w, int m,
+// elements from a pointer aligned to 4 elements, so the raw slabs copy in
+// quads (16 B float32, 8 B bfloat16). dtypes: bit 0 bfloat16 blocks, bit 1
+// bfloat16 output (dtype.cuh).
+extern "C" int gemm_tn_fused_f32(const void* a, const void* b, const long long* off,
+                                 const int* sgn, void* c, int leaves, int inner, int w, int m,
                                  int n, int k, long long sab, long long lda, long long sbb,
-                                 long long ldb, float alpha, int vec16, void* stream) {
+                                 long long ldb, float alpha, int vec16, int dtypes, void* stream) {
+  using repro_torch::bf16;
   using repro_torch::fused::launch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FUSED_CASE(W)                                                                     \
-  case W:                                                                                       \
-    return launch<W, Shape<W>::C, Shape<W>::R>(s, a, b, off, sgn, c, leaves, inner, m, n, k, sab, \
-                                               lda, sbb, ldb, alpha, vec16);
-  switch (w) {
-    REPRO_FUSED_CASE(1)
-    REPRO_FUSED_CASE(2)
-    REPRO_FUSED_CASE(4)
-    REPRO_FUSED_CASE(8)
-    REPRO_FUSED_CASE(16)
-    REPRO_FUSED_CASE(32)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const bool out16 = (dtypes & repro_torch::kStoreBf16) != 0;
+#define REPRO_FUSED_CASE(T, W)                                                                     \
+  case W:                                                                                          \
+    return launch<T, W, Shape<W>::C, Shape<W>::R>(s, a, b, off, sgn, c, leaves, inner, m, n, k,   \
+                                                  sab, lda, sbb, ldb, alpha, vec16, out16);
+#define REPRO_FUSED_SWITCH(T)                                                                      \
+  switch (w) {                                                                                     \
+    REPRO_FUSED_CASE(T, 1)                                                                         \
+    REPRO_FUSED_CASE(T, 2)                                                                         \
+    REPRO_FUSED_CASE(T, 4)                                                                         \
+    REPRO_FUSED_CASE(T, 8)                                                                         \
+    REPRO_FUSED_CASE(T, 16)                                                                        \
+    REPRO_FUSED_CASE(T, 32)                                                                        \
+    default: return static_cast<int>(cudaErrorInvalidValue);                                       \
   }
+  if (dtypes & repro_torch::kLoadBf16) {
+    REPRO_FUSED_SWITCH(bf16)
+  }
+  REPRO_FUSED_SWITCH(float)
+#undef REPRO_FUSED_SWITCH
 #undef REPRO_FUSED_CASE
 }
 
-// Resources of the instantiation for w slots (see fused::info); out holds 9 ints.
+// Resources of the float32 instantiation for w slots (see fused::info); out holds 9 ints.
 extern "C" int gemm_tn_fused_info(int w, int* out) {
   using repro_torch::fused::info;
   switch (w) {
-    case 1: return info<1, Shape<1>::C, Shape<1>::R>(out);
-    case 2: return info<2, Shape<2>::C, Shape<2>::R>(out);
-    case 4: return info<4, Shape<4>::C, Shape<4>::R>(out);
-    case 8: return info<8, Shape<8>::C, Shape<8>::R>(out);
-    case 16: return info<16, Shape<16>::C, Shape<16>::R>(out);
-    case 32: return info<32, Shape<32>::C, Shape<32>::R>(out);
+    case 1: return info<float, 1, Shape<1>::C, Shape<1>::R>(out);
+    case 2: return info<float, 2, Shape<2>::C, Shape<2>::R>(out);
+    case 4: return info<float, 4, Shape<4>::C, Shape<4>::R>(out);
+    case 8: return info<float, 8, Shape<8>::C, Shape<8>::R>(out);
+    case 16: return info<float, 16, Shape<16>::C, Shape<16>::R>(out);
+    case 32: return info<float, 32, Shape<32>::C, Shape<32>::R>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -42,13 +42,23 @@
 // The tile's lower triangle arrives by cp.async, every copy in flight at
 // once, so loading it costs one memory latency, not one per element.
 //
+// Element types (dtype.cuh): the tile is float32 or bfloat16 (the template's
+// T), the factor is computed in float32 and stored as float32 or bfloat16.
+// A bfloat16 tile is read with plain loads and converted on the way into
+// shared memory (cp.async cannot convert, and a 2-byte element is below its
+// smallest copy), so the recurrence above runs on the same float32 tile.
+//
 // Shared memory: n(n+1)/2 + 32 * round_up(n, 4) floats dynamic, 161 KB at
 // n = 256 (opt-in above 48 KB), plus 4 KB static for the published columns.
 // Registers and occupancy: chip_smoke.py's resources line (potrf_info) and
 // PERF.md.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using repro_torch::bf16;
 
 constexpr int kThreads = 256;
 constexpr int kPanel = 32;
@@ -167,8 +177,26 @@ __device__ __forceinline__ void tile_coords(int t, int& bi, int& bk) {
   bk = t - i * (i + 1) / 2;
 }
 
+// The tile's lower triangle into s: asynchronous 4-byte copies, all in
+// flight at once (float32), or plain loads converted to float32 (bfloat16).
+__device__ __forceinline__ void load_lower(float* s, const float* ab, int n, int lane, int warp) {
+  for (int r = warp; r < n; r += kThreads / 32)
+    for (int c = lane; c <= r; c += 32) {
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(&s[lo(r, c)]));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(ab + r * n + c)
+                   : "memory");
+    }
+}
+
+__device__ __forceinline__ void load_lower(float* s, const bf16* ab, int n, int lane, int warp) {
+  for (int r = warp; r < n; r += kThreads / 32)
+    for (int c = lane; c <= r; c += 32) s[lo(r, c)] = __bfloat162float(ab[r * n + c]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    potrf_kernel(const float* __restrict__ a, float* __restrict__ l, int batch, int n) {
+    potrf_kernel(const T* __restrict__ a, void* __restrict__ l, int batch, int n,
+                 bool bf16_out) {
   extern __shared__ __align__(16) float s[];  // lower triangle, row-major packed
   float* pt = s + tri_floats(n);              // [kPanel][ptld]: the panel below its block
   __shared__ float col[kPanel * kPanel];      // the diagonal block's columns, as published
@@ -178,14 +206,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long nn = (long long)n * n;
   for (int bt = blockIdx.x; bt < batch; bt += gridDim.x) {
-    const float* ab = a + bt * nn;
-    // the lower triangle by asynchronous 4-byte copies, all in flight at once
-    for (int r = warp; r < n; r += kThreads / 32)
-      for (int c = lane; c <= r; c += 32) {
-        const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(&s[lo(r, c)]));
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(ab + r * n + c)
-                     : "memory");
-      }
+    load_lower(s, a + bt * nn, n, lane, warp);
     if (tid == 0) *ready = 0;
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
@@ -207,39 +228,51 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    float* lb = l + bt * nn;
+    const long long lb = bt * nn;
     for (int r = warp; r < n; r += kThreads / 32)
-      for (int c = lane; c < n; c += 32) lb[r * n + c] = c <= r ? s[lo(r, c)] : 0.0f;
+      for (int c = lane; c < n; c += 32)
+        repro_torch::store1(l, lb + r * n + c, c <= r ? s[lo(r, c)] : 0.0f, bf16_out);
     __syncthreads();  // the next tile reuses the shared buffer
   }
 }
 
 int smem_bytes(int n) { return (tri_floats(n) + kPanel * panel_ld(n)) * (int)sizeof(float); }
 
-}  // namespace
-
-extern "C" int potrf_f32(const float* a, float* l, int batch, int n, void* stream) {
+template <typename T>
+int launch(const void* a, void* l, int batch, int n, bool bf16_out, cudaStream_t stream) {
   const int smem = smem_bytes(n);
   cudaError_t err =
-      cudaFuncSetAttribute(potrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(potrf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = batch < 65535 ? batch : 65535;
-  potrf_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, l, batch, n);
+  potrf_kernel<T><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(a), l, batch, n,
+                                                    bf16_out);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// dtypes: bit 0 bfloat16 tiles, bit 1 bfloat16 factor (dtype.cuh).
+extern "C" int potrf_f32(const void* a, void* l, int batch, int n, int dtypes, void* stream) {
+  const bool out16 = (dtypes & repro_torch::kStoreBf16) != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (dtypes & repro_torch::kLoadBf16) ? launch<bf16>(a, l, batch, n, out16, s)
+                                           : launch<float>(a, l, batch, n, out16, s);
+}
+
 // out: registers per thread, static shared bytes, dynamic shared bytes at n,
-// local (spill) bytes, resident CTAs per SM at n.
+// local (spill) bytes, resident CTAs per SM at n; of the float32 instance.
 extern "C" int potrf_info(int n, int* out) {
   const int smem = smem_bytes(n);
-  cudaError_t err =
-      cudaFuncSetAttribute(potrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(potrf_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, potrf_kernel);
+  err = cudaFuncGetAttributes(&fa, potrf_kernel<float>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, potrf_kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, potrf_kernel<float>, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);

@@ -1,4 +1,4 @@
-// syrk: C[b] = alpha * A[b]^T A[b] in float32, lower tiles only, in one launch.
+// syrk: C[b] = alpha * A[b]^T A[b], summed in float32, lower tiles only, in one launch.
 //
 // Replaces: syrk_pallas in src/repro/kernels/syrk.py (the Pallas kernel for
 // the diagonal leaves of ATA, dense dual-write and packed output modes).
@@ -65,10 +65,18 @@
 // (rows[s], cols[s]) of the caller's block-major grid, computed by the
 // wrapper), so the gathered (S, ...) stack is never copied. The arithmetic
 // per entry is the dense syrk's, so the two agree bitwise on the same leaf.
+//
+// Operands are float32 or bfloat16 and the output float32 or bfloat16
+// (dtype.cuh). The partials are staged and summed in float32 whatever the
+// types; the dual write rounds each output once to its type and stores a
+// 4 x 4 block's rows as 16-byte float32 or 8-byte bfloat16 runs. With the
+// 4 x 4 blocks of this lane map a bfloat16 row run of a quarter-warp still
+// fills whole 32-byte sectors, so the lane map is the float32 one.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dtype.cuh"
 #include "tn_tile.cuh"
 
 namespace repro_torch {
@@ -78,8 +86,8 @@ constexpr int kBlocks = kTile / 4;                       // 4 x 4 blocks a tile 
 constexpr int kGroups = (kBlocks / 4) * (kBlocks / 8);   // warp groups of 4 x 8 blocks
 
 struct SyrkArgs {
-  const float* a;
-  float* c;
+  const void* a;          // float32 or bfloat16 elements (the instance's T)
+  void* c;                // float32 or bfloat16 elements (the instance's TO)
   const long long* offs;  // per-entry element offsets (syrk_gather), or null
   long long sab, lda;     // batch and row strides of a, in elements
   int batch, inner;       // entries; entry e reads a + offs[e / inner] + (e % inner) * sab
@@ -87,7 +95,7 @@ struct SyrkArgs {
   float alpha;
   int packed, bn, sub;    // packed: storage block edge, 128-tiles a block edge
   int chunk;              // CTA r of a cluster of K sums rows [r*chunk, (r+1)*chunk)
-  int vec_out;            // ld a multiple of 4 floats and c 16 B aligned: float4 stores
+  int vec_out;            // ld a multiple of 4 and c aligned to 4 elements: vector stores
 };
 
 // Float index of 16-byte chunk c (columns 4c..4c+3) of row i of the staged
@@ -100,23 +108,25 @@ __device__ __forceinline__ int staged(int i, int c) {
 
 // Where the tile goes: element (i, j) of the tile is dst[(i0 + i) * ld + j0 + j]
 // of a lim x lim target.
+template <typename TO>
 struct Target {
-  float* dst;
+  TO* dst;
   long long ld;
   int lim, i0, j0;
   bool vec;
 };
 
-// Row i of the target from column j on: four values, float4 if allowed.
-__device__ __forceinline__ void put4(const Target& t, int i, int j, const float (&v)[4]) {
+// Row i of the target from column j on: four values, one vector store if allowed.
+template <typename TO>
+__device__ __forceinline__ void put4(const Target<TO>& t, int i, int j, const float (&v)[4]) {
   if (i >= t.lim) return;
-  float* p = t.dst + (long long)i * t.ld + j;
+  TO* p = t.dst + (long long)i * t.ld + j;
   if (t.vec) {  // lim % 4 == 0 and j % 4 == 0: the run is all in or all out
-    if (j < t.lim) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    if (j < t.lim) store4(p, v);
   } else {
 #pragma unroll
     for (int f = 0; f < 4; ++f)
-      if (j + f < t.lim) p[f] = v[f];
+      if (j + f < t.lim) store1(p + f, v[f]);
   }
 }
 
@@ -143,7 +153,7 @@ __device__ __forceinline__ float4 load_cluster4(unsigned address) {
   return v;
 }
 
-template <bool kVec16, int kSplits>
+template <typename T, typename TO, bool kVec16, int kSplits>
 __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
   extern __shared__ __align__(16) float smem[];
   const TnMap map;
@@ -171,14 +181,15 @@ __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int bt = blockIdx.z; bt < g.batch; bt += gridDim.z) {
-    const float* ab = g.offs ? g.a + g.offs[bt / g.inner] + (long long)(bt % g.inner) * g.sab
-                             : g.a + (long long)bt * g.sab;
+    const T* a = static_cast<const T*>(g.a);
+    const T* ab = g.offs ? a + g.offs[bt / g.inner] + (long long)(bt % g.inner) * g.sab
+                         : a + (long long)bt * g.sab;
     float acc[kMicro][kMicro];
-    const TnOperand x{ab, g.lda, r0, rlim}, y{ab, g.lda, c0, clim};
+    const TnOperand<T> x{ab, g.lda, r0, rlim}, y{ab, g.lda, c0, clim};
     if (diag)
-      tn_tile<kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<T, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
     else
-      tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<T, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
     __syncthreads();  // every warp is done with the ring: stage the partial over it
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii)
@@ -192,12 +203,13 @@ __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
     else
       __syncthreads();
 
-    Target tg;
+    TO* c = static_cast<TO*>(g.c);
+    Target<TO> tg;
     if (g.packed) {
-      tg = Target{g.c + ((long long)bt * t_total + t) * g.bn * g.bn, g.bn, g.bn, p * kTile,
-                  q * kTile, g.vec_out != 0};
+      tg = Target<TO>{c + ((long long)bt * t_total + t) * g.bn * g.bn, g.bn, g.bn, p * kTile,
+                      q * kTile, g.vec_out != 0};
     } else {
-      tg = Target{g.c + (long long)bt * g.n * g.n, g.n, g.n, r0, c0, g.vec_out != 0};
+      tg = Target<TO>{c + (long long)bt * g.n * g.n, g.n, g.n, r0, c0, g.vec_out != 0};
     }
     // Warp group w covers block rows 4*(w/4) + {0..3} and block columns
     // 8*(w%4) + {0..7}; lane (lane/8, lane%8) one 4 x 4 block of it. CTA r
@@ -256,22 +268,34 @@ __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
 
 using SyrkKernel = void (*)(SyrkArgs);
 
-// The instance for a split K in {1, 2, 4, 8} (null otherwise), and its
-// dynamic shared-memory opt-in, once per instance and device.
-static SyrkKernel instance(int vec16, int splits, cudaError_t* err) {
-  static bool done[2][4][kMaxDevices] = {};
-  SyrkKernel k[2][4] = {{syrk_kernel<false, 1>, syrk_kernel<false, 2>, syrk_kernel<false, 4>,
-                         syrk_kernel<false, 8>},
-                        {syrk_kernel<true, 1>, syrk_kernel<true, 2>, syrk_kernel<true, 4>,
-                         syrk_kernel<true, 8>}};
+// The instances of one (operand, output) type pair: [vec16][K = 1, 2, 4, 8].
+template <typename T, typename TO>
+static SyrkKernel pick(int vec16, int idx) {
+  static const SyrkKernel k[2][4] = {
+      {syrk_kernel<T, TO, false, 1>, syrk_kernel<T, TO, false, 2>, syrk_kernel<T, TO, false, 4>,
+       syrk_kernel<T, TO, false, 8>},
+      {syrk_kernel<T, TO, true, 1>, syrk_kernel<T, TO, true, 2>, syrk_kernel<T, TO, true, 4>,
+       syrk_kernel<T, TO, true, 8>}};
+  return k[vec16 ? 1 : 0][idx];
+}
+
+// The instance for the dtypes code (dtype.cuh), the copy width and a split
+// K in {1, 2, 4, 8} (null otherwise), and its dynamic shared-memory opt-in,
+// once per instance and device.
+static SyrkKernel instance(int dtypes, int vec16, int splits, cudaError_t* err) {
+  static bool done[4][2][4][kMaxDevices] = {};
   const int idx = splits == 1 ? 0 : splits == 2 ? 1 : splits == 4 ? 2 : splits == 8 ? 3 : -1;
   if (idx < 0) {
     *err = cudaErrorInvalidValue;
     return nullptr;
   }
-  const int v = vec16 ? 1 : 0;
-  *err = tn_opt_in(reinterpret_cast<const void*>(k[v][idx]), kTnSmemBytes, done[v][idx]);
-  return *err == cudaSuccess ? k[v][idx] : nullptr;
+  const int t = dtypes & (kLoadBf16 | kStoreBf16), v = vec16 ? 1 : 0;
+  const SyrkKernel k = t == 0            ? pick<float, float>(v, idx)
+                       : t == kLoadBf16  ? pick<bf16, float>(v, idx)
+                       : t == kStoreBf16 ? pick<float, bf16>(v, idx)
+                                         : pick<bf16, bf16>(v, idx);
+  *err = tn_opt_in(reinterpret_cast<const void*>(k), kTnSmemBytes, done[t][v][idx]);
+  return *err == cudaSuccess ? k : nullptr;
 }
 
 static void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, dim3 grid, int splits,
@@ -290,15 +314,16 @@ static void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, dim3 g
 }
 
 // Grid (T * K, sub^2, batch), clusters of K along x; chunk from (m, K).
-static int launch(int vec16, long long tiles, int sub, int splits, SyrkArgs g, void* stream) {
+static int launch(int dtypes, int vec16, long long tiles, int sub, int splits, SyrkArgs g,
+                  void* stream) {
   cudaError_t err;
-  const SyrkKernel kernel = instance(vec16, splits, &err);
+  const SyrkKernel kernel = instance(dtypes, vec16, splits, &err);
   if (kernel == nullptr) return static_cast<int>(err);
   if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int per = (g.m + splits - 1) / splits;
   g.chunk = (per + kSlab - 1) / kSlab * kSlab;
   const int ld = g.packed ? g.bn : g.n;
-  g.vec_out = ld % 4 == 0 && reinterpret_cast<std::uintptr_t>(g.c) % 16 == 0;
+  g.vec_out = ld % 4 == 0 && reinterpret_cast<std::uintptr_t>(g.c) % (4 * out_bytes(dtypes)) == 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const dim3 grid(static_cast<unsigned>(tiles * splits), sub * sub,
@@ -314,10 +339,11 @@ static int launch(int vec16, long long tiles, int sub, int splits, SyrkArgs g, v
 // packed == 0: c is (batch, n, n); the grid covers the lower 128-tile pairs.
 // packed == 1: c is (batch, T, bn, bn) with T = nb(nb+1)/2, nb = ceil(n/bn).
 // splits: K in {1, 2, 4, 8}, the CTAs (one cluster) that share each output tile.
-// vec16: a 16 B aligned, lda and sab multiples of 4 floats (16 B copies).
-extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long long sab,
+// vec16: a 16 B aligned, lda and sab multiples of 16 bytes (16 B copies).
+// dtypes: bit 0 bfloat16 operand, bit 1 bfloat16 output (dtype.cuh).
+extern "C" int syrk_f32(const void* a, void* c, int batch, int m, int n, long long sab,
                         long long lda, float alpha, int packed, int bn, int splits, int vec16,
-                        void* stream) {
+                        int dtypes, void* stream) {
   using repro_torch::kTile;
   int sub = 1;
   long long nblk;
@@ -330,15 +356,15 @@ extern "C" int syrk_f32(const float* a, float* c, int batch, int m, int n, long 
   repro_torch::SyrkArgs g{};
   g.a = a, g.c = c, g.offs = nullptr, g.sab = sab, g.lda = lda, g.batch = batch, g.inner = 1;
   g.m = m, g.n = n, g.alpha = alpha, g.packed = packed, g.bn = packed ? bn : 0, g.sub = sub;
-  return repro_torch::launch(vec16, nblk * (nblk + 1) / 2, sub, splits, g, stream);
+  return repro_torch::launch(dtypes, vec16, nblk * (nblk + 1) / 2, sub, splits, g, stream);
 }
 
 // c is (S, inner, n, n): entry (s, b) is the dense syrk of the m x n leaf at
-// a + offs[s] + b * sab (row stride lda). splits and vec16 as for syrk_f32,
-// and every offs[s] a multiple of 4 floats.
-extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, int S, int inner,
+// a + offs[s] + b * sab (row stride lda). splits, vec16 and dtypes as for
+// syrk_f32, and with vec16 every offs[s] a multiple of 16 bytes.
+extern "C" int syrk_gather_f32(const void* a, const long long* offs, void* c, int S, int inner,
                                int m, int n, long long sab, long long lda, float alpha, int splits,
-                               int vec16, void* stream) {
+                               int vec16, int dtypes, void* stream) {
   using repro_torch::kTile;
   const long long nblk = (n + kTile - 1) / kTile;
   const long long entries = (long long)S * inner;
@@ -347,17 +373,17 @@ extern "C" int syrk_gather_f32(const float* a, const long long* offs, float* c, 
   g.a = a, g.c = c, g.offs = offs, g.sab = sab, g.lda = lda;
   g.batch = static_cast<int>(entries), g.inner = inner;
   g.m = m, g.n = n, g.alpha = alpha, g.packed = 0, g.bn = 0, g.sub = 1;
-  return repro_torch::launch(vec16, nblk * (nblk + 1) / 2, 1, splits, g, stream);
+  return repro_torch::launch(dtypes, vec16, nblk * (nblk + 1) / 2, 1, splits, g, stream);
 }
 
 // out: registers per thread, static shared bytes, dynamic shared bytes,
 // local (spill) bytes, resident CTAs per SM, cluster size (= splits), and
-// resident clusters of that size on the card, for the 16 B (vec16 = 1) or
-// 4 B instance.
+// resident clusters of that size on the card, for the float32 16 B
+// (vec16 = 1) or 4 B instance.
 extern "C" int syrk_info(int vec16, int splits, int* out) {
   using namespace repro_torch;
   cudaError_t err;
-  const void* kernel = reinterpret_cast<const void*>(instance(vec16, splits, &err));
+  const void* kernel = reinterpret_cast<const void*>(instance(0, vec16, splits, &err));
   if (kernel == nullptr) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);

@@ -31,9 +31,12 @@
 //   (96 KiB) measured fastest on the H100 among 2 to 4 stages of 8, 16 and
 //   32 rows (PERF.md): deeper stages cost fewer barriers. 16-byte copies
 //   where the host found every base, row stride and batch stride a
-//   multiple of 4 floats (kVec16), 4-byte copies otherwise. Rows at or past
-//   m and columns at or past a limit are zero-filled through the copy's
-//   source size, so the loop has no mask branch.
+//   multiple of 16 bytes (kVec16: 4 float32 or 8 bfloat16 elements),
+//   element copies otherwise. Rows at or past m and columns at or past a
+//   limit are zero-filled through the copy's source size, so the loop has
+//   no mask branch.
+// * Operands of float32 or bfloat16 (the template's T), summed in float32;
+//   the ring holds T and the multiply converts what it reads (TnOperand).
 // * The epilogues use TnMap: gemm_tn stores float4 rows from the registers,
 //   syrk stages the tile in the ring's shared memory first (syrk.cu).
 //
@@ -62,6 +65,8 @@
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace repro_torch {
 
 constexpr int kTile = 128;    // output tile edge
@@ -69,13 +74,20 @@ constexpr int kDepth = 8;     // summation slab: the fmaf chain runs over whole 
 constexpr int kThreads = 256; // 8 warps of 32 x 64 outputs, 8 x 8 a thread
 constexpr int kMicro = 8;
 constexpr int kSlab = 32;     // rows of X and of Y in one ring stage (four depth-8 slabs)
-constexpr int kStages = 3;    // ring depth: 96 KiB, two CTAs an SM
-constexpr int kStageFloats = 2 * kSlab * kTile;
-constexpr int kTnSmemBytes = kStages * kStageFloats * static_cast<int>(sizeof(float));
+constexpr int kStages = 3;    // ring depth: 96 KiB of float32, two CTAs an SM
+constexpr int kStageElems = 2 * kSlab * kTile;
+constexpr int kTnSmemBytes = kStages * kStageElems * static_cast<int>(sizeof(float));
 constexpr int kMaxDevices = 64;
 
+// The operands' element type T, float or bf16 (dtype.cuh). The ring holds
+// T as loaded: cp.async copies bytes and cannot convert, and converting on
+// the way into shared memory would need a second pass over each stage and
+// a barrier. So a bfloat16 element is converted on the read, in the
+// multiply (load4: one 8-byte load and one integer op an element, beside
+// the FMAs); a bfloat16 ring fills half of the kTnSmemBytes a CTA holds.
+template <typename T>
 struct TnOperand {
-  const float* p;  // element (0, 0) of this batch entry
+  const T* p;      // element (0, 0) of this batch entry
   long long ld;    // row stride in elements
   int col0;        // first column of the tile
   int col_lim;     // columns at or beyond this load as 0
@@ -94,13 +106,13 @@ struct TnMap {
   __device__ __forceinline__ int col(int jj) const { return 4 * tx + (jj & 3) + (jj & 4) * 16; }
 };
 
-__device__ __forceinline__ void tn_copy16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void tn_copy16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void tn_copy4(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void tn_copy4(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
@@ -113,34 +125,51 @@ __device__ __forceinline__ void tn_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One thread's share of a stage of one operand: rows rr, rr + 8, ... of the
-// slab, the four columns starting at col0 + cq (quad tid % 32).
+// One thread's share of a stage of one operand: rows rr, rr + kRowsPerPass,
+// ... of the slab, the kVec columns starting at col0 + cq. A 16-byte copy
+// holds kVec elements: 4 float32 or 8 bfloat16.
+template <typename T>
 struct TnCopy {
-  const float* base;  // the operand's element (0, 0): a valid source for empty copies
-  const float* src;   // element (0, col0 + cq), or base if no column is live
-  long long ld;
-  int avail;          // live columns of the quad, 0..4
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kLanesPerRow = kTile / kVec;          // 32 or 16
+  static constexpr int kRowsPerPass = kThreads / kLanesPerRow;  // 8 or 16
 
-  __device__ __forceinline__ TnCopy(const TnOperand& o, int cq) {
+  const T* base;  // the operand's element (0, 0): a valid source for empty copies
+  const T* src;   // element (0, col0 + cq), or base if no column is live
+  long long ld;
+  int avail;      // live columns of the copy, 0..kVec
+
+  __device__ __forceinline__ TnCopy(const TnOperand<T>& o, int cq) {
     base = o.p;
     ld = o.ld;
     const int lim = o.col_lim - (o.col0 + cq);
-    avail = lim < 0 ? 0 : lim > 4 ? 4 : lim;
+    avail = lim < 0 ? 0 : lim > kVec ? kVec : lim;
     src = avail ? o.p + o.col0 + cq : o.p;
   }
 
+  // Rows at or past m and columns past avail land as zeros: through the
+  // copy's source size in bytes (sizeof(T) a live element), or as stored
+  // zeros where the element copies are plain loads.
   template <bool kVec16>
-  __device__ __forceinline__ void stage(float* dst, int l, int m) const {
+  __device__ __forceinline__ void stage(T* dst, int l, int m) const {
     const bool live = l < m && avail > 0;
-    const float* row = live ? src + (long long)l * ld : base;
+    const T* row = live ? src + (long long)l * ld : base;
     if constexpr (kVec16) {
-      tn_copy16(dst, row, live ? 4 * avail : 0);
-    } else {
+      tn_copy16(dst, row, live ? static_cast<int>(sizeof(T)) * avail : 0);
+    } else if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < kVec; ++e) {
         const bool on = live && e < avail;
         tn_copy4(dst + e, on ? row + e : base, on ? 4 : 0);
       }
+    } else {
+      // cp.async copies 4, 8 or 16 bytes: an unaligned bfloat16 operand is
+      // read with plain 2-byte loads (ordered by the stage's barriers like
+      // the copies)
+      const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+      unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) d[e] = (live && e < avail) ? r[e] : 0;
     }
   }
 };
@@ -150,13 +179,15 @@ struct TnCopy {
 // multiple of kSlab. smem holds kTnSmemBytes. The caller meets a
 // __syncthreads() between two calls, and before it overwrites the ring (the
 // next call's copies land in stages the last one may still read).
-template <bool kVec16, bool kSkipUpper = false, bool kCompact = false>
-__device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, int l0, int l1,
-                                        float* smem, const TnMap& map,
+template <typename T, bool kVec16, bool kSkipUpper = false, bool kCompact = false>
+__device__ __forceinline__ void tn_tile(const TnOperand<T> x, const TnOperand<T> y, int l0,
+                                        int l1, float* smem, const TnMap& map,
                                         float acc[kMicro][kMicro]) {
+  using Copy = TnCopy<T>;
+  T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x;
-  const int rr = tid / 32, cq = 4 * (tid % 32);
-  const TnCopy cx(x, cq), cy(y, cq);
+  const int rr = tid / Copy::kLanesPerRow, cq = Copy::kVec * (tid % Copy::kLanesPerRow);
+  const Copy cx(x, cq), cy(y, cq);
 
 #pragma unroll
   for (int ii = 0; ii < kMicro; ++ii)
@@ -165,13 +196,13 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
 
   // stage s holds slab rows l0 + [s*kSlab, (s+1)*kSlab) of X, then of Y
   auto copy = [&](int s) {
-    float* xs = smem + (s % kStages) * kStageFloats;
-    float* ys = xs + kSlab * kTile;
+    T* xs = ring + (s % kStages) * kStageElems;
+    T* ys = xs + kSlab * kTile;
 #pragma unroll
-    for (int u = 0; u < kSlab / 8; ++u) {
-      const int r = rr + 8 * u, l = l0 + s * kSlab + r;
-      cx.stage<kVec16>(xs + r * kTile + cq, l, l1);
-      cy.stage<kVec16>(ys + r * kTile + cq, l, l1);
+    for (int u = 0; u < kSlab / Copy::kRowsPerPass; ++u) {
+      const int r = rr + Copy::kRowsPerPass * u, l = l0 + s * kSlab + r;
+      cx.template stage<kVec16>(xs + r * kTile + cq, l, l1);
+      cy.template stage<kVec16>(ys + r * kTile + cq, l, l1);
     }
   };
 
@@ -187,19 +218,19 @@ __device__ __forceinline__ void tn_tile(const TnOperand x, const TnOperand y, in
     __syncthreads();         // ... everyone's, and stage s-1 is no longer read
     if (s + kStages - 1 < slabs) copy(s + kStages - 1);
     tn_commit();
-    const float* xs = smem + (s % kStages) * kStageFloats;
-    const float* ys = xs + kSlab * kTile;
+    const T* xs = ring + (s % kStages) * kStageElems;
+    const T* ys = xs + kSlab * kTile;
 #pragma unroll (kCompact ? 1 : kSlab / kDepth)
     for (int h = 0; h < kSlab / kDepth; ++h) {
       if (s * kSlab + h * kDepth >= rows) break;  // only the depth-8 slabs that start below l1
 #pragma unroll
       for (int kk = h * kDepth; kk < (h + 1) * kDepth; ++kk) {
-        const float* xr = xs + kk * kTile + 4 * map.ty;
-        const float* yr = ys + kk * kTile + 4 * map.tx;
-        const float4 a0 = *reinterpret_cast<const float4*>(xr);
-        const float4 a1 = *reinterpret_cast<const float4*>(xr + 64);
-        const float4 b0 = *reinterpret_cast<const float4*>(yr);
-        const float4 b1 = *reinterpret_cast<const float4*>(yr + 64);
+        const T* xr = xs + kk * kTile + 4 * map.ty;
+        const T* yr = ys + kk * kTile + 4 * map.tx;
+        const float4 a0 = load4(xr);
+        const float4 a1 = load4(xr + 64);
+        const float4 b0 = load4(yr);
+        const float4 b1 = load4(yr + 64);
         const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll

@@ -45,9 +45,20 @@
 // Each x_k sees the terms of the unblocked column recurrence in its order:
 // ascending j (in a'), one fmaf(-x_j, L'[k][j], x_k) each, then the IEEE
 // division by L'[k][k].
+//
+// Element types (dtype.cuh): factor and panel are float32 or bfloat16 (the
+// template's T), the solve runs in float32 and X is stored as float32 or
+// bfloat16. A bfloat16 factor is staged with plain loads converted to
+// float32 (a 2-byte element is below cp.async's smallest copy), so the
+// chain reads the same float32 slabs.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using repro_torch::bf16;
+using repro_torch::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -73,6 +84,17 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int bytes) {
                : "memory");
 }
 
+// One staged factor element: L' from src where live, else 0. float32: a
+// 4-byte cp.async zero-filling dead entries; bfloat16: a plain load.
+__device__ __forceinline__ void stage_one(float* dst, const float* l, const float* src,
+                                          bool live) {
+  copy4(dst, live ? src : l, live ? 4 : 0);
+}
+
+__device__ __forceinline__ void stage_one(float* dst, const bf16*, const bf16* src, bool live) {
+  *dst = live ? __bfloat162float(*src) : 0.0f;
+}
+
 // Stage op(L) of one stack entry: slab P element (a - 32P, b - 32P) is
 // L'[a][b] for b <= a < n, 1 on the diagonal past n, else 0: a ragged last
 // panel then runs all 32 steps like a full one (its dead columns solve
@@ -80,7 +102,8 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int bytes) {
 // so the chain has no per-step branch. One cp.async group per slab, so the
 // solve can start on slab 0 while the others land. Global reads are
 // coalesced along L's rows in both forms.
-__device__ __forceinline__ void stage_factor(float* g, const float* l, int n, int transpose) {
+template <typename T>
+__device__ __forceinline__ void stage_factor(float* g, const T* l, int n, int transpose) {
   const int np = panels(n), lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int P = 0; P < np; ++P) {
     float* gp = g + slab_offset(np, P);
@@ -92,7 +115,7 @@ __device__ __forceinline__ void stage_factor(float* g, const float* l, int n, in
         if (a >= n && bcol == a) {
           gp[r * kPitch + lane] = 1.0f;
         } else {
-          copy4(gp + r * kPitch + lane, live ? l + (long long)a * n + bcol : l, live ? 4 : 0);
+          stage_one(gp + r * kPitch + lane, l, l + (long long)a * n + bcol, live);
         }
       }
     } else {  // L'[a][b] = L[n-1-b][n-1-a]: lanes along a
@@ -104,8 +127,8 @@ __device__ __forceinline__ void stage_factor(float* g, const float* l, int n, in
           if (a >= n && bcol == a) {
             gp[r * kPitch + bb] = 1.0f;
           } else {
-            copy4(gp + r * kPitch + bb,
-                  live ? l + (long long)(n - 1 - bcol) * n + (n - 1 - a) : l, live ? 4 : 0);
+            stage_one(gp + r * kPitch + bb, l, l + (long long)(n - 1 - bcol) * n + (n - 1 - a),
+                      live);
           }
         }
       }
@@ -147,10 +170,10 @@ __device__ __forceinline__ void divide_rows(const float (&num)[R], float d, floa
 }
 
 // R rows a warp, NP >= ceil(n / 32) panels of registers a row.
-template <int R, int NP>
+template <typename T, int R, int NP>
 __global__ void __launch_bounds__(kThreads)
-    trsm_kernel(const float* __restrict__ l, const float* __restrict__ b, float* __restrict__ x,
-                int batch, int m, int n, long long slb, int transpose) {
+    trsm_kernel(const T* __restrict__ l, const T* __restrict__ b, void* __restrict__ x,
+                int batch, int m, int n, long long slb, int transpose, bool bf16_out) {
   extern __shared__ __align__(16) float g[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int np = panels(n);
@@ -162,14 +185,15 @@ __global__ void __launch_bounds__(kThreads)
       stage_factor(g, l + bt * slb, n, transpose);
     }
     // the rows, column a' = 32p + lane in lane, while the factor lands
-    const float* bb = b + (long long)bt * m * n;
+    const T* bb = b + (long long)bt * m * n;
     float v[NP][R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         const int a = kPanel * p + lane, row = row0 + r;
-        v[p][r] = (row < m && a < n) ? bb[(long long)row * n + (transpose ? a : n - 1 - a)] : 0.0f;
+        v[p][r] = (row < m && a < n) ? to_f32(bb[(long long)row * n + (transpose ? a : n - 1 - a)])
+                                     : 0.0f;
       }
 
     for (int P = 0; P < np; ++P) {
@@ -260,56 +284,62 @@ __global__ void __launch_bounds__(kThreads)
           if (p == P) v[p][r] = cur[r];
     }
 
-    float* xb = x + (long long)bt * m * n;
+    const long long xb = (long long)bt * m * n;
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         const int a = kPanel * p + lane, row = row0 + r;
-        if (row < m && a < n) xb[(long long)row * n + (transpose ? a : n - 1 - a)] = v[p][r];
+        if (row < m && a < n)
+          repro_torch::store1(x, xb + (long long)row * n + (transpose ? a : n - 1 - a), v[p][r],
+                              bf16_out);
       }
   }
 }
 
 // Sets the instance's shared-memory limit where `bytes` exceeds what it has
 // on the current device (so once per n, the first time), and returns it.
-template <int R, int NP>
+template <typename T, int R, int NP>
 cudaError_t prepare(int bytes) {
   static int opted_in[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && opted_in[device] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(trsm_kernel<R, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(trsm_kernel<T, R, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess && device < kMaxDevices) opted_in[device] = bytes;
   return err;
 }
 
-template <int R, int NP>
-int launch(const float* l, const float* b, float* x, int batch, int m, int n, long long slb,
-           int transpose, cudaStream_t stream) {
+template <typename T, int R, int NP>
+int launch(const void* l, const void* b, void* x, int batch, int m, int n, long long slb,
+           int transpose, bool bf16_out, cudaStream_t stream) {
   const int smem = smem_bytes(n);
-  cudaError_t err = prepare<R, NP>(smem);
+  cudaError_t err = prepare<T, R, NP>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = kWarps * R;
   dim3 grid((m + rows - 1) / rows, batch < 65535 ? batch : 65535);
-  trsm_kernel<R, NP><<<grid, kThreads, smem, stream>>>(l, b, x, batch, m, n, slb, transpose);
+  trsm_kernel<T, R, NP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(l), static_cast<const T*>(b), x, batch, m, n, slb, transpose,
+      bf16_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: registers per thread, static shared bytes, dynamic shared bytes at n,
-// local (spill) bytes, resident CTAs per SM at n, rows a warp.
+// local (spill) bytes, resident CTAs per SM at n, rows a warp; of the
+// float32 instance.
 template <int R, int NP>
 int info(int n, int* out) {
   const int smem = smem_bytes(n);
-  cudaError_t err = prepare<R, NP>(smem);
+  cudaError_t err = prepare<float, R, NP>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, trsm_kernel<R, NP>);
+  err = cudaFuncGetAttributes(&fa, trsm_kernel<float, R, NP>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trsm_kernel<R, NP>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trsm_kernel<float, R, NP>, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);
@@ -328,12 +358,17 @@ int info(int n, int* out) {
 }  // namespace
 
 // l: element (0, 0) of factor 0, factor b at l + b * slb (slb = 0 broadcasts).
-// b, x: (batch, m, n) contiguous; n <= 256.
-extern "C" int trsm_f32(const float* l, const float* b, float* x, int batch, int m, int n,
-                        long long slb, int transpose, void* stream) {
+// b, x: (batch, m, n) contiguous; n <= 256. dtypes: bit 0 bfloat16 factor
+// and panel, bit 1 bfloat16 X (dtype.cuh).
+extern "C" int trsm_f32(const void* l, const void* b, void* x, int batch, int m, int n,
+                        long long slb, int transpose, int dtypes, void* stream) {
   if (n < 1 || n > 8 * kPanel) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_TRSM_LAUNCH(R, NP) launch<R, NP>(l, b, x, batch, m, n, slb, transpose, s)
+  const bool in16 = (dtypes & repro_torch::kLoadBf16) != 0;
+  const bool out16 = (dtypes & repro_torch::kStoreBf16) != 0;
+#define REPRO_TRSM_LAUNCH(R, NP)                                                        \
+  (in16 ? launch<bf16, R, NP>(l, b, x, batch, m, n, slb, transpose, out16, s)           \
+        : launch<float, R, NP>(l, b, x, batch, m, n, slb, transpose, out16, s))
   REPRO_TRSM_DISPATCH(REPRO_TRSM_LAUNCH)
 #undef REPRO_TRSM_LAUNCH
 }

@@ -36,18 +36,21 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (all return a cudaError_t as int). The
-# *_info entry points fill an int array with a kernel's resources.
+# launches (*_f32: float32 accumulation) take a dtypes int before the
+# stream (bit 0 bfloat16 operands, bit 1 bfloat16 output; csrc/dtype.cuh).
+# The *_info entry points fill an int array with the resources of a
+# kernel's float32 instance.
 SIGNATURES = {
-    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, P),
+    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, I, P),
     "gemm_tn_info": (I, P),
-    "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, P),
+    "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, I, P),
     "gemm_tn_fused_info": (I, P),
-    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, I, P),
-    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, I, P),
+    "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, I, I, P),
+    "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, I, I, P),
     "syrk_info": (I, I, P),
-    "potrf_f32": (P, P, I, I, P),
+    "potrf_f32": (P, P, I, I, I, P),
     "potrf_info": (I, P),
-    "trsm_f32": (P, P, P, I, I, I, LL, I, P),
+    "trsm_f32": (P, P, P, I, I, I, LL, I, I, P),
     "trsm_info": (I, I, P),
 }
 # what each *_info entry point writes, in order

@@ -11,6 +11,10 @@
   its ``W`` slot blocks, combined inside the kernel. The wrapper turns the
   tables into per-(leaf, slot) element offsets on the host, so the kernel
   reads views of the caller's operand without a copy.
+
+Both kernels load float32 or bfloat16 operands, sum in float32 and store
+``out_dtype`` (float32 or bfloat16); a float64 operand or output raises on
+the card (``backend.kernel_dtypes``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from repro_torch.backend import kernel_dtypes
 
 __all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
            "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
@@ -50,10 +56,8 @@ def gemm_tn_plain(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
 
 
 def _operand(x):
-    """(batch stride, row stride) of a float32 CUDA operand the kernel takes:
-    unit column stride; any row and batch strides (views pass uncopied)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"gemm_tn kernel takes float32 operands, got {x.dtype}")
+    """(batch stride, row stride) of a CUDA operand the kernel takes: unit
+    column stride; any row and batch strides (views pass uncopied)."""
     if x.stride(-1) != 1 and x.shape[-1] > 1:
         raise ValueError("gemm_tn kernel needs a unit column stride; pass .contiguous()")
     sb = x.stride(0) if x.ndim == 3 else 0
@@ -63,9 +67,10 @@ def _operand(x):
 def vec16(x, *strides) -> bool:
     """Whether the tile engine (``csrc/tn_tile.cuh``) may fill its ring from
     ``x`` in 16-byte copies: a 16-byte aligned base and every stride (row,
-    batch, entry offsets) a multiple of 4 floats. Otherwise it copies
-    floats."""
-    return x.data_ptr() % 16 == 0 and all(int(s) % 4 == 0 for s in strides)
+    batch, entry offsets) a multiple of 16 bytes — 4 float32 or 8 bfloat16
+    elements. Otherwise it copies elements."""
+    per = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(int(s) % per == 0 for s in strides)
 
 
 def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
@@ -73,8 +78,7 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
     from repro_torch.kernels import _build
 
     check_tn_shapes(a, b)
-    if out_dtype != torch.float32:
-        raise TypeError(f"gemm_tn kernel writes float32, got out_dtype={out_dtype}")
+    (a, b), dtypes = kernel_dtypes(a, b, out_dtype=out_dtype, what="gemm_tn")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     m, n = a.shape[-2:]
@@ -88,10 +92,10 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
         # the kernel launches on the current device: make it the operands'
         with torch.cuda.device(a.device):
             return gemm_tn_cuda(a, b, alpha=alpha, out_dtype=out_dtype)
-    c = torch.empty((*a.shape[:-2], n, k), dtype=torch.float32, device=a.device)
+    c = torch.empty((*a.shape[:-2], n, k), dtype=out_dtype, device=a.device)
     v16 = vec16(a, sab, lda) and vec16(b, sbb, ldb)
     err = _build.load().gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
-                                    sab, lda, sbb, ldb, float(alpha), int(v16),
+                                    sab, lda, sbb, ldb, float(alpha), int(v16), dtypes,
                                     torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gemm_tn")
     return c
@@ -164,10 +168,8 @@ def gemm_tn_fused_plain(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
 
 
 def _grid_strides(x):
-    """(group, block-row, block-col, batch, row) element strides of a
-    float32 CUDA block grid with unit column stride."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"gemm_tn_fused kernel takes float32 grids, got {x.dtype}")
+    """(group, block-row, block-col, batch, row) element strides of a CUDA
+    block grid with unit column stride."""
     if x.stride(-1) != 1 and x.shape[-1] > 1:
         raise ValueError("gemm_tn_fused kernel needs a unit column stride")
     sb = x.stride(3) if x.ndim == 6 else 0
@@ -181,8 +183,9 @@ def fused_launch_tables(a_blocks, b_blocks, sides, T, W):
     int64 element offsets of every (side, leaf, slot) block in its grid,
     ``sgn`` the matching int32 signs, the row and batch strides of the two
     grids, and ``vec16``: whether every slot base, batch stride and row
-    stride is a multiple of 4 floats from a 16-byte aligned pointer, so the
-    kernel may copy its raw slabs in 16-byte quads (else it copies floats).
+    stride is a multiple of 4 elements from a pointer aligned to 4 elements,
+    so the kernel may copy its raw slabs in quads of 4 elements (16 bytes of
+    float32, 8 of bfloat16; else it copies elements).
     """
     G = a_blocks.shape[0]
     offs, sgns, lds, sbs = [], [], [], []
@@ -195,13 +198,16 @@ def fused_launch_tables(a_blocks, b_blocks, sides, T, W):
         sgns.append(np.broadcast_to(sgn[None], (G, T, W)).reshape(G * T, W))
         lds.append(srow)
         sbs.append(sbat)
-        vec16 = vec16 and x.data_ptr() % 16 == 0 and srow % 4 == 0 and sbat % 4 == 0 \
-            and not (off % 4).any()
+        vec16 = vec16 and x.data_ptr() % (4 * x.element_size()) == 0 and srow % 4 == 0 \
+            and sbat % 4 == 0 and not (off % 4).any()
     return np.stack(offs), np.stack(sgns).astype(np.int32), lds, sbs, vec16
 
 
-# device launch tables per (tables object, grid shapes and strides, pointer
-# alignment, device), most recent last; each entry pins its tables object
+# device launch tables per (tables object, grid shapes, strides and dtypes,
+# pointer alignment, device), most recent last; each entry pins its tables
+# object. The dtype is part of the key because vec16 depends on the element
+# size: the same pointer and strides may allow 16-byte copies of bfloat16
+# and not of float32.
 _DEVICE_TABLES: OrderedDict = OrderedDict()
 _DEVICE_TABLES_MAX = 32
 
@@ -218,8 +224,8 @@ def _device_launch_tables(a_blocks, b_blocks, tables):
     the object, so its ``id`` is not reused while it is kept.
     """
     key = (id(tables), tuple(a_blocks.shape), a_blocks.stride(), a_blocks.data_ptr() % 16,
-           tuple(b_blocks.shape), b_blocks.stride(), b_blocks.data_ptr() % 16,
-           str(a_blocks.device))
+           a_blocks.dtype, tuple(b_blocks.shape), b_blocks.stride(), b_blocks.data_ptr() % 16,
+           b_blocks.dtype, str(a_blocks.device))
     hit = _DEVICE_TABLES.get(key)
     if hit is not None and hit[0] is tables:
         _DEVICE_TABLES.move_to_end(key)
@@ -243,9 +249,9 @@ def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
 
     if a_blocks.device != b_blocks.device:
         raise ValueError(f"operands on {a_blocks.device} and {b_blocks.device}")
+    (a_blocks, b_blocks), dtypes = kernel_dtypes(a_blocks, b_blocks, out_dtype=out_dtype,
+                                                 what="gemm_tn_fused")
     sides, T, W, off, sgn, ld, sb, vec16 = _device_launch_tables(a_blocks, b_blocks, tables)
-    if out_dtype != torch.float32:
-        raise TypeError(f"gemm_tn_fused kernel writes float32, got out_dtype={out_dtype}")
     if W & (W - 1) or W > FUSED_MAX_SLOTS:
         raise ValueError(f"gemm_tn_fused kernel takes 1, 2, 4, ... {FUSED_MAX_SLOTS} slots, got {W}")
     G = a_blocks.shape[0]
@@ -256,13 +262,13 @@ def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
         raise ValueError("gemm_tn_fused kernel takes no empty operands")
     dev = a_blocks.device
     lead = (G * T, batch) if a_blocks.ndim == 6 else (G * T,)
-    c = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
+    c = torch.empty((*lead, n, k), dtype=out_dtype, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gemm_tn_fused_f32(a_blocks.data_ptr(), b_blocks.data_ptr(), off.data_ptr(),
                                     sgn.data_ptr(), c.data_ptr(), G * T, batch, W, m, n, k,
                                     sb[0], ld[0], sb[1], ld[1], float(alpha), int(vec16),
-                                    stream)
+                                    dtypes, stream)
     _build.check(err, "gemm_tn_fused")
     return c

@@ -8,14 +8,21 @@ Each wrapper takes the reference's signature and routes by device:
 
 A leading batch dim is one launch for the whole stack. Each wrapper counts
 its kernel launches in :data:`launches` (plain ints, incremented right
-after a launch and nowhere else), so a run can show that its path went
-through the kernels.
+after a CUDA launch and nowhere else), so a run can show that its path went
+through the kernels. That differs from the reference's counter, which this
+module keeps too: ``obs.metrics`` counter ``kernels.launch.<name>`` counts
+every wrapper call, on the card or on the CPU, as ``repro.kernels.ops``
+counts every call whether Pallas runs compiled or in interpret mode. Each
+call also opens one ``kernels.<name>`` span (``repro_torch.obs``).
 """
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import torch
 
+from repro_torch import obs
 from repro_torch.backend import on_cuda
 from repro_torch.core.symmetric import SymmetricMatrix, default_block_size
 from repro_torch.kernels import gemm_tn as _gemm_tn
@@ -25,7 +32,7 @@ from repro_torch.kernels import trsm as _trsm
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
 __all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
-           "reset_launches"]
+           "reset_launches", "Bases", "bases"]
 
 # kernel name -> CUDA launches since the last reset_launches()
 launches = {"syrk": 0, "gemm_tn": 0, "gemm_tn_fused": 0, "syrk_gather": 0, "potrf": 0,
@@ -37,6 +44,29 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# kernel name -> (counter, span) names of the reference's ops wrappers
+_OBS_NAMES = {name: (f"kernels.launch.{name}", f"kernels.{name}") for name in launches}
+
+
+def _run(name: str, cuda: bool, kernel, plain, *args, **kw):
+    """One wrapper call: the reference's ``kernels.launch.<name>`` counter
+    and ``kernels.<name>`` span around the CUDA ``kernel(*args, **kw)``
+    (counted in :data:`launches`) or the ``plain`` version. With spans off
+    (the default) the call skips even the shared no-op span: the unrolled
+    dispatches make one call per leaf, and their time is the host's."""
+    counter, span = _OBS_NAMES[name]
+    obs.metrics.inc(counter)
+    fn = kernel if cuda else plain
+    if obs.enabled():
+        with obs.span(span, cuda=cuda):
+            out = fn(*args, **kw)
+    else:
+        out = fn(*args, **kw)
+    if cuda:
+        launches[name] += 1
+    return out
+
+
 def syrk(a, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32, out: str = "dense"):
     """``alpha·AᵀA`` for ``(m, n)`` or ``(B, m, n)``.
 
@@ -46,11 +76,8 @@ def syrk(a, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32, out: st
     its own CTA tile.
     """
     bn = default_block_size(a.shape[-1], tuple(blocks or SYRK_BLOCKS)[1])
-    if on_cuda(a):
-        raw = _syrk.syrk_cuda(a, alpha=alpha, out_dtype=out_dtype, out=out, bn=bn)
-        launches["syrk"] += 1
-    else:
-        raw = _syrk.syrk_plain(a, alpha=alpha, out_dtype=out_dtype, out=out, bn=bn)
+    raw = _run("syrk", on_cuda(a), _syrk.syrk_cuda, _syrk.syrk_plain, a, alpha=alpha,
+               out_dtype=out_dtype, out=out, bn=bn)
     if out == "packed":
         return SymmetricMatrix(raw, n=a.shape[-1], bn=bn)
     return raw
@@ -61,11 +88,8 @@ def gemm_tn(a, b, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32):
     ``Aᵀ`` never formed. ``blocks`` (the reference's Pallas block shape)
     is accepted for signature parity only: the kernel picks its CTA tile."""
     del blocks
-    if on_cuda(a, b):
-        c = _gemm_tn.gemm_tn_cuda(a, b, alpha=alpha, out_dtype=out_dtype)
-        launches["gemm_tn"] += 1
-        return c
-    return _gemm_tn.gemm_tn_plain(a, b, alpha=alpha, out_dtype=out_dtype)
+    return _run("gemm_tn", on_cuda(a, b), _gemm_tn.gemm_tn_cuda, _gemm_tn.gemm_tn_plain, a, b,
+                alpha=alpha, out_dtype=out_dtype)
 
 
 def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None,
@@ -80,13 +104,9 @@ def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None
     ``(G·T, [B,] n, k)``. ``blocks`` is accepted for signature parity.
     """
     del blocks
-    if on_cuda(a_blocks, b_blocks):
-        c = _gemm_tn.gemm_tn_fused_cuda(a_blocks, b_blocks, tables, alpha=alpha,
-                                        out_dtype=out_dtype)
-        launches["gemm_tn_fused"] += 1
-        return c
-    return _gemm_tn.gemm_tn_fused_plain(a_blocks, b_blocks, tables, alpha=alpha,
-                                        out_dtype=out_dtype)
+    return _run("gemm_tn_fused", on_cuda(a_blocks, b_blocks), _gemm_tn.gemm_tn_fused_cuda,
+                _gemm_tn.gemm_tn_fused_plain, a_blocks, b_blocks, tables, alpha=alpha,
+                out_dtype=out_dtype)
 
 
 def syrk_gather(a_blocks, rows, cols, *, alpha: float = 1.0, blocks=None,
@@ -96,28 +116,48 @@ def syrk_gather(a_blocks, rows, cols, *, alpha: float = 1.0, blocks=None,
     nL)``, each tile bitwise symmetric. ``blocks`` is accepted for
     signature parity."""
     del blocks
-    if on_cuda(a_blocks):
-        c = _syrk.syrk_gather_cuda(a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
-        launches["syrk_gather"] += 1
-        return c
-    return _syrk.syrk_gather_plain(a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
+    return _run("syrk_gather", on_cuda(a_blocks), _syrk.syrk_gather_cuda, _syrk.syrk_gather_plain,
+                a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
 
 
 def potrf(a, *, out_dtype=torch.float32):
     """Lower Cholesky factor of SPD tile(s) ``(n, n)`` or ``(B, n, n)``."""
-    if on_cuda(a):
-        out = _potrf.potrf_cuda(a, out_dtype=out_dtype)
-        launches["potrf"] += 1
-        return out
-    return _potrf.potrf_plain(a, out_dtype=out_dtype)
+    return _run("potrf", on_cuda(a), _potrf.potrf_cuda, _potrf.potrf_plain, a,
+                out_dtype=out_dtype)
 
 
 def trsm(l, b, *, transpose: bool = True, out_dtype=torch.float32):
     """Solve ``X·Lᵀ = B`` (``transpose=True``) or ``X·L = B`` for
     ``(n, n) × (m, n)`` or stacked ``(B, n, n) × (B, m, n)``."""
-    if on_cuda(l, b):
-        x = _trsm.trsm_cuda(l, b, transpose=transpose, out_dtype=out_dtype)
-        launches["trsm"] += 1
-        return x
-    return _trsm.trsm_plain(l, b, transpose=transpose, out_dtype=out_dtype)
+    return _run("trsm", on_cuda(l, b), _trsm.trsm_cuda, _trsm.trsm_plain, l, b,
+                transpose=transpose, out_dtype=out_dtype)
 
+
+class Bases(NamedTuple):
+    """The engines the default bases of ``core/`` and ``solve/`` call. The
+    two fused launches are None where the fused dispatch gathers instead."""
+
+    syrk: Callable
+    gemm_tn: Callable
+    potrf: Callable
+    trsm: Callable
+    gemm_tn_fused: Optional[Callable]
+    syrk_gather: Optional[Callable]
+
+
+_PLAIN = Bases(_syrk.syrk_plain, _gemm_tn.gemm_tn_plain, _potrf.potrf_plain, _trsm.trsm_plain,
+               None, None)
+
+
+def bases(*dtypes) -> Bases:
+    """The engines for operands and accumulation of ``dtypes``: this
+    module's wrappers (the kernel on a CUDA tensor, the plain version on a
+    CPU one), or, when any dtype is float64, which no kernel takes, the
+    plain versions on every device and no fused launch. Chosen by dtype
+    alone, before any launch, as the reference's kernel-free defaults
+    compute float64 through ``dot_general``; the wrappers themselves go on
+    refusing float64 on the card."""
+    if torch.float64 in dtypes:
+        return _PLAIN
+    # looked up at each call, so a wrapper replaced on this module is the one used
+    return Bases(syrk, gemm_tn, potrf, trsm, gemm_tn_fused, syrk_gather)

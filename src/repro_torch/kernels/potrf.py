@@ -4,12 +4,16 @@ Port of ``repro.kernels.potrf.potrf_pallas``; the kernel is
 ``csrc/potrf.cu``. ``a: (n, n)`` or ``(B, n, n)`` SPD tiles; the output's
 strict upper half is zero. The kernel holds a tile's lower triangle and one
 32-column panel in shared memory, which bounds it at ``n ≤ 256`` (161 KB),
-and factors it in panels of 32 columns, one CTA per tile.
+and factors it in panels of 32 columns, one CTA per tile. It loads float32
+or bfloat16 tiles, factors in float32 and stores ``out_dtype`` (float32 or
+bfloat16), as the reference's kernel casts any input to float32.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.backend import kernel_dtypes
 
 __all__ = ["potrf_plain", "potrf_cuda", "MAX_N"]
 
@@ -45,8 +49,7 @@ def potrf_cuda(a, *, out_dtype=torch.float32):
     from repro_torch.kernels import _build
 
     _check(a)
-    if a.dtype != torch.float32 or out_dtype != torch.float32:
-        raise TypeError(f"potrf kernel takes and writes float32, got {a.dtype} -> {out_dtype}")
+    (a,), dtypes = kernel_dtypes(a, out_dtype=out_dtype, what="potrf")
     if not a.is_contiguous():
         raise ValueError("potrf kernel needs contiguous tiles; pass .contiguous()")
     n = a.shape[-1]
@@ -59,8 +62,8 @@ def potrf_cuda(a, *, out_dtype=torch.float32):
         # the kernel launches on the current device: make it the tile's
         with torch.cuda.device(a.device):
             return potrf_cuda(a, out_dtype=out_dtype)
-    out = torch.empty_like(a)
-    err = _build.load().potrf_f32(a.data_ptr(), out.data_ptr(), batch, n,
+    out = torch.empty_like(a, dtype=out_dtype)
+    err = _build.load().potrf_f32(a.data_ptr(), out.data_ptr(), batch, n, dtypes,
                                   torch.cuda.current_stream().cuda_stream)
     _build.check(err, "potrf")
     return out

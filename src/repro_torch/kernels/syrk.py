@@ -21,6 +21,9 @@ so the ``(S, …)`` stack of the batched dispatch is never copied.
 Both launches split the contraction over :func:`syrk_splits` ``(m, n)``
 CTAs per output tile (a thread-block cluster), the one input that decides
 the kernel's summation order besides the operands.
+
+The kernel loads float32 or bfloat16, sums in float32 and stores
+``out_dtype`` (float32 or bfloat16); float64 raises on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.backend import kernel_dtypes
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
 from repro_torch.kernels.gemm_tn import vec16
 
@@ -101,8 +105,7 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
     from repro_torch.kernels import _build
 
     _check(a, out)
-    if a.dtype != torch.float32 or out_dtype != torch.float32:
-        raise TypeError(f"syrk kernel takes and writes float32, got {a.dtype} -> {out_dtype}")
+    (a,), dtypes = kernel_dtypes(a, out_dtype=out_dtype, what="syrk")
     if a.stride(-1) != 1 and a.shape[-1] > 1:
         raise ValueError("syrk kernel needs a unit column stride; pass .contiguous()")
     m, n = a.shape[-2:]
@@ -113,18 +116,17 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
     lead = tuple(a.shape[:-2])
     if out == "packed":
         nb = -(-n // bn)
-        c = torch.empty((*lead, nb * (nb + 1) // 2, bn, bn), dtype=torch.float32,
-                        device=a.device)
+        c = torch.empty((*lead, nb * (nb + 1) // 2, bn, bn), dtype=out_dtype, device=a.device)
     else:
         bn = 0
-        c = torch.empty((*lead, n, n), dtype=torch.float32, device=a.device)
+        c = torch.empty((*lead, n, n), dtype=out_dtype, device=a.device)
     lib = _build.load()
     v16 = vec16(a, sab, a.stride(-2))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
                            float(alpha), int(out == "packed"), bn, syrk_splits(m, n), int(v16),
-                           stream)
+                           dtypes, stream)
     _build.check(err, "syrk")
     return c
 
@@ -157,9 +159,7 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
     from repro_torch.kernels import _build
 
     rows, cols = _gather_index(a_blocks, rows, cols)
-    if a_blocks.dtype != torch.float32 or out_dtype != torch.float32:
-        raise TypeError(f"syrk_gather kernel takes and writes float32, got "
-                        f"{a_blocks.dtype} -> {out_dtype}")
+    (a_blocks,), dtypes = kernel_dtypes(a_blocks, out_dtype=out_dtype, what="syrk_gather")
     if a_blocks.stride(-1) != 1 and a_blocks.shape[-1] > 1:
         raise ValueError("syrk_gather kernel needs a unit column stride")
     m, n = a_blocks.shape[-2:]
@@ -172,13 +172,14 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
     off_host = rows * a_blocks.stride(0) + cols * a_blocks.stride(1)
     off = torch.as_tensor(off_host, device=dev)
     lead = (S, batch) if a_blocks.ndim == 5 else (S,)
-    c = torch.empty((*lead, n, n), dtype=torch.float32, device=dev)
+    c = torch.empty((*lead, n, n), dtype=out_dtype, device=dev)
     lib = _build.load()
-    v16 = vec16(a_blocks, sab, a_blocks.stride(-2)) and not (off_host % 4).any()
+    v16 = vec16(a_blocks, sab, a_blocks.stride(-2)) \
+        and not (off_host % (16 // a_blocks.element_size())).any()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S, batch,
                                   m, n, sab, a_blocks.stride(-2), float(alpha),
-                                  syrk_splits(m, n), int(v16), stream)
+                                  syrk_splits(m, n), int(v16), dtypes, stream)
     _build.check(err, "syrk_gather")
     return c

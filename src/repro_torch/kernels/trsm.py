@@ -6,12 +6,16 @@ Solves ``X·Lᵀ = B`` (``transpose=True``, the Cholesky panel op) or
 ``L: (n, n)`` or ``(B, n, n)`` lower triangular and ``B: (m, n)`` or
 ``(B, m, n)``, one factor per stack entry. The kernel reads the factor
 through its batch stride, so ``L`` may be an ``expand``-ed single factor
-(stride 0) and is then not copied.
+(stride 0) and is then not copied. It loads float32 or bfloat16, solves in
+float32 and stores ``out_dtype`` (float32 or bfloat16), as the reference's
+kernel casts both inputs to float32.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.backend import kernel_dtypes
 
 __all__ = ["trsm_plain", "trsm_cuda", "MAX_N"]
 
@@ -53,9 +57,7 @@ def trsm_cuda(l, b, *, transpose: bool = True, out_dtype=torch.float32):
     from repro_torch.kernels import _build
 
     _check(l, b)
-    if l.dtype != torch.float32 or b.dtype != torch.float32 or out_dtype != torch.float32:
-        raise TypeError(
-            f"trsm kernel takes and writes float32, got {l.dtype}, {b.dtype} -> {out_dtype}")
+    (l, b), dtypes = kernel_dtypes(l, b, out_dtype=out_dtype, what="trsm")
     n = l.shape[-1]
     if n > MAX_N:
         raise ValueError(f"trsm kernel takes factors up to {MAX_N}, got n={n}")
@@ -72,8 +74,9 @@ def trsm_cuda(l, b, *, transpose: bool = True, out_dtype=torch.float32):
         with torch.cuda.device(b.device):
             return trsm_cuda(l, b, transpose=transpose, out_dtype=out_dtype)
     slb = l.stride(0) if l.ndim == 3 else 0
-    x = torch.empty_like(b)
+    x = torch.empty_like(b, dtype=out_dtype)
     err = _build.load().trsm_f32(l.data_ptr(), b.data_ptr(), x.data_ptr(), batch, m, n, slb,
-                                 int(bool(transpose)), torch.cuda.current_stream().cuda_stream)
+                                 int(bool(transpose)), dtypes,
+                                 torch.cuda.current_stream().cuda_stream)
     _build.check(err, "trsm")
     return x

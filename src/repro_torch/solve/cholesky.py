@@ -125,10 +125,15 @@ def _flat_call(fn: Callable, *ops_):
     return out.reshape(*lead, *out.shape[-2:])
 
 
-def base_solver_fns():
-    """(base_potrf, base_trsm) of the walk: the ``ops`` wrappers, which run
-    the CUDA kernels on CUDA tensors and the plain versions on CPU ones."""
-    return ops.potrf, functools.partial(ops.trsm, transpose=True)
+def base_solver_fns(dtype=torch.float32):
+    """(base_potrf, base_trsm) of the walk for a gram of ``dtype``, from
+    :func:`repro_torch.kernels.ops.bases`: the kernels on CUDA tensors and
+    the plain versions on CPU ones, storing float32; for float64 the plain
+    versions on every device, storing float64."""
+    acc = torch.promote_types(dtype, torch.float32)
+    eng = ops.bases(acc)
+    return (functools.partial(eng.potrf, out_dtype=acc),
+            functools.partial(eng.trsm, transpose=True, out_dtype=acc))
 
 
 def _pad_identity_mask(n: int, nb: int, bn: int, like):
@@ -167,7 +172,7 @@ def cholesky(
     if ridge:
         a = a.add_scaled_identity(ridge)
     if base_potrf is None and base_trsm is None:
-        base_potrf, base_trsm = base_solver_fns()
+        base_potrf, base_trsm = base_solver_fns(a.dtype)
     elif base_potrf is None or base_trsm is None:
         raise ValueError("pass both base_potrf and base_trsm, or neither")
 

@@ -6,12 +6,15 @@
 
 The Σ terms are one float32 block einsum per step; the diagonal solves go
 to ``ops.trsm`` on the transposed right-hand-side tile (the CUDA kernel on
-a CUDA tensor, its plain version on a CPU one). ``solve_cholesky``
-composes the two into ``A·x = b`` for ``A = L·Lᵀ``.
+a CUDA tensor, its plain version on a CPU one; a float64 factor or
+right-hand side, which no kernel takes, goes to the plain version on every
+device). ``solve_cholesky`` composes the two into ``A·x = b`` for
+``A = L·Lᵀ``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -30,7 +33,9 @@ def _left_solve_kernel(l, c, *, transpose: bool):
         Lᵀ·y = c  ⇔  yᵀ·L  = cᵀ    (trsm transpose=False)
     """
     ct = c.transpose(-1, -2).contiguous()
-    yt = _flat_call(lambda lf, cf: ops.trsm(lf, cf, transpose=not transpose), l, ct)
+    acc = torch.promote_types(torch.promote_types(l.dtype, c.dtype), torch.float32)
+    trsm = functools.partial(ops.bases(acc).trsm, out_dtype=acc)
+    yt = _flat_call(lambda lf, cf: trsm(lf, cf, transpose=not transpose), l, ct)
     return yt.transpose(-1, -2)
 
 

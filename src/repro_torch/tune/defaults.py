@@ -16,6 +16,9 @@ __all__ = [
     "GEMM_BLOCKS",
     "DEFAULT_VARIANT",
     "DEFAULT_LEAF_DISPATCH",
+    "DEFAULT_SOLVE_METHOD",
+    "CG_MAX_ITERS",
+    "CG_TOL",
 ]
 
 # Recursion cutoff of the Strassen/ATA recursion.
@@ -35,3 +38,13 @@ DEFAULT_VARIANT = "strassen"
 
 # How the recursion's leaf products reach the hardware when nothing chose.
 DEFAULT_LEAF_DISPATCH = "unrolled"
+
+# Normal-equations solver (repro_torch.solve) when nothing chose a method:
+# 'factor' = packed gram → packed Cholesky → two substitutions; 'cg' =
+# matrix-free CG on the gram operator.
+DEFAULT_SOLVE_METHOD = "factor"
+
+# CG budget: iteration cap (also capped by n — exact termination in exact
+# arithmetic) and relative residual tolerance.
+CG_MAX_ITERS = 64
+CG_TOL = 1e-6

@@ -233,8 +233,11 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     a = torch.zeros(16, 8, device=dev)
     with pytest.raises(TypeError):
         ops.gemm_tn(a.double(), a.double())
-    with pytest.raises(TypeError):
-        ops.gemm_tn(a, a, out_dtype=torch.bfloat16)
+    # a bfloat16 output is taken since the kernels store float32 or bfloat16
+    ops.reset_launches()
+    got = ops.gemm_tn(a + 1, a + 1, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and ops.launches["gemm_tn"] == 1
+    assert torch.equal(got, torch.full((8, 8), 16.0, device=dev, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         ops.gemm_tn(a.t(), a.t())          # column stride ≠ 1
     with pytest.raises(ValueError):
@@ -403,3 +406,303 @@ def test_cholesky_packed_and_dense_bitwise_on_card(dev, n):
     packed = cholesky(g)
     assert ops.launches["potrf"] > 0
     assert torch.equal(packed.blocks, cholesky(g.to_dense(), packed_block=g.bn).blocks)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 operands and outputs, float64 on the card, CG, spans
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7   # spacing of bfloat16 values relative to their magnitude
+
+
+def _close_dt(got, ref, k, out):
+    """Kernel against its plain version on the same bfloat16 operands: every
+    product of two bfloat16 values is exact in float32, so the two float32
+    results differ by summation order alone (the float32 bound); a
+    bfloat16 output may then round the two to neighbouring values, one
+    bfloat16 ulp apart."""
+    assert got.dtype == ref.dtype == out, (got.dtype, ref.dtype, out)
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = 8 * math.sqrt(k) * 1.19e-7 * scale + (BF16_ULP * scale if out == torch.bfloat16 else 0)
+    assert err <= tol, f"max abs err {err:.3e} > tol {tol:.3e}"
+
+
+OUTS = [torch.float32, torch.bfloat16]
+
+
+def _bf(rng, shape, dev):
+    return _t(rng, shape, dev).bfloat16()
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 15, 17, 33, 513])
+def test_gemm_tn_kernel_bf16_depths_and_ragged_edges(dev, m, out):
+    """bfloat16 operands (16-byte copies of 8 elements), float32 or
+    bfloat16 output, at the depth and edge shapes of the float32 sweep;
+    a batch entry bitwise equal to its single launch."""
+    rng = np.random.default_rng(m)
+    for n, k in ((1, 129), (127, 1), (129, 127), (127, 129)):
+        a, b = _bf(rng, (2, m, n), dev), _bf(rng, (2, m, k), dev)
+        got = ops.gemm_tn(a, b, alpha=0.75, out_dtype=out)
+        _close_dt(got, gemm_tn_plain(a, b, alpha=0.75, out_dtype=out), m, out)
+        assert torch.equal(got[1], ops.gemm_tn(a[1], b[1], alpha=0.75, out_dtype=out)), (n, k)
+
+
+@pytest.mark.parametrize("out", OUTS)
+def test_gemm_tn_kernel_bf16_unaligned_views(dev, out):
+    """A bfloat16 base off a 16-byte boundary or a row stride that is not a
+    multiple of 8 elements: element loads instead of 16-byte copies, the
+    same product."""
+    rng = np.random.default_rng(21)
+    a, b = _bf(rng, (3, 70, 201), dev), _bf(rng, (3, 70, 136), dev)
+    assert vec16(a[..., :200], a.stride(0), a.stride(1)) is False
+    assert vec16(b, b.stride(0), b.stride(1)) and not vec16(b[..., 1:], b.stride(0), b.stride(1))
+    want = ops.gemm_tn(a[..., 1:].contiguous(), b[..., 1:].contiguous(), out_dtype=out)
+    got = ops.gemm_tn(a[..., 1:], b[..., 1:], out_dtype=out)
+    _close_dt(got, gemm_tn_plain(a[..., 1:], b[..., 1:], out_dtype=out), 70, out)
+    assert torch.equal(got, want)
+
+
+def test_gemm_tn_kernel_mixed_operands_widen(dev):
+    """A bfloat16 operand beside a float32 one is widened (exactly): the
+    float32 kernel's result."""
+    rng = np.random.default_rng(22)
+    a, b = _bf(rng, (300, 100), dev), _t(rng, (300, 60), dev)
+    assert torch.equal(ops.gemm_tn(a, b), ops.gemm_tn(a.float(), b))
+
+
+@pytest.mark.parametrize("k", [1, 8, 9])
+def test_gemm_tn_kernel_narrow_output_at_lstsq_depth(dev, k):
+    """lstsq's CG products: A (16384, 4096) against k columns — one CTA
+    column of 128 with 1, 8 or 9 live ones."""
+    rng = np.random.default_rng(k)
+    a, p = _t(rng, (16384, 4096), dev), _t(rng, (16384, k), dev)
+    got = ops.gemm_tn(a, p)
+    assert got.shape == (4096, k)
+    _close(got, gemm_tn_plain(a, p), 16384)
+    a16, p16 = a.bfloat16(), p.bfloat16()
+    _close_dt(ops.gemm_tn(a16, p16), gemm_tn_plain(a16, p16), 16384, torch.float32)
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("n", [1, 100, 129, 512])
+@pytest.mark.parametrize("m", [1, 31, 257, 2048])
+def test_syrk_kernel_bf16_split_edges(dev, m, n, out):
+    """bfloat16 operands across the split and tile edges, dense and packed:
+    within the bound of the plain version, bitwise symmetric, packed ==
+    dense, a batch entry == its single launch."""
+    rng = np.random.default_rng(m * 1000 + n + 7)
+    a = _bf(rng, (2, m, n), dev)
+    dense = ops.syrk(a, alpha=0.5, out_dtype=out)
+    _close_dt(dense, syrk_plain(a, alpha=0.5, out_dtype=out), m, out)
+    assert torch.equal(dense, dense.transpose(-1, -2))
+    packed = ops.syrk(a, alpha=0.5, out="packed", out_dtype=out)
+    _close_dt(packed.blocks, syrk_plain(a, alpha=0.5, out="packed", bn=packed.bn, out_dtype=out),
+              m, out)
+    assert torch.equal(packed.to_dense(), dense)
+    assert torch.equal(ops.syrk(a[1].contiguous(), alpha=0.5, out_dtype=out), dense[1])
+    if m == 2048 and n > 1:
+        sub = ops.syrk(a[0, :, 1:], out_dtype=out)   # unaligned: element loads
+        _close_dt(sub, syrk_plain(a[0, :, 1:], out_dtype=out), m, out)
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("L", [0, 1, 2, 3, 4, 5])
+def test_gemm_tn_fused_kernel_bf16_every_slot_count(dev, L, aligned, out):
+    """bfloat16 slot blocks with W = 1 … 32, quad (8-byte) and element
+    copies: the combine runs in float32 as in the plain version, so the two
+    differ by the multiply's summation order alone."""
+    rng = np.random.default_rng(L + 40)
+    x = _bf(rng, (9 << L, 5 << L), dev)
+    if not aligned:
+        flat = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)
+        x = flat[1:].view(x.shape).copy_(x)
+    ab = _to_blocks(x, L)[None]
+    assert aligned or not _vec16(ab, ab, _slot_tables(L))
+    got = ops.gemm_tn_fused(ab, ab, _slot_tables(L), alpha=0.5, out_dtype=out)
+    _close_dt(got, gemm_tn_fused_plain(ab, ab, _slot_tables(L), alpha=0.5, out_dtype=out),
+              ab.shape[-2], out)
+
+
+def test_gemm_tn_fused_kernel_bf16_then_float32_at_one_offset(dev):
+    """A bfloat16 launch and then a float32 one with the same tables,
+    shapes and strides, both 8 bytes past a 16-byte boundary: the bfloat16
+    grid may be copied in 16-byte quads, the float32 one may not, so the
+    second launch must not reuse the first one's copy width."""
+    rng = np.random.default_rng(41)
+    tables = _slot_tables(1)
+    for dt, pad in ((torch.bfloat16, 4), (torch.float32, 2)):
+        x = _t(rng, (64, 64), dev).to(dt)
+        flat = torch.empty(x.numel() + pad, device=dev, dtype=dt)
+        ab = _to_blocks(flat[pad:].view(x.shape).copy_(x), 1)[None]
+        assert ab.data_ptr() % 16 == 8 and _vec16(ab, ab, tables) == (dt == torch.bfloat16)
+        got = ops.gemm_tn_fused(ab, ab, tables)
+        torch.cuda.synchronize()
+        _close_dt(got, gemm_tn_fused_plain(ab, ab, tables), ab.shape[-2], torch.float32)
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("shape,L", [((512, 512), 2), ((2, 1000, 520), 2), ((300, 700), 1)])
+def test_syrk_gather_kernel_bf16_matches_plain(dev, shape, L, out):
+    rng = np.random.default_rng(sum(shape) + 3)
+    ab = _to_blocks(_pad_root(_bf(rng, shape, dev), L), L)
+    R = 1 << L
+    rows, cols = np.arange(R * R) % R, np.arange(R * R) // R
+    got = ops.syrk_gather(ab, rows, cols, alpha=0.5, out_dtype=out)
+    _close_dt(got, syrk_gather_plain(ab, rows, cols, alpha=0.5, out_dtype=out), ab.shape[-2], out)
+    assert torch.equal(got, got.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("n", [1, 8, 31, 32, 33, 104, 128, 200, 256])
+def test_potrf_kernel_bf16_matches_plain(dev, n, out):
+    """A bfloat16 tile is factored in float32: the plain recurrence's
+    result within the float32 bound, stored as float32 or bfloat16."""
+    s = _spd(np.random.default_rng(n + 5), 3, n, dev).bfloat16()
+    got = ops.potrf(s, out_dtype=out)
+    _close_dt(got, potrf_plain(s, out_dtype=out), n, out)
+    assert not torch.triu(got.float(), 1).any()
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 128, 256])
+def test_trsm_kernel_bf16_panel_edges(dev, n, m, out):
+    rng = np.random.default_rng(1000 * n + m + 9)
+    ls = potrf_plain(_spd(rng, 3, n, dev)).bfloat16()
+    b = _bf(rng, (3, m, n), dev)
+    for tr in (True, False):
+        for l in (ls, ls[1].expand(3, n, n)):
+            _close_dt(ops.trsm(l, b, transpose=tr, out_dtype=out),
+                      trsm_plain(l, b, transpose=tr, out_dtype=out), n, out)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_every_wrapper_launches_for_float32_and_bfloat16(dev, dt):
+    """float32 and bfloat16 on the card always reach a kernel: each
+    wrapper call adds one to its launch count."""
+    rng = np.random.default_rng(23)
+    a = _t(rng, (2, 64, 40), dev).to(dt)
+    s = _spd(rng, 2, 40, dev).to(dt)
+    ab = _to_blocks(a, 1)
+    calls = {
+        "gemm_tn": lambda: ops.gemm_tn(a, a),
+        "syrk": lambda: ops.syrk(a),
+        "gemm_tn_fused": lambda: ops.gemm_tn_fused(ab[None], ab[None], _slot_tables(1)),
+        "syrk_gather": lambda: ops.syrk_gather(ab, np.array([0, 1]), np.array([1, 0])),
+        "potrf": lambda: ops.potrf(s),
+        "trsm": lambda: ops.trsm(potrf_plain(s).to(dt), a[:, :8].contiguous()),
+    }
+    for name, call in calls.items():
+        ops.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        assert ops.launches[name] == 1 and sum(ops.launches.values()) == 1, (name, ops.launches)
+
+
+def test_float64_computes_on_card_with_plain_bases(dev):
+    """float64 — the operand's dtype or acc_dtype — goes to the plain bases
+    before any launch: ata (three dispatches), strassen_tn and cholesky
+    compute on the card, where they used to raise, within 8·√k·eps64 of the
+    same call on the CPU, and no kernel is launched."""
+    rng = np.random.default_rng(24)
+    a = torch.as_tensor(rng.standard_normal((700, 520)), device=dev)
+    b = torch.as_tensor(rng.standard_normal((700, 390)), device=dev)
+
+    def close64(got, want, k):
+        tol = 8 * math.sqrt(k) * 2.2e-16 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol
+
+    ops.reset_launches()
+    for ld in ("unrolled", "batched", "fused"):
+        got = ata(a, n_base=64, out="packed", leaf_dispatch=ld, acc_dtype=torch.float64)
+        assert got.blocks.dtype == torch.float64 and got.blocks.is_cuda
+        close64(got.blocks, ata(a.cpu(), n_base=64, out="packed", leaf_dispatch=ld,
+                                acc_dtype=torch.float64).blocks, 700)
+        f32 = ata(a.float(), n_base=64, leaf_dispatch=ld, acc_dtype=torch.float64)
+        close64(f32, ata(a.float().cpu(), n_base=64, leaf_dispatch=ld, acc_dtype=torch.float64),
+                700)
+    close64(strassen_tn(a, b, n_base=64, acc_dtype=torch.float64),
+            strassen_tn(a.cpu(), b.cpu(), n_base=64, acc_dtype=torch.float64), 700)
+    f64 = dict(out="packed", acc_dtype=torch.float64)
+    g = ata(a, **f64).add_scaled_identity(1.0)
+    f = cholesky(g)
+    assert f.blocks.dtype == torch.float64
+    close64(f.blocks, cholesky(ata(a.cpu(), **f64).add_scaled_identity(1.0)).blocks, 520)
+    torch.cuda.synchronize()
+    assert sum(ops.launches.values()) == 0, ops.launches
+
+
+def test_ata_bf16_dispatches_on_card(dev):
+    """bfloat16 ata: unrolled == batched bitwise (the same bfloat16
+    combinations, batch-independent kernels); all three within the
+    reference's bfloat16 rtol (2e-2, normwise) of the exact product of the
+    same values; fused launches its two kernels only."""
+    rng = np.random.default_rng(25)
+    a = _bf(rng, (1500, 1100), dev)
+    exact = a.double().T @ a.double()
+    out = {}
+    for ld in ("unrolled", "batched", "fused"):
+        ops.reset_launches()
+        out[ld] = ata(a, n_base=256, leaf_dispatch=ld)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.norm(out[ld].double() - exact) / torch.linalg.norm(exact))
+        assert rel <= 2e-2, (ld, rel)
+        if ld == "fused":
+            assert ops.launches["gemm_tn_fused"] > 0 and ops.launches["syrk_gather"] == 1
+            assert ops.launches["gemm_tn"] == ops.launches["syrk"] == 0
+    assert torch.equal(out["unrolled"], out["batched"])
+
+
+def test_cg_lstsq_never_syncs_with_the_host(dev):
+    """The CG loop runs under torch.cuda.set_sync_debug_mode('error'): no
+    .item(), no truth value of a tensor, no copy to the host. It makes
+    iters + 1 gemm_tn launches (A·p is torch.matmul) and reaches the
+    float64 solution."""
+    from repro_torch.solve import cg_lstsq
+
+    rng = np.random.default_rng(26)
+    a, b = _t(rng, (4096, 1024), dev), _t(rng, (4096, 8), dev)
+    cg_lstsq(a[:64, :32], b[:64], iters=2)       # build and load the kernels first
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = cg_lstsq(a, b, ridge=1e-3, iters=40)
+        y = lstsq(a, b, ridge=1e-3, method="cg", iters=40)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launches["gemm_tn"] == 2 * 41 and sum(ops.launches.values()) == 82
+    assert torch.equal(x, y)
+    ad, bd = a.double(), b.double()
+    x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1024, device=dev, dtype=torch.float64),
+                             ad.T @ bd)
+    assert float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)) <= 1e-3
+
+
+def test_spans_on_cuda_tensors(dev):
+    """With obs on, card calls record the same spans as CPU calls (kernel
+    wrappers included, NVTX ranges pushed and popped) and compute bitwise
+    what they compute with obs off."""
+    from repro_torch import obs
+
+    rng = np.random.default_rng(27)
+    a = _t(rng, (700, 520), dev)
+    off = ata(a, n_base=128, out="packed", leaf_dispatch="fused").blocks
+    obs.trace.reset()
+    obs.enable()
+    try:
+        on = ata(a, n_base=128, out="packed", leaf_dispatch="fused").blocks
+        cuda_spans = obs.trace.span_counts()
+        obs.trace.reset()
+        ata(a.cpu(), n_base=128, out="packed", leaf_dispatch="fused")
+        cpu_spans = obs.trace.span_counts()
+    finally:
+        obs.disable()
+        obs.trace.reset()
+    assert torch.equal(on, off)
+    assert cuda_spans == cpu_spans
+    assert cuda_spans["kernels.gemm_tn_fused"] == 3 and cuda_spans["kernels.syrk_gather"] == 1

@@ -43,9 +43,12 @@ def test_port_files_exist():
                 "repro_torch/kernels/ops.py", "repro_torch/kernels/gemm_tn.py",
                 "repro_torch/kernels/syrk.py", "repro_torch/kernels/potrf.py",
                 "repro_torch/kernels/trsm.py", "repro_torch/solve/cholesky.py",
-                "repro_torch/solve/triangular.py", "repro_torch/solve/lstsq.py"):
+                "repro_torch/solve/triangular.py", "repro_torch/solve/lstsq.py",
+                "repro_torch/solve/cg.py", "repro_torch/obs/__init__.py",
+                "repro_torch/obs/trace.py", "repro_torch/obs/metrics.py",
+                "repro_torch/obs/calibrate.py"):
         assert mod in names, mod
-    for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu"):
+    for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
 
 
@@ -80,6 +83,20 @@ def test_package_imports_without_jax():
                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_obs_imports_neither_jax_nor_the_reference():
+    """``import repro_torch.obs`` loads no module of JAX or of ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.obs, repro_torch.solve.cg\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", (out.stdout, out.stderr)
 
 
 def test_tf32_disabled_at_import():

@@ -144,8 +144,9 @@ def test_lstsq_vector_rhs_and_errors():
     assert x.shape == (40,)
     np.testing.assert_allclose(x.numpy(), torch.linalg.lstsq(a, b[:, None]).solution[:, 0],
                                rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lstsq(a, b, method="cg")
+    xc = lstsq(a, b, method="cg")      # the CG branch computes (it raised before it was ported)
+    assert xc.shape == (40,)
+    np.testing.assert_allclose(xc.numpy(), x.numpy(), rtol=1e-3, atol=1e-4)
     with pytest.raises(ValueError):
         lstsq(a, b, method="qr")
     with pytest.raises(ValueError):

@@ -48,7 +48,8 @@ extern "C" int shape_f32(int w, int v, const float* a, const float* b, const lon
   using repro_torch::fused::launch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define L(ID, C, R) \\
-  if (v == ID) return launch<WW, C, R>(s, a, b, off, sgn, c, leaves, 1, m, n, k, 0, lda, 0, ldb, 1.0f, vec16);
+  if (v == ID) return launch<float, WW, C, R>(s, a, b, off, sgn, c, leaves, 1, m, n, k, 0, lda, \\
+                                              0, ldb, 1.0f, vec16);
 ''')
         for w in SLOTS:
             f.write(f"  if (w == {w}) {{\n#define WW {w}\n    SHAPES(L)\n#undef WW\n  }}\n")

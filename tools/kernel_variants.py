@@ -64,8 +64,8 @@ SHAPES = {"32x3": (32, 3), "32x2": (32, 2), "16x4": (16, 4), "16x3": (16, 3), "8
 # bitwise: it reads X's fragment once for two depth steps (a wrong product),
 # to see how the loop's time follows its shared-memory reads
 ENGINE_ABLATIONS = {
-    "half_x_reads": ("const float* xr = xs + kk * kTile",
-                     "const float* xr = xs + (kk & ~1) * kTile"),
+    "half_x_reads": ("const T* xr = xs + kk * kTile",
+                     "const T* xr = xs + (kk & ~1) * kTile"),
 }
 # name -> textual edits of trsm.cu; the first is the shipped kernel
 TRSM = {
@@ -83,13 +83,13 @@ TRSM = {
 # half one scalar a lane in 32 rows at once
 REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablation), K = 1 only
     {
-      float* dst;
+      TO* dst;
       int ld, ilim, i0, j0;
       if (g.packed) {
-        dst = g.c + ((long long)bt * t_total + t) * g.bn * g.bn;
+        dst = static_cast<TO*>(g.c) + ((long long)bt * t_total + t) * g.bn * g.bn;
         ld = ilim = g.bn, i0 = p * kTile, j0 = q * kTile;
       } else {
-        dst = g.c + (long long)bt * g.n * g.n;
+        dst = static_cast<TO*>(g.c) + (long long)bt * g.n * g.n;
         ld = ilim = g.n, i0 = r0, j0 = c0;
       }
 #pragma unroll
@@ -102,10 +102,10 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
           if (j >= ilim) continue;
           const float v = __fmul_rn(g.alpha, acc[ii][jj]);
           if (!sym) {
-            dst[(long long)i * ld + j] = v;
+            store1(dst + (long long)i * ld + j, v);
           } else if (!diag || i >= j) {
-            dst[(long long)i * ld + j] = v;
-            dst[(long long)j * ld + i] = v;
+            store1(dst + (long long)i * ld + j, v);
+            store1(dst + (long long)j * ld + i, v);
           }
         }
       }
@@ -113,9 +113,9 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
     __syncthreads();
 """
 SYRK_LOOP = """    if (diag)
-      tn_tile<kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<T, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
     else
-      tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<T, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
 """
 SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
                  "      __syncthreads();     // the next entry refills the ring\n")
@@ -123,7 +123,7 @@ SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
 SYRK = {
     "shipped": None,
     "no_quadrant_skip": [
-        (SYRK_LOOP, "    tn_tile<kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
+        (SYRK_LOOP, "    tn_tile<T, kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
     "full_unroll": [(SYRK_LOOP, SYRK_LOOP.replace(", true>", ">"))],
     "register_epilogue": [SYRK_EPILOGUE],
     "no_mirror": [("      if (sym) {\n", "      if (false) {\n")],
@@ -140,7 +140,7 @@ def sources(name, edits):
 
     out = os.path.join(ROOT, "build", "kernels", "variants", name)
     os.makedirs(out, exist_ok=True)
-    for f in ("tn_tile.cuh", "gemm_tn.cu", "trsm.cu", "syrk.cu"):
+    for f in ("dtype.cuh", "tn_tile.cuh", "gemm_tn.cu", "trsm.cu", "syrk.cu"):
         text = (_build.CSRC / f).read_text()
         for old, new in edits.get(f, ()):
             if f == "syrk.cu" and (old, new) == SYRK_EPILOGUE:  # splice between two anchors
@@ -163,18 +163,17 @@ def time_tn(libs, cs, rng):
 
     from repro_torch.kernels import _build
 
-    P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     a = cs.cuda_tensor(rng, (1430, 512, 512))
     b = cs.cuda_tensor(rng, (1430, 512, 512))
     c = torch.empty_like(a)
     runs, want = {}, None
     for name in (*SHAPES, *ENGINE_ABLATIONS):
         fn = libs[("tn", name)].gemm_tn_f32
-        fn.argtypes = [P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, P]
+        fn.argtypes = list(_build.SIGNATURES["gemm_tn_f32"])
 
         def run(fn=fn):
             err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1430, 512, 512, 512, 512 * 512, 512,
-                     512 * 512, 512, 1.0, 1, torch.cuda.current_stream().cuda_stream)
+                     512 * 512, 512, 1.0, 1, 0, torch.cuda.current_stream().cuda_stream)
             _build.check(err, "gemm_tn variant")
         run()
         torch.cuda.synchronize()
@@ -195,9 +194,9 @@ def time_trsm(libs, cs, rng):
     """The trsm ablations at the Cholesky panel and the r = 8 row panel."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.potrf import potrf_plain
 
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     l1 = potrf_plain(cs.spd_tiles(rng, 1, 128)[0])
     lx = l1.expand(31, 128, 128)
     p = cs.cuda_tensor(rng, (31, 128, 128))
@@ -206,11 +205,11 @@ def time_trsm(libs, cs, rng):
     cases = {}
     for name in TRSM:
         fn = libs[("trsm", name)].trsm_f32
-        fn.argtypes = [P, P, P, I, I, I, LL, I, P]
+        fn.argtypes = list(_build.SIGNATURES["trsm_f32"])
         cases[name] = (
-            lambda fn=fn: fn(lx.data_ptr(), p.data_ptr(), xp.data_ptr(), 31, 128, 128, 0, 1,
+            lambda fn=fn: fn(lx.data_ptr(), p.data_ptr(), xp.data_ptr(), 31, 128, 128, 0, 1, 0,
                              torch.cuda.current_stream().cuda_stream),
-            lambda fn=fn: fn(l1.data_ptr(), r8.data_ptr(), x8.data_ptr(), 1, 8, 128, 0, 0,
+            lambda fn=fn: fn(l1.data_ptr(), r8.data_ptr(), x8.data_ptr(), 1, 8, 128, 0, 0, 0,
                              torch.cuda.current_stream().cuda_stream))
     ttimes = {}
     for name in list(cases) + list(cases)[::-1]:
@@ -240,7 +239,7 @@ def time_syrk(libs, cs, rng):
             fn.argtypes = list(_build.SIGNATURES["syrk_f32"])
             for k in ((1,) if name == "register_epilogue" else (1, 2, 4, 8)):
                 def run(fn=fn, k=k):
-                    err = fn(a.data_ptr(), c.data_ptr(), batch, m, n, m * n, n, 1.0, 0, 0, k, 1,
+                    err = fn(a.data_ptr(), c.data_ptr(), batch, m, n, m * n, n, 1.0, 0, 0, k, 1, 0,
                              torch.cuda.current_stream().cuda_stream)
                     _build.check(err, "syrk variant")
                 run()
