@@ -50,7 +50,22 @@ phase fails):
              time of one (16384, 4096, 8) gemm_tn beside
              ``torch.matmul(a.T, ap)`` and its bound;
 8. obs     — fused ata 8192² with spans off and on: times, span counts,
-             outputs bitwise equal, the metrics snapshot validated.
+             outputs bitwise equal, the metrics snapshot validated;
+9. tune    — the planner (``repro_torch.tune``, cuda machine): the analytic
+             plans of ata 8192² packed, strassen_tn 4096³, lstsq
+             16384×4096×8 and CG's (16384, 4096, 8) product; each planned
+             default (an unpinned call) against the pinned call on the same
+             data (``scaled_tol``; bitwise where both run one tree), timed
+             beside the pinned dispatches and the library call, with its
+             launches, calibration rows and peak device memory beside the
+             model's ``peak_bytes``; ``autotune=True`` for ata 8192² into
+             a temporary cache file, read back in a fresh memo;
+             ``python -m repro_torch.obs`` on the card; and ata 32768²,
+             where the memory budget leaves no batched or fused tree,
+             planned and run within 1e-4 of the float64 product.
+
+Phases 3–8 pin ``n_base`` (or ``method``) to the static defaults: unpinned
+calls are planned, and those phases measure the dispatches they name.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -80,6 +95,9 @@ BF16_ULP = 2.0 ** -7
 # the reference's bfloat16 band (tests/test_kernels.py): rtol, here normwise
 BF16_RTOL = 2e-2
 SEED = 0
+# the static cutoff: the phases before `tune` pin it, so they keep measuring
+# the dispatches they name now that unpinned calls are planned
+DEFAULT_N_BASE = 512
 
 
 def log(*args):
@@ -310,13 +328,18 @@ def phase_kernels(checks, ops, plain):
     plain_ms = time_ms(lambda: plain["potrf"](s1))
     lib_ms = time_ms(lambda: torch.linalg.cholesky(s1), runs=20)
     device_ms = graph_ms(lambda: ops.potrf(s1))
+    # cholesky_ex: the library factor without the host sync of its info check,
+    # so it can be captured in a CUDA graph
+    lib_device_ms = graph_ms(lambda: torch.linalg.cholesky_ex(s1))
     bms, by = bound(potrf_flops(128), 4 * 2 * 128 * 128)
     checks.rows["potrf"] = dict(
         shape="(128,128)", max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bms, bound_by=by, device_ms=device_ms,
+        bound_ms=bms, bound_by=by, device_ms=device_ms, library_device_ms=lib_device_ms,
         resources={n_: _build.resources("potrf_info", n_) for n_ in (128, 256)})
     log(f"  potrf ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bms:.6f} ({by}) device_ms={device_ms:.4f} (CUDA graph of 50 launches)")
+        f"bound_ms={bms:.6f} ({by}) device_ms={device_ms:.4f} "
+        f"library_device_ms={lib_device_ms:.4f} (torch.linalg.cholesky_ex; CUDA graphs of 50 "
+        f"launches)")
     log("  resources potrf " + json.dumps(checks.rows["potrf"]["resources"]))
 
     # trsm: the panel (31 panels against one expanded factor), both
@@ -565,7 +588,7 @@ def phase_ata(ops):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         ops.reset_launches()
-        results[ld] = ata(a, out="packed", leaf_dispatch=ld)
+        results[ld] = ata(a, out="packed", leaf_dispatch=ld, n_base=DEFAULT_N_BASE)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
         peak = torch.cuda.max_memory_allocated()
@@ -578,7 +601,8 @@ def phase_ata(ops):
         if got != want[ld]:
             raise AssertionError(f"ata {ld}: launches {counts}, expected "
                                  f"syrk/gemm_tn/syrk_gather/gemm_tn_fused {want[ld]}")
-        times[ld] = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld), runs=3)
+        times[ld] = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld,
+                                        n_base=DEFAULT_N_BASE), runs=3)
         rate = ata_flops(8192, 8192, 512) / times[ld] / 1e9
         log(f"  {ld}: ms={times[ld]:.2f} rate={rate:.2f} TFLOP/s (ata_flops)")
     # the fused dispatch's launches one by one: one gemm_tn_fused per ATA
@@ -637,7 +661,7 @@ def phase_strassen(ops):
     out, times = {}, {}
     for ld in ("unrolled", "fused"):
         ops.reset_launches()
-        out[ld] = strassen_tn(a, b, leaf_dispatch=ld)
+        out[ld] = strassen_tn(a, b, leaf_dispatch=ld, n_base=DEFAULT_N_BASE)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
         log(f"  {ld}: launches {counts}")
@@ -645,7 +669,8 @@ def phase_strassen(ops):
         if (counts["gemm_tn"], counts["gemm_tn_fused"]) != want:
             raise AssertionError(f"strassen_tn {ld}: launches {counts}, expected "
                                  f"gemm_tn/gemm_tn_fused {want}")
-        times[ld] = time_ms(lambda: strassen_tn(a, b, leaf_dispatch=ld), runs=3)
+        times[ld] = time_ms(lambda: strassen_tn(a, b, leaf_dispatch=ld, n_base=DEFAULT_N_BASE),
+                            runs=3)
         log(f"  {ld}: ms={times[ld]:.2f}")
     if not torch.equal(out["unrolled"], out["fused"]):
         raise AssertionError("strassen_tn: fused differs from unrolled")
@@ -674,7 +699,7 @@ def phase_lstsq(ops):
     b = cuda_tensor(rng, (16384, 8))
     ridge = 1e-3
     ops.reset_launches()
-    x = lstsq(a, b, ridge=ridge)
+    x = lstsq(a, b, ridge=ridge, method="factor")
     torch.cuda.synchronize()
     counts = dict(ops.launches)
     log(f"  launches {counts}")
@@ -690,15 +715,16 @@ def phase_lstsq(ops):
     log(f"  rel error vs float64 solve: {rel:.3e}")
     if not rel <= 1e-3:
         raise AssertionError(f"lstsq: relative error {rel} > 1e-3")
-    total_ms = time_ms(lambda: lstsq(a, b, ridge=ridge), runs=3)
+    total_ms = time_ms(lambda: lstsq(a, b, ridge=ridge, method="factor"), runs=3)
 
     # stage split: each stage timed alone (CUDA-event median) on the
     # previous stage's output
-    gram = ata(a, out="packed").add_scaled_identity(ridge)
+    gram = ata(a, out="packed", n_base=DEFAULT_N_BASE).add_scaled_identity(ridge)
     rhs = _dot_tn(a, b, torch.float32)
     factor = cholesky(gram)
     stages = {
-        "gram_ms": time_ms(lambda: ata(a, out="packed").add_scaled_identity(ridge), runs=3),
+        "gram_ms": time_ms(lambda: ata(a, out="packed", n_base=DEFAULT_N_BASE)
+                           .add_scaled_identity(ridge), runs=3),
         "rhs_ms": time_ms(lambda: _dot_tn(a, b, torch.float32), runs=3),
         "cholesky_ms": time_ms(lambda: cholesky(gram), runs=3),
         "substitution_ms": time_ms(lambda: solve_cholesky(factor, rhs), runs=3),
@@ -801,12 +827,13 @@ def phase_ata_dtypes(ops):
     results = {}
     for ld in ("unrolled", "batched", "fused"):
         ops.reset_launches()
-        results[ld] = ata(a, out="packed", leaf_dispatch=ld)
+        results[ld] = ata(a, out="packed", leaf_dispatch=ld, n_base=DEFAULT_N_BASE)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
         rel = float(torch.linalg.norm(torch.tril(results[ld].to_dense().double()) - exact)
                     / torch.linalg.norm(exact))
-        ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld), runs=3)
+        ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld, n_base=DEFAULT_N_BASE),
+                     runs=3)
         log(f"  ata bf16 {ld}: rel Frobenius error vs float64 {rel:.3e} (limit {BF16_RTOL}) "
             f"ms={ms:.2f} launches {counts}")
         if not rel <= BF16_RTOL:
@@ -821,7 +848,7 @@ def phase_ata_dtypes(ops):
     torch.cuda.empty_cache()
 
     a64 = a.double()
-    f64 = dict(out="packed", acc_dtype=torch.float64)
+    f64 = dict(out="packed", acc_dtype=torch.float64, n_base=DEFAULT_N_BASE)
     ops.reset_launches()
     got = ata(a64, **f64)
     torch.cuda.synchronize()
@@ -885,15 +912,17 @@ def phase_cg(checks, ops, plain):
                             plain["gemm_tn"](a, ap), 16384)
     tn_ms = graph_ms(lambda: ops.gemm_tn(a, ap))
     mm_ms = graph_ms(lambda: torch.matmul(a.T, ap))
+    mm_call_ms = time_ms(lambda: torch.matmul(a.T, ap), runs=20)
     bms, by = bound(2 * 16384 * 4096 * 8, 4 * (16384 * 4096 + 16384 * 8 + 4096 * 8))
     rate = iters * cg_iteration_flops(16384, 4096, 8) / ms / 1e9
     log(f"  ms={ms:.2f} ({iters} iterations, {rate:.2f} TFLOP/s by cg_iteration_flops); "
         f"gemm_tn (16384,4096,8) device_ms={tn_ms:.4f} torch.matmul(a.T, ap) "
-        f"device_ms={mm_ms:.4f} bound_ms={bms:.4f} ({by}) (CUDA graphs of 50 launches)")
+        f"device_ms={mm_ms:.4f} (one call: ms={mm_call_ms:.4f}) bound_ms={bms:.4f} ({by}) "
+        f"(CUDA graphs of 50 launches)")
     return counts, dict(ms=ms, rel_err=rel, iters=iters, gemm_tn_launches=counts["gemm_tn"],
                         narrow_gemm_tn_max_abs_err=tn_err,
                         narrow_gemm_tn_device_ms=tn_ms, narrow_matmul_device_ms=mm_ms,
-                        narrow_bound_ms=bms, narrow_bound_by=by)
+                        narrow_matmul_ms=mm_call_ms, narrow_bound_ms=bms, narrow_bound_by=by)
 
 
 def obs_hooks_removed(ops):
@@ -990,17 +1019,18 @@ def phase_obs(ops):
     obs.disable()
     obs.trace.reset()
     obs.metrics.reset()
-    off = ata(a, out="packed", leaf_dispatch="fused")
-    off_ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch="fused"), runs=3)
+    fused = dict(out="packed", leaf_dispatch="fused", n_base=DEFAULT_N_BASE)
+    off = ata(a, **fused)
+    off_ms = time_ms(lambda: ata(a, **fused), runs=3)
     if obs.trace.span_counts():
         raise AssertionError("obs: spans recorded while disabled")
     obs.enable()
     try:
         obs.trace.reset()
-        on = ata(a, out="packed", leaf_dispatch="fused")
+        on = ata(a, **fused)
         torch.cuda.synchronize()
         spans = obs.trace.span_counts()
-        on_ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch="fused"), runs=3)
+        on_ms = time_ms(lambda: ata(a, **fused), runs=3)
         snap = obs.metrics.validate_snapshot(obs.metrics.snapshot())
     finally:
         obs.disable()
@@ -1018,10 +1048,277 @@ def phase_obs(ops):
     # what the hooks cost when disabled, on the unrolled dispatch (one
     # wrapper call a leaf): shipped hooks against no hooks, interleaved
     s = a[:4096, :4096].contiguous()
-    cost = {"ata_8192_unrolled": hooks_cost(ops, lambda: ata(a, out="packed")),
-            "strassen_tn_4096_unrolled": hooks_cost(ops, lambda: strassen_tn(s, s))}
+    cost = {"ata_8192_unrolled": hooks_cost(ops, lambda: ata(a, out="packed",
+                                                            n_base=DEFAULT_N_BASE)),
+            "strassen_tn_4096_unrolled": hooks_cost(ops, lambda: strassen_tn(
+                s, s, n_base=DEFAULT_N_BASE))}
     log("  hooks disabled vs removed, 10 interleaved pairs: " + json.dumps(cost))
     return dict(spans_off_ms=off_ms, spans_on_ms=on_ms, spans=spans, disabled_hooks_cost=cost)
+
+
+def phase_tune(ops):
+    """The planner on the card: (a) the analytic plans of the main path's
+    shapes; (b) each planned default (an unpinned call) held against the
+    pinned call of the earlier phase on the same seeded inputs — within
+    ``scaled_tol``, bitwise where both run the same tree — timed beside the
+    pinned dispatches and the library call, with its launches and its
+    calibration rows, and with the peak device memory of the planned and
+    pinned calls beside the model's; (c) a measured plan for ata 8192²
+    (``autotune=True``) into a temporary cache file, read back by a fresh
+    memo; (d) the obs smoke ``python -m repro_torch.obs`` on the card; (e)
+    ata 32768², whose batched and fused trees exceed the card's memory,
+    planned and run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, tune
+    from repro_torch.core import ata, strassen_tn
+    from repro_torch.core.strassen import tree_depth
+    from repro_torch.tune import cost
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.solve import lstsq
+
+    log("phase tune: the planner (cuda machine) on the main path's shapes")
+    shapes = {"ata_8192": ("ata", 8192, 8192, None, "packed"),
+              "strassen_tn_4096": ("gemm_tn", 4096, 4096, 4096, "dense"),
+              "lstsq_16384x4096x8": ("solve", 16384, 4096, 8, "packed"),
+              "cg_product_16384x4096x8": ("gemm_tn", 16384, 4096, 8, "dense")}
+    res = {}
+    plans = {}
+    for name, (op, m, n, k, out) in shapes.items():
+        p = tune.plan(op=op, m=m, n=n, k=k, out=out, backend="cuda")
+        plans[name] = p
+        res[name] = dict(plan={f: getattr(p, f) for f in (
+            "algorithm", "n_base", "leaf_dispatch", "method", "predicted_s")})
+        log(f"  (a) {name}: analytic plan {json.dumps(res[name]['plan'])}")
+
+    def tree(dims, algorithm, n_base, leaf_dispatch):
+        """What a dispatch runs: a dense plan's cutoff covers the operand,
+        and a depth-0 tree is one leaf call under every dispatch."""
+        if algorithm == "dense":
+            n_base = max(dims)
+        depth = tree_depth(dims, n_base)
+        return (depth, "winograd" if algorithm == "winograd" else "strassen",
+                leaf_dispatch) if depth else (0,)
+
+    def hold(name, planned, pinned, k, same_tree):
+        tol = scaled_tol(k, pinned)
+        err = float((planned.double() - pinned.double()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"tune {name}: planned differs from pinned by {err} > {tol}")
+        if same_tree and not torch.equal(planned, pinned):
+            raise AssertionError(f"tune {name}: planned and pinned run one tree but differ")
+        res[name].update(max_abs_err=err, tol=tol, bitwise_checked=same_tree)
+        log(f"  (b) {name}: planned vs pinned max_abs_err={err:.3e} tol={tol:.3e}"
+            + (" and bitwise equal (same tree)" if same_tree else ""))
+
+    def launched(name, fn):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        res[name]["launches"] = {k_: v for k_, v in ops.launches.items() if v}
+        log(f"  (b) {name}: planned launches {res[name]['launches']}")
+        return out
+
+    def calibrated(fn, runs=3):
+        """``runs`` planned calls with obs on: one calibration row each."""
+        obs.enable()
+        try:
+            for _ in range(runs):
+                fn()
+        finally:
+            obs.disable()
+
+    def held(name, label, fn, operands, model):
+        """Peak device bytes of one call — the most it allocated above what
+        was held before, plus its operands, which the model counts too —
+        beside the model's ``peak_bytes``."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        measured = (torch.cuda.max_memory_allocated() - base
+                    + sum(x.nbytes for x in operands))
+        res[name].setdefault("peak_bytes", {})[label] = dict(measured=measured, model=model)
+        log(f"  (b) {name} {label}: peak {measured} B, model {model} B "
+            f"(measured/model {measured / model:.3f})")
+        return out
+
+    obs.calibrate.reset()
+    rng = np.random.default_rng(SEED + 1)          # phase ata's data
+    a = cuda_tensor(rng, (8192, 8192))
+    p = plans["ata_8192"]
+    planned = held("ata_8192", "planned",
+                   lambda: launched("ata_8192", lambda: ata(a, out="packed")), (a,),
+                   cost.peak_bytes("ata", p.algorithm, 8192, 8192, 8192, p.n_base,
+                                   p.leaf_dispatch))
+    for ld in ("unrolled", "batched", "fused"):
+        held("ata_8192", f"pinned_{ld}",
+             lambda: ata(a, out="packed", n_base=DEFAULT_N_BASE, leaf_dispatch=ld), (a,),
+             cost.peak_bytes("ata", "strassen", 8192, 8192, 8192, DEFAULT_N_BASE, ld))
+    pinned = ata(a, out="packed", n_base=DEFAULT_N_BASE)
+    # to_dense: packed storage leaves the upper corners of diagonal tiles
+    # unspecified, and two trees may fill them differently
+    hold("ata_8192", planned.to_dense(), pinned.to_dense(), 8192,
+         tree((8192, 8192), p.algorithm, p.n_base, p.leaf_dispatch)
+         == tree((8192, 8192), "strassen", DEFAULT_N_BASE, "unrolled"))
+    del planned, pinned
+    torch.cuda.empty_cache()
+    res["ata_8192"].update(
+        planned_ms=time_ms(lambda: ata(a, out="packed"), runs=3),
+        **{f"pinned_{ld}_ms": time_ms(lambda: ata(a, out="packed", n_base=DEFAULT_N_BASE,
+                                                 leaf_dispatch=ld), runs=3)
+           for ld in ("unrolled", "batched", "fused")},
+        library_ms=time_ms(lambda: torch.matmul(a.T, a), runs=3))
+    calibrated(lambda: ata(a, out="packed"))
+    del a
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 3)          # phase strassen's data
+    a = cuda_tensor(rng, (4096, 4096))
+    b = cuda_tensor(rng, (4096, 4096))
+    p = plans["strassen_tn_4096"]
+    planned = held("strassen_tn_4096", "planned",
+                   lambda: launched("strassen_tn_4096", lambda: strassen_tn(a, b)), (a, b),
+                   cost.peak_bytes("gemm_tn", p.algorithm, 4096, 4096, 4096, p.n_base,
+                                   p.leaf_dispatch))
+    for ld in ("unrolled", "batched", "fused"):
+        held("strassen_tn_4096", f"pinned_{ld}",
+             lambda: strassen_tn(a, b, n_base=DEFAULT_N_BASE, leaf_dispatch=ld), (a, b),
+             cost.peak_bytes("gemm_tn", "strassen", 4096, 4096, 4096, DEFAULT_N_BASE, ld))
+    pinned = strassen_tn(a, b, n_base=DEFAULT_N_BASE)
+    dims = (4096, 4096, 4096)
+    hold("strassen_tn_4096", planned, pinned, 4096,
+         tree(dims, p.algorithm, p.n_base, p.leaf_dispatch)
+         == tree(dims, "strassen", DEFAULT_N_BASE, "unrolled"))
+    res["strassen_tn_4096"].update(
+        planned_ms=time_ms(lambda: strassen_tn(a, b), runs=3),
+        **{f"pinned_{ld}_ms": time_ms(lambda: strassen_tn(a, b, n_base=DEFAULT_N_BASE,
+                                                         leaf_dispatch=ld), runs=3)
+           for ld in ("unrolled", "fused")},
+        library_ms=time_ms(lambda: torch.matmul(a.T, b), runs=3))
+    calibrated(lambda: strassen_tn(a, b))
+    del a, b, planned, pinned
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 2)          # phase lstsq's data
+    a = cuda_tensor(rng, (16384, 4096))
+    b = cuda_tensor(rng, (16384, 8))
+    p = plans["lstsq_16384x4096x8"]
+    planned = launched("lstsq_16384x4096x8", lambda: lstsq(a, b, ridge=1e-3))
+    pinned = lstsq(a, b, ridge=1e-3, method="factor")
+    hold("lstsq_16384x4096x8", planned, pinned, 16384,
+         p.method == "factor" and tree((16384, 4096), p.algorithm, p.n_base, p.leaf_dispatch)
+         == tree((16384, 4096), "strassen", DEFAULT_N_BASE, "unrolled"))
+    gram_plan = dataclasses.replace(p, op="ata", k=4096, method=None, predicted_s=None)
+    res["lstsq_16384x4096x8"].update(
+        planned_ms=time_ms(lambda: lstsq(a, b, ridge=1e-3), runs=3),
+        planned_gram_ms=time_ms(lambda: ata(a, plan=gram_plan, out="packed"), runs=3),
+        pinned_gram_ms=time_ms(lambda: ata(a, out="packed", n_base=DEFAULT_N_BASE), runs=3),
+        **{f"pinned_{m_}_ms": time_ms(lambda: lstsq(a, b, ridge=1e-3, method=m_), runs=3)
+           for m_ in ("factor", "cg")})
+    calibrated(lambda: lstsq(a, b, ridge=1e-3))
+
+    ap = a @ pinned                                 # CG's Aᵀ(A·p) product
+    p = plans["cg_product_16384x4096x8"]
+    planned = launched("cg_product_16384x4096x8", lambda: strassen_tn(a, ap))
+    dims = (16384, 4096, 8)
+    hold("cg_product_16384x4096x8", planned, strassen_tn(a, ap, n_base=DEFAULT_N_BASE), 16384,
+         tree(dims, p.algorithm, p.n_base, p.leaf_dispatch)
+         == tree(dims, "strassen", DEFAULT_N_BASE, "unrolled"))
+    res["cg_product_16384x4096x8"].update(
+        planned_ms=time_ms(lambda: strassen_tn(a, ap), runs=20),
+        pinned_unrolled_ms=time_ms(lambda: strassen_tn(a, ap, n_base=DEFAULT_N_BASE), runs=20),
+        library_ms=time_ms(lambda: torch.matmul(a.T, ap), runs=20))
+    calibrated(lambda: strassen_tn(a, ap))
+    del a, b, ap, planned, pinned
+    torch.cuda.empty_cache()
+    for name in shapes:
+        r = res[name]
+        log(f"  (b) {name}: " + json.dumps({k_: round(v, 3) for k_, v in r.items()
+                                             if k_.endswith("_ms")}))
+
+    table = obs.calibrate.drift_table()
+    res["drift"] = {g["key"]: dict(predicted_s=g["predicted_s"], measured_s=g["measured_s"],
+                                   ratio=g["ratio"], n=g["n"]) for g in table}
+    log("  (b) calibration of the planned defaults (obs on, 3 calls each):")
+    for line in obs.calibrate.report().splitlines():
+        log("    " + line)
+
+    # (c) a measured plan for ata 8192², persisted and read back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.json")
+        before = obs.metrics.counters("tune.")
+        obs.calibrate.reset()
+        tuned = tune.plan(op="ata", m=8192, n=8192, out="packed", backend="cuda",
+                          autotune=True, cache_file=path)
+        after = obs.metrics.counters("tune.")
+        counters = {k_: v - before.get(k_, 0) for k_, v in after.items()
+                    if v != before.get(k_, 0)}
+        if tuned.source != "measured" or not tuned.measured_s or not tuned.baseline_s:
+            raise AssertionError(f"tune autotune: not a measured plan: {tuned}")
+        log(f"  (c) autotune ata 8192² packed: {tuned.algorithm} n_base={tuned.n_base} "
+            f"{tuned.leaf_dispatch} measured_s={tuned.measured_s:.6f} "
+            f"baseline_s={tuned.baseline_s:.6f} (speedup {tuned.baseline_s / tuned.measured_s:.2f}) "
+            f"predicted_s={tuned.predicted_s} counters {json.dumps(counters)}")
+        for line in obs.calibrate.report().splitlines():
+            log("    " + line)
+        res["autotune_ata_8192"] = dict(
+            algorithm=tuned.algorithm, n_base=tuned.n_base, leaf_dispatch=tuned.leaf_dispatch,
+            measured_s=tuned.measured_s, baseline_s=tuned.baseline_s,
+            predicted_s=tuned.predicted_s, counters=counters,
+            trials={g["key"]: dict(predicted_s=g["predicted_s"], measured_s=g["measured_s"],
+                                   ratio=g["ratio"]) for g in obs.calibrate.drift_table()})
+        tune.cache.clear_memo()
+        back = tune.plan(op="ata", m=8192, n=8192, out="packed", backend="cuda",
+                         cache_file=path)
+        if back.source != "cache" or dataclasses.replace(back, source="measured") != tuned:
+            raise AssertionError(f"tune autotune: the file gave back {back}, not {tuned}")
+        log("  (c) read back from the cache file in a fresh memo: source=cache, same plan")
+
+        # (d) the obs smoke on the card
+        out_path = os.path.join(tmp, "obs.json")
+        if obs_main(["--out", out_path]) != 0:
+            raise AssertionError("tune: python -m repro_torch.obs failed")
+        snap = json.loads(open(out_path).read())
+        obs.metrics.validate_snapshot(snap)
+        res["obs_smoke"] = dict(calibration=snap["calibration"], device=snap["meta"])
+
+    # (e) ata 32768²: every batched and fused tree's leaf stacks exceed the
+    # card's memory, so the budget leaves only the unrolled and dense plans
+    rng = np.random.default_rng(SEED + 4)
+    a = cuda_tensor(rng, (32768, 32768))
+    p = tune.plan(op="ata", m=32768, n=32768, out="packed", backend="cuda")
+    name = "ata_32768"
+    res[name] = dict(plan={f: getattr(p, f) for f in (
+        "algorithm", "n_base", "leaf_dispatch", "predicted_s")})
+    log(f"  (e) {name}: analytic plan {json.dumps(res[name]['plan'])}")
+    if p.leaf_dispatch in ("batched", "fused") and p.algorithm != "dense":
+        raise AssertionError(f"tune {name}: the plan {p} keeps a leaf stack")
+    planned = held(name, "planned", lambda: launched(name, lambda: ata(a, out="packed")), (a,),
+                   cost.peak_bytes("ata", p.algorithm, 32768, 32768, 32768, p.n_base,
+                                   p.leaf_dispatch))
+    res[name]["planned_ms"] = time_ms(lambda: ata(a, out="packed"), runs=1)
+    res[name]["library_ms"] = time_ms(lambda: torch.matmul(a.T, a), runs=1)
+    ad = a.double()
+    g = torch.tril(ad.T @ ad)
+    del ad
+    rel = float(torch.linalg.norm(torch.tril(planned.to_dense().double()) - g)
+                / torch.linalg.norm(g))
+    res[name]["rel_err"] = rel
+    log(f"  (e) {name}: planned ms={res[name]['planned_ms']:.2f} library_ms="
+        f"{res[name]['library_ms']:.2f} rel Frobenius error vs float64 (lower triangle) "
+        f"{rel:.3e}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"tune {name}: relative error {rel} > 1e-4")
+    del a, g, planned
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -1031,6 +1328,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    # the planned calls read no plan cache outside this checkout: the file
+    # named here is never written, so they take the analytic plans
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(ROOT, "build", "tune_plans.json")
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -1068,12 +1368,16 @@ def main() -> int:
     checks.rows["gemm_tn"]["cg_launches"] = cg_counts["gemm_tn"]
     checks.rows["gemm_tn"]["narrow_16384x4096x8"] = {
         k: cg_res[k] for k in ("narrow_gemm_tn_max_abs_err", "narrow_gemm_tn_device_ms",
-                               "narrow_matmul_device_ms", "narrow_bound_ms", "narrow_bound_by")}
+                               "narrow_matmul_device_ms", "narrow_matmul_ms", "narrow_bound_ms",
+                               "narrow_bound_by")}
     torch.cuda.empty_cache()
     obs_res = phase_obs(ops)
+    torch.cuda.empty_cache()
+    tune_res = phase_tune(ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
-                                    "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res}))
+                                    "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
+                                    "tune": tune_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes", "planner_key"]
 
 # Tensors made from nothing (zeros, converters, chip_smoke data) land here
 # unless the caller asks for another device.
@@ -21,6 +21,15 @@ DEFAULT_DEVICE = "cuda"
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means :data:`DEFAULT_DEVICE`."""
     return torch.device(DEFAULT_DEVICE if device is None else device)
+
+
+def planner_key(x: torch.Tensor):
+    """``(backend, dtype)`` of a tensor as the planner's key and cost model
+    take them: the device type (``"cuda"`` or ``"cpu"``) and the dtype's
+    bare name (``"float32"``, ``"bfloat16"``, ``"float64"``), as the
+    reference's ``str(jnp.dtype)`` gives it — ``str(torch.bfloat16)`` is
+    ``"torch.bfloat16"``, which the model would price as float32."""
+    return x.device.type, str(x.dtype).removeprefix("torch.")
 
 
 def on_cuda(*tensors) -> bool:

@@ -24,11 +24,14 @@ tables, and one ``ops.syrk_gather`` launch computes every diagonal leaf;
 with caller bases, each leaf operand is combined from slices of the input
 and each leaf is one base call. Classical variant only.
 
-The bases default to ``ops.syrk``/``ops.gemm_tn``: the CUDA kernels for a
-CUDA input, their plain versions for a CPU input. With a float64 input or
-``acc_dtype`` they are the plain versions on every device, and the fused
-dispatch gathers instead of launching, as the reference's kernel-free
-defaults do. The root assembly writes into its output buffer in place.
+Tunables come from a plan or, pinned, from the static defaults
+(``core.strassen.resolve_tunables``). The bases default to the plan's
+engine: ``ops.syrk``/``ops.gemm_tn`` — the CUDA kernels for a CUDA input,
+their plain versions for a CPU input — where the plan uses kernels (and
+always when pinned), the plain versions where it does not. With a
+float64 input or ``acc_dtype`` they are the plain versions on every
+device, and the fused dispatch gathers instead of launching, as the
+reference's kernel-free defaults do. The root assembly writes into its output buffer in place.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from repro_torch.core.symmetric import (
     write_packed_region,
 )
 from repro_torch import obs
-from repro_torch.kernels import ops
+from repro_torch.backend import planner_key
 from repro_torch.tune.defaults import DEFAULT_PACKED_BLOCK
 
 __all__ = ["ata", "ata_batched", "DEFAULT_N_BASE", "DEFAULT_PACKED_BLOCK"]
@@ -303,14 +306,19 @@ def _finalize_packed(node, n, packed_block):
     return SymmetricMatrix(_assemble_packed(node, buf, 0, bn, nb * bn), n, bn)
 
 
-def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
+def _ata_impl(a, *, alpha, c, beta, plan, n_base, variant, leaf_dispatch, base_syrk,
               base_dot, acc_dtype, out, packed_block):
     if out not in ("dense", "packed"):
         raise ValueError(f"unknown output mode {out!r}; use 'dense' or 'packed'")
-    n_base, variant, packed_block, leaf_dispatch = resolve_tunables(
-        n_base, variant, packed_block, leaf_dispatch)
+    backend, dtype = planner_key(a)
+    plan, n_base, variant, packed_block, leaf_dispatch = resolve_tunables(
+        plan, n_base, variant, packed_block, op="ata", m=a.shape[-2], n=a.shape[-1],
+        batch=a.shape[0] if a.ndim > 2 else 0, dtype=dtype, out=out,
+        leaf_dispatch=leaf_dispatch, backend=backend)
+    from repro_torch.tune.apply import engine
+
+    eng = engine(plan, a.dtype, acc_dtype)
     kernels = None
-    eng = ops.bases(a.dtype, acc_dtype)
     if (leaf_dispatch == "fused" and base_syrk is None and base_dot is None
             and eng.gemm_tn_fused is not None):
         kernels = (functools.partial(eng.gemm_tn_fused, out_dtype=acc_dtype),
@@ -329,7 +337,7 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
     obs.metrics.inc("ata.leaves.syrk", 4 ** L)
     obs.metrics.inc("ata.leaves.strassen",
                     sum(2 ** (2 * lev - 1) * 7 ** (L - lev) for lev in range(1, L + 1)))
-    t0 = obs.dispatch_start(None, a)   # no plan until the planner is ported
+    t0 = obs.dispatch_start(plan, a)
     with obs.span("ata", m=a.shape[-2], n=n, levels=L, leaf_dispatch=leaf_dispatch):
         ap = _pad_root(a, L) if L else a
         if leaf_dispatch in ("batched", "fused"):
@@ -353,7 +361,7 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
                         f"SymmetricMatrix c, got {type(c).__name__}"
                     )
                 result = result.add(c.scale(beta) if beta != 1.0 else c)
-            return obs.dispatch_finish(None, t0, result)
+            return obs.dispatch_finish(plan, t0, result)
 
         result = _finalize_dense(node, n)
         if alpha != 1.0:
@@ -362,7 +370,7 @@ def _ata_impl(a, *, alpha, c, beta, n_base, variant, leaf_dispatch, base_syrk,
             if isinstance(c, SymmetricMatrix):
                 c = c.to_dense()
             result = result + (beta * c if beta != 1.0 else c)
-        return obs.dispatch_finish(None, t0, result)
+        return obs.dispatch_finish(plan, t0, result)
 
 
 def ata(
@@ -371,6 +379,7 @@ def ata(
     alpha: float = 1.0,
     c: Optional[Union[torch.Tensor, SymmetricMatrix]] = None,
     beta: float = 1.0,
+    plan=None,
     n_base: Optional[int] = None,
     variant: Optional[str] = None,
     leaf_dispatch: Optional[str] = None,
@@ -385,17 +394,24 @@ def ata(
     ``a``: ``(m, n)``, any rectangular shape. ``out='dense'`` → ``(n, n)``
     bitwise symmetric; ``out='packed'`` → :class:`SymmetricMatrix` on the
     ``default_block_size(n, packed_block)`` grid (then ``c`` must be a
-    SymmetricMatrix of the same layout). Unset tunables take the static
-    defaults (``n_base=512``, ``variant='strassen'``,
-    ``leaf_dispatch='unrolled'``, ``packed_block=128``). ``base_syrk(a) ->
-    aᵀa`` (full, bitwise-symmetric tile) and ``base_dot(a, b) -> aᵀb`` must
-    accept one leading batch dim. ``leaf_dispatch='fused'`` with neither
-    base given runs ``ops.gemm_tn_fused`` once per level and
-    ``ops.syrk_gather`` once.
+    SymmetricMatrix of the same layout). ``plan``: a frozen
+    ``repro_torch.tune.Plan`` carrying every tunable. With no plan and
+    neither ``n_base`` nor ``variant`` pinned, the call is planned by
+    ``repro_torch.tune.plan`` for ``a``'s device and dtype (``out`` does
+    not change the recursion, so packed stays bitwise equal to dense);
+    pinning either takes the static defaults for the rest (``n_base=512``,
+    ``variant='strassen'``, ``leaf_dispatch='unrolled'``,
+    ``packed_block=128``). ``leaf_dispatch`` or ``packed_block`` alone does
+    not bypass the planner. ``base_syrk(a) -> aᵀa`` (full,
+    bitwise-symmetric tile) and ``base_dot(a, b) -> aᵀb`` must accept one
+    leading batch dim; by default they are the plan's engine.
+    ``leaf_dispatch='fused'`` with neither base given runs
+    ``ops.gemm_tn_fused`` once per level and ``ops.syrk_gather`` once
+    where the engine has them.
     """
     if a.ndim != 2:
         raise ValueError(f"ata expects a 2-D operand, got shape {tuple(a.shape)}")
-    return _ata_impl(a, alpha=alpha, c=c, beta=beta, n_base=n_base, variant=variant,
+    return _ata_impl(a, alpha=alpha, c=c, beta=beta, plan=plan, n_base=n_base, variant=variant,
                      leaf_dispatch=leaf_dispatch, base_syrk=base_syrk, base_dot=base_dot,
                      acc_dtype=acc_dtype, out=out, packed_block=packed_block)
 
@@ -406,6 +422,7 @@ def ata_batched(
     alpha: float = 1.0,
     c: Optional[Union[torch.Tensor, SymmetricMatrix]] = None,
     beta: float = 1.0,
+    plan=None,
     n_base: Optional[int] = None,
     variant: Optional[str] = None,
     leaf_dispatch: Optional[str] = None,
@@ -420,6 +437,6 @@ def ata_batched(
     (with ``'batched'`` leaves, leaf stack × batch is one launch)."""
     if a.ndim != 3:
         raise ValueError(f"ata_batched expects a (B, m, n) operand, got {tuple(a.shape)}")
-    return _ata_impl(a, alpha=alpha, c=c, beta=beta, n_base=n_base, variant=variant,
+    return _ata_impl(a, alpha=alpha, c=c, beta=beta, plan=plan, n_base=n_base, variant=variant,
                      leaf_dispatch=leaf_dispatch, base_syrk=base_syrk, base_dot=base_dot,
                      acc_dtype=acc_dtype, out=out, packed_block=packed_block)

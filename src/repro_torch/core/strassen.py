@@ -25,8 +25,12 @@ Leaf dispatch:
   ``base_dot`` call. The decode is the batched dispatch's. Classical
   variant only.
 
-The base defaults to :func:`repro_torch.kernels.ops.gemm_tn`, which runs
-the CUDA kernel on a CUDA tensor and the plain matmul on a CPU tensor. With
+Tunables come from a plan (``plan=``, or the ``repro_torch.tune.plan``
+front door when no algorithm tunable is pinned) or, pinned, from the
+static defaults (:func:`resolve_tunables`). The base is the plan's engine:
+:func:`repro_torch.kernels.ops.gemm_tn`, which runs the CUDA kernel on a
+CUDA tensor and the plain matmul on a CPU tensor, where the plan uses
+kernels (and always when pinned); the plain matmul where it does not. With
 a float64 operand or ``acc_dtype`` it is the plain matmul on every device
 (no kernel takes float64), and the fused dispatch gathers instead of
 launching — the reference's kernel-free default.
@@ -35,6 +39,7 @@ launching — the reference's kernel-free default.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -42,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
-from repro_torch.kernels import ops
+from repro_torch.backend import planner_key
 from repro_torch.kernels.gemm_tn import gemm_tn_plain
 from repro_torch.tune import defaults as _defaults
 from repro_torch.tune.defaults import DEFAULT_N_BASE
@@ -50,13 +55,57 @@ from repro_torch.tune.defaults import DEFAULT_N_BASE
 __all__ = ["strassen_tn", "DEFAULT_N_BASE", "resolve_tunables", "tree_depth"]
 
 
-def resolve_tunables(n_base, variant, packed_block, leaf_dispatch):
-    """Fill unset tunables from the static defaults — the reference's
-    "pinned" regime, the only one until the planner is ported. Returns
-    ``(n_base, variant, packed_block, leaf_dispatch)``."""
-    n_base = _defaults.DEFAULT_N_BASE if n_base is None else n_base
-    variant = _defaults.DEFAULT_VARIANT if variant is None else variant
-    packed_block = _defaults.DEFAULT_PACKED_BLOCK if packed_block is None else packed_block
+def resolve_tunables(
+    plan,
+    n_base,
+    variant,
+    packed_block,
+    *,
+    op: str,
+    m: int,
+    n: int,
+    k: Optional[int] = None,
+    batch: int = 0,
+    dtype: str = "float32",
+    out: str = "dense",
+    leaf_dispatch: Optional[str] = None,
+    backend: Optional[str] = None,
+):
+    """Fill unset tunables (shared by ``strassen_tn`` and ``ata``). Three
+    regimes, in order, as in the reference:
+
+    * a ``plan`` was handed in → unset arguments come from it;
+    * no algorithm tunable (``n_base``/``variant``) was pinned → the
+      ``repro_torch.tune.plan`` front door (memo, cache file or analytic
+      model) for the operand's ``backend`` and ``dtype``. Pinning
+      ``packed_block`` or ``leaf_dispatch`` alone does not bypass it: they
+      are layout and scheduling, not algorithm, and ``leaf_dispatch``
+      never changes values;
+    * an algorithm tunable was pinned → the static defaults fill the rest,
+      without the planner, so explicit calls stay bitwise reproducible
+      whatever the cache holds.
+
+    Returns ``(plan_or_None, n_base, variant, packed_block,
+    leaf_dispatch)``; a plan with ``algorithm='dense'`` comes back with an
+    ``n_base`` covering the whole operand, which is how one classical
+    product is expressed to the recursion.
+    """
+    if plan is None and n_base is None and variant is None:
+        from repro_torch.tune import plan as _plan_fn
+
+        plan = _plan_fn(op=op, m=m, n=n, k=k, batch=batch, dtype=dtype, out=out,
+                        backend=backend)
+    if plan is not None:
+        n_base = plan.n_base if n_base is None else n_base
+        variant = plan.variant if variant is None else variant
+        packed_block = plan.packed_block if packed_block is None else packed_block
+        leaf_dispatch = plan.leaf_dispatch if leaf_dispatch is None else leaf_dispatch
+        if plan.algorithm == "dense":
+            n_base = max(n_base, m, n, k or n)
+    else:
+        n_base = _defaults.DEFAULT_N_BASE if n_base is None else n_base
+        variant = _defaults.DEFAULT_VARIANT if variant is None else variant
+        packed_block = _defaults.DEFAULT_PACKED_BLOCK if packed_block is None else packed_block
     leaf_dispatch = _defaults.DEFAULT_LEAF_DISPATCH if leaf_dispatch is None else leaf_dispatch
     if leaf_dispatch not in ("unrolled", "batched", "fused"):
         raise ValueError(
@@ -70,7 +119,7 @@ def resolve_tunables(n_base, variant, packed_block, leaf_dispatch):
             "Winograd's chained within-level combinations do not fit the "
             "per-leaf ±1 slot tables"
         )
-    return n_base, variant, packed_block, leaf_dispatch
+    return plan, n_base, variant, packed_block, leaf_dispatch
 
 
 def _dot_tn(a, b, acc_dtype):
@@ -425,6 +474,7 @@ def strassen_tn(
     alpha: float = 1.0,
     c: Optional[torch.Tensor] = None,
     beta: float = 1.0,
+    plan=None,
     n_base: Optional[int] = None,
     variant: Optional[str] = None,
     leaf_dispatch: Optional[str] = None,
@@ -434,10 +484,15 @@ def strassen_tn(
     """``C = alpha·AᵀB (+ beta·C)`` via rectangular TN Strassen.
 
     ``a: (..., m, n)``, ``b: (..., m, k)`` with matching leading batch dims.
-    Unset tunables take the static defaults (``n_base=512``,
-    ``variant='strassen'``, ``leaf_dispatch='unrolled'``). ``base_dot(a, b)
-    -> aᵀb`` must accept one leading batch dim; it defaults to
-    ``ops.gemm_tn`` (CUDA kernel on the card, plain matmul on the CPU).
+    ``plan``: a frozen ``repro_torch.tune.Plan`` carrying every tunable.
+    With no plan and neither ``n_base`` nor ``variant`` pinned, the call is
+    planned by ``repro_torch.tune.plan`` for ``a``'s device and dtype;
+    pinning either takes the static defaults for the rest (``n_base=512``,
+    ``variant='strassen'``, ``leaf_dispatch='unrolled'``), bitwise
+    reproducible. ``leaf_dispatch`` alone does not bypass the planner.
+    ``base_dot(a, b) -> aᵀb`` must accept one leading batch dim; it
+    defaults to the plan's engine (``ops.gemm_tn``: the CUDA kernel on the
+    card, the plain matmul on the CPU) or, pinned, to ``ops.gemm_tn``.
     ``leaf_dispatch='fused'`` with no ``base_dot`` runs every leaf in one
     ``ops.gemm_tn_fused`` launch.
     """
@@ -447,19 +502,25 @@ def strassen_tn(
         raise ValueError(
             f"contracting/batch dims mismatch: A is {tuple(a.shape)}, B is {tuple(b.shape)}"
         )
-    n_base, variant, _, leaf_dispatch = resolve_tunables(n_base, variant, None, leaf_dispatch)
+    m, n = a.shape[-2:]
+    k = b.shape[-1]
+    backend, dtype = planner_key(a)
+    plan, n_base, variant, _, leaf_dispatch = resolve_tunables(
+        plan, n_base, variant, None, op="gemm_tn", m=m, n=n, k=k,
+        batch=math.prod(a.shape[:-2]) if a.ndim > 2 else 0, dtype=dtype,
+        leaf_dispatch=leaf_dispatch, backend=backend)
     fused_dot = None
     if base_dot is None:
-        eng = ops.bases(a.dtype, b.dtype, acc_dtype)
+        from repro_torch.tune.apply import engine
+
+        eng = engine(plan, a.dtype, b.dtype, acc_dtype)
         base_dot = functools.partial(eng.gemm_tn, out_dtype=acc_dtype)
         if leaf_dispatch == "fused" and eng.gemm_tn_fused is not None:
             fused_dot = functools.partial(eng.gemm_tn_fused, out_dtype=acc_dtype)
-    m, n = a.shape[-2:]
-    k = b.shape[-1]
     L = tree_depth((m, n, k), n_base)
     obs.metrics.inc(f"dispatch.gemm_tn.{leaf_dispatch}")
     obs.metrics.inc("gemm_tn.leaves", 7 ** L)
-    t0 = obs.dispatch_start(None, a)   # no plan until the planner is ported
+    t0 = obs.dispatch_start(plan, a)
     with obs.span("strassen_tn", m=m, n=n, k=k, levels=L, leaf_dispatch=leaf_dispatch):
         if L:
             a, b = _pad_root(a, L), _pad_root(b, L)
@@ -475,4 +536,4 @@ def strassen_tn(
             out = alpha * out
         if c is not None:
             out = out + (beta * c if beta != 1.0 else c)
-        return obs.dispatch_finish(None, t0, out)
+        return obs.dispatch_finish(plan, t0, out)

@@ -6,10 +6,13 @@ Each wrapper takes the reference's signature and routes by device:
   the current stream, or raises — there is no fallback;
 * a CPU tensor runs the kernel's plain PyTorch version.
 
-A leading batch dim is one launch for the whole stack. Each wrapper counts
-its kernel launches in :data:`launches` (plain ints, incremented right
-after a CUDA launch and nowhere else), so a run can show that its path went
-through the kernels. That differs from the reference's counter, which this
+A leading batch dim is one launch for the whole stack. ``plan=`` (a
+``repro_torch.tune.Plan``) is accepted where the reference's wrappers take
+it and, like ``blocks``, is read for output geometry only (the packed
+block size of ``syrk``): each CUDA kernel chooses its own CTA tile. Each
+wrapper counts its kernel launches in :data:`launches` (plain ints,
+incremented right after a CUDA launch and nowhere else), so a run can
+show that its path went through the kernels. That differs from the reference's counter, which this
 module keeps too: ``obs.metrics`` counter ``kernels.launch.<name>`` counts
 every wrapper call, on the card or on the CPU, as ``repro.kernels.ops``
 counts every call whether Pallas runs compiled or in interpret mode. Each
@@ -32,7 +35,7 @@ from repro_torch.kernels import trsm as _trsm
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
 __all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
-           "reset_launches", "Bases", "bases"]
+           "reset_launches", "Bases", "bases", "PLAIN"]
 
 # kernel name -> CUDA launches since the last reset_launches()
 launches = {"syrk": 0, "gemm_tn": 0, "gemm_tn_fused": 0, "syrk_gather": 0, "potrf": 0,
@@ -67,14 +70,18 @@ def _run(name: str, cuda: bool, kernel, plain, *args, **kw):
     return out
 
 
-def syrk(a, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32, out: str = "dense"):
+def syrk(a, *, alpha: float = 1.0, blocks=None, plan=None, out_dtype=torch.float32,
+         out: str = "dense"):
     """``alpha·AᵀA`` for ``(m, n)`` or ``(B, m, n)``.
 
     ``out='dense'`` → bitwise-symmetric ``(..., n, n)``; ``out='packed'`` →
     :class:`SymmetricMatrix` on the ``default_block_size(n, blocks[1])``
-    grid. ``blocks`` sets only that packed block size; the kernel chooses
-    its own CTA tile.
+    grid, ``blocks`` from the argument, else ``plan.syrk_blocks``, else the
+    defaults. They set only that packed block size; the kernel chooses its
+    own CTA tile.
     """
+    if blocks is None and plan is not None:
+        blocks = plan.syrk_blocks
     bn = default_block_size(a.shape[-1], tuple(blocks or SYRK_BLOCKS)[1])
     raw = _run("syrk", on_cuda(a), _syrk.syrk_cuda, _syrk.syrk_plain, a, alpha=alpha,
                out_dtype=out_dtype, out=out, bn=bn)
@@ -83,16 +90,17 @@ def syrk(a, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32, out: st
     return raw
 
 
-def gemm_tn(a, b, *, alpha: float = 1.0, blocks=None, out_dtype=torch.float32):
+def gemm_tn(a, b, *, alpha: float = 1.0, blocks=None, plan=None, out_dtype=torch.float32):
     """``alpha·AᵀB`` for ``(m, n) × (m, k)`` or ``(B, m, n) × (B, m, k)``,
-    ``Aᵀ`` never formed. ``blocks`` (the reference's Pallas block shape)
-    is accepted for signature parity only: the kernel picks its CTA tile."""
-    del blocks
+    ``Aᵀ`` never formed. ``blocks`` and ``plan`` (the reference's Pallas
+    block shape and its source) are accepted for signature parity only:
+    the kernel picks its CTA tile."""
+    del blocks, plan
     return _run("gemm_tn", on_cuda(a, b), _gemm_tn.gemm_tn_cuda, _gemm_tn.gemm_tn_plain, a, b,
                 alpha=alpha, out_dtype=out_dtype)
 
 
-def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None,
+def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None, plan=None,
                   out_dtype=torch.float32):
     """All ``G·T`` fused-operand Strassen leaf products in ONE launch.
 
@@ -101,21 +109,22 @@ def gemm_tn_fused(a_blocks, b_blocks, tables, *, alpha: float = 1.0, blocks=None
     layout, any strides); ``tables``: ``((a_rows, a_cols, a_sgn), (b_rows,
     b_cols, b_sgn))``, six ``(T, W)`` int arrays (``_slot_tables``). Leaf
     ``g·T + t`` multiplies the balanced ± sums of its slot blocks; returns
-    ``(G·T, [B,] n, k)``. ``blocks`` is accepted for signature parity.
+    ``(G·T, [B,] n, k)``. ``blocks`` and ``plan`` are accepted for
+    signature parity.
     """
-    del blocks
+    del blocks, plan
     return _run("gemm_tn_fused", on_cuda(a_blocks, b_blocks), _gemm_tn.gemm_tn_fused_cuda,
                 _gemm_tn.gemm_tn_fused_plain, a_blocks, b_blocks, tables, alpha=alpha,
                 out_dtype=out_dtype)
 
 
-def syrk_gather(a_blocks, rows, cols, *, alpha: float = 1.0, blocks=None,
+def syrk_gather(a_blocks, rows, cols, *, alpha: float = 1.0, blocks=None, plan=None,
                 out_dtype=torch.float32):
     """Dense ``alpha·ÂᵀÂ`` of every gathered leaf ``Â = a_blocks[rows[s],
     cols[s]]`` in ONE launch: ``(R, C, [B,] mL, nL)`` → ``(S, [B,] nL,
-    nL)``, each tile bitwise symmetric. ``blocks`` is accepted for
-    signature parity."""
-    del blocks
+    nL)``, each tile bitwise symmetric. ``blocks`` and ``plan`` are
+    accepted for signature parity."""
+    del blocks, plan
     return _run("syrk_gather", on_cuda(a_blocks), _syrk.syrk_gather_cuda, _syrk.syrk_gather_plain,
                 a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
 
@@ -145,7 +154,8 @@ class Bases(NamedTuple):
     syrk_gather: Optional[Callable]
 
 
-_PLAIN = Bases(_syrk.syrk_plain, _gemm_tn.gemm_tn_plain, _potrf.potrf_plain, _trsm.trsm_plain,
+# the plain versions: the bases of float64 and of plans without kernels
+PLAIN = Bases(_syrk.syrk_plain, _gemm_tn.gemm_tn_plain, _potrf.potrf_plain, _trsm.trsm_plain,
                None, None)
 
 
@@ -158,6 +168,6 @@ def bases(*dtypes) -> Bases:
     compute float64 through ``dot_general``; the wrappers themselves go on
     refusing float64 on the card."""
     if torch.float64 in dtypes:
-        return _PLAIN
+        return PLAIN
     # looked up at each call, so a wrapper replaced on this module is the one used
     return Bases(syrk, gemm_tn, potrf, trsm, gemm_tn_fused, syrk_gather)

@@ -12,16 +12,19 @@ Three small modules, one switch:
   iterations) with a validated JSON snapshot under the reference's schema
   ``repro.obs/v1``.
 * :mod:`repro_torch.obs.calibrate` — predicted-vs-measured seconds per
-  planned dispatch. No call carries a plan until the planner is ported, so
-  no row is recorded yet.
+  planned dispatch: with obs enabled, every call that carries a plan with
+  a prediction (each unpinned ``ata``/``strassen_tn``/``lstsq`` call, and
+  each autotuner trial) times itself, synchronising its result's device,
+  and records a row.
 
     from repro_torch import obs
     obs.enable()
-    c = ata(a, out="packed")            # spans + dispatch counters
-    snap = obs.metrics.snapshot()       # JSON-ready
+    c = ata(a, out="packed")            # spans + dispatch counters + a row
+    snap = obs.metrics.snapshot()       # JSON-ready; obs.report() for text
 
-The reference's smoke entry point (``python -m repro.obs``) runs the
-planner; it comes with the port of ``repro.tune``.
+Smoke entry point: ``python -m repro_torch.obs [--device cpu] [--out
+PATH]`` runs one planned ``plan → ata → lstsq`` with tracing on, checks
+the snapshot and writes it (``obs/__main__.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ def report() -> str:
 
 # ---------------------------------------------------------------------------
 # dispatch-site calibration helpers (used by core.ata / core.strassen /
-# solve.lstsq — the front doors the planner will plan)
+# solve.lstsq — the planned front doors)
 # ---------------------------------------------------------------------------
 
 
@@ -63,8 +66,8 @@ def dispatch_start(plan, operand):
     ``None`` when there is nothing meaningful to measure:
 
     * obs disabled (the common case — one branch);
-    * no plan / no ``predicted_s`` on it (every call until the planner is
-      ported);
+    * no plan / no ``predicted_s`` on it (pinned calls, hand-built plans,
+      the inner gram plan of ``lstsq``);
     * the call is being traced by ``torch.compile``, where a host clock
       measures compilation (the reference's tracer check).
     """

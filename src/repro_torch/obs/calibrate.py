@@ -1,17 +1,18 @@
 """Cost-model calibration: predicted-vs-measured seconds per plan (port of
 ``repro.obs.calibrate``).
 
-A planned eager dispatch (``core.ata``, ``core.strassen``, ``solve.lstsq``)
-with obs enabled times itself end to end, synchronising the result's
-device, and records ``(plan, measured)`` against the plan's own
-``predicted_s``. ``report()`` renders the drift table per machine profile
-(backend): ``ratio = measured / predicted`` per plan key, plus the
-per-profile geometric-mean drift.
+Two producers feed the table:
 
-Until the planner is ported no call carries a plan, so no row is recorded
-(``repro_torch.obs.dispatch_start`` returns ``None`` without one); the
-table and its schema are here so the planner and the autotuner can feed
-them when they land.
+* **dispatch sites** (``core.ata``, ``core.strassen``, ``solve.lstsq``):
+  with obs enabled, a planned call times itself end to end, synchronising
+  the result's device, and records ``(plan, measured)`` against the plan's
+  own ``predicted_s``;
+* **the autotuner** (``tune.search.autotune``): each trial's floor against
+  the candidate's prediction.
+
+``report()`` renders the drift table per machine profile (backend):
+``ratio = measured / predicted`` per plan key, plus the per-profile
+geometric-mean drift — the numbers to fit ``tune.cost.MACHINES`` to.
 """
 
 from __future__ import annotations

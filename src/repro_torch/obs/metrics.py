@@ -14,6 +14,8 @@ alone).
 
 Naming convention (dotted, lowercase), as in the reference:
 
+    tune.cache.*       plan-cache hits/misses/migrations/sanitizations
+    tune.autotune.*    trials, wins, win-margin histogram
     dispatch.<op>.*    dispatches per leaf dispatch / method
     <op>.leaves.*      leaf counts per dispatch
     kernels.launch.*   kernel wrapper calls

@@ -19,8 +19,10 @@ the ``r`` columns with per-column step sizes; converged columns freeze
 with a fixed trip count serves every column and nothing waits on the host:
 no ``.item()``, no truth value of a tensor, no branch on data.
 
-``cg_gram`` is the generic SPD-operator CG the lstsq wrapper builds on. The
-reference's ``plan=``/``gemm_plan=`` keywords come with the planner's port.
+``cg_gram`` is the generic SPD-operator CG the lstsq wrapper builds on.
+The TN products' dispatch comes from ``gemm_plan``, pins, the solve
+``plan`` or the planner, in the reference's order (:func:`cg_lstsq`);
+planning runs on the host only (after the first product, a memo lookup).
 """
 
 from __future__ import annotations
@@ -79,18 +81,22 @@ def cg_lstsq(
     ridge: float = 0.0,
     iters: Optional[int] = None,
     tol: Optional[float] = None,
+    plan=None,
+    gemm_plan=None,
     n_base: Optional[int] = None,
     variant: Optional[str] = None,
 ) -> torch.Tensor:
     """Ridge least squares via CG on the normal-equations operator.
 
     ``a``: ``(m, n)``; ``b``: ``(m,)`` or ``(m, r)``. Each iteration is one
-    TN product pair; the ``Aᵀ(·)`` product and ``Aᵀb`` run ``strassen_tn``
-    with the ``n_base``/``variant`` pins (``lstsq(method='cg')`` passes the
-    static defaults, as the reference's pinned call does). Iteration budget
-    and tolerance default to ``repro_torch.tune.defaults`` (``CG_MAX_ITERS``
-    capped by ``n`` — exact termination in exact arithmetic — and
-    ``CG_TOL``).
+    TN product pair; the dispatch of the ``Aᵀ(·)`` product and of ``Aᵀb``
+    comes, in order, from ``gemm_plan`` (an ``op='gemm_tn'`` plan), the
+    ``n_base``/``variant`` pins (the static dispatch, bitwise reproducible:
+    what ``lstsq(method='cg')`` passes), the solve ``plan``'s algorithm
+    tunables, or the ``repro_torch.tune.plan`` front door. Iteration
+    budget and tolerance default to ``repro_torch.tune.defaults``
+    (``CG_MAX_ITERS`` capped by ``n`` — exact termination in exact
+    arithmetic — and ``CG_TOL``).
     """
     from repro_torch.core.strassen import strassen_tn
     from repro_torch.tune import defaults
@@ -106,8 +112,15 @@ def cg_lstsq(
     vector = b.ndim == 1
     b2 = (b[:, None] if vector else b).to(torch.float32)
     kw = {}
-    if n_base is not None or variant is not None:
+    if gemm_plan is not None:
+        kw["plan"] = gemm_plan
+    elif n_base is not None or variant is not None:
         kw = dict(n_base=n_base, variant=variant)
+    elif plan is not None:
+        # the solve plan's algorithm tunables ('dense' as a cutoff covering
+        # the whole operand, as resolve_tunables expresses it)
+        kw = dict(n_base=max(plan.n_base, m, n) if plan.algorithm == "dense" else plan.n_base,
+                  variant=plan.variant)
 
     obs.metrics.inc("solve.cg.calls")
     # the fixed trip count IS the iteration budget (columns converge by
@@ -116,7 +129,7 @@ def cg_lstsq(
 
     def matvec(p):
         ap = torch.matmul(a, p)            # (m, r) plain float32 product
-        atap = strassen_tn(a, ap, **kw)    # Aᵀ(A·p): the TN product
+        atap = strassen_tn(a, ap, **kw)    # Aᵀ(A·p): the planned TN product
         return atap + ridge * p if ridge else atap
 
     with obs.span("solve.cg", iters=iters, m=m, n=n):

@@ -11,11 +11,13 @@ bn)`` geometry; no dense ``(n, n)`` is formed:
         S_ij   = A[i,j] − Σ_{k<j} L[i,k]·L[j,k]ᵀ   (one float32 einsum)
         L[i,j] = trsm(L[j,j], S_ij)  for all i > j  (ONE batched launch)
 
-Base engines replace the reference's ``plan.use_kernels`` until the
-planner is ported: ``ops.potrf``/``ops.trsm``, which launch the CUDA
-kernels for CUDA tensors and run their plain versions for CPU tensors. The
-panel solve passes ``L[j,j]`` expanded over the panel (batch stride 0), so
-the factor is not copied per row block.
+Base engines follow the plan, as in the reference: with
+``plan.use_kernels`` (and with no plan) ``ops.potrf``/``ops.trsm``, which
+launch the CUDA kernels for CUDA tensors and run their plain versions for
+CPU tensors; a plan without kernels takes the plain versions. A float64
+gram takes the plain versions on every device. The panel solve passes
+``L[j,j]`` expanded over the panel (batch stride 0), so the factor is not
+copied per row block.
 
 The pad rows/cols of the grid (``nb·bn > n``) are masked to the identity in
 the trailing diagonal block before its ``potrf``, so the factor is the
@@ -38,7 +40,6 @@ from repro_torch.core.symmetric import (
     sym_tile,
     tri_block_indices,
 )
-from repro_torch.kernels import ops
 
 __all__ = ["CholeskyFactor", "cholesky", "base_solver_fns"]
 
@@ -125,13 +126,18 @@ def _flat_call(fn: Callable, *ops_):
     return out.reshape(*lead, *out.shape[-2:])
 
 
-def base_solver_fns(dtype=torch.float32):
-    """(base_potrf, base_trsm) of the walk for a gram of ``dtype``, from
-    :func:`repro_torch.kernels.ops.bases`: the kernels on CUDA tensors and
-    the plain versions on CPU ones, storing float32; for float64 the plain
-    versions on every device, storing float64."""
+def base_solver_fns(plan=None, dtype=torch.float32):
+    """(base_potrf, base_trsm) of the walk for a gram of ``dtype``, storing
+    its accumulation dtype (float32, or float64 for float64): the plan's
+    engine (``tune.apply.engine``: the ``ops`` wrappers with
+    ``use_kernels``, else the plain versions) or, with no plan,
+    :func:`repro_torch.kernels.ops.bases` — the kernels on CUDA tensors and
+    the plain versions on CPU ones. float64 takes the plain versions
+    either way."""
+    from repro_torch.tune.apply import engine
+
     acc = torch.promote_types(dtype, torch.float32)
-    eng = ops.bases(acc)
+    eng = engine(plan, acc)
     return (functools.partial(eng.potrf, out_dtype=acc),
             functools.partial(eng.trsm, transpose=True, out_dtype=acc))
 
@@ -151,6 +157,7 @@ def cholesky(
     a: Union[SymmetricMatrix, torch.Tensor],
     *,
     ridge: float = 0.0,
+    plan=None,
     packed_block: Optional[int] = None,
     base_potrf: Optional[Callable] = None,
     base_trsm: Optional[Callable] = None,
@@ -158,12 +165,16 @@ def cholesky(
     """Packed blocked Cholesky ``A = L·Lᵀ`` on the block grid.
 
     ``a``: SPD :class:`SymmetricMatrix` (any leading batch dims), or a dense
-    ``(..., n, n)`` square packed first with ``packed_block`` (default 128)
-    — the walk is the same, so both factor bitwise-identically. ``ridge``
-    adds ``ridge·I`` on the logical diagonal first. ``base_potrf`` and
+    ``(..., n, n)`` square packed first with ``packed_block`` (else the
+    plan's, else 128) — the walk is the same, so both factor
+    bitwise-identically. ``ridge`` adds ``ridge·I`` on the logical diagonal
+    first. ``plan`` (a ``repro_torch.tune.Plan``) supplies that block size
+    and the base engines (:func:`base_solver_fns`). ``base_potrf`` and
     ``base_trsm`` (``X·Lᵀ = P``) must take one leading batch dim.
     """
     if not isinstance(a, SymmetricMatrix):
+        if packed_block is None and plan is not None:
+            packed_block = plan.packed_block
         if packed_block is None:
             from repro_torch.tune.defaults import DEFAULT_PACKED_BLOCK
 
@@ -172,7 +183,7 @@ def cholesky(
     if ridge:
         a = a.add_scaled_identity(ridge)
     if base_potrf is None and base_trsm is None:
-        base_potrf, base_trsm = base_solver_fns(a.dtype)
+        base_potrf, base_trsm = base_solver_fns(plan, a.dtype)
     elif base_potrf is None or base_trsm is None:
         raise ValueError("pass both base_potrf and base_trsm, or neither")
 

@@ -5,10 +5,11 @@
     backward (Lᵀ·x = y):    x_i = L[i,i]⁻ᵀ·(y_i − Σ_{j>i} L[j,i]ᵀ·x_j)
 
 The Σ terms are one float32 block einsum per step; the diagonal solves go
-to ``ops.trsm`` on the transposed right-hand-side tile (the CUDA kernel on
-a CUDA tensor, its plain version on a CPU one; a float64 factor or
-right-hand side, which no kernel takes, goes to the plain version on every
-device). ``solve_cholesky`` composes the two into ``A·x = b`` for
+to the plan's trsm engine on the transposed right-hand-side tile: with
+``plan.use_kernels`` or no plan ``ops.trsm`` (the CUDA kernel on a CUDA
+tensor, its plain version on a CPU one), without kernels the plain
+version. A float64 factor or right-hand side, which no kernel takes, goes
+to the plain version on every device. ``solve_cholesky`` composes the two into ``A·x = b`` for
 ``A = L·Lᵀ``.
 """
 
@@ -20,21 +21,23 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
 from repro_torch.solve.cholesky import CholeskyFactor, _acc, _flat_call
 
 __all__ = ["solve_triangular", "solve_cholesky"]
 
 
-def _left_solve_kernel(l, c, *, transpose: bool):
-    """Left solve on ``(..., bn, r)`` tiles through the right-sided trsm:
+def _left_solve(l, c, *, transpose: bool, plan=None):
+    """Left solve on ``(..., bn, r)`` tiles through the right-sided trsm of
+    the plan's engine (``ops.bases`` with no plan):
 
         L·y = c   ⇔  yᵀ·Lᵀ = cᵀ    (trsm transpose=True)
         Lᵀ·y = c  ⇔  yᵀ·L  = cᵀ    (trsm transpose=False)
     """
+    from repro_torch.tune.apply import engine
+
     ct = c.transpose(-1, -2).contiguous()
     acc = torch.promote_types(torch.promote_types(l.dtype, c.dtype), torch.float32)
-    trsm = functools.partial(ops.bases(acc).trsm, out_dtype=acc)
+    trsm = functools.partial(engine(plan, acc).trsm, out_dtype=acc)
     yt = _flat_call(lambda lf, cf: trsm(lf, cf, transpose=not transpose), l, ct)
     return yt.transpose(-1, -2)
 
@@ -44,12 +47,14 @@ def solve_triangular(
     b: torch.Tensor,
     *,
     transpose: bool = False,
+    plan=None,
     base_trsm: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Solve ``L·y = b`` (``transpose=False``) or ``Lᵀ·x = b`` against the
     packed factor, blockwise. ``b``: ``(..., n)`` or ``(..., n, r)``;
-    returns the same shape. ``base_trsm(l, c, transpose=...)`` solves the
-    left diagonal-tile system on ``(..., bn, r)`` tiles."""
+    returns the same shape. ``plan`` chooses the diagonal solves' engine;
+    ``base_trsm(l, c, transpose=...)``, if given, solves the left
+    diagonal-tile system on ``(..., bn, r)`` tiles instead."""
     nb, bn, n = f.nb, f.bn, f.n
     vector = b.ndim == f.blocks.ndim - 2
     if vector:
@@ -62,7 +67,7 @@ def solve_triangular(
     batch = tuple(b.shape[:-2])
     r = b.shape[-1]
     bs = b.reshape(*batch, nb, bn, r)
-    solve_diag = base_trsm or _left_solve_kernel
+    solve_diag = base_trsm or functools.partial(_left_solve, plan=plan)
 
     xs: dict = {}
     order = range(nb) if not transpose else range(nb - 1, -1, -1)
@@ -90,8 +95,9 @@ def solve_cholesky(
     f: CholeskyFactor,
     b: torch.Tensor,
     *,
+    plan=None,
     base_trsm: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Full SPD solve ``A·x = b`` given the packed factor ``A = L·Lᵀ``."""
-    y = solve_triangular(f, b, transpose=False, base_trsm=base_trsm)
-    return solve_triangular(f, y, transpose=True, base_trsm=base_trsm)
+    y = solve_triangular(f, b, transpose=False, plan=plan, base_trsm=base_trsm)
+    return solve_triangular(f, y, transpose=True, plan=plan, base_trsm=base_trsm)

@@ -1,0 +1,67 @@
+"""Thread a frozen Plan into the port's executables (port of
+``repro.tune.apply``).
+
+The consumers (``core.ata``, ``core.strassen``, ``solve``, ``kernels.ops``)
+accept ``plan=`` and read their tunables from it; this module holds what
+looks *down* the stack — the base engines a plan selects — and the
+callable the autotuner times. ``ata_distributed_with_plan`` comes with the
+distributed schedules (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.tune import cost
+
+__all__ = [
+    "engine",
+    "build_callable",
+    "ata_with_plan",
+    "gemm_tn_with_plan",
+    "lstsq_with_plan",
+]
+
+
+def engine(plan: Optional[cost.Plan], *dtypes):
+    """The ``kernels.ops.Bases`` for operands and accumulation of
+    ``dtypes`` under a plan: a plan without ``use_kernels`` takes the plain
+    versions; one with it, or no plan (a pinned call), takes
+    ``ops.bases`` — the ``ops`` wrappers (the CUDA kernel on a CUDA
+    tensor), or the plain versions for float64, which no kernel takes."""
+    from repro_torch.kernels import ops
+
+    if plan is not None and not plan.use_kernels:
+        return ops.PLAIN
+    return ops.bases(*dtypes)
+
+
+def ata_with_plan(a, plan: cost.Plan, **kw):
+    """``ata``/``ata_batched`` dispatched exactly as the plan says."""
+    from repro_torch.core.ata import ata, ata_batched
+
+    fn = ata_batched if plan.batch else ata
+    return fn(a, plan=plan, out=plan.out, **kw)
+
+
+def gemm_tn_with_plan(a, b, plan: cost.Plan, **kw):
+    from repro_torch.core.strassen import strassen_tn
+
+    return strassen_tn(a, b, plan=plan, **kw)
+
+
+def lstsq_with_plan(a, b, plan: cost.Plan, **kw):
+    """``solve.lstsq`` dispatched exactly as the plan says (method, gram
+    tunables, base engines)."""
+    from repro_torch.solve.lstsq import lstsq
+
+    return lstsq(a, b, plan=plan, **kw)
+
+
+def build_callable(plan: cost.Plan):
+    """A plain closure executing the plan: what the autotuner times."""
+    if plan.op == "gemm_tn":
+        return lambda a, b: gemm_tn_with_plan(a, b, plan)
+    if plan.op == "solve":
+        return lambda a, b: lstsq_with_plan(a, b, plan)
+    return lambda a: ata_with_plan(a, plan)

@@ -135,13 +135,20 @@ def test_cg_lstsq_iters_and_tol_overrides():
 
 def test_cg_lstsq_runs_one_tn_product_per_iteration():
     """Each iteration applies Aᵀ(·) through strassen_tn, which at r ≤
-    n_base is one gemm_tn call; Aᵀb is one more: iters + 1 in all."""
+    n_base is one leaf product; Aᵀb is one more: iters + 1 in all. The
+    unpinned call is planned (on the CPU the plan's bases are the plain
+    versions, which no ``kernels.launch`` counter sees); the pinned one
+    calls the ``ops.gemm_tn`` wrapper once a product."""
     a, _, _, _ = _design(300, 40, 9)
     b = torch.as_tensor(np.random.default_rng(10).standard_normal((300, 8)).astype(np.float32))
     metrics.reset()
     cg_lstsq(torch.as_tensor(a.astype(np.float32)), b, iters=7)
-    assert metrics.get("kernels.launch.gemm_tn") == 8
+    assert sum(metrics.counters("dispatch.gemm_tn.").values()) == 8
+    assert metrics.get("gemm_tn.leaves") == 8
     assert metrics.get("solve.cg.calls") == 1
+    metrics.reset()
+    cg_lstsq(torch.as_tensor(a.astype(np.float32)), b, iters=7, n_base=512)
+    assert metrics.get("kernels.launch.gemm_tn") == 8
 
 
 @pytest.mark.parametrize("ridge", [0.0, 1e-2])

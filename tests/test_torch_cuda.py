@@ -266,14 +266,14 @@ def test_lstsq_runs_every_kernel(dev):
     rng = np.random.default_rng(2)
     a, b = _t(rng, (2100, 1100), dev), _t(rng, (2100, 4), dev)
     ops.reset_launches()
-    x = lstsq(a, b, ridge=1e-3)
+    x = lstsq(a, b, ridge=1e-3, method="factor")
     torch.cuda.synchronize()
     assert min(ops.launches[k] for k in ("syrk", "gemm_tn", "potrf", "trsm")) > 0, ops.launches
     ad = a.double()
     x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1100, device=dev, dtype=torch.float64),
                              ad.T @ b.double())
     assert float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)) <= 1e-3
-    g = ata(a, out="packed").add_scaled_identity(1.0)
+    g = ata(a, out="packed", n_base=512).add_scaled_identity(1.0)
     assert torch.equal(cholesky(g).blocks, cholesky(g.to_dense(), packed_block=128).blocks)
 
 
@@ -401,7 +401,7 @@ def test_cholesky_packed_and_dense_bitwise_on_card(dev, n):
     through the panel-blocked potrf (a ragged last block at n = 200)."""
     rng = np.random.default_rng(n)
     a = _t(rng, (3 * n, n), dev)
-    g = ata(a, out="packed").add_scaled_identity(1.0)
+    g = ata(a, out="packed", n_base=512).add_scaled_identity(1.0)
     ops.reset_launches()
     packed = cholesky(g)
     assert ops.launches["potrf"] > 0
@@ -706,3 +706,105 @@ def test_spans_on_cuda_tensors(dev):
     assert torch.equal(on, off)
     assert cuda_spans == cpu_spans
     assert cuda_spans["kernels.gemm_tn_fused"] == 3 and cuda_spans["kernels.syrk_gather"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the planner on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def plan_cache(tmp_path, monkeypatch):
+    """A cache file of the test's own and a fresh memo."""
+    from repro_torch import tune
+
+    path = tmp_path / "plans.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(path))
+    tune.cache.clear_memo()
+    yield path
+    tune.cache.clear_memo()
+
+
+def test_planned_calls_launch_the_kernels(dev, plan_cache):
+    """Unpinned ata, strassen_tn and lstsq on CUDA tensors are planned for
+    the cuda machine (kernels on) and launch kernels; the planned result
+    agrees with the pinned one."""
+    from repro_torch import tune
+
+    rng = np.random.default_rng(30)
+    a, b = _t(rng, (2100, 1100), dev), _t(rng, (2100, 4), dev)
+    p = tune.plan(op="ata", m=2100, n=1100, out="packed", backend="cuda")
+    assert p.backend == "cuda" and p.use_kernels
+    ops.reset_launches()
+    got = ata(a, out="packed")
+    torch.cuda.synchronize()
+    assert sum(ops.launches.values()) > 0, ops.launches
+    # packed storage leaves the upper corners of diagonal tiles unspecified
+    _close(got.to_dense(), ata(a, out="packed", n_base=512).to_dense(), 2100)
+    ops.reset_launches()
+    got = strassen_tn(a, a[:, :700])
+    torch.cuda.synchronize()
+    assert ops.launches["gemm_tn"] + ops.launches["gemm_tn_fused"] > 0, ops.launches
+    _close(got, strassen_tn(a, a[:, :700], n_base=512), 2100)
+    ops.reset_launches()
+    x = lstsq(a, b, ridge=1e-3)
+    torch.cuda.synchronize()
+    assert sum(ops.launches.values()) > 0, ops.launches
+    ad = a.double()
+    x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1100, device=dev, dtype=torch.float64),
+                             ad.T @ b.double())
+    assert float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)) <= 1e-3
+
+
+def test_cuda_plan_key_names_the_card(dev, plan_cache):
+    from repro_torch.tune.cache import plan_key
+
+    key = plan_key("ata", 64, 64, 64, 0, "float32", "dense", "cuda")
+    assert key.endswith(f"|dev={torch.cuda.get_device_name()}|torch={torch.__version__}")
+
+
+def test_autotune_persists_on_the_card(dev, plan_cache):
+    """A measured plan for ata 1024² on the card, written to the cache file
+    and served from it by a fresh memo."""
+    import json
+
+    from repro_torch import tune
+
+    p = tune.plan(op="ata", m=1024, n=1024, out="packed", backend="cuda", autotune=True)
+    assert p.source == "measured" and p.measured_s > 0 and p.baseline_s > 0
+    assert json.loads(plan_cache.read_text())["plans"]
+    tune.cache.clear_memo()
+    again = tune.plan(op="ata", m=1024, n=1024, out="packed", backend="cuda")
+    assert again.source == "cache"
+    assert (again.algorithm, again.n_base, again.leaf_dispatch) == (
+        p.algorithm, p.n_base, p.leaf_dispatch)
+
+
+@pytest.mark.parametrize("op,dims,n_base", [("ata", (4096, 2048, 2048), 256),
+                                            ("ata", (3000, 2900, 2900), 512),
+                                            ("gemm_tn", (2048, 1024, 1536), 256)])
+@pytest.mark.parametrize("ld", ["unrolled", "batched", "fused"])
+def test_peak_bytes_bounds_the_card(dev, op, dims, n_base, ld):
+    """The planner's memory model (``cost.peak_bytes``, which the cuda
+    machine's budget reads) holds no less than a call allocates: the
+    measured peak above what was held before, plus the operands, which
+    the model counts too."""
+    from repro_torch.tune import cost
+
+    m, n, k = dims
+    rng = np.random.default_rng(31)
+    a = _t(rng, (m, n), dev)
+    b = _t(rng, (m, k), dev) if op == "gemm_tn" else None
+    operands = a.nbytes + (b.nbytes if b is not None else 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if op == "ata":
+        out = ata(a, n_base=n_base, leaf_dispatch=ld)
+    else:
+        out = strassen_tn(a, b, n_base=n_base, leaf_dispatch=ld)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base + operands
+    del out
+    assert measured <= cost.peak_bytes(op, "strassen", m, n, k, n_base, ld)

@@ -46,7 +46,10 @@ def test_port_files_exist():
                 "repro_torch/solve/triangular.py", "repro_torch/solve/lstsq.py",
                 "repro_torch/solve/cg.py", "repro_torch/obs/__init__.py",
                 "repro_torch/obs/trace.py", "repro_torch/obs/metrics.py",
-                "repro_torch/obs/calibrate.py"):
+                "repro_torch/obs/calibrate.py", "repro_torch/obs/__main__.py",
+                "repro_torch/analysis/roofline.py", "repro_torch/tune/cost.py",
+                "repro_torch/tune/cache.py", "repro_torch/tune/search.py",
+                "repro_torch/tune/apply.py"):
         assert mod in names, mod
     for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -115,3 +118,35 @@ def test_chip_smoke_refuses_without_cuda():
                          text=True, cwd=ROOT, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# front doors and kernel wrappers: (module path under src/<package>/, function)
+FRONT_DOORS = [("core/ata.py", "ata"), ("core/ata.py", "ata_batched"),
+               ("core/strassen.py", "strassen_tn"), ("solve/cholesky.py", "cholesky"),
+               ("solve/triangular.py", "solve_triangular"),
+               ("solve/triangular.py", "solve_cholesky"), ("solve/cg.py", "cg_lstsq"),
+               ("solve/lstsq.py", "lstsq")] + [
+    ("kernels/ops.py", f) for f in ("syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf",
+                                    "trsm")]
+
+
+def _params(package: str, module: str, name: str) -> set:
+    path = ROOT / "src" / package / module
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            a = node.args
+            return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+    raise AssertionError(f"{package}/{module} defines no {name}")
+
+
+@pytest.mark.parametrize("module,name", FRONT_DOORS, ids=lambda x: str(x))
+def test_plan_keywords_where_the_reference_has_them(module, name):
+    """An AST diff of the two packages: every ``plan=``/``gemm_plan=`` of a
+    reference front door or kernel wrapper exists on the port's."""
+    want = _params("repro", module, name) & {"plan", "gemm_plan"}
+    assert want <= _params("repro_torch", module, name), (module, name)
+
+
+def test_plan_keyword_diff_sees_the_reference():
+    assert _params("repro", "solve/cg.py", "cg_lstsq") >= {"plan", "gemm_plan"}
+    assert "plan" not in _params("repro", "kernels/ops.py", "potrf")

@@ -208,8 +208,8 @@ def test_outputs_bitwise_equal_with_obs_on_and_off():
 
 
 def test_no_calibration_rows_without_a_plan(obs_on):
-    """No call of the port carries a plan (the planner is not ported), so
-    no dispatch opens a measurement and no row is recorded."""
+    """Pinned calls (``n_base`` or ``method`` given) carry no plan, so no
+    dispatch opens a measurement and no row is recorded."""
     _calls()
     assert tobs.calibrate.rows() == []
     assert tobs.dispatch_start(None, torch.zeros(2)) is None
@@ -313,7 +313,7 @@ def _plan(predicted_s):
 
 
 def test_dispatch_measurement_with_a_plan(obs_on, monkeypatch):
-    """What the planner will feed: a plan with a prediction opens a
+    """What the planner feeds: a plan with a prediction opens a
     measurement and records one row; without a prediction, or while
     torch.compile traces the call, nothing is measured; a closed
     measurement never synchronises."""
