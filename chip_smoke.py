@@ -62,10 +62,32 @@ phase fails):
              a temporary cache file, read back in a fresh memo;
              ``python -m repro_torch.obs`` on the card; and ata 32768²,
              where the memory budget leaves no batched or fused tree,
-             planned and run within 1e-4 of the float64 product.
+             planned and run within 1e-4 of the float64 product;
+10. optim  — the optimizers (``repro_torch.optim``) on qwen1.5-0.5b's full
+             parameter tree (``param_shapes``: 24 layers, d_model 1024,
+             619.57 M float32 parameters; seeded parameters and gradients):
+             each gram block shape's plan and peak memory beside
+             ``tune.cost.peak_bytes``; wq's L (384, 64, 1024) and wg's
+             (72, 1024, 1024) gram stacks against ``torch.einsum`` and, on
+             sampled blocks, within ``scaled_tol`` of float64; Shampoo p = 2
+             packed for 3 steps (``update_every=2``, ``block=1024``, gram
+             cutoff pinned): step ms, the grams' ms alone, launches, peak
+             memory, resident stats and preconditioners, the refresh
+             step's host syncs, the third step under
+             ``set_sync_debug_mode("error")``, syrk, gemm_tn, potrf and
+             trsm each launched by the refresh step, the refreshed
+             factors' residual ≤ 1e-4, every factor finite, and one
+             planned refresh step; p = 2 dense within 2e-3 of packed, every
+             update finite; p = 4 packed bitwise equal to dense in its
+             updates, stats and preconditioners, the stats finite and the
+             updates of at least 6 leaves finite; PowerSGD rank 4 on wg and wd (two rounds), its
+             rank-sufficient reconstruction within 1e-3, and its narrow
+             ``strassen_tn(G, P)`` beside ``torch.matmul``; one AdamW step
+             over the whole tree.
 
-Phases 3–8 pin ``n_base`` (or ``method``) to the static defaults: unpinned
-calls are planned, and those phases measure the dispatches they name.
+Phases 3–8 and Shampoo's checked runs in phase 10 pin ``n_base`` (or
+``method``) to the static defaults: unpinned calls are planned, and those
+phases measure the dispatches they name.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -194,6 +216,36 @@ def spd_tiles(rng, batch: int, n: int):
                         device="cuda", dtype=torch.float64)
     s = x.transpose(1, 2) @ x / (2 * n) + torch.eye(n, device="cuda", dtype=torch.float64)
     return s.float().contiguous()
+
+
+def param_shapes(cfg) -> dict:
+    """Shapes of the reference's ``models.transformer.init`` tree for a
+    dense ``ModelConfig`` (no mesh), as nested dicts with sorted keys:
+    ``embed``, ``final_norm``, ``layers`` (stacked on a leading
+    ``num_layers`` dim under ``scan_layers``, else a list of per-layer
+    dicts) and, unless the embeddings are tied, ``lm_head``."""
+    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+        raise ValueError(f"param_shapes covers dense configs, got family {cfg.family!r}")
+    d, h, kv, hd, ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d),
+            "norm": (d,)}
+    if cfg.qkv_bias:
+        attn.update(bq=(h, hd), bk=(kv, hd), bv=(kv, hd))
+    layer = {"attn": attn}
+    if ff:
+        layer["mlp"] = {"wg": (d, ff), "wu": (d, ff), "wd": (ff, d), "norm": (d,)}
+
+    def lead(tree, dims):
+        if isinstance(tree, dict):
+            return {k: lead(v, dims) for k, v in sorted(tree.items())}
+        return (*dims, *tree)
+
+    out = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
+           "layers": lead(layer, (cfg.num_layers,)) if cfg.scan_layers
+           else [lead(layer, ()) for _ in range(cfg.num_layers)]}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, max(cfg.num_codebooks, 1) * cfg.vocab_size)
+    return dict(sorted(out.items()))
 
 
 class Checks:
@@ -1321,6 +1373,491 @@ def phase_tune(ops):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase optim: the optimizers on qwen1.5-0.5b's parameter tree
+# ---------------------------------------------------------------------------
+
+# Shampoo's settings on the card: 1024-blocks (the reference's default), a
+# refresh every 2 steps, 3 steps (one refresh), the gram recursion pinned at
+# the static cutoff as in phases 3-8 (1024² grams: one Strassen level, 4 syrk
+# + 2 gemm_tn leaves each), packed stats on 128-blocks.
+OPTIM_BLOCK = 1024
+OPTIM_UPDATE_EVERY = 2
+OPTIM_STEPS = 3
+OPTIM_GRAM_BLOCK = 128
+# The p = 2 refresh's relative ridge. The reference's default, 1e-6, lies
+# below float32's rounding of the Cholesky's Schur complement on
+# rank-deficient stats (wq/wk/wv's L side: 1024² from 64-column blocks),
+# and the walk breaks down there; the phase counts that breakdown and runs
+# with 1e-4.
+OPTIM_RIDGE = 1e-4
+# p = 4 runs at this many of the model's 24 layers (full width)
+P4_LAYERS = 24
+# p = 4 leaves whose updates must stay finite: the refresh's coupled Newton
+# (ridge 1e-6, the reference's) gives NaN on the other 6 of the 12 Shampoo
+# leaves, whose stats are rank-deficient (wq/wk/wv and bq L sides, the
+# norms' R sides), in the reference as in the port
+P4_MIN_FINITE = 6
+
+
+def phase_optim(checks, ops, plain):
+    """Shampoo (p = 2 packed, p = 2 dense, p = 4 packed and dense), PowerSGD
+    and AdamW on qwen1.5-0.5b's full parameter tree (``param_shapes``),
+    seeded parameters and one seeded gradient tree on the card; see the
+    module docstring for what is held and printed."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.core import ata_batched, strassen_tn
+    from repro_torch.core.reference import classical_gemm_flops, classical_syrk_flops
+    from repro_torch.core.strassen import tree_depth
+    from repro_torch.core.symmetric import SymmetricMatrix
+    from repro_torch.optim import _tree, adamw, constant, powersgd, shampoo
+    from repro_torch.optim.shampoo import _plan, _to_blocks, _use_shampoo
+    from repro_torch.solve.cholesky import CholeskyFactor, cholesky
+    from repro_torch.tune import cost
+
+    import time
+
+    t_phase = time.perf_counter()
+    res = {}
+    is_shape = lambda x: type(x) is tuple and all(isinstance(i, int) for i in x)  # noqa: E731
+
+    def make_tree(cfg, seed, scale):
+        flat, treedef = _tree.tree_flatten_with_path(param_shapes(cfg), is_leaf=is_shape)
+        rng = np.random.default_rng(seed)
+        return treedef.unflatten(cuda_tensor(rng, s).mul_(scale) for _, s in flat), flat
+
+    log(f"phase optim: {CONFIG.name} parameter tree, float32 ({CONFIG.num_layers} layers, "
+        f"d_model {CONFIG.d_model}, {CONFIG.num_heads}x{CONFIG.head_dim} heads, d_ff "
+        f"{CONFIG.d_ff}, vocab {CONFIG.vocab_size})")
+    params, flat = make_tree(CONFIG, SEED + 4, CONFIG.d_model ** -0.5)
+    grads, _ = make_tree(CONFIG, SEED + 5, 1e-3)
+    n_params = sum(math.prod(s) for _, s in flat)
+    log(f"  {len(flat)} leaves, {n_params} parameters ({4 * n_params} B each of params, "
+        f"grads, m, v); one gradient tree for every step")
+    res["n_params"] = n_params
+    sham = [(p, s) for p, s in flat if _use_shampoo(p, s)]
+    log(f"  Shampoo takes {len(sham)} leaves, Adam "
+        f"{[p for p, s in flat if not _use_shampoo(p, s)]}")
+    if len(sham) != 12:
+        raise AssertionError(f"optim: Shampoo takes {len(sham)} leaves, expected 12")
+
+    # (a) the grams: each block shape's analytic plan (cuda machine) and the
+    # planned call's peak memory beside the model's; the two largest stacks
+    # against torch.einsum, and a sample of blocks against float64
+    gram_shapes = {}
+    for path, shp in sham:
+        pt = _plan(shp, OPTIM_BLOCK)
+        nb = pt.n1 * pt.n2
+        gram_shapes.setdefault((nb, pt.b2, pt.b1), f"{path} L")
+        gram_shapes.setdefault((nb, pt.b1, pt.b2), f"{path} R")
+    res["grams"] = {}
+    for (nb, m, n), where in gram_shapes.items():
+        p = tune.plan(op="ata", m=m, n=n, batch=nb, out="packed", backend="cuda")
+        model = cost.peak_bytes("ata", p.algorithm, m, n, n, p.n_base, p.leaf_dispatch,
+                                batch=nb)
+        a = cuda_tensor(np.random.default_rng(SEED + 6), (nb, m, n))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ata_batched(a, out="packed", packed_block=OPTIM_GRAM_BLOCK)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base + a.nbytes
+        row = dict(first=where, plan=f"{p.algorithm}/{p.n_base}/{p.leaf_dispatch}",
+                   depth=tree_depth((m, n), p.n_base), predicted_ms=p.predicted_s * 1e3,
+                   peak_bytes=measured, model_bytes=model)
+        res["grams"][f"{nb}x{m}x{n}"] = row
+        log(f"  (a) gram ({nb}, {m}, {n}) [{where}]: plan {row['plan']} depth {row['depth']} "
+            f"predicted {row['predicted_ms']:.3f} ms; peak {measured} B, model {model} B "
+            f"(measured/model {measured / model:.3f})")
+        del a
+    for label, (nb, m, n) in (("wq L", (384, 64, 1024)), ("wg", (72, 1024, 1024))):
+        a = cuda_tensor(np.random.default_rng(SEED + 7), (nb, m, n))
+        gram = lambda: ata_batched(a, out="packed", packed_block=OPTIM_GRAM_BLOCK,  # noqa: E731
+                                   n_base=DEFAULT_N_BASE)
+        got = gram()
+        pick = [0, nb // 2, nb - 1]
+        ref = torch.einsum("bmi,bmj->bij", a[pick].double(), a[pick].double())
+        dense = got.to_dense()[pick].double()
+        err = float((dense - ref).abs().max())
+        tol = scaled_tol(m, ref)
+        if not err <= tol:
+            raise AssertionError(f"optim gram {label}: {err} > {tol} against float64")
+        ops.reset_launches()
+        gram()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launches.items() if v}
+        planned_ms = time_ms(lambda: ata_batched(a, out="packed", packed_block=OPTIM_GRAM_BLOCK))
+        ms = time_ms(gram)
+        ein_ms = time_ms(lambda: torch.einsum("bmi,bmj->bij", a, a))
+        packed_out = got.nbytes
+        bms, by = bound(nb * classical_syrk_flops(m, n), a.nbytes + packed_out)
+        res["grams"][label] = dict(shape=[nb, m, n], pinned_ms=ms, planned_ms=planned_ms,
+                                   einsum_ms=ein_ms, bound_ms=bms, bound_by=by,
+                                   max_abs_err=err, tol=tol, launches=launched)
+        log(f"  (a) gram {label} ({nb}, {m}, {n}) packed: pinned n_base={DEFAULT_N_BASE} "
+            f"ms={ms:.3f} {launched}, planned ms={planned_ms:.3f}, torch.einsum('bmi,bmj->bij') "
+            f"ms={ein_ms:.3f}, bound_ms={bms:.3f} ({by}); blocks {pick} vs float64 "
+            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        del a, got
+    torch.cuda.empty_cache()
+
+    def make_opt(p, packed, **kw):
+        return shampoo(constant(1e-2), block=OPTIM_BLOCK, update_every=OPTIM_UPDATE_EVERY,
+                       precond_p=p, packed_grams=packed, gram_block=OPTIM_GRAM_BLOCK,
+                       precond_ridge=OPTIM_RIDGE, **kw)
+
+    def step_syncs(opt, state, prm, grd):
+        """One update with sync debug 'warn': the syncs it makes."""
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = opt.update(grd, state, prm)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, sum("synchroniz" in str(w.message) for w in seen)
+
+    def run(p, packed, prm, grd, probe=None):
+        """``OPTIM_STEPS`` Shampoo steps from init, the gram cutoff pinned;
+        per step: ms (CUDA events), launches, the update tree. With a
+        ``probe`` dict: each refresh step counts its host syncs, the last
+        step (no refresh) runs under sync debug 'error', and the state
+        after the first refresh is kept."""
+        opt = make_opt(p, packed, n_base=DEFAULT_N_BASE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = opt.init(prm)
+        out = []
+        for i in range(1, OPTIM_STEPS + 1):
+            refresh = i % OPTIM_UPDATE_EVERY == 0
+            ops.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if probe is not None and refresh:
+                (u, state), probe["refresh_syncs"] = step_syncs(opt, state, prm, grd)
+            elif probe is not None and i == OPTIM_STEPS:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    u, state = opt.update(grd, state, prm)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                u, state = opt.update(grd, state, prm)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(dict(ms=start.elapsed_time(end), launches=dict(ops.launches), u=u,
+                            refresh=refresh))
+            if probe is not None and i == OPTIM_UPDATE_EVERY:
+                probe["refreshed"] = state
+        return out, state, torch.cuda.max_memory_allocated()
+
+    def slots(state):
+        """The Shampoo leaves' state dicts (``l``, ``r``, ``pl``, ``pr``,
+        ``mom``) in leaf order."""
+        slot = lambda x: isinstance(x, dict) and "pl" in x  # noqa: E731
+        return [s for s in _tree.tree_leaves(state["shampoo"], is_leaf=slot) if slot(s)]
+
+    def stack(x):
+        return x.blocks if isinstance(x, (SymmetricMatrix, CholeskyFactor)) else x
+
+    def nonfinite(x):
+        """The batch entries of a stat or factor stack that hold a value that
+        is not finite."""
+        b = stack(x)
+        return int((~torch.isfinite(b.reshape(b.shape[0], -1))).any(-1).sum())
+
+    def resident(state):
+        sizes = dict(stats=0, precond=0)
+        for s in slots(state):
+            for key, kind in (("l", "stats"), ("r", "stats"), ("pl", "precond"),
+                              ("pr", "precond")):
+                x = stack(s[key])
+                sizes[kind] += x.numel() * x.element_size()
+        return sizes
+
+    def report(name, steps, peak, sizes):
+        res[name] = dict(step_ms=[s["ms"] for s in steps], peak_bytes=peak,
+                         launches=[{k: v for k, v in s["launches"].items() if v} for s in steps],
+                         resident=sizes)
+        for i, s in enumerate(steps, 1):
+            log(f"  {name} step {i}{' (refresh)' if s['refresh'] else ''}: ms={s['ms']:.2f} "
+                f"launches {res[name]['launches'][i - 1]}")
+        log(f"  {name}: peak device memory {peak} B; resident stats {sizes['stats']} B, "
+            f"preconditioners {sizes['precond']} B")
+
+    # (b) p = 2, packed: the paper's path. Step 2 refreshes (syncs counted),
+    # step 3 runs under sync debug 'error'; the refreshed factors are held
+    # against their stats.
+    probe = {}
+    p2, p2_state, p2_peak = run(2, True, params, grads, probe)
+    report("shampoo_p2_packed", p2, p2_peak, resident(p2_state))
+    log(f"  shampoo_p2_packed: step {OPTIM_STEPS} ran under set_sync_debug_mode('error'); "
+        f"the refresh step made {probe['refresh_syncs']} host syncs (sync debug 'warn')")
+    res["shampoo_p2_packed"]["refresh_syncs"] = probe["refresh_syncs"]
+    refresh_launches = p2[1]["launches"]
+    for k in ("syrk", "gemm_tn", "potrf", "trsm"):
+        if not refresh_launches[k]:
+            raise AssertionError(f"optim: the Shampoo refresh step launched no {k}")
+    sh2 = probe.pop("refreshed")["shampoo"]
+    # the refreshed factors: ‖F·Fᵀ − (stat + ridge·I)‖ / ‖stat‖ on sampled blocks
+    worst = 0.0
+    for key in ("wq", "wo", "wg", "bq", "norm"):
+        for part in ("attn", "mlp"):
+            s = sh2["layers"][part].get(key)
+            if not isinstance(s, dict):
+                continue
+            for stat, fac in ((s["l"], s["pl"]), (s["r"], s["pr"])):
+                if not isinstance(fac, CholeskyFactor):
+                    raise AssertionError("optim: p = 2 packed preconditioner is not a CholeskyFactor")
+                pick = sorted({0, stat.blocks.shape[0] - 1})
+                d = stat.to_dense()[pick].double()
+                tr = torch.diagonal(d, dim1=-2, dim2=-1).sum(-1)
+                ridge = OPTIM_RIDGE * (tr / stat.n + 1e-30) + 1e-30
+                f = fac.to_dense()[pick].double()
+                eye = torch.eye(stat.n, device="cuda", dtype=torch.float64)
+                r = float(torch.linalg.norm(f @ f.mT - d - ridge[:, None, None] * eye)
+                          / torch.linalg.norm(d))
+                if not r <= 1e-4:   # also fails on NaN
+                    raise AssertionError(f"optim: factor residual of {part}/{key} is {r} (limit 1e-4)")
+                worst = max(worst, r)
+    log(f"  shampoo_p2_packed: factor residual ‖F·Fᵀ − (stat + ridge·I)‖/‖stat‖ "
+        f"max {worst:.3e} over sampled blocks (limit 1e-4, each block finite)")
+    res["shampoo_p2_packed"]["factor_residual"] = worst
+    # every factor of the refresh, and at the reference's default ridge on
+    # the same refreshed stats (a finding) wq's L factors
+    bad_ridge = sum(nonfinite(s[k]) for s in slots({"shampoo": sh2}) for k in ("pl", "pr"))
+    n_fac = sum(stack(s[k]).shape[0] for s in slots({"shampoo": sh2}) for k in ("pl", "pr"))
+    wq_l = sh2["layers"]["attn"]["wq"]["l"]
+    tr = wq_l.trace()
+    f6 = cholesky(wq_l.add_scaled_identity((1e-6 * (tr / wq_l.n + 1e-30) + 1e-30)[:, None, None, None]))
+    bad = nonfinite(f6)
+    log(f"  shampoo_p2_packed: at precond_ridge={OPTIM_RIDGE}, {bad_ridge} of {n_fac} factors "
+        f"(all 12 leaves, L and R) are not finite; at the reference's default 1e-6, {bad} of "
+        f"{f6.blocks.shape[0]} factors of wq's L stats")
+    if bad_ridge:
+        raise AssertionError(f"optim: {bad_ridge} p = 2 factors not finite at ridge {OPTIM_RIDGE}")
+    res["shampoo_p2_packed"]["nonfinite_factors"] = [bad_ridge, n_fac]
+    res["shampoo_p2_packed"]["nonfinite_factors_at_1e-6"] = [bad, f6.blocks.shape[0]]
+    del sh2, wq_l, f6
+    # one more step, planned (no pinned cutoff) on the same state: a refresh
+    opt_planned = make_opt(2, True)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    (_, planned_state), planned_syncs = step_syncs(opt_planned, p2_state, params, grads)
+    end.record()
+    torch.cuda.synchronize()
+    res["shampoo_p2_packed"]["planned_refresh_step"] = dict(
+        ms=start.elapsed_time(end), syncs=planned_syncs,
+        launches={k: v for k, v in ops.launches.items() if v})
+    log(f"  shampoo_p2_packed step {OPTIM_STEPS + 1} (refresh), planned grams: "
+        f"ms={start.elapsed_time(end):.2f} launches "
+        f"{res['shampoo_p2_packed']['planned_refresh_step']['launches']} host syncs "
+        f"{planned_syncs} (tables already on the card)")
+    del planned_state, p2_state
+    p2_updates = [s.pop("u") for s in p2]
+    torch.cuda.empty_cache()
+    # the grams of one step alone: both sides of all 12 leaves, as the step
+    # makes them (pinned cutoff, packed)
+    blocks = [_to_blocks(g, _plan(tuple(g.shape), OPTIM_BLOCK))
+              for path, g in _tree.tree_flatten_with_path(grads)[0] if _use_shampoo(path, g.shape)]
+
+    def step_grams():
+        for gb in blocks:
+            for x in (gb.transpose(-1, -2).contiguous(), gb):
+                ata_batched(x, out="packed", packed_block=OPTIM_GRAM_BLOCK, n_base=DEFAULT_N_BASE)
+
+    res["shampoo_p2_packed"]["grams_ms"] = time_ms(step_grams, runs=3)
+    log(f"  shampoo_p2_packed: the grams of one step alone (24 ata_batched calls, with the "
+        f"L sides' transposes) ms={res['shampoo_p2_packed']['grams_ms']:.2f}")
+    del blocks
+
+    # (c) p = 2, dense, on the same data: packed within 2e-3 (normwise)
+    p2d, p2d_state, p2d_peak = run(2, False, params, grads)
+    report("shampoo_p2_dense", p2d, p2d_peak, resident(p2d_state))
+    del p2d_state
+    worst = 0.0
+    for i, (a_, b_) in enumerate(zip(p2_updates, (s.pop("u") for s in p2d)), 1):
+        for (path, x), y in zip(_tree.tree_flatten_with_path(a_)[0], _tree.tree_leaves(b_)):
+            if not (bool(torch.isfinite(x).all()) and bool(torch.isfinite(y).all())):
+                raise AssertionError(f"optim: p = 2 update {path} at step {i} not finite")
+            rel = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+            if not rel <= 2e-3:   # also fails on NaN
+                raise AssertionError(f"optim: p = 2 packed differs from dense by {rel} > 2e-3 "
+                                     f"at {path}, step {i}")
+            worst = max(worst, rel)
+    log(f"  p = 2 packed vs dense: every update finite, within {worst:.3e} (normwise per leaf, "
+        f"limit 2e-3)")
+    res["p2_packed_vs_dense_rel"] = worst
+    del p2_updates
+    torch.cuda.empty_cache()
+
+    # (d) p = 4, packed and dense: bitwise equal updates
+    cfg4 = dataclasses.replace(CONFIG, num_layers=P4_LAYERS)
+    if P4_LAYERS != CONFIG.num_layers:
+        log(f"  p = 4 at {P4_LAYERS} of {CONFIG.num_layers} layers (full width): "
+            "the Newton refresh's float32 products set the phase's time")
+        prm4, _ = make_tree(cfg4, SEED + 4, CONFIG.d_model ** -0.5)
+        grd4, _ = make_tree(cfg4, SEED + 5, 1e-3)
+    else:
+        prm4, grd4 = params, grads
+    def same_bits(x, y):
+        """Bit patterns equal, so a NaN of the same computation compares equal."""
+        return x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    p4p, p4p_state, p4p_peak = run(4, True, prm4, grd4)
+    report("shampoo_p4_packed", p4p, p4p_peak, resident(p4p_state))
+    # the packed run's stats (packed blocks) and preconditioners wait on the
+    # host while the dense run holds the card
+    p4p_host = [{k: (s[k].blocks.cpu(), s[k].n, s[k].bn) if k in ("l", "r") else s[k].cpu()
+                 for k in ("l", "r", "pl", "pr")} for s in slots(p4p_state)]
+    del p4p_state
+    p4_updates = [s.pop("u") for s in p4p]
+    torch.cuda.empty_cache()
+    p4d, p4d_state, p4d_peak = run(4, False, prm4, grd4)
+    report("shampoo_p4_dense", p4d, p4d_peak, resident(p4d_state))
+    nan_elems = {}
+    for i, (a_, b_) in enumerate(zip(p4_updates, (s.pop("u") for s in p4d)), 1):
+        flat = _tree.tree_flatten_with_path(a_)[0]
+        for (path, x), y in zip(flat, _tree.tree_leaves(b_)):
+            if not same_bits(x, y):
+                raise AssertionError(f"optim: p = 4 packed and dense updates differ at {path}, "
+                                     f"step {i}")
+            bad = int((~torch.isfinite(x)).sum())
+            if bad:
+                nan_elems[path] = max(nan_elems.get(path, 0), bad)
+    # the state after the refresh: the stats (packed through to_dense) and
+    # the preconditioners bitwise equal; the stats finite on every leaf
+    dense_slots = slots(p4d_state)
+    if not len(p4p_host) == len(dense_slots) == len(sham):
+        raise AssertionError("optim: the p = 4 runs hold different Shampoo leaves")
+    for j, (h, s) in enumerate(zip(p4p_host, dense_slots)):
+        for k in ("l", "r"):
+            blocks, n, bn = h[k]
+            x = SymmetricMatrix(blocks.cuda(), n, bn).to_dense()
+            if not same_bits(x, s[k]):
+                raise AssertionError(f"optim: p = 4 packed and dense {k} stats of Shampoo leaf "
+                                     f"{j} differ")
+            if nonfinite(s[k]):
+                raise AssertionError(f"optim: p = 4 {k} stats of Shampoo leaf {j} not finite")
+            del x
+        for k in ("pl", "pr"):
+            if not same_bits(h[k].cuda(), s[k]):
+                raise AssertionError(f"optim: p = 4 packed and dense {k} of Shampoo leaf {j} "
+                                     f"differ")
+    del p4d_state, p4p_host, dense_slots
+    finite_sham = [p for p, _ in sham if p not in nan_elems]
+    log(f"  p = 4 packed == dense: every update of {OPTIM_STEPS} steps, and the L/R stats and "
+        f"pl/pr after them, bitwise equal (bit patterns); every stat finite; the updates of "
+        f"{len(finite_sham)} of {len(sham)} Shampoo leaves finite at every step: {finite_sham}")
+    if len(finite_sham) < P4_MIN_FINITE:
+        raise AssertionError(f"optim: p = 4 updates finite on {len(finite_sham)} Shampoo leaves, "
+                             f"fewer than {P4_MIN_FINITE}")
+    log(f"  p = 4 after the refresh, not finite as in the reference (its coupled Newton at "
+        f"ridge 1e-6 on rank-deficient stats): {nan_elems or 'none'}")
+    res["p4_layers"] = P4_LAYERS
+    res["p4_nonfinite_update_elements"] = nan_elems
+    del p4_updates, prm4, grd4
+    torch.cuda.empty_cache()
+
+    # (e) PowerSGD at rank 4 on wg and wd as _plan reshapes them
+    res["powersgd"] = {}
+    for key, path in (("wg", ("layers", "mlp", "wg")), ("wd", ("layers", "mlp", "wd"))):
+        g = grads[path[0]][path[1]][path[2]]
+        pt = _plan(tuple(g.shape), OPTIM_BLOCK)
+        g2 = g.reshape(pt.d1, pt.d2)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        st = powersgd.init_state(gen, g2.shape, 4, device="cuda")
+        rounds = []
+        for _ in range(2):
+            ops.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            p_, q_, st = powersgd.compress(g2, st)
+            end.record()
+            torch.cuda.synchronize()
+            g_hat = powersgd.decompress(p_, q_)
+            ortho = float((p_.T @ p_ - torch.eye(4, device="cuda")).abs().max())
+            rel = float(torch.linalg.norm(g2 - g_hat) / torch.linalg.norm(g2))
+            if not (torch.isfinite(g_hat).all() and torch.isfinite(st.error).all()):
+                raise AssertionError(f"optim: PowerSGD {key} not finite")
+            if not ortho <= 1e-3:
+                raise AssertionError(f"optim: PowerSGD {key} p not orthonormal ({ortho})")
+            rounds.append(dict(ms=start.elapsed_time(end), rel_residual=rel, ortho_err=ortho,
+                               launches={k: v for k, v in ops.launches.items() if v}))
+        res["powersgd"][key] = dict(shape=list(g2.shape), rounds=rounds)
+        if key == "wg":
+            narrow = (g2, p_)
+        log(f"  (e) PowerSGD rank 4 {key} {tuple(g2.shape)}: "
+            + "; ".join(f"round {i}: ms={r['ms']:.3f} ‖G−PQᵀ‖/‖G‖={r['rel_residual']:.4f} "
+                        f"‖PᵀP−I‖max={r['ortho_err']:.1e} launches {r['launches']}"
+                        for i, r in enumerate(rounds, 1)))
+    rng = np.random.default_rng(SEED + 9)
+    u_, v_ = cuda_tensor(rng, (24576, 4)), cuda_tensor(rng, (2816, 4))
+    g = u_ @ v_.T
+    st = powersgd.init_state(torch.Generator(device="cuda").manual_seed(SEED + 10), g.shape, 8,
+                             device="cuda")
+    p_, q_, st = powersgd.compress(g, st)
+    g_hat = powersgd.decompress(p_, q_)
+    rec = float(((g_hat - g).abs() - 1e-3 * g.abs()).max())
+    err = float(st.error.abs().max())
+    log(f"  (e) PowerSGD rank 8 on a rank-4 (24576, 2816) gradient: max(|Ĝ−G| − 1e-3·|G|) "
+        f"= {rec:.3e} (limit 1e-3), max|error| = {err:.3e} (limit 1e-3)")
+    if not (rec <= 1e-3 and err <= 1e-3):
+        raise AssertionError("optim: PowerSGD rank-sufficient reconstruction out of band")
+    res["powersgd"]["rank_sufficient"] = dict(excess=rec, max_error=err)
+    del g, g_hat, st, p_, q_, u_, v_
+    g, p_ = narrow
+    tn_err = checks.compare("gemm_tn narrow (24576,2816,4): PowerSGD's GᵀP", ops.gemm_tn(g, p_),
+                            plain["gemm_tn"](g, p_), 24576)
+    tn_ms = graph_ms(lambda: ops.gemm_tn(g, p_))
+    st_ms = time_ms(lambda: strassen_tn(g, p_), runs=10)
+    mm_ms = graph_ms(lambda: torch.matmul(g.T, p_))
+    mm_call_ms = time_ms(lambda: torch.matmul(g.T, p_), runs=10)
+    bms, by = bound(classical_gemm_flops(24576, 2816, 4), 4 * (24576 * 2816 + 24576 * 4 + 2816 * 4))
+    res["powersgd"]["narrow_tn"] = dict(shape=[24576, 2816, 4], gemm_tn_device_ms=tn_ms,
+                                        strassen_tn_ms=st_ms, matmul_device_ms=mm_ms,
+                                        matmul_ms=mm_call_ms, bound_ms=bms, bound_by=by,
+                                        max_abs_err=tn_err)
+    log(f"  (e) strassen_tn(G, P) (24576, 2816)ᵀ×(24576, 4), planned: ms={st_ms:.4f}; gemm_tn "
+        f"device_ms={tn_ms:.4f}; torch.matmul(G.T, P) device_ms={mm_ms:.4f} (one call "
+        f"{mm_call_ms:.4f}); bound_ms={bms:.4f} ({by})")
+    del g, p_, narrow
+
+    # (f) AdamW, one step over the whole tree
+    opt = adamw(constant(1e-2))
+    state = opt.init(params)
+    ops.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    u, state = opt.update(grads, state, params)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    if not all(bool(torch.isfinite(x).all()) for x in _tree.tree_leaves(u)):
+        raise AssertionError("optim: AdamW update not finite")
+    state_bytes = sum(x.nbytes for x in _tree.tree_leaves({"m": state["m"], "v": state["v"]}))
+    bms, by = bound(12 * n_params, 4 * 6 * n_params)
+    res["adamw"] = dict(ms=ms, bound_ms=bms, bound_by=by, state_bytes=state_bytes)
+    log(f"  (f) AdamW one step over {n_params} parameters: ms={ms:.2f} bound_ms={bms:.3f} ({by}: "
+        f"params, grads, m, v read, update, m, v written once); m+v {state_bytes} B; "
+        f"launches {sum(ops.launches.values())}")
+    del u, state, params, grads
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase optim took {res['phase_s']:.1f} s")
+    return refresh_launches, res
+
+
 def main() -> int:
     import torch
 
@@ -1374,13 +1911,16 @@ def main() -> int:
     obs_res = phase_obs(ops)
     torch.cuda.empty_cache()
     tune_res = phase_tune(ops)
+    torch.cuda.empty_cache()
+    optim_counts, optim_res = phase_optim(checks, ops, plain)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
-                                    "tune": tune_res}, default=str))
+                                    "tune": tune_res, "optim": optim_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
-    # lstsq for the first four, ata 8192² fused for the last two)
+    # lstsq for the first four, ata 8192² fused for the last two); beside
+    # them, the launches of phase optim's Shampoo refresh step (p = 2, packed)
     table = {
         "gemm_tn": ("gemm_tn.cu", "src/repro/kernels/gemm_tn.py:78", counts),
         "syrk": ("syrk.cu", "src/repro/kernels/syrk.py:136", counts),
@@ -1393,7 +1933,8 @@ def main() -> int:
     for name, (src, replaces, path_counts) in table.items():
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-            "replaces": replaces, "launches": path_counts[name], **checks.rows[name],
+            "replaces": replaces, "launches": path_counts[name],
+            "optim_refresh_step_launches": optim_counts[name], **checks.rows[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,13 @@ PyTorch version. There is no fallback between the two.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes", "planner_key"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes", "planner_key",
+           "device_cached", "device_table"]
 
 # Tensors made from nothing (zeros, converters, chip_smoke data) land here
 # unless the caller asks for another device.
@@ -21,6 +25,43 @@ DEFAULT_DEVICE = "cuda"
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means :data:`DEFAULT_DEVICE`."""
     return torch.device(DEFAULT_DEVICE if device is None else device)
+
+
+# key -> a static value kept on a device (index tables, masks, launch
+# tables), most recently used last; the oldest goes beyond _TABLES_MAX
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_MAX = 256
+_TABLES_LOCK = threading.Lock()
+
+
+def device_cached(key, make):
+    """``make()``, made once per ``key`` and kept while it is among the
+    :data:`_TABLES_MAX` most recently used values. ``key`` must name
+    everything the value depends on, its device included; callers must not
+    write to what it holds. A copy from pageable host memory waits for the
+    device, so the packed paths and the fused launches take their static
+    tables from here and, after the first call at a shape, copy nothing to
+    the card."""
+    with _TABLES_LOCK:
+        if key in _TABLES:
+            _TABLES.move_to_end(key)
+            return _TABLES[key]
+    value = make()
+    with _TABLES_LOCK:
+        value = _TABLES.setdefault(key, value)
+        _TABLES.move_to_end(key)
+        while len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
+    return value
+
+
+def device_table(key, device, make) -> torch.Tensor:
+    """The static table ``make()`` (a numpy array or CPU tensor) as a tensor
+    on ``device``, kept per ``(key, device)`` by :func:`device_cached`.
+    ``key`` must name everything the table depends on (its geometry and
+    dtype)."""
+    return device_cached((key, str(torch.device(device))),
+                         lambda: torch.as_tensor(make(), device=device))
 
 
 def planner_key(x: torch.Tensor):

@@ -5,7 +5,9 @@ The reference's packed objects (``repro.core.symmetric.SymmetricMatrix``,
 array plus ``(n, bn)``; so are the port's. These converters move the block
 array across unchanged, so one stage's reference output can feed the
 port's next stage (for example, the JAX packed gram into the port's
-``cholesky``) and back.
+``cholesky``) and back. :func:`tree_from_numpy` carries a whole tree
+across — parameters, gradients, or an optimizer's state with its packed
+stats and factors, its step counter and its ``PowerSGDState``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.core.symmetric import SymmetricMatrix
 from repro_torch.solve.cholesky import CholeskyFactor
 
-__all__ = ["symmetric_from_numpy", "factor_from_numpy", "to_numpy"]
+__all__ = ["symmetric_from_numpy", "factor_from_numpy", "to_numpy", "tree_from_numpy"]
 
 
 def _blocks(blocks, n, bn, device):
@@ -45,3 +47,44 @@ def to_numpy(x):
     if isinstance(x, (SymmetricMatrix, CholeskyFactor)):
         return x.blocks.detach().cpu().numpy(), x.n, x.bn
     return x.detach().cpu().numpy()
+
+
+def tree_from_numpy(tree, *, device="cuda", named_tuples=()):
+    """The port's counterpart of a reference tree, for example
+    ``opt.init(params)`` or ``opt.update(...)`` output, with arrays given as
+    numpy (or anything ``np.asarray`` takes). The reference's classes are
+    recognised by name, since the port imports none of them:
+
+    * ``SymmetricMatrix`` / ``CholeskyFactor`` → the port's, blocks copied;
+    * a named tuple → the class of ``named_tuples`` with its name and
+      fields (for example ``optim.powersgd.PowerSGDState``, whose ``q`` is
+      carried, as JAX's random stream cannot be reproduced), or a plain
+      tuple where none matches;
+    * dicts, lists and tuples → the same containers;
+    * a 0-d array (a step counter) → a 0-d tensor **on the CPU**, where the
+      port's optimizers keep their step; any other array → a tensor on
+      ``device``; Python numbers and ``None`` stay as they are.
+    """
+    classes = {(cls.__name__, tuple(cls._fields)): cls for cls in named_tuples}
+
+    def conv(x):
+        name = type(x).__name__
+        if name in ("SymmetricMatrix", "CholeskyFactor") and hasattr(x, "blocks"):
+            make = symmetric_from_numpy if name == "SymmetricMatrix" else factor_from_numpy
+            return make(x.blocks, x.n, x.bn, device=device)
+        cls = classes.get((name, getattr(x, "_fields", None)))
+        if isinstance(x, tuple) and cls is not None:
+            return cls(*(conv(v) for v in x))
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        if isinstance(x, tuple):
+            return tuple(conv(v) for v in x)
+        if x is None or isinstance(x, (bool, int, float)):
+            return x
+        arr = np.array(x)   # a copy: the source may be read-only
+        return torch.from_numpy(arr) if arr.ndim == 0 else torch.from_numpy(arr).to(
+            resolve_device(device))
+
+    return conv(tree)

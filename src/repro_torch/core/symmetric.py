@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.backend import resolve_device
+from repro_torch.backend import device_table, resolve_device
 
 __all__ = [
     "SymmetricMatrix",
@@ -95,8 +95,31 @@ def tri_block_indices(nb: int):
     return i.astype(np.int64), j.astype(np.int64)
 
 
-def _index(idx, like):
-    return torch.as_tensor(idx, dtype=torch.long, device=like.device)
+def tri_index(nb: int, device):
+    """:func:`tri_block_indices` as two int64 tensors kept on ``device``."""
+    return (device_table(("tri_i", nb), device, lambda: tri_block_indices(nb)[0]),
+            device_table(("tri_j", nb), device, lambda: tri_block_indices(nb)[1]))
+
+
+def _diag_index(nb: int, device):
+    return device_table(("diag", nb), device, lambda: diag_block_indices(nb))
+
+
+def _col_index(nb: int, j: int, device):
+    return device_table(("col", nb, j), device, lambda: col_panel_indices(nb, j))
+
+
+def _eye_mask(n: int, bn: int, dtype, device):
+    """``(nb, bn, bn)`` ones on the logical diagonal of each diagonal tile."""
+    def make():
+        nb = -(-n // bn)
+        mask = np.zeros((nb, bn, bn), np.float32)
+        for i in range(nb):
+            d = min(bn, n - i * bn)
+            mask[i, range(d), range(d)] = 1.0
+        return torch.as_tensor(mask, dtype=dtype)
+
+    return device_table(("eye_mask", n, bn, str(dtype)), device, make)
 
 
 class SymmetricMatrix:
@@ -160,9 +183,9 @@ class SymmetricMatrix:
         pad = nb * bn - n
         if pad:
             lower = torch.nn.functional.pad(lower, (0, pad, 0, pad))
-        i_idx, j_idx = tri_block_indices(nb)
+        i_idx, j_idx = tri_index(nb, lower.device)
         x = lower.reshape(*batch, nb, bn, nb, bn).transpose(-3, -2)
-        blocks = x[..., _index(i_idx, x), _index(j_idx, x), :, :]
+        blocks = x[..., i_idx, j_idx, :, :]
         return cls(blocks, n, bn)
 
     @classmethod
@@ -221,7 +244,7 @@ class SymmetricMatrix:
 
     def _symmetrize_diag(self):
         """Restore the full-symmetric-diagonal-tile contract after a tril."""
-        diag_t = _index(diag_block_indices(self.nb), self.blocks)
+        diag_t = _diag_index(self.nb, self.blocks.device)
         blocks = self.blocks.clone()
         blocks[..., diag_t, :, :] = sym_tile(self.blocks[..., diag_t, :, :])
         return SymmetricMatrix(blocks, self.n, self.bn)
@@ -232,10 +255,10 @@ class SymmetricMatrix:
         """Dense ``(..., n, n)`` reconstruction, bitwise symmetric: the one
         mirror of the lower triangle happens here."""
         nb, bn, n = self.nb, self.bn, self.n
-        i_idx, j_idx = tri_block_indices(nb)
+        i_idx, j_idx = tri_index(nb, self.blocks.device)
         batch = self.blocks.shape[:-3]
         z = self.blocks.new_zeros((*batch, nb, nb, bn, bn))
-        z[..., _index(i_idx, z), _index(j_idx, z), :, :] = self.blocks
+        z[..., i_idx, j_idx, :, :] = self.blocks
         z = z.transpose(-3, -2).reshape(*batch, nb * bn, nb * bn)
         return sym_tile(z[..., :n, :n])
 
@@ -254,24 +277,18 @@ class SymmetricMatrix:
 
     def diag_blocks(self):
         """All diagonal tiles as one ``(..., nb, bn, bn)`` stack."""
-        return self.blocks[..., _index(diag_block_indices(self.nb), self.blocks), :, :]
+        return self.blocks[..., _diag_index(self.nb, self.blocks.device), :, :]
 
     def col_panel(self, j: int):
         """Block column ``j`` below the diagonal: ``(..., nb−1−j, bn, bn)``."""
-        idx = _index(col_panel_indices(self.nb, j), self.blocks)
-        return self.blocks[..., idx, :, :]
+        return self.blocks[..., _col_index(self.nb, j, self.blocks.device), :, :]
 
     def add_scaled_identity(self, s) -> "SymmetricMatrix":
         """``self + s·I`` on the logical diagonal (pad entries beyond ``n``
         untouched); only the ``nb`` diagonal tiles change."""
-        nb, bn, n = self.nb, self.bn, self.n
-        mask = np.zeros((nb, bn, bn), np.float32)
-        for i in range(nb):
-            d = min(bn, n - i * bn)
-            mask[i, range(d), range(d)] = 1.0
-        mask = torch.as_tensor(mask, dtype=self.blocks.dtype, device=self.blocks.device)
+        mask = _eye_mask(self.n, self.bn, self.blocks.dtype, self.blocks.device)
         tiles = self.diag_blocks() + s * mask
-        diag_t = _index(diag_block_indices(nb), self.blocks)
+        diag_t = _diag_index(self.nb, self.blocks.device)
         blocks = self.blocks.clone()
         blocks[..., diag_t, :, :] = tiles
         return SymmetricMatrix(blocks, self.n, self.bn)

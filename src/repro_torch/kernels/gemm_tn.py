@@ -19,12 +19,10 @@ the card (``backend.kernel_dtypes``).
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import numpy as np
 import torch
 
-from repro_torch.backend import kernel_dtypes
+from repro_torch.backend import device_cached, kernel_dtypes
 
 __all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
            "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
@@ -203,43 +201,32 @@ def fused_launch_tables(a_blocks, b_blocks, sides, T, W):
     return np.stack(offs), np.stack(sgns).astype(np.int32), lds, sbs, vec16
 
 
-# device launch tables per (tables object, grid shapes, strides and dtypes,
-# pointer alignment, device), most recent last; each entry pins its tables
-# object. The dtype is part of the key because vec16 depends on the element
-# size: the same pointer and strides may allow 16-byte copies of bfloat16
-# and not of float32.
-_DEVICE_TABLES: OrderedDict = OrderedDict()
-_DEVICE_TABLES_MAX = 32
-
-
 def _device_launch_tables(a_blocks, b_blocks, tables):
     """:func:`fused_launch_tables` with ``off``/``sgn`` on the grids' device.
 
     Returns ``((rows, cols, sgn) × 2, T, W, off, sgn, lds, sbs, vec16)``.
-    Kept per tables object, which is treated as immutable: the slot and
-    level tables are cached (``_slot_tables``, ``_level_tables``), so the
-    launches of one level pass the same object and a repeated launch
-    validates nothing anew and copies nothing to the card (a copy from
-    pageable host memory would also wait for the stream). The entry holds
-    the object, so its ``id`` is not reused while it is kept.
+    Kept per tables object (``backend.device_cached``), which is treated as
+    immutable: the slot and level tables are cached (``_slot_tables``,
+    ``_level_tables``), so the launches of one level pass the same object
+    and a repeated launch validates nothing anew and copies nothing to the
+    card. The key also holds the grids' shapes, strides, dtypes (vec16
+    depends on the element size: the same pointer and strides may allow
+    16-byte copies of bfloat16 and not of float32), pointer alignment and
+    device; the entry holds the object, so its ``id`` is not reused while
+    it is kept.
     """
-    key = (id(tables), tuple(a_blocks.shape), a_blocks.stride(), a_blocks.data_ptr() % 16,
-           a_blocks.dtype, tuple(b_blocks.shape), b_blocks.stride(), b_blocks.data_ptr() % 16,
-           b_blocks.dtype, str(a_blocks.device))
-    hit = _DEVICE_TABLES.get(key)
-    if hit is not None and hit[0] is tables:
-        _DEVICE_TABLES.move_to_end(key)
-        return hit[1]
-    sides, T, W = _fused_tables(a_blocks, b_blocks, tables)
-    off, sgn, lds, sbs, vec16 = fused_launch_tables(a_blocks, b_blocks, sides, T, W)
-    dev = a_blocks.device
-    out = (sides, T, W, torch.as_tensor(off, device=dev), torch.as_tensor(sgn, device=dev),
-           lds, sbs, vec16)
-    _DEVICE_TABLES[key] = (tables, out)
-    _DEVICE_TABLES.move_to_end(key)
-    if len(_DEVICE_TABLES) > _DEVICE_TABLES_MAX:
-        _DEVICE_TABLES.popitem(last=False)
-    return out
+    key = ("gemm_tn_fused", id(tables), tuple(a_blocks.shape), a_blocks.stride(),
+           a_blocks.data_ptr() % 16, a_blocks.dtype, tuple(b_blocks.shape), b_blocks.stride(),
+           b_blocks.data_ptr() % 16, b_blocks.dtype, str(a_blocks.device))
+
+    def make():
+        sides, T, W = _fused_tables(a_blocks, b_blocks, tables)
+        off, sgn, lds, sbs, vec16 = fused_launch_tables(a_blocks, b_blocks, sides, T, W)
+        dev = a_blocks.device
+        return tables, (sides, T, W, torch.as_tensor(off, device=dev),
+                        torch.as_tensor(sgn, device=dev), lds, sbs, vec16)
+
+    return device_cached(key, make)[1]
 
 
 def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,

@@ -15,8 +15,10 @@ grid enumerates them as ``t = i(i+1)/2 + j`` and recovers ``(i, j)`` with
 ``syrk_gather`` (port of ``syrk_gather_pallas``, same kernel file) is the
 dense mode over gathered leaves: ``C[s] = alpha·ÂᵀÂ`` with ``Â =
 a_blocks[rows[s], cols[s]]`` of a block-major grid ``(R, C, [B,] mL, nL)``.
-Each stack entry starts at its own element offset, computed on the host,
-so the ``(S, …)`` stack of the batched dispatch is never copied.
+Each stack entry starts at its own element offset, computed on the host
+and kept on the card per grid geometry and gather table
+(``backend.device_table``), so the ``(S, …)`` stack of the batched
+dispatch is never copied and a repeated call copies nothing to the card.
 
 Both launches split the contraction over :func:`syrk_splits` ``(m, n)``
 CTAs per output tile (a thread-block cluster), the one input that decides
@@ -31,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.backend import kernel_dtypes
+from repro_torch.backend import device_table, kernel_dtypes
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
 from repro_torch.kernels.gemm_tn import vec16
 
@@ -170,7 +172,8 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
     sab = a_blocks.stride(2) if a_blocks.ndim == 5 else 0
     dev = a_blocks.device
     off_host = rows * a_blocks.stride(0) + cols * a_blocks.stride(1)
-    off = torch.as_tensor(off_host, device=dev)
+    off = device_table(("syrk_gather_off", tuple(a_blocks.shape[:2]), a_blocks.stride(0),
+                        a_blocks.stride(1), rows.tobytes(), cols.tobytes()), dev, lambda: off_host)
     lead = (S, batch) if a_blocks.ndim == 5 else (S,)
     c = torch.empty((*lead, n, n), dtype=out_dtype, device=dev)
     lib = _build.load()

@@ -32,13 +32,14 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.backend import resolve_device
+from repro_torch.backend import device_table, resolve_device
 from repro_torch.core.symmetric import (
     SymmetricMatrix,
     default_block_size,
     diag_block_indices,
     sym_tile,
     tri_block_indices,
+    tri_index,
 )
 
 __all__ = ["CholeskyFactor", "cholesky", "base_solver_fns"]
@@ -96,12 +97,10 @@ class CholeskyFactor:
     def to_dense(self):
         """Dense lower-triangular ``(..., n, n)`` L (conversion boundary)."""
         nb, bn, n = self.nb, self.bn, self.n
-        i_idx, j_idx = tri_block_indices(nb)
+        i_idx, j_idx = tri_index(nb, self.blocks.device)
         batch = self.blocks.shape[:-3]
         z = self.blocks.new_zeros((*batch, nb, nb, bn, bn))
-        dev = self.blocks.device
-        z[..., torch.as_tensor(i_idx, device=dev), torch.as_tensor(j_idx, device=dev), :, :] = (
-            self.blocks)
+        z[..., i_idx, j_idx, :, :] = self.blocks
         return z.transpose(-3, -2).reshape(*batch, nb * bn, nb * bn)[..., :n, :n]
 
     def __repr__(self):
@@ -143,14 +142,23 @@ def base_solver_fns(plan=None, dtype=torch.float32):
 
 
 def _pad_identity_mask(n: int, nb: int, bn: int, like):
-    """(valid, eye_pad) masks for the trailing diagonal block."""
+    """(valid, eye_pad) masks for the trailing diagonal block, kept on
+    ``like``'s device (``backend.device_table``)."""
     d = n - (nb - 1) * bn
-    valid = np.zeros((bn, bn), np.float32)
-    valid[:d, :d] = 1.0
-    eye_pad = np.zeros((bn, bn), np.float32)
-    eye_pad[range(d, bn), range(d, bn)] = 1.0
-    kw = dict(dtype=like.dtype, device=like.device)
-    return torch.as_tensor(valid, **kw), torch.as_tensor(eye_pad, **kw)
+
+    def valid():
+        v = np.zeros((bn, bn), np.float32)
+        v[:d, :d] = 1.0
+        return torch.as_tensor(v, dtype=like.dtype)
+
+    def eye_pad():
+        e = np.zeros((bn, bn), np.float32)
+        e[range(d, bn), range(d, bn)] = 1.0
+        return torch.as_tensor(e, dtype=like.dtype)
+
+    key = (n, nb, bn, str(like.dtype))
+    return (device_table(("pad_valid", *key), like.device, valid),
+            device_table(("pad_eye", *key), like.device, eye_pad))
 
 
 def cholesky(

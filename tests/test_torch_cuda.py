@@ -808,3 +808,128 @@ def test_peak_bytes_bounds_the_card(dev, op, dims, n_base, ld):
     measured = torch.cuda.max_memory_allocated() - base + operands
     del out
     assert measured <= cost.peak_bytes(op, "strassen", m, n, k, n_base, ld)
+
+
+# ---------------------------------------------------------------------------
+# optimizers (repro_torch.optim) and the packed path's tables on the card
+# ---------------------------------------------------------------------------
+
+
+def _optim_tree(rng, dev):
+    return {"w": _t(rng, (96, 48), dev), "embed": _t(rng, (40, 8), dev),
+            "layers": {"attn": {"wq": _t(rng, (2, 48, 4, 16), dev)}, "b": _t(rng, (48,), dev)}}
+
+
+def _normwise(x, y):
+    return float(torch.linalg.norm(x.double() - y.double()) / torch.linalg.norm(y.double()))
+
+
+def _sync_free(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_shampoo_step_on_card_matches_cpu(dev, p):
+    """Shampoo (packed, 32-blocks, 16-block grams, the cutoff pinned at 16
+    so the grams recurse) on CUDA tensors against the same steps on CPU
+    tensors (plain versions): updates and stats within the reference's
+    packed-vs-dense band (2e-3 for p = 2, 1e-4 for p = 4, normwise); p = 4
+    packed bitwise equal to dense on the card."""
+    from repro_torch.optim import _tree, constant, shampoo
+
+    rng = np.random.default_rng(41)
+    params, grads = _optim_tree(rng, dev), _optim_tree(rng, dev)
+    to_cpu = lambda t: _tree.tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    runs = {}
+    for where, prm, grd in (("cuda", params, grads), ("cpu", to_cpu(params), to_cpu(grads))):
+        for packed in (True, False):
+            opt = shampoo(constant(1e-2), block=32, update_every=2, precond_p=p,
+                          packed_grams=packed, gram_block=16, n_base=16)
+            st = opt.init(prm)
+            us = []
+            for _ in range(4):
+                u, st = opt.update(grd, st, prm)
+                us.append(u)
+            runs[where, packed] = (us, st)
+    band = 2e-3 if p == 2 else 1e-4
+    (cu, cs), (pu, ps) = runs["cuda", True], runs["cpu", True]
+    for a, b in zip(cu, pu):
+        for x, y in zip(_tree.tree_leaves(a), _tree.tree_leaves(b)):
+            assert _normwise(x.cpu(), y) <= band
+    w, wc = cs["shampoo"]["w"], ps["shampoo"]["w"]
+    assert _normwise(w["l"].to_dense().cpu(), wc["l"].to_dense()) <= band
+    assert cs["step"].device.type == "cpu"
+    if p == 4:
+        for a, b in zip(runs["cuda", True][0], runs["cuda", False][0]):
+            for x, y in zip(_tree.tree_leaves(a), _tree.tree_leaves(b)):
+                assert torch.equal(x, y)
+
+
+def test_shampoo_non_refresh_step_is_sync_free(dev):
+    """After a refresh, a p = 2 packed step that does not refresh makes no
+    host sync (sync debug 'error'): the step lives on the CPU and every
+    table of the packed path is already on the card."""
+    from repro_torch.optim import constant, shampoo
+
+    rng = np.random.default_rng(42)
+    params, grads = _optim_tree(rng, dev), _optim_tree(rng, dev)
+    opt = shampoo(constant(1e-2), block=32, update_every=2, precond_p=2, gram_block=16,
+                  n_base=16)
+    st = opt.init(params)
+    for _ in range(2):
+        _, st = opt.update(grads, st, params)
+    u, st = _sync_free(lambda: opt.update(grads, st, params))
+    assert int(st["step"]) == 3 and torch.isfinite(u["w"]).all()
+
+
+@pytest.mark.parametrize("pinned", [True, False], ids=["n_base8", "planned"])
+def test_powersgd_compress_on_card_matches_cpu(dev, pinned):
+    from repro_torch.optim import powersgd
+
+    rng = np.random.default_rng(43)
+    u, v = rng.standard_normal((300, 4)), rng.standard_normal((200, 4))
+    g = torch.as_tensor((u @ v.T + 0.1 * rng.standard_normal((300, 200))).astype(np.float32))
+    st = powersgd.init_state(torch.Generator().manual_seed(0), g.shape, 4, device="cpu")
+    cst = powersgd.PowerSGDState(q=st.q.to(dev), error=st.error.to(dev))
+    n_base = 8 if pinned else None
+    for _ in range(2):
+        p, q, st = powersgd.compress(g, st, n_base=n_base)
+        cp, cq, cst = powersgd.compress(g.to(dev), cst, n_base=n_base)
+        assert _normwise(cp.cpu(), p) <= 1e-4 and _normwise(cq.cpu(), q) <= 1e-4
+        assert _normwise(cst.error.cpu(), st.error) <= 1e-4
+
+
+def test_packed_gram_ridge_cholesky_is_sync_free(dev):
+    """A packed gram, its ridge on the diagonal and the packed Cholesky
+    (ragged: a pad block) copy no table to the card once the tables of
+    that geometry are there."""
+    from repro_torch.solve import cholesky
+
+    a = _t(np.random.default_rng(44), (4, 300, 200), dev)
+
+    def chain():
+        g = ata_batched(a, out="packed", packed_block=64, n_base=128)
+        ridge = (g.trace() / 200)[:, None, None, None]
+        return cholesky(g.add_scaled_identity(ridge))
+
+    first = chain()
+    again = _sync_free(chain)
+    assert torch.equal(first.blocks, again.blocks)
+
+
+def test_syrk_gather_offsets_stay_on_the_card(dev):
+    """syrk_gather's offset table is kept per table: a repeated launch
+    copies nothing to the card (sync debug 'error')."""
+    blocks = _t(np.random.default_rng(45), (4, 4, 64, 32), dev)
+    rows, cols = np.array([0, 1, 3, 2]), np.array([1, 1, 0, 3])
+    first = ops.syrk_gather(blocks, rows, cols)
+    again = _sync_free(lambda: ops.syrk_gather(blocks, rows, cols))
+    assert torch.equal(first, again)
+    _close(again, syrk_gather_plain(blocks, rows, cols), 64)

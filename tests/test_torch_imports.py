@@ -49,7 +49,11 @@ def test_port_files_exist():
                 "repro_torch/obs/calibrate.py", "repro_torch/obs/__main__.py",
                 "repro_torch/analysis/roofline.py", "repro_torch/tune/cost.py",
                 "repro_torch/tune/cache.py", "repro_torch/tune/search.py",
-                "repro_torch/tune/apply.py"):
+                "repro_torch/tune/apply.py", "repro_torch/optim/__init__.py",
+                "repro_torch/optim/_tree.py", "repro_torch/optim/adamw.py",
+                "repro_torch/optim/schedules.py", "repro_torch/optim/shampoo.py",
+                "repro_torch/optim/powersgd.py", "repro_torch/configs/base.py",
+                "repro_torch/configs/qwen15_05b.py"):
         assert mod in names, mod
     for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -92,7 +96,8 @@ def test_obs_imports_neither_jax_nor_the_reference():
     """``import repro_torch.obs`` loads no module of JAX or of ``repro``."""
     code = (
         "import sys\n"
-        "import repro_torch.obs, repro_torch.solve.cg\n"
+        "import repro_torch.obs, repro_torch.solve.cg, repro_torch.optim\n"
+        "import repro_torch.optim.powersgd, repro_torch.configs.qwen15_05b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )
