@@ -85,9 +85,38 @@ phase fails):
              ``strassen_tn(G, P)`` beside ``torch.matmul``; one AdamW step
              over the whole tree.
 
-Phases 3–8 and Shampoo's checked runs in phase 10 pin ``n_base`` (or
-``method``) to the static defaults: unpinned calls are planned, and those
-phases measure the dispatches they name.
+11. distributed — (``repro_torch.core.distributed`` on
+             ``torch.distributed``) 4 ranks started by ``launch.mesh.spawn``:
+             NCCL with one card per rank where the machine has 4 cards,
+             else gloo with the 4 ranks on card 0 (time-sliced: no
+             scaling is claimed from those times). On meshes ``(task=4)``
+             and ``(task=2, row=2)``, ``a`` 8192×8192: ``ata_tile_parallel``
+             packed and dense, ``ata_bfs_dfs`` with interleavings "D",
+             "BD", "B" (and "BD" dense), a fused tile body and
+             ``alpha=0.5`` at the pinned grid (``nb=8``, ``n_base=512``),
+             each within ``scaled_tol(8192)`` of the single-device ``ata``
+             on card 0, packed ``to_dense()`` bitwise equal to dense, every
+             interleaving and the fused body bitwise equal to
+             ``ata_tile_parallel``, ``alpha`` bitwise ``scale(0.5)``; one
+             planned call (no pins) with its plan, prediction and drift.
+             On ``(task=4)``: ``gram_rowshard`` of a (32768, 4096) row-sharded
+             operand (packed, fused local ata) within ``scaled_tol(32768)``,
+             ``gemm_tn_colshard`` (16384, 4096)ᵀ×(16384, 4096) within
+             ``scaled_tol(16384)`` of ``strassen_tn``, and PowerSGD's
+             ``compress_sharded`` at rank 4 on a (24576, 2816) gradient (wg's
+             shape) in 4 row shards of 6144 within 1e-3 (normwise Ĝ and Q) of
+             ``compress`` on one rank, P orthonormal within 1e-3, and rank 8
+             on a rank-4 gradient reconstructed within 1e-3. Per case and
+             rank: ms (median of CUDA events over 3 runs after a checked
+             run), the collectives' ms (one run with tracing on) and bytes
+             by kind, kernel launches and peak memory. Each of the six
+             kernels must be launched by the ranks' checked runs.
+
+Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
+phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
+calls are planned, and those phases measure the dispatches they name.
+``python3 chip_smoke.py distributed`` runs the build and phase 11 alone
+(what a call on four cards needs) and prints no final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -1858,9 +1887,321 @@ def phase_optim(checks, ops, plain):
     return refresh_launches, res
 
 
-def main() -> int:
+# phase distributed: ata 8192² over four ranks, gram_rowshard, colshard, PowerSGD
+DIST_RANKS = 4
+DIST_N = 8192
+DIST_NB = 8                 # the pinned stripe grid: w = 1024, T = 36
+DIST_MESHES = (((4,), ("model",)), ((2, 2), ("model", "data")))
+DIST_REPS = 3
+
+
+def _dist_inputs():
+    """The phase's seeded operands (numpy, float32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    f32 = dict(dtype="float32")
+    return dict(a=rng.standard_normal((DIST_N, DIST_N), **f32),
+                ga=rng.standard_normal((32768, 4096), **f32),
+                ca=rng.standard_normal((16384, 4096), **f32),
+                cb=rng.standard_normal((16384, 4096), **f32),
+                g=rng.standard_normal((24576, 2816), **f32) * np.float32(1e-3),
+                q=rng.standard_normal((2816, 4), **f32),
+                u=rng.standard_normal((24576, 4), **f32),
+                v=rng.standard_normal((2816, 4), **f32),
+                q8=rng.standard_normal((2816, 8), **f32))
+
+
+def _dist_device(rank: int, backend: str):
+    """Rank ``rank``'s card: its own under NCCL, card 0 under gloo."""
     import torch
 
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def _dist_rank(rank: int, world: int, backend: str, ref_dir: str) -> dict:
+    """One rank of phase distributed: every case on both meshes, each run
+    once (checked, its launches, collective bytes and peak memory counted),
+    then timed; returns what the parent prints and checks."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.core.distributed import (ata_bfs_dfs, ata_tile_parallel,
+                                              gemm_tn_colshard, gram_rowshard)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import powersgd
+    from repro_torch import tune
+
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(ref_dir, "plans.json")
+    dev = _dist_device(rank, backend)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    host = _dist_inputs()
+    ref = torch.load(os.path.join(ref_dir, "refs.pt"), map_location=dev)
+    x = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    del host
+    setup_s = time.perf_counter() - t0
+    ops.reset_launches()
+    path_launches = dict(ops.launches)
+    out = dict(rank=rank, device=str(dev), setup_s=setup_s, cases={}, checks={})
+
+    def dense(r):
+        return r.to_dense() if hasattr(r, "to_dense") else r
+
+    def measure(label, fn, ref_dense=None, k=None):
+        """Run ``fn`` once (checked), then DIST_REPS times (timed), then
+        once with tracing on (the collectives' seconds)."""
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        l0, b0 = dict(ops.launches), obs.metrics.counters("collective_bytes.")
+        result = fn()
+        torch.cuda.synchronize(dev)
+        launches = {n: ops.launches[n] - l0[n] for n in l0 if ops.launches[n] - l0[n]}
+        for n, v in launches.items():
+            path_launches[n] += v
+        b1 = obs.metrics.counters("collective_bytes.")
+        rec = dict(launches=launches,
+                   bytes={kk.split(".", 1)[1]: b1[kk] - b0.get(kk, 0) for kk in b1
+                          if b1[kk] - b0.get(kk, 0)},
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) - base_mem)
+        if ref_dense is not None:
+            err = float((dense(result) - ref_dense).abs().max())
+            tol = scaled_tol(k, ref_dense)
+            rec.update(max_abs_err=err, tol=tol)
+        times = []
+        for _ in range(DIST_REPS):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(end))
+        rec["ms"] = statistics.median(times)
+        h0 = obs.metrics.histograms("collective_seconds.")
+        dist.barrier()
+        obs.enable()
+        try:
+            fn()
+        finally:
+            obs.disable()
+        h1 = obs.metrics.histograms("collective_seconds.")
+        rec["collective_ms"] = {kk.split(".", 1)[1]: 1e3 * (h1[kk]["sum"] - h0.get(kk, {}).get(
+            "sum", 0.0)) for kk in h1 if h1[kk]["count"] > h0.get(kk, {}).get("count", 0)}
+        out["cases"][label] = rec
+        return result
+
+    a = x["a"]
+    for shape, axes in DIST_MESHES:
+        mesh = make_mesh(shape, axes, backend=backend, device=dev)
+        two_d = len(axes) == 2
+        row = "data" if two_d else None
+        mid = "x".join(map(str, shape))
+        kw = dict(task_axis="model", row_axis=row)
+        a_loc = mesh.local_block(a, (row, None))
+        pin = dict(nb=DIST_NB, n_base=DEFAULT_N_BASE, packed_block=DIST_N // DIST_NB)
+        ra = ref["ata"]
+        tile_p = measure(f"{mid} tile packed", lambda: ata_tile_parallel(
+            a_loc, mesh, **kw, **pin, out="packed"), ra, DIST_N)
+        tile_d = measure(f"{mid} tile dense", lambda: ata_tile_parallel(
+            a_loc, mesh, **kw, **pin, out="dense"), ra, DIST_N)
+        out["checks"][f"{mid} packed to_dense == dense"] = bool(torch.equal(tile_p.to_dense(),
+                                                                            tile_d))
+        del tile_d
+        for il in ("D", "BD", "B"):
+            r = measure(f"{mid} bfs_dfs {il} packed", lambda: ata_bfs_dfs(
+                a_loc, mesh, **kw, **pin, interleaving=il, out="packed"), ra, DIST_N)
+            out["checks"][f"{mid} {il} == tile_parallel"] = bool(torch.equal(r.blocks,
+                                                                             tile_p.blocks))
+        r = measure(f"{mid} bfs_dfs BD dense", lambda: ata_bfs_dfs(
+            a_loc, mesh, **kw, **pin, interleaving="BD", out="dense"), ra, DIST_N)
+        out["checks"][f"{mid} BD dense == tile_parallel"] = bool(torch.equal(r,
+                                                                             tile_p.to_dense()))
+        del r
+        r = measure(f"{mid} tile fused packed", lambda: ata_tile_parallel(
+            a_loc, mesh, **kw, **pin, leaf_dispatch="fused", out="packed"), ra, DIST_N)
+        out["checks"][f"{mid} fused == unrolled"] = bool(torch.equal(r.blocks, tile_p.blocks))
+        r = measure(f"{mid} tile alpha=0.5 packed", lambda: ata_tile_parallel(
+            a_loc, mesh, **kw, **pin, alpha=0.5, out="packed"))
+        out["checks"][f"{mid} alpha=0.5 == scale(0.5)"] = bool(torch.equal(
+            r.blocks, tile_p.scale(0.5).blocks))
+        del r, tile_p
+        pl = tune.plan(op="ata", m=DIST_N, n=DIST_N, devices=mesh.axis_size("model"),
+                       row_devices=mesh.axis_size(row) if row else 1, out="packed",
+                       backend="cuda")
+        out[f"{mid} plan"] = dict(algorithm=pl.algorithm, n_base=pl.n_base,
+                                  leaf_dispatch=pl.leaf_dispatch, nb=pl.nb, tile_w=pl.tile_w,
+                                  comm_schedule=pl.comm_schedule,
+                                  packed_block=pl.packed_block, predicted_s=pl.predicted_s)
+        measure(f"{mid} planned packed", lambda: ata_bfs_dfs(a_loc, mesh, **kw, out="packed"),
+                ra, DIST_N)
+        torch.cuda.empty_cache()
+        if two_d:
+            continue
+        # gram_rowshard: (32768, 4096) rows over the four ranks, fused local ata
+        ga = mesh.local_block(x["ga"], ("model", None))
+        measure(f"{mid} gram_rowshard packed", lambda: gram_rowshard(
+            ga, "model", mesh=mesh, n_base=DEFAULT_N_BASE, leaf_dispatch="fused",
+            out="packed"), ref["gram"], 32768)
+        del ga
+        # colshard: (16384, 4096)ᵀ × (16384, 4096), B's columns over the task axis
+        cb = mesh.local_block(x["cb"], (None, "model"))
+        measure(f"{mid} gemm_tn_colshard", lambda: gemm_tn_colshard(
+            x["ca"], cb, mesh, task_axis="model", n_base=DEFAULT_N_BASE), ref["col"], 16384)
+        del cb
+        # PowerSGD rank 4 on wg's (24576, 2816) gradient, 4 row shards of 6144
+        g = mesh.local_block(x["g"], ("model", None))
+        state = powersgd.PowerSGDState(q=x["q"], error=torch.zeros_like(g))
+        p_loc, q, st = measure(f"{mid} compress_sharded rank 4", lambda: powersgd.compress_sharded(
+            g, state, "model", mesh=mesh, n_base=DEFAULT_N_BASE))
+        g_hat = p_loc @ q.T
+        rows = slice(mesh.axis_index("model") * g.shape[0], (mesh.axis_index("model") + 1)
+                     * g.shape[0])
+        want = ref["p"][rows] @ ref["q"].T
+        num = torch.stack([torch.linalg.norm(g_hat - want) ** 2, torch.linalg.norm(want) ** 2])
+        dist.all_reduce(num, group=mesh.group("model"))
+        ortho = torch.stack([p_loc.T @ p_loc])
+        dist.all_reduce(ortho, group=mesh.group("model"))
+        out["checks"]["compress_sharded ‖Ĝ−Ĝ₁‖/‖Ĝ₁‖ ≤ 1e-3"] = float((num[0] / num[1]).sqrt())
+        out["checks"]["compress_sharded ‖Q−Q₁‖/‖Q₁‖ ≤ 1e-3"] = float(
+            torch.linalg.norm(q - ref["q"]) / torch.linalg.norm(ref["q"]))
+        out["checks"]["compress_sharded ‖PᵀP−I‖max ≤ 1e-3"] = float(
+            (ortho[0] - torch.eye(4, device=dev)).abs().max())
+        del p_loc, q, st, g_hat, want, state
+        # the rank-sufficient case: rank 8 on a rank-4 gradient
+        gs = mesh.local_block(x["u"] @ x["v"].T, ("model", None))
+        state = powersgd.PowerSGDState(q=x["q8"], error=torch.zeros_like(gs))
+        p_loc, q, st = powersgd.compress_sharded(gs, state, "model", mesh=mesh,
+                                                 n_base=DEFAULT_N_BASE)
+        rec = torch.stack([((p_loc @ q.T - gs).abs() - 1e-3 * gs.abs()).max(),
+                           st.error.abs().max()])
+        dist.all_reduce(rec, op=dist.ReduceOp.MAX, group=mesh.group("model"))
+        out["checks"]["compress_sharded rank-sufficient max(|Ĝ−G|−1e-3|G|) ≤ 1e-3"] = float(rec[0])
+        out["checks"]["compress_sharded rank-sufficient max|error| ≤ 1e-3"] = float(rec[1])
+        del gs, state, p_loc, q, st
+        torch.cuda.empty_cache()
+    out["path_launches"] = path_launches
+    return out
+
+
+def phase_distributed(ops):
+    """Phase 11: the distributed schedules on four ranks (see the module
+    docstring). Returns (launches summed over the ranks' checked runs,
+    results)."""
+    import tempfile
+    import time
+
+    import torch
+
+    from repro_torch.core import ata, strassen_tn
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import powersgd
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= DIST_RANKS else "gloo"
+    where = ("one card per rank" if backend == "nccl" else
+             f"{DIST_RANKS} ranks on card 0, time-sliced: times are not per-card times "
+             "and show no scaling")
+    log(f"phase distributed: backend {backend}, {DIST_RANKS} ranks, {where}")
+    res = dict(backend=backend, ranks=DIST_RANKS,
+               ranks_per_card=1 if backend == "nccl" else DIST_RANKS)
+    host = _dist_inputs()
+    dev = _dist_device(0, backend)
+    x = {k: torch.as_tensor(host[k], device=dev) for k in ("a", "ga", "ca", "cb", "g", "q")}
+    del host
+    single = {}
+    refs = {}
+    refs["ata"] = ata(x["a"], n_base=DEFAULT_N_BASE, leaf_dispatch="batched")
+    single["ata 8192² batched ms"] = time_ms(
+        lambda: ata(x["a"], n_base=DEFAULT_N_BASE, leaf_dispatch="batched"), runs=3)
+    refs["gram"] = ata(x["ga"], n_base=DEFAULT_N_BASE, leaf_dispatch="fused")
+    single["gram (32768, 4096) fused ms"] = time_ms(
+        lambda: ata(x["ga"], n_base=DEFAULT_N_BASE, leaf_dispatch="fused"), runs=3)
+    refs["col"] = strassen_tn(x["ca"], x["cb"], n_base=DEFAULT_N_BASE)
+    single["strassen_tn (16384, 4096, 4096) ms"] = time_ms(
+        lambda: strassen_tn(x["ca"], x["cb"], n_base=DEFAULT_N_BASE), runs=3)
+    st = powersgd.PowerSGDState(q=x["q"], error=torch.zeros_like(x["g"]))
+    refs["p"], refs["q"], _ = powersgd.compress(x["g"], st, n_base=DEFAULT_N_BASE)
+    single["compress rank 4 (24576, 2816) ms"] = time_ms(
+        lambda: powersgd.compress(x["g"], st, n_base=DEFAULT_N_BASE), runs=3)
+    log("  single-device calls on card 0 (the references): "
+        + json.dumps({k: round(v, 3) for k, v in single.items()}))
+    res["single_device_ms"] = single
+    del x, st
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        torch.save({k: v.cpu() for k, v in refs.items()}, os.path.join(ref_dir, "refs.pt"))
+        del refs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(_dist_rank, DIST_RANKS, backend=backend, timeout_s=600.0,
+                      args=(backend, ref_dir))
+        res["spawn_s"] = time.perf_counter() - t0
+    finally:
+        import shutil
+
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    log(f"  spawn and run of {DIST_RANKS} ranks: {res['spawn_s']:.1f} s (rank set-up "
+        + ", ".join(f"{r['setup_s']:.1f}" for r in ranks) + " s)")
+    failed = []
+    for label in ranks[0]["cases"]:
+        per = [r["cases"][label] for r in ranks]
+        line = dict(ms=[round(c["ms"], 3) for c in per],
+                    collective_ms=[{k: round(v, 3) for k, v in c["collective_ms"].items()}
+                                   for c in per],
+                    bytes=per[0]["bytes"], launches=[c["launches"] for c in per],
+                    peak_bytes=[c["peak_bytes"] for c in per])
+        if "max_abs_err" in per[0]:
+            line["max_abs_err"] = max(c["max_abs_err"] for c in per)
+            line["tol"] = per[0]["tol"]
+            if not all(c["max_abs_err"] <= c["tol"] for c in per):
+                failed.append(f"{label}: max_abs_err {line['max_abs_err']} > tol {line['tol']}")
+        if any(c["bytes"] != per[0]["bytes"] for c in per):
+            line["bytes"] = [c["bytes"] for c in per]
+        log(f"  {label}: " + json.dumps(line))
+        res[label] = line
+    for mid in ("4", "2x2"):
+        plan = ranks[0][f"{mid} plan"]
+        ms = statistics.median(ranks[r]["cases"][f"{mid} planned packed"]["ms"]
+                               for r in range(DIST_RANKS))
+        drift = ms / 1e3 / plan["predicted_s"]
+        log(f"  {mid} plan: " + json.dumps(plan) + f" measured {ms:.3f} ms, drift {drift:.2f}")
+        res[f"{mid} plan"] = dict(plan, measured_ms=ms, drift=drift)
+    for name in ranks[0]["checks"]:
+        vals = [r["checks"][name] for r in ranks]
+        ok = all(vals) if isinstance(vals[0], bool) else max(vals) <= 1e-3
+        log(f"  check {name}: {vals if not isinstance(vals[0], bool) else all(vals)} "
+            f"{'ok' if ok else 'FAIL'}")
+        res[f"check {name}"] = vals
+        if not ok:
+            failed.append(name)
+    launches = {n: sum(r["path_launches"][n] for r in ranks) for n in ranks[0]["path_launches"]}
+    log(f"  launches of the checked runs, summed over the ranks: {launches}")
+    missing = [n for n, v in launches.items() if not v]
+    if missing:
+        failed.append(f"kernels never launched on the distributed path: {missing}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase distributed took {res['phase_s']:.1f} s")
+    if failed:
+        raise AssertionError("distributed: " + "; ".join(failed))
+    return launches, res
+
+
+def main(argv) -> int:
+    import torch
+
+    if argv not in ([], ["distributed"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only one is 'distributed'",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
               file=sys.stderr)
@@ -1887,6 +2228,10 @@ def main() -> int:
             log("  " + line.strip())
     _build.load()
 
+    if argv == ["distributed"]:
+        _, dist_res = phase_distributed(ops)
+        log("end_to_end " + json.dumps({"distributed": dist_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -1913,10 +2258,13 @@ def main() -> int:
     tune_res = phase_tune(ops)
     torch.cuda.empty_cache()
     optim_counts, optim_res = phase_optim(checks, ops, plain)
+    torch.cuda.empty_cache()
+    dist_counts, dist_res = phase_distributed(ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
-                                    "tune": tune_res, "optim": optim_res}, default=str))
+                                    "tune": tune_res, "optim": optim_res,
+                                    "distributed": dist_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
@@ -1934,7 +2282,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": replaces, "launches": path_counts[name],
-            "optim_refresh_step_launches": optim_counts[name], **checks.rows[name],
+            "optim_refresh_step_launches": optim_counts[name],
+            "distributed_launches": dist_counts[name], **checks.rows[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1944,4 +2293,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

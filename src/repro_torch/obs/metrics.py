@@ -20,10 +20,13 @@ Naming convention (dotted, lowercase), as in the reference:
     <op>.leaves.*      leaf counts per dispatch
     kernels.launch.*   kernel wrapper calls
     solve.*            solver front-door counters
+    collective_bytes.* per-kind collective payload (via record_collective_bytes)
+    collective_seconds.* per-kind collective seconds, with tracing on (histograms)
 
-The reference's ``record_collective_bytes`` is left out: it reads the
-collective payload of a compiled XLA module (``repro.analysis.hlo``), which
-has no PyTorch counterpart.
+The reference's ``record_collective_bytes`` reads the payload from a
+compiled XLA module's text; the port's collectives run eagerly, so its
+wrappers (``repro_torch.launch.collectives``) hand it the bytes of each
+call's result by kind.
 
 Snapshot schema (``SNAPSHOT_SCHEMA``, the reference's): see
 :func:`snapshot` / :func:`validate_snapshot`.
@@ -48,6 +51,7 @@ __all__ = [
     "snapshot",
     "validate_snapshot",
     "export_json",
+    "record_collective_bytes",
     "reset",
     "SNAPSHOT_SCHEMA",
 ]
@@ -114,6 +118,17 @@ def reset() -> None:
         _COUNTERS.clear()
         _GAUGES.clear()
         _HISTS.clear()
+
+
+def record_collective_bytes(by_kind: dict, prefix: str = "collective_bytes") -> dict:
+    """Fold per-kind collective bytes into the registry: counter
+    ``<prefix>.<kind>`` += bytes for each kind (``"all-reduce"``,
+    ``"reduce-scatter"``, ``"all-gather"``, the reference's HLO names).
+    Returns the nonzero kinds, as the reference's does."""
+    by_kind = {k: int(v) for k, v in by_kind.items() if v}
+    for kind, b in by_kind.items():
+        inc(f"{prefix}.{kind}", b)
+    return by_kind
 
 
 def _meta() -> dict:

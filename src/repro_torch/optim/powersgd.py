@@ -12,9 +12,10 @@ algebra is the paper's:
 Error feedback keeps the compression unbiased over time: the residual
 ``G − P·Qᵀ`` is added back into the next step's gradient.
 
-The reference's ``compress_sharded`` (row-sharded gradients under
-``shard_map``, the gram reduced in packed form) needs the distributed
-schedules of ROADMAP A5 and raises here until they are ported.
+:func:`compress_sharded` runs one round on a row-sharded gradient, one
+rank a row block, over ``torch.distributed`` (the reference runs it
+inside ``shard_map``): the gram is reduced in packed form by
+``repro_torch.core.distributed.gram_rowshard``.
 """
 
 from __future__ import annotations
@@ -108,17 +109,41 @@ def compress(
 def compress_sharded(
     g_local: torch.Tensor,
     state: PowerSGDState,
-    axis: str,
+    axis,
     *,
+    mesh=None,
     n_base: Optional[int] = None,
     packed_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, PowerSGDState]:
-    """One PowerSGD round for a row-sharded gradient (the reference's
-    ``shard_map`` variant). Not ported: it reduces the packed gram with
-    ``gram_rowshard``, one of the distributed schedules of ROADMAP A5."""
-    raise NotImplementedError(
-        "compress_sharded needs gram_rowshard and the torch.distributed schedules "
-        "(ROADMAP A5), which are not ported yet")
+    """One PowerSGD round for a **row-sharded** gradient: every rank of the
+    group calls it with ``g_local``/``state.error`` holding its row block
+    of the global ``(m, n)`` gradient and the same ``state.q``.
+
+    ``axis``: the ``ProcessGroup`` of the row ranks, or a mesh axis name
+    together with ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``). The row
+    shard of :func:`compress` up to the reduction's order: ``P``'s rows
+    stay sharded like ``G``'s, and the two collectives are
+
+    * the orthonormalization gram ``PᵀP`` — ``gram_rowshard(out='packed')``,
+      so the all-reduce moves the packed lower-triangular block stack;
+    * the ``(n, r)`` factor ``Q = GᵀP`` — an all-reduce of each rank's
+      ``strassen_tn(G_local, P_local)``.
+
+    Returns ``(p_local, q, state)``: ``p_local`` and ``state.error`` this
+    rank's rows, ``q`` the same on every rank.
+    """
+    from repro_torch.core.distributed import _group, gram_rowshard
+    from repro_torch.launch import collectives
+
+    group = _group(axis, mesh)
+    g_local = g_local.to(torch.float32) + state.error
+    p_local = g_local @ state.q                            # rows of P = G·Q
+    gram = gram_rowshard(p_local, group, n_base=n_base, out="packed",
+                         packed_block=packed_block)
+    p_local = _whiten(p_local, gram)       # packed Cholesky, never densified
+    q = collectives.all_reduce(strassen_tn(g_local, p_local, n_base=n_base), group)
+    g_hat_local = p_local @ q.T
+    return p_local, q, PowerSGDState(q=q, error=g_local - g_hat_local)
 
 
 def decompress(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

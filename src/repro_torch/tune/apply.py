@@ -4,8 +4,7 @@
 The consumers (``core.ata``, ``core.strassen``, ``solve``, ``kernels.ops``)
 accept ``plan=`` and read their tunables from it; this module holds what
 looks *down* the stack — the base engines a plan selects — and the
-callable the autotuner times. ``ata_distributed_with_plan`` comes with the
-distributed schedules (ROADMAP A5).
+callable the autotuner times.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ __all__ = [
     "engine",
     "build_callable",
     "ata_with_plan",
+    "ata_distributed_with_plan",
     "gemm_tn_with_plan",
     "lstsq_with_plan",
 ]
@@ -42,6 +42,23 @@ def ata_with_plan(a, plan: cost.Plan, **kw):
 
     fn = ata_batched if plan.batch else ata
     return fn(a, plan=plan, out=plan.out, **kw)
+
+
+def ata_distributed_with_plan(a, mesh, plan: cost.Plan, *, task_axis: str = "model",
+                              row_axis=None, **kw):
+    """Distributed ATA dispatched exactly as the plan says: a
+    ``comm_schedule`` with a ``'B'`` runs ``ata_bfs_dfs`` (the tri-direct
+    reduce-scatter over the merged pool); None or a pure-``'D'`` string
+    runs ``ata_tile_parallel``, which a pure-``'D'`` ``ata_bfs_dfs`` equals
+    bitwise anyway. ``a`` is this rank's view (see the schedules)."""
+    from repro_torch.core.distributed import ata_bfs_dfs, ata_tile_parallel
+
+    cs = plan.comm_schedule
+    if cs and "B" in cs:
+        return ata_bfs_dfs(a, mesh, task_axis=task_axis, row_axis=row_axis, plan=plan,
+                           interleaving=cs, out=plan.out, **kw)
+    return ata_tile_parallel(a, mesh, task_axis=task_axis, row_axis=row_axis, plan=plan,
+                             out=plan.out, **kw)
 
 
 def gemm_tn_with_plan(a, b, plan: cost.Plan, **kw):

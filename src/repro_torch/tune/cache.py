@@ -276,10 +276,14 @@ def plan(
       backend: ``'cuda'`` or ``'cpu'``; None is the device type of
         ``backend.DEFAULT_DEVICE`` (``'cuda'``). The front doors pass their
         operand's.
-      devices, row_devices: only 1 until the distributed branch is ported
-        (ROADMAP A5).
+      devices: task-axis size of the distributed schedules (the plan then
+        carries the stripe grid ``nb``/``tile_w``).
+      row_devices: row-axis size of the two-level mesh; over more than one
+        rank the plan carries the interleaving ``comm_schedule`` priced by
+        the α-β model against the per-device memory budget.
       autotune: time the candidates on this process's device instead of
         trusting the model; the winner persists to the cache file.
+        Single-device only: with ``devices > 1`` the plan stays analytic.
       cache_file: cache path override (default: :func:`cache_path`).
     """
     _check_op(op, batch)
@@ -299,7 +303,7 @@ def plan(
     if persisted is not None and (persisted.source == "measured" or not autotune):
         metrics.inc("tune.cache.hit")
         resolved = dataclasses.replace(persisted, source="cache")
-    elif autotune:
+    elif autotune and devices == 1:
         from repro_torch.tune import search
 
         metrics.inc("tune.cache.autotuned")
@@ -310,6 +314,8 @@ def plan(
         save_cache(plans, cache_file)
         measured_now = True
     else:
+        # a distributed request with autotune lands here too: the autotuner
+        # times the single-device op, which says nothing of the schedule
         metrics.inc("tune.cache.miss")
         resolved = cost.analytic_plan(op, m, n, k, batch=batch, dtype=dtype, out=out,
                                       backend=backend, devices=devices, row_devices=row_devices)

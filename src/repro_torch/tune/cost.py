@@ -26,17 +26,22 @@ yet fitted to measurements (see :data:`MACHINES`). The cuda machine also
 has a memory budget: a candidate whose :func:`peak_bytes` exceed the
 card's memory is not offered.
 
-The reference's distributed branch (``retrieval_bytes``, the α-β
-communication model, ``distributed_tiling``, ``bfs_tiling``) is not
-ported: a request with ``devices > 1`` or ``row_devices > 1`` raises
-``NotImplementedError``. ``Plan`` keeps the distributed fields, so cache
-files round-trip.
+The distributed branch (``devices > 1`` task ranks, ``row_devices``
+row ranks) is the reference's: :func:`distributed_tiling` and
+:func:`bfs_tiling` choose the stripe grid of the tile schedules
+(``repro_torch.core.distributed``), :func:`retrieval_bytes` prices the
+packed retrieval, and the α-β model (:func:`comm_levels`,
+:func:`comm_seconds`, :func:`comm_memory_bytes`,
+:func:`choose_comm_schedule`) prices and picks the BFS/DFS interleaving
+(``Plan.comm_schedule``) against the machine's per-device memory budget.
+On the cpu machine every function equals the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional, Tuple
 
 from repro_torch.core.reference import (
@@ -58,11 +63,19 @@ __all__ = [
     "machine_for",
     "predict_seconds",
     "peak_bytes",
+    "retrieval_bytes",
+    "comm_levels",
+    "comm_seconds",
+    "comm_memory_bytes",
+    "comm_schedule_candidates",
+    "choose_comm_schedule",
     "dispatch_calls",
     "solve_dispatch_calls",
     "candidates",
     "analytic_plan",
     "default_plan",
+    "distributed_tiling",
+    "bfs_tiling",
 ]
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
@@ -107,7 +120,9 @@ class Plan:
     leaf_dispatch: str = "unrolled"
     # op='solve' only: 'factor' or 'cg'
     method: Optional[str] = None
-    # the distributed branch (ROADMAP A5); kept so cache files round-trip
+    # the distributed branch: task-axis size, stripe count and width of the
+    # tile schedule (devices > 1), row-axis size, and the BFS/DFS
+    # interleaving (None: the plain all-reduce schedule)
     devices: int = 1
     nb: Optional[int] = None
     tile_w: Optional[int] = None
@@ -147,8 +162,7 @@ class Plan:
 
 @dataclasses.dataclass(frozen=True)
 class Machine:
-    """Roofline parameters of one backend (the reference's ``Machine``
-    without its α-β collective terms, which come with ROADMAP A5)."""
+    """Roofline parameters of one backend."""
 
     name: str
     peak_flops: float      # base-product peak, flops/s
@@ -163,9 +177,16 @@ class Machine:
     # host time of one dispatched call; unrolled pays it per leaf, batched
     # and fused per level
     launch_overhead_s: float = 5e-6
-    # bytes a candidate may hold on the device at once (:func:`peak_bytes`);
-    # None: no budget, as in the reference's single-device planner
-    device_memory_bytes: Optional[float] = None
+    # α-β collective model of the distributed branch: seconds a message
+    # (one step of a ring collective) and a byte cost
+    alpha_s: float = 1e-6
+    beta_s_per_byte: float = 2.5e-11
+    # bytes a rank may hold: the distributed branch drops interleavings
+    # whose residency (:func:`comm_memory_bytes`) exceeds it, as the
+    # reference does; with ``budget_single_device`` single-device
+    # candidates whose :func:`peak_bytes` exceed it are dropped too
+    device_memory_bytes: float = 16e9
+    budget_single_device: bool = False
 
     def mxu_eff(self, d: int) -> float:
         d = max(int(d), 1)
@@ -174,11 +195,12 @@ class Machine:
 
 MACHINES = {
     # the reference's "cpu" machine, unchanged (its numbers were fitted to
-    # the reference's CPU runs), so CPU tensors plan as the reference does
-    # (its 2 GB memory budget prices only the distributed schedules, so the
-    # cpu machine has none here)
+    # the reference's CPU runs), so CPU tensors plan as the reference does;
+    # its 2 GB budget prices only the distributed schedules, as there
     "cpu": lambda: Machine("cpu", 2.2e11, 2.0e10, 512, False, 1.5,
-                           stack_word_cost=5.5, launch_overhead_s=5e-5),
+                           stack_word_cost=5.5, launch_overhead_s=5e-5,
+                           alpha_s=5e-5, beta_s_per_byte=7e-10,
+                           device_memory_bytes=2e9),
     # NVIDIA H100 SXM with the port's CUDA kernels. None of these is
     # calibrated yet (ROADMAP B):
     "cuda": lambda: Machine(
@@ -192,20 +214,18 @@ MACHINES = {
         launch_overhead_s=35e-6,   # chip run: host time of one wrapper call,
                                    # 32–47 µs (PERF.md §5–6, NVIDIA H100 80GB
                                    # HBM3, 700.00 W)
+        alpha_s=1e-5,              # nominal: an NCCL ring step between
+                                   # cards of one host, about 10 µs
+        beta_s_per_byte=1 / 450e9,  # data sheet: NVLink 4, 450 GB/s a
+                                    # direction (900 GB/s both)
         device_memory_bytes=80e9,  # data sheet: 80 GB HBM3
+        budget_single_device=True,
     ),
 }
 
 
 def machine_for(backend: str) -> Machine:
     return MACHINES.get(backend, MACHINES["cpu"])()
-
-
-def _single_device(devices: int, row_devices: int) -> None:
-    if devices > 1 or row_devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}, row_devices={row_devices}: the planner's distributed "
-            "branch is not ported yet (ROADMAP A5)")
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +368,174 @@ def _output_bytes(op, out, n, k, packed_block, itemsize) -> int:
     return n * k * itemsize
 
 
+def retrieval_bytes(out: str, nb: int, tile_w: int, itemsize: int = 4) -> int:
+    """Retrieval payload of the distributed tile schedule, per rank: the
+    gathered tile stack ``T·w² ≈ n²/2`` words for ``out='packed'`` (the
+    paper's packed low(C) saving as collective bytes), the mirrored
+    ``(nb·w)²`` square for ``out='dense'``."""
+    t_total = nb * (nb + 1) // 2
+    if out == "packed":
+        return t_total * tile_w * tile_w * itemsize
+    return (nb * tile_w) ** 2 * itemsize
+
+
+# ---------------------------------------------------------------------------
+# α-β communication model of the BFS/DFS schedule (CAPS-style, paper §5)
+# ---------------------------------------------------------------------------
+
+
+def _bfs_makespan(nb: int, devices: int, comm_schedule: Optional[str]) -> int:
+    """Tiles on the busiest task rank under the interleaving (the
+    contiguous ``ceil(T/devices)`` for pure DFS and the all-reduce
+    schedule)."""
+    t_total = nb * (nb + 1) // 2
+    if not comm_schedule or "B" not in comm_schedule:
+        return -(-t_total // devices)
+    from repro_torch.core.distributed import bfs_dfs_assignment
+
+    owned, _ = bfs_dfs_assignment(nb, devices, comm_schedule)
+    return max(len(o) for o in owned)
+
+
+def comm_levels(comm_schedule: Optional[str], nb: int, tile_w: int, devices: int,
+                row_devices: int = 1, *, out: str = "packed", itemsize: int = 4) -> list:
+    """Per-level ``{'tag', 'msgs', 'words'}`` of one interleaving, priced
+    with ring-collective α-β counts (the reference's model, kept as is):
+
+    * any ``'B'`` level switches the root exchange to the **tri-direct
+      reduce-scatter** over the merged ``P = devices·row_devices`` pool of
+      the ``T``-padded staging stack ``S_pad = T_pad·w²`` (``P−1`` steps,
+      ``S_pad·(P−1)/P`` words), spread over the ``'B'`` levels; dense out
+      adds a gather of the stack at the last level;
+    * a pure-``'D'`` string (or None, the all-reduce schedule) pays the
+      row-axis all-reduce of the slot stack (``2(d−1)`` steps,
+      ``2·S·(d−1)/d`` words) over the ``'D'`` levels, then at the last
+      level the root gather of the packed result (dense: plus the mirrored
+      square) and the reference's diagonal-symmetrization gather
+      (``P−1`` steps, ``nb·w²`` words).
+    """
+    sched = comm_schedule or "D"
+    t_total = nb * (nb + 1) // 2
+    pool = devices * max(row_devices, 1)
+    scatter = "B" in sched and pool > 1
+    levels = [dict(tag=c, msgs=0.0, words=0.0) for c in sched]
+    if scatter:
+        t_pad = -(-t_total // pool) * pool
+        s_pad = t_pad * tile_w * tile_w
+        red_msgs, red_words = pool - 1, s_pad * (pool - 1) / pool
+        carriers = [lv for lv in levels if lv["tag"] == "B"]
+        for lv in carriers:
+            lv["msgs"] += red_msgs / len(carriers)
+            lv["words"] += red_words / len(carriers)
+        if out == "dense":
+            levels[-1]["msgs"] += pool - 1
+            levels[-1]["words"] += s_pad * (pool - 1) / pool
+        return levels
+    s_max = _bfs_makespan(nb, devices, sched)
+    stack_words = s_max * tile_w * tile_w
+    d = max(row_devices, 1)
+    if d > 1:
+        red_msgs, red_words = 2 * (d - 1), 2 * stack_words * (d - 1) / d
+        carriers = [lv for lv in levels if lv["tag"] == "D"] or levels
+        for lv in carriers:
+            lv["msgs"] += red_msgs / len(carriers)
+            lv["words"] += red_words / len(carriers)
+    res_words = t_total * tile_w * tile_w
+    if out == "dense":
+        res_words += (nb * tile_w) ** 2
+    levels[-1]["msgs"] += pool - 1
+    levels[-1]["words"] += res_words * (pool - 1) / pool
+    if pool > 1:
+        levels[-1]["msgs"] += pool - 1
+        levels[-1]["words"] += nb * tile_w * tile_w
+    return levels
+
+
+def comm_seconds(machine: Machine, comm_schedule: Optional[str], nb: int, tile_w: int,
+                 devices: int, row_devices: int = 1, *, out: str = "packed",
+                 itemsize: int = 4) -> float:
+    """Total α-β time of one interleaving: ``Σ msgs·α + Σ bytes·β``."""
+    levels = comm_levels(comm_schedule, nb, tile_w, devices, row_devices, out=out,
+                         itemsize=itemsize)
+    msgs = sum(lv["msgs"] for lv in levels)
+    words = sum(lv["words"] for lv in levels)
+    return msgs * machine.alpha_s + words * itemsize * machine.beta_s_per_byte
+
+
+def comm_memory_bytes(comm_schedule: Optional[str], nb: int, tile_w: int, devices: int,
+                      row_devices: int = 1, *, m: int, out: str = "packed",
+                      itemsize: int = 4) -> int:
+    """Per-rank residency of one interleaving (the CAPS memory side): a
+    ``'B'`` schedule holds the operand slab, its partial stack, the full
+    ``T``-padded staging buffer and its scattered chunk (dense: the square);
+    a pure-``'D'`` one the slab, the slot stack, the all-reduce's reduced
+    copy and the packed result (dense: plus the square)."""
+    sched = comm_schedule or "D"
+    t_total = nb * (nb + 1) // 2
+    d = max(row_devices, 1)
+    pool = devices * d
+    scatter = "B" in sched and pool > 1
+    s_max = _bfs_makespan(nb, devices, sched)
+    tile = tile_w * tile_w * itemsize
+    operand = (m // d) * nb * tile_w * itemsize
+    local_stack = s_max * tile
+    if scatter:
+        t_pad = -(-t_total // pool) * pool
+        staging = (t_pad + 1) * tile
+        chunk = (t_pad // pool) * tile
+        result = chunk if out == "packed" else (nb * tile_w) ** 2 * itemsize
+        return operand + local_stack + staging + result
+    reduced = s_max * tile if d > 1 else 0
+    result = t_total * tile
+    if out == "dense":
+        result += (nb * tile_w) ** 2 * itemsize
+    return operand + local_stack + reduced + result
+
+
+def comm_schedule_candidates(nb: int, max_levels: Optional[int] = None) -> list:
+    """Interleavings the planner enumerates for one stripe grid: None (the
+    all-reduce schedule) first, then every string over {'B', 'D'} of up to
+    ``min(max_levels, tile-tree depth)`` characters."""
+    if max_levels is None:
+        max_levels = defaults.MAX_COMM_SCHEDULE_LEVELS
+    depth = max(1, (nb - 1).bit_length())  # ceil(log2(nb))
+    max_levels = min(max_levels, depth)
+    out = [None]
+    frontier = [""]
+    for _ in range(max_levels):
+        frontier = [s + c for s in frontier for c in ("D", "B")]
+        out.extend(frontier)
+    return out
+
+
+def choose_comm_schedule(nb: int, tile_w: int, devices: int, row_devices: int = 1, *, m: int,
+                         out: str = "packed", itemsize: int = 4,
+                         machine: Optional[Machine] = None, backend: str = "cpu",
+                         n: Optional[int] = None) -> Optional[str]:
+    """The interleaving argmin for one (shape, mesh, memory budget): α-β
+    time plus the compute imbalance of the subgroup assignment (extra tiles
+    on the busiest rank, priced as launches), among the candidates within
+    ``device_memory_bytes`` (else the least-memory one). With ``n``, the
+    BFS candidates are priced on their own :func:`bfs_tiling` grid."""
+    mach = machine or machine_for(backend)
+    pool = devices * max(row_devices, 1)
+    scored, overflow = [], []
+    for sched in comm_schedule_candidates(nb):
+        nb_s, w_s = (nb, tile_w)
+        if sched and "B" in sched and pool > 1 and n is not None:
+            nb_s, w_s = bfs_tiling(n, pool, devices=devices, out=out)
+        secs = comm_seconds(mach, sched, nb_s, w_s, devices, row_devices, out=out,
+                            itemsize=itemsize)
+        t_per = -(-(nb_s * (nb_s + 1) // 2) // devices)
+        secs += (_bfs_makespan(nb_s, devices, sched) - t_per) * mach.launch_overhead_s
+        mem = comm_memory_bytes(sched, nb_s, w_s, devices, row_devices, m=m, out=out,
+                                itemsize=itemsize)
+        (scored if mem <= mach.device_memory_bytes else overflow).append((secs, mem, sched))
+    if not scored:
+        return min(overflow, key=lambda t: (t[1], t[0]))[2]
+    return min(scored, key=lambda t: t[0])[2]
+
+
 def predict_seconds(
     op: str,
     algorithm: str,
@@ -363,14 +551,22 @@ def predict_seconds(
     machine: Optional[Machine] = None,
     backend: str = "cpu",
     blocks: Optional[Tuple[int, int]] = None,
+    devices: int = 1,
+    nb: Optional[int] = None,
+    tile_w: Optional[int] = None,
     leaf_dispatch: str = "unrolled",
+    row_devices: int = 1,
+    comm_schedule: Optional[str] = None,
 ) -> float:
-    """Prediction for one single-device candidate (module docstring).
+    """Prediction for one candidate (module docstring).
 
     ``blocks``: the ``(bn, bk)`` output tile of the base engine; None is the
     machine's nominal ``xla_tile``. The combine traffic is charged on top of
     the compute/memory max, not inside it: the combination passes run
-    beside the leaf products, not under them.
+    beside the leaf products, not under them. For ``op='ata'`` over more
+    than one rank the output term is the schedule's retrieval payload
+    (:func:`retrieval_bytes`) on the ``nb``/``tile_w`` grid, and the α-β
+    time of ``comm_schedule`` plus its compute imbalance is added.
     """
     mach = machine or machine_for(backend)
     itemsize = _ITEMSIZE.get(dtype, 4)
@@ -398,12 +594,26 @@ def predict_seconds(
                          if leaf_dispatch == "batched" and algorithm != "dense"
                          else mach.add_word_cost)
         combine_bytes = add_word_cost * adds * itemsize
-    out_bytes = _output_bytes(op, out, n, k, packed_block, itemsize)
+    comm_s = 0.0
+    pool = devices * max(row_devices, 1)
+    if op == "ata" and pool > 1:
+        if nb is None or tile_w is None:
+            if comm_schedule and "B" in comm_schedule:
+                nb, tile_w = bfs_tiling(n, pool, devices=devices, out=out)
+            else:
+                nb, tile_w = distributed_tiling(n, devices, out=out, packed_block=packed_block)
+        out_bytes = retrieval_bytes(out, nb, tile_w, itemsize)
+        comm_s = comm_seconds(mach, comm_schedule, nb, tile_w, devices, row_devices, out=out,
+                              itemsize=itemsize)
+        t_per = -(-(nb * (nb + 1) // 2) // devices)
+        comm_s += (_bfs_makespan(nb, devices, comm_schedule) - t_per) * mach.launch_overhead_s
+    else:
+        out_bytes = _output_bytes(op, out, n, k, packed_block, itemsize)
     memory_s = b * (stream_bytes + out_bytes) / mach.hbm_bw
     combine_s = b * combine_bytes / mach.hbm_bw
     overhead_s = (dispatch_calls(op, algorithm, m, n, k, n_base, leaf_dispatch)
                   * mach.launch_overhead_s)
-    return max(compute_s, memory_s) + combine_s + overhead_s
+    return max(compute_s, memory_s) + combine_s + overhead_s + comm_s
 
 
 def peak_bytes(
@@ -521,17 +731,49 @@ def candidates(
     bitwise equal to dense); each plan then carries the requested ``out``
     and its prediction. ``op='solve'`` (``k`` = RHS count) scores the two
     solver methods. 'fused' is offered with the classical variant only.
-    On a machine with a ``device_memory_bytes`` budget, candidates whose
-    :func:`peak_bytes` exceed it are dropped (the reference's single-device
-    planner has no budget; the cpu machine has none either).
+    On a machine with ``budget_single_device``, single-device candidates
+    whose :func:`peak_bytes` exceed ``device_memory_bytes`` are dropped
+    (the reference's single-device planner has no budget; the cpu machine
+    applies none either).
+
+    Over more than one rank (``devices`` task ranks × ``row_devices``) each
+    algorithm entry expands into one plan per interleaving
+    (``comm_schedule``) whose residency fits the budget, ranked within the
+    entry by prediction; BFS interleavings carry their own
+    :func:`bfs_tiling` grid with ``packed_block = tile_w``.
     """
-    _single_device(devices, row_devices)
     k = n if k is None else k
     if op == "solve":
         return _solve_candidates(m, n, k, batch=batch, dtype=dtype, out=out, backend=backend)
     mach = machine_for(backend)
     syrk_bs, gemm_bs = _kernel_blocks(mach)
     base_tile = _base_tile(mach)
+    itemsize = _ITEMSIZE.get(dtype, 4)
+
+    nb, tile_w = (None, None)
+    comm_scheds = [None]
+    sched_tiling = {}
+    pool = devices * max(row_devices, 1)
+    if devices > 1:
+        nb, tile_w = distributed_tiling(n, devices, out=out,
+                                        packed_block=defaults.DEFAULT_PACKED_BLOCK)
+    if op == "ata" and pool > 1:
+        # BFS strings run (and are priced) on their pool-divisible grid; a
+        # pure row-sharded mesh (devices == 1) enumerates None and the BFS
+        # strings only, since a pure-'D' string has no task axis to split
+        nb_b, w_b = bfs_tiling(n, pool, devices=devices, out=out)
+        for cs in comm_schedule_candidates(nb if nb is not None else nb_b):
+            bfs = bool(cs) and "B" in cs
+            if devices == 1 and cs is not None and not bfs:
+                continue
+            sched_tiling[cs] = (nb_b, w_b) if bfs else (nb, tile_w)
+        comm_scheds = [
+            cs for cs, (nb_s, w_s) in sched_tiling.items()
+            if nb_s is None or comm_memory_bytes(cs, nb_s, w_s, devices, row_devices, m=m,
+                                                 out=out, itemsize=itemsize)
+            <= mach.device_memory_bytes
+        ] or [choose_comm_schedule(nb_b, w_b, devices, row_devices, m=m, out=out,
+                                   itemsize=itemsize, machine=mach, n=n)]
 
     n_bases = sorted({min(nb_c, max(m, n, k)) for nb_c in defaults.N_BASE_CANDIDATES})
     scored = []
@@ -558,7 +800,7 @@ def candidates(
                 peak = peak_bytes(op, algo, m, n, k, n_base, ld, batch=batch, dtype=dtype,
                                   kernels=mach.kernels)
                 scored.append((pred, algo, n_base, ld, peak))
-    if mach.device_memory_bytes is not None:
+    if mach.budget_single_device and pool == 1:
         # a candidate the card cannot hold is no candidate; if none fits,
         # the one that holds least
         fits = [s for s in scored if s[4] <= mach.device_memory_bytes]
@@ -567,13 +809,27 @@ def candidates(
 
     plans = []
     for _, algo, n_base, ld, _ in scored:
-        pred_out = predict_seconds(op, algo, m, n, k, n_base, batch=batch, dtype=dtype, out=out,
-                                   machine=mach, blocks=base_tile, leaf_dispatch=ld)
-        plans.append(Plan(
-            op=op, m=m, n=n, k=k, batch=batch, dtype=dtype, backend=backend, out=out,
-            algorithm=algo, n_base=n_base, packed_block=defaults.DEFAULT_PACKED_BLOCK,
-            use_kernels=mach.kernels, syrk_blocks=syrk_bs, gemm_blocks=gemm_bs,
-            leaf_dispatch=ld, source="analytic", predicted_s=pred_out))
+        variants = []
+        for cs in comm_scheds:
+            nb_s, w_s = sched_tiling.get(cs, (nb, tile_w))
+            # a BFS plan's stripe is its packed block: the scattered chunks
+            # are packed storage as they stand
+            pb = (w_s if cs and "B" in cs and w_s is not None
+                  else defaults.DEFAULT_PACKED_BLOCK)
+            pred_out = predict_seconds(op, algo, m, n, k, n_base, batch=batch, dtype=dtype,
+                                       out=out, machine=mach, blocks=base_tile,
+                                       devices=devices, nb=nb_s, tile_w=w_s, leaf_dispatch=ld,
+                                       row_devices=row_devices, comm_schedule=cs)
+            variants.append(Plan(
+                op=op, m=m, n=n, k=k, batch=batch, dtype=dtype, backend=backend, out=out,
+                algorithm=algo, n_base=n_base, packed_block=pb, use_kernels=mach.kernels,
+                syrk_blocks=syrk_bs, gemm_blocks=gemm_bs, leaf_dispatch=ld,
+                devices=devices, nb=nb_s, tile_w=w_s, row_devices=row_devices,
+                comm_schedule=cs, source="analytic", predicted_s=pred_out))
+        # the α-β term does not depend on the algorithm, so interleavings
+        # rank within each entry and the algorithm order stays out-invariant
+        variants.sort(key=lambda p: p.predicted_s)
+        plans.extend(variants)
     return plans
 
 
@@ -624,10 +880,15 @@ def default_plan(
     row_devices: int = 1,
 ) -> Plan:
     """The static defaults as a Plan: the baseline the autotuner times
-    every candidate against."""
-    _single_device(devices, row_devices)
+    every candidate against. Over several task ranks it carries
+    :func:`distributed_tiling`'s grid and ``comm_schedule=None`` (the plain
+    all-reduce schedule)."""
     k = n if k is None else k
     mach = machine_for(backend)
+    nb, tile_w = (None, None)
+    if devices > 1:
+        nb, tile_w = distributed_tiling(n, devices, out=out,
+                                        packed_block=defaults.DEFAULT_PACKED_BLOCK)
     return Plan(
         op=op, m=m, n=n, k=k, batch=batch, dtype=dtype, backend=backend, out=out,
         algorithm=defaults.DEFAULT_VARIANT, n_base=defaults.DEFAULT_N_BASE,
@@ -635,4 +896,115 @@ def default_plan(
         syrk_blocks=defaults.SYRK_BLOCKS, gemm_blocks=defaults.GEMM_BLOCKS,
         leaf_dispatch=defaults.DEFAULT_LEAF_DISPATCH,
         method=defaults.DEFAULT_SOLVE_METHOD if op == "solve" else None,
-        devices=devices, row_devices=row_devices, source="default")
+        devices=devices, nb=nb, tile_w=tile_w, row_devices=row_devices, source="default")
+
+
+# ---------------------------------------------------------------------------
+# distributed branch: the lower-triangle stripe grids
+# ---------------------------------------------------------------------------
+
+
+def _strassen_depth(w: int, n_base: int) -> int:
+    """Levels the leaf recursion splits a ``w``-wide stripe (ceil halving)."""
+    d = 0
+    while w > n_base:
+        w -= w // 2
+        d += 1
+    return d
+
+
+def distributed_tiling(
+    n: int,
+    p: int,
+    target_tiles_per_dev: Optional[int] = None,
+    *,
+    out: str = "dense",
+    packed_block: Optional[int] = None,
+    n_base: Optional[int] = None,
+):
+    """``(nb, w)``: stripe count and stripe width (a multiple of 8) of the
+    contiguous lower-triangle schedule of ``ata_tile_parallel``.
+
+    Wants ``T = nb(nb+1)/2 ≥ p`` tasks, small ``T mod p`` (balance) and
+    wide stripes. Ranked by balance (``waste·w²``), then leaf Strassen depth
+    of a stripe (``n_base`` defaults to the static cutoff), then, for
+    ``out='packed'``, alignment with the packed block grid (``w ==
+    default_block_size(n, packed_block)``: retrieval is then a slice, and
+    the aligned count ``⌈n/bn⌉`` joins the candidates), then width.
+    """
+    from repro_torch.core.symmetric import default_block_size
+
+    if target_tiles_per_dev is None:
+        target_tiles_per_dev = defaults.TARGET_TILES_PER_DEVICE
+    if n_base is None:
+        n_base = defaults.DEFAULT_N_BASE
+    bn_pack = None
+    if out == "packed":
+        bn_pack = default_block_size(n, packed_block or defaults.DEFAULT_PACKED_BLOCK)
+
+    nb_min = max(1, math.ceil((math.sqrt(8 * p + 1) - 1) / 2))
+    cand = list(range(nb_min, 4 * nb_min + 8))
+    if bn_pack is not None:
+        nb_aligned = -(-n // bn_pack)
+        if nb_aligned >= nb_min and nb_aligned not in cand:
+            cand.append(nb_aligned)
+    best = None
+    for nb in cand:
+        t = nb * (nb + 1) // 2
+        if t < p:
+            continue
+        per = -(-t // p)
+        waste = per * p - t
+        w = -(-n // nb)
+        w = -(-w // 8) * 8
+        misaligned = 1 if (bn_pack is not None and w != bn_pack) else 0
+        score = (waste * w * w, -_strassen_depth(w, n_base), misaligned, -w)
+        if best is None or score < best[0]:
+            best = (score, nb, w)
+        if t >= target_tiles_per_dev * p and waste == 0 and not misaligned:
+            break
+    _, nb, w = best
+    return nb, w
+
+
+def bfs_tiling(
+    n: int,
+    pool: int,
+    *,
+    devices: Optional[int] = None,
+    out: str = "packed",
+    packed_block: Optional[int] = None,
+    n_base: Optional[int] = None,
+):
+    """``(nb, w)`` for the BFS tri-direct reduce-scatter schedule: ``T =
+    nb(nb+1)/2`` divisible by the merged ``pool``, so the scatter deals
+    exact ``T/pool``-tile chunks and retrieval is a slice. Among those,
+    ranked by the single-``'B'`` assignment's makespan excess over
+    ``ceil(T/devices)`` (with ``devices`` given, weighted ``w²``), leaf
+    Strassen depth, packed-grid alignment (``w == default_block_size(n,
+    w)``), width, then ``nb``. ``nb = 2·pool−1`` always qualifies.
+    """
+    from repro_torch.core.symmetric import default_block_size
+
+    if pool <= 1:
+        return distributed_tiling(n, pool, out=out, packed_block=packed_block)
+    if n_base is None:
+        n_base = defaults.DEFAULT_N_BASE
+    nb_min = max(1, math.ceil((math.sqrt(8 * pool + 1) - 1) / 2))
+    best = None
+    for nb in range(nb_min, nb_min + 2 * pool + 8):
+        t = nb * (nb + 1) // 2
+        if t < pool or t % pool:
+            continue
+        w = -(-n // nb)
+        w = -(-w // 8) * 8
+        grid = default_block_size(n, packed_block or w)
+        misaligned = 1 if w != grid else 0
+        extra = 0
+        if devices is not None and devices > 1:
+            extra = _bfs_makespan(nb, devices, "B") - (-(-t // devices))
+        score = (extra * w * w, -_strassen_depth(w, n_base), misaligned, -w, nb)
+        if best is None or score < best[0]:
+            best = (score, nb, w)
+    _, nb, w = best
+    return nb, w

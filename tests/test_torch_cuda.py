@@ -933,3 +933,48 @@ def test_syrk_gather_offsets_stay_on_the_card(dev):
     again = _sync_free(lambda: ops.syrk_gather(blocks, rows, cols))
     assert torch.equal(first, again)
     _close(again, syrk_gather_plain(blocks, rows, cols), 64)
+
+
+# ---------------------------------------------------------------------------
+# the distributed schedules on the card (2 ranks: NCCL with two cards, else
+# gloo with both on card 0)
+# ---------------------------------------------------------------------------
+
+
+def _dist_rank(rank: int, world: int, backend: str) -> dict:
+    from repro_torch.core.distributed import ata_bfs_dfs, ata_tile_parallel, gram_rowshard
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    rng = np.random.default_rng(46)
+    a = torch.as_tensor(rng.standard_normal((512, 600)).astype(np.float32), device=dev)
+    mesh = make_mesh((2,), ("model",), backend=backend, device=dev)
+    launches0 = dict(ops.launches)
+    bfs = ata_bfs_dfs(a, mesh, interleaving="BD", nb=4, n_base=128, out="packed")
+    tile = ata_tile_parallel(a, mesh, nb=4, n_base=128, out="packed")
+    gram = gram_rowshard(mesh.local_block(a, ("model", None)), "model", mesh=mesh, n_base=128,
+                         out="packed")
+    launched = {k: ops.launches[k] - launches0[k] for k in launches0}
+    return dict(bfs=bfs.to_dense().cpu().numpy(), gram=gram.to_dense().cpu().numpy(),
+                bfs_is_tile=bool(torch.equal(bfs.blocks, tile.blocks)), launched=launched)
+
+
+def test_distributed_schedules_on_the_card(dev):
+    """``ata_bfs_dfs("BD")`` and a packed ``gram_rowshard`` over 2 ranks:
+    each within tolerance of the single-device ``ata`` on the card, every
+    rank bitwise alike, "BD" bitwise equal to ``ata_tile_parallel`` at the
+    same grid, and the tile bodies on the gemm_tn kernel."""
+    from repro_torch.launch.mesh import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    rng = np.random.default_rng(46)
+    a = torch.as_tensor(rng.standard_normal((512, 600)).astype(np.float32), device=dev)
+    want = ata(a, n_base=128).cpu()
+    ranks = spawn(_dist_rank, 2, backend=backend, timeout_s=300.0, args=(backend,))
+    for r in ranks:
+        _close(torch.as_tensor(r["bfs"]), want, 512)
+        _close(torch.as_tensor(r["gram"]), want, 512)
+        assert r["bfs_is_tile"] and r["launched"]["gemm_tn"] > 0 and r["launched"]["syrk"] > 0
+    assert np.array_equal(ranks[0]["bfs"], ranks[1]["bfs"])
+    assert np.array_equal(ranks[0]["gram"], ranks[1]["gram"])

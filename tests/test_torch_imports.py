@@ -53,7 +53,9 @@ def test_port_files_exist():
                 "repro_torch/optim/_tree.py", "repro_torch/optim/adamw.py",
                 "repro_torch/optim/schedules.py", "repro_torch/optim/shampoo.py",
                 "repro_torch/optim/powersgd.py", "repro_torch/configs/base.py",
-                "repro_torch/configs/qwen15_05b.py"):
+                "repro_torch/configs/qwen15_05b.py", "repro_torch/core/distributed.py",
+                "repro_torch/launch/__init__.py", "repro_torch/launch/mesh.py",
+                "repro_torch/launch/collectives.py"):
         assert mod in names, mod
     for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -131,6 +133,8 @@ FRONT_DOORS = [("core/ata.py", "ata"), ("core/ata.py", "ata_batched"),
                ("solve/triangular.py", "solve_triangular"),
                ("solve/triangular.py", "solve_cholesky"), ("solve/cg.py", "cg_lstsq"),
                ("solve/lstsq.py", "lstsq")] + [
+    ("core/distributed.py", f) for f in ("gram_rowshard", "ata_tile_parallel", "ata_bfs_dfs",
+                                         "gemm_tn_colshard")] + [
     ("kernels/ops.py", f) for f in ("syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf",
                                     "trsm")]
 
@@ -155,3 +159,4 @@ def test_plan_keywords_where_the_reference_has_them(module, name):
 def test_plan_keyword_diff_sees_the_reference():
     assert _params("repro", "solve/cg.py", "cg_lstsq") >= {"plan", "gemm_plan"}
     assert "plan" not in _params("repro", "kernels/ops.py", "potrf")
+    assert "plan" in _params("repro", "core/distributed.py", "ata_bfs_dfs")

@@ -150,13 +150,27 @@ def test_flop_split_matches_counters():
 
 
 def test_distributed_requests_raise():
-    for fn in (cost.candidates, cost.default_plan):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn("ata", 512, 512, devices=4)
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn("ata", 512, 512, row_devices=2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tune.plan(op="ata", m=512, n=512, devices=8, backend="cpu")
+    """Distributed requests resolve through the planner's distributed
+    branch as the reference's do (the full grid is in
+    ``tests/test_torch_distributed.py``); a malformed interleaving raises
+    in both packages."""
+    from repro import tune as jtune
+    from repro.core.distributed import bfs_dfs_assignment as jassign
+    from repro_torch.core.distributed import bfs_dfs_assignment
+
+    for kw in (dict(devices=4), dict(row_devices=2), dict(devices=4, row_devices=2)):
+        for fn, jfn in ((cost.candidates, jcost.candidates),
+                        (cost.default_plan, jcost.default_plan)):
+            got, want = fn("ata", 512, 512, **kw), jfn("ata", 512, 512, **kw)
+            assert (got if isinstance(got, list) else [got]) == [
+                cost.Plan.from_json(p.to_json()) for p in (want if isinstance(want, list)
+                                                           else [want])]
+    got = tune.plan(op="ata", m=512, n=512, devices=8, backend="cpu")
+    assert got == cost.Plan.from_json(
+        jtune.plan(op="ata", m=512, n=512, devices=8, backend="cpu").to_json())
+    for fn in (bfs_dfs_assignment, jassign):
+        with pytest.raises(ValueError, match="interleaving"):
+            fn(4, 2, "BX")
 
 
 # --- unpinned front doors resolve as the reference's do ---------------------
@@ -267,9 +281,11 @@ def test_cuda_machine_parameters():
     assert m.name == "cuda_h100" and m.kernels is True
     assert (m.peak_flops, m.hbm_bw, m.launch_overhead_s) == (67e12, 3.35e12, 35e-6)
     assert (m.d_half, m.add_word_cost, m.stack_word_cost) == (128, 1.0, 2.0)
-    assert m.device_memory_bytes == 80e9
-    # the reference's single-device planner has no memory budget
-    assert cost.machine_for("cpu").device_memory_bytes is None
+    assert m.device_memory_bytes == 80e9 and m.budget_single_device
+    # the reference's single-device planner has no memory budget; its cpu
+    # machine's 2 GB budget prices only the distributed schedules
+    cpu = cost.machine_for("cpu")
+    assert cpu.device_memory_bytes == 2e9 and not cpu.budget_single_device
     assert cost.machine_for("tpu").name == "cpu"
 
 
