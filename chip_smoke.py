@@ -112,11 +112,35 @@ phase fails):
              by kind, kernel launches and peak memory. Each of the six
              kernels must be launched by the ranks' checked runs.
 
+12. serve  — the serving layer (``repro_torch.serve``): (a) the smoke
+             lattice (``smoke_config``) under the card's rule and the CLI's
+             mixed workload of 100 requests, every served slice bitwise equal
+             to its per-request twin on the card, none refused by the card's
+             rule, zero recaptures; (b) a lattice at the sizes users serve
+             (lstsq n ∈ {256, 512} over m bands {512, 8192}, r bands
+             {1, 8, 64}, B = 8; whiten n = 1024, m = 4096, r = 64, B = 4):
+             256 seeded requests back to back, every slice bitwise equal to
+             its twin, two requests of every bucket against float64 (the
+             backward error within (m + n)·eps32, the forward error within
+             max(1e-3, 2·κ·(m + n)·eps32)), zero recaptures, the share of
+             the reference lattice's request shapes the card's rule admits;
+             (c) a ``torch.profiler`` trace of one replay per bucket naming
+             csrc's syrk, potrf, trsm and (m ≤ 512 lstsq buckets) gemm_tn
+             kernels as many times as the capture launched them; (d) per
+             bucket: warm seconds (eager run, capture), the cold first
+             request of a fresh server, replay ms, request p50/p95/p99 (a
+             bucket's ~20 requests, arriving back to back), the same batch
+             run eagerly, the per-request loop, the library
+             (``a.mT @ a + λI``, ``cholesky_ex``, ``cholesky_solve``) by
+             events and in a CUDA graph, and the flush's bound;
+             requests/s, graph memory held.
+
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
 calls are planned, and those phases measure the dispatches they name.
 ``python3 chip_smoke.py distributed`` runs the build and phase 11 alone
-(what a call on four cards needs) and prints no final line.
+(what a call on four cards needs) and ``python3 chip_smoke.py serve`` the
+build and phase 12 alone; neither prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -2195,12 +2219,386 @@ def phase_distributed(ops):
     return launches, res
 
 
-def main(argv) -> int:
+
+# ---------------------------------------------------------------------------
+# phase serve: the serving layer (repro_torch.serve) on the card
+# ---------------------------------------------------------------------------
+
+# (b)'s lattice: lstsq at n ∈ {256, 512} over m bands {512, 8192} and r bands
+# {8, 64} (r = 1 added: the card's rule makes every bucket of n ≥ 256 exact in
+# r — n spans two packed blocks or more —, so a vector right-hand side needs a
+# bucket of its own), and whiten at qwen1.5-0.5b's Shampoo block n = 1024
+# (phase optim); 256 requests.
+SERVE_LSTSQ = dict(ops=("lstsq",), n_values=(256, 512), m_bands=(512, 8192),
+                   r_bands=(1, 8, 64), batch=8)
+SERVE_WHITEN = dict(ops=("whiten",), n_values=(1024,), m_bands=(4096,), r_bands=(64,),
+                    batch=4)
+SERVE_REQUESTS = 256
+SERVE_RIDGES = (0.0, 1e-3, 1e-2)
+
+
+def serve_one(op, a, b, twin, ridge=0.0):
+    """One request solved alone under its twin plan: ``lstsq``, or the
+    whiten pipeline (the reference's ``_whiten_ref``: the ridge always
+    added)."""
+    import dataclasses
+
     import torch
 
-    if argv not in ([], ["distributed"]):
-        print(f"chip_smoke: unknown arguments {argv}; the only one is 'distributed'",
-              file=sys.stderr)
+    from repro_torch.core.ata import ata
+    from repro_torch.solve import cholesky, lstsq, solve_triangular
+
+    if op == "lstsq":
+        return lstsq(a, b, ridge=ridge, plan=twin)
+    ata_plan = dataclasses.replace(twin, op="ata", k=twin.n, out="packed", method=None,
+                                   predicted_s=None)
+    gram = ata(a.to(torch.float32), plan=ata_plan, out="packed",
+               packed_block=twin.packed_block).add_scaled_identity(ridge)
+    return solve_triangular(cholesky(gram, plan=twin), b.to(torch.float32), transpose=False,
+                            plan=twin)
+
+
+def serve_twin(server, ticket):
+    """The per-request twin of one served ticket on the server's device,
+    as numpy."""
+    import torch
+
+    req = ticket.request
+    a = torch.as_tensor(req.a, device=server.device)
+    b = torch.as_tensor(req.b, device=server.device)
+    twin = server.request_twin(ticket.bucket, a.shape[0], 1 if b.ndim == 1 else b.shape[-1])
+    return serve_one(req.op, a, b, twin, req.ridge).cpu().numpy()
+
+
+def serve_check_twins(server, served):
+    """Every served slice bitwise (by bit pattern, so a NaN of the same
+    bits is equal) against its twin; returns the failures."""
+    import numpy as np
+
+    bad = []
+    for t in served:
+        got, ref = np.asarray(t.result()), serve_twin(server, t)
+        if got.shape != ref.shape or got.dtype != ref.dtype or got.tobytes() != ref.tobytes():
+            bad.append(f"ticket {t.id} {t.bucket.label()} m={t.request.a.shape[0]} "
+                       f"max|d|={float(np.abs(got - ref).max()) if got.shape == ref.shape else 'shape'}")
+    return bad
+
+
+def serve_float64(ticket) -> dict:
+    """One served ticket against float64 on the host: the forward relative
+    error, its bound, the backward error, its bound, κ, and whether the
+    result is finite. lstsq: ``x`` against the
+    ridge normal equations' solution, the backward error
+    ``‖Gx − Aᵀb‖ / (‖G‖‖x‖ + ‖Aᵀb‖)``; whiten: ``z`` against ``L⁻¹v``, L
+    the float64 Cholesky factor of ``AᵀA + λI``, the backward error
+    ``‖Lz − v‖ / (‖L‖‖z‖ + ‖v‖``). The backward bound ``(m + n)·eps32`` is
+    the gram's and the solves' rounding; the forward bound scales it by
+    twice κ, the condition number of the matrix the request inverts (G, or
+    L for whiten), and is never below 1e-3. A forward bound of 1 or more
+    says float32 cannot promise a digit of the answer: there a non-finite
+    result (float32 Cholesky breaking down, as the twin's does) passes
+    (:func:`serve_float64_ok`)."""
+    import numpy as np
+
+    req = ticket.request
+    a = req.a.astype(np.float64)
+    m, n = a.shape
+    g = a.T @ a + req.ridge * np.eye(n)
+    w = np.linalg.eigvalsh(g)
+    v = req.b.astype(np.float64)
+    got = np.asarray(ticket.result(), np.float64)
+    if req.op == "lstsq":
+        mat, rhs, norm, kappa = g, a.T @ v, w[-1], w[-1] / w[0]
+    else:
+        mat, rhs = np.linalg.cholesky(g), v
+        norm, kappa = math.sqrt(w[-1]), math.sqrt(w[-1] / w[0])
+    want = np.linalg.solve(mat, rhs)
+    fwd = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    bwd = float(np.linalg.norm(mat @ got - rhs)
+                / (norm * np.linalg.norm(got) + np.linalg.norm(rhs)))
+    bwd_bound = (m + n) * EPS32
+    return dict(bucket=ticket.bucket.label(), m=m, ridge=req.ridge, kappa=float(kappa),
+                finite=bool(np.isfinite(got).all()), forward=fwd,
+                forward_bound=max(1e-3, 2 * kappa * bwd_bound), backward=bwd,
+                backward_bound=bwd_bound)
+
+
+def serve_float64_ok(d) -> bool:
+    if not d["finite"]:
+        return d["forward_bound"] >= 1
+    return d["forward"] <= d["forward_bound"] and d["backward"] <= d["backward_bound"]
+
+
+def admitted_shapes(specs) -> int:
+    """How many request shapes ``(op, n, dtype, m, r)`` some bucket of
+    ``specs`` admits (m from 1 to the largest capacity, r likewise)."""
+    groups = {}
+    for s in specs:
+        groups.setdefault((s.op, s.n, s.dtype), []).append(s)
+    total = 0
+    for group in groups.values():
+        for m in range(1, max(s.m for s in group) + 1):
+            rs = set()
+            for s in group:
+                if m == s.m if s.exact_m else m <= s.m:
+                    rs |= {s.r} if s.exact_r else set(range(1, s.r + 1))
+            total += len(rs)
+    return total
+
+
+def serve_requests(lattice, rng, count):
+    """(b)'s workload: buckets drawn uniformly, ragged m and r inside each
+    band where the bucket bands them (``m = spec.m`` where it is exact_m,
+    ``r = spec.r`` where exact_r), a quarter of the requests with a vector
+    right-hand side (routed to r = 1 buckets), ridges from
+    ``SERVE_RIDGES``."""
+    from repro_torch.serve.__main__ import _make_request
+
+    specs = lattice.specs
+    reqs = []
+    for i in range(count):
+        vector = i % 4 == 3
+        pool = [s for s in specs if s.r == 1 or not s.exact_r] if vector else \
+            [s for s in specs if s.r > 1]
+        s = pool[int(rng.integers(len(pool)))]
+        lower = max([t.m for t in specs if (t.op, t.n) == (s.op, s.n) and t.m < s.m],
+                    default=s.n - 1)
+        m = s.m if s.exact_m else int(rng.integers(lower + 1, s.m + 1))
+        r = 0 if vector else (s.r if s.exact_r else int(rng.integers(1, s.r + 1)))
+        ridge = SERVE_RIDGES[int(rng.integers(len(SERVE_RIDGES)))]
+        reqs.append(_make_request(rng, s.op, m, s.n, r, ridge))
+    return reqs
+
+
+def flush_bound(spec):
+    """(ms, by) of one flush of ``spec`` on an H100: the gram (symmetric),
+    the factor (unblocked count), ``Aᵀb`` and the substitutions, each
+    entry's inputs read and its output written once."""
+    from repro_torch.core.reference import (classical_gemm_flops, classical_syrk_flops,
+                                            potrf_flops, trsm_flops)
+
+    m, n, r, B = spec.m, spec.n, spec.r, spec.batch
+    flops = classical_syrk_flops(m, n) + potrf_flops(n)
+    if spec.op == "lstsq":
+        flops += classical_gemm_flops(m, n, r) + 2 * trsm_flops(n, r)
+        rows = m
+    else:
+        flops += trsm_flops(n, r)
+        rows = n
+    return bound(B * flops, 4 * B * (m * n + rows * r + 1 + n * r))
+
+
+def serve_yardstick(spec, a, b, ridge):
+    """The library computing one flush — never called by the port: batched
+    ``aᵀa + λI`` and ``torch.linalg.cholesky_ex``, then
+    ``torch.cholesky_solve`` (lstsq) or ``torch.linalg.solve_triangular``
+    (whiten), on the padded batch. Returns (CUDA-event ms, device ms in a
+    CUDA graph): ``cholesky_solve`` cannot be captured (MAGMA's batched
+    ``potrs`` allocates), so the graph runs its two triangular solves with
+    ``torch.linalg.solve_triangular`` instead."""
+    import torch
+
+    eye = torch.eye(spec.n, device="cuda")
+
+    def factor():
+        return torch.linalg.cholesky_ex(a.mT @ a + ridge.reshape(-1, 1, 1) * eye).L
+
+    def lib():
+        low = factor()
+        if spec.op == "lstsq":
+            return torch.cholesky_solve(a.mT @ b, low)
+        return torch.linalg.solve_triangular(low, b, upper=False)
+
+    def lib_capturable():
+        low = factor()
+        if spec.op == "lstsq":
+            y = torch.linalg.solve_triangular(low, a.mT @ b, upper=False)
+            return torch.linalg.solve_triangular(low.mT, y, upper=True)
+        return torch.linalg.solve_triangular(low, b, upper=False)
+
+    return time_ms(lib), graph_ms(lib_capturable, launches=10)
+
+
+def serve_profile(program):
+    """Kernel names and counts of one replay of ``program``'s graph, from a
+    ``torch.profiler`` trace of the card (CUPTI)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        program._graph.replay()
+        torch.cuda.synchronize()
+    names = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            names[ev.name] += 1
+    return names
+
+
+def phase_serve(ops):
+    """Phase 12: the serving layer (see the module docstring). Returns
+    (launches of (b)'s warm, launches of (b)'s workload — each bucket's
+    replays times the launches its capture recorded —, the largest
+    bucket's launches per flush, results)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import metrics as serve_metrics
+    from repro_torch.serve.__main__ import _mixed_workload, _refused_by_rule, _run_workload
+    from repro_torch.serve.bucketing import make_buckets
+    from repro_torch.serve.engine import Server, ServeConfig, smoke_config
+
+    t_phase = time.perf_counter()
+    log("phase serve")
+    res = {}
+    failed = []
+
+    # (a) the smoke lattice under the card's rule, the CLI's mixed workload
+    server = Server(smoke_config())
+    server.warm()
+    reqs = list(_mixed_workload(100, SEED))
+    served, rejected = _run_workload(server, reqs)
+    refused = _refused_by_rule(server, reqs)
+    bad = serve_check_twins(server, served)
+    res["smoke"] = dict(buckets=[s.label() for s in server.buckets], served=len(served),
+                        rejected=rejected, refused_by_card_rule=refused,
+                        recaptures=server.retraces(), twin_mismatches=len(bad))
+    log(f"  (a) smoke ({time.perf_counter() - t_phase:.1f} s): " + json.dumps(res["smoke"]))
+    failed += bad[:5]
+    if server.retraces() or not all(t.done() for t in served) or not served:
+        failed.append("smoke: recaptures, unserved tickets or nothing served")
+    if refused:
+        failed.append(f"smoke: the card's rule refused {refused} requests the reference admits")
+    del server
+    torch.cuda.empty_cache()
+
+    # (b) the lattice at the sizes users serve; the server adds the card's rule
+    buckets = make_buckets(**SERVE_LSTSQ) + make_buckets(**SERVE_WHITEN)
+    cfg = ServeConfig(buckets=buckets, capacity=2 * SERVE_REQUESTS, max_wait_s=0.005)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    server = Server(cfg)
+    warm = server.warm()
+    warm_counts = dict(ops.launches)
+    held = torch.cuda.memory_allocated() - mem0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    shapes_ref, shapes_card = admitted_shapes(buckets), admitted_shapes(server.buckets)
+    rng = np.random.default_rng(SEED + 12)
+    reqs = serve_requests(server.lattice, rng, SERVE_REQUESTS)
+    serve_metrics.reset()
+    t0 = time.perf_counter()
+    served, rejected = _run_workload(server, reqs)
+    wall = time.perf_counter() - t0
+    workload_counts = {k: 0 for k in ops.launches}
+    for spec in server.buckets:
+        fn, _ = server.bucket_callable(spec)
+        for k, v in fn.capture_launches.items():
+            workload_counts[k] += v * fn.replays
+    log(f"  (b) {len(buckets)} buckets warmed in {sum(warm.values()):.2f} s; "
+        f"{len(served)} served, {rejected} rejected in {wall:.3f} s "
+        f"({len(served) / wall:.1f} requests/s); recaptures {server.retraces()}; "
+        f"graphs and buffers held {held} B, warm peak {peak} B; launches of warm "
+        f"{warm_counts}, replayed by the workload {workload_counts}; the card's rule admits "
+        f"{shapes_card} of the reference lattice's {shapes_ref} request shapes "
+        f"({shapes_card / shapes_ref:.4%}): " + ", ".join(s.label() for s in server.buckets))
+    if rejected or server.retraces() or not all(t.done() for t in served):
+        failed.append(f"(b): {rejected} rejected, {server.retraces()} recaptures")
+    if dict(ops.launches) != warm_counts:
+        failed.append(f"(b): the workload launched kernels outside the graphs: {ops.launches}")
+    bad = serve_check_twins(server, served)
+    log(f"  (b) every served slice against its twin: {len(served) - len(bad)} of "
+        f"{len(served)} bitwise")
+    failed += bad[:5]
+    # two requests of every bucket, and every non-finite result, against
+    # float64 (serve_float64)
+    picked = [t for spec in server.buckets for t in [t for t in served if t.bucket == spec][:2]]
+    nonfinite = [t for t in served if not np.isfinite(t.result()).all()]
+    sample = [serve_float64(t) for t in picked + [t for t in nonfinite if t not in picked]]
+    failed += [f"(b) float64: {d}" for d in sample if not serve_float64_ok(d)]
+    log(f"  (b) {len(sample)} requests against float64 ({len(nonfinite)} served results not "
+        "finite): " + json.dumps(sample))
+    if len({t.bucket for t in picked}) != len(server.buckets):
+        failed.append("(b) float64: a bucket served nothing to sample")
+    lat = serve_metrics.percentiles("request")
+    res["lattice"] = dict(buckets=[s.label() for s in server.buckets], served=len(served),
+                          rejected=rejected, recaptures=server.retraces(), wall_s=wall,
+                          requests_per_s=len(served) / wall,
+                          latency_ms={k: lat[k] * 1e3 for k in ("p50", "p95", "p99")},
+                          held_bytes=held, warm_peak_bytes=peak, warm_launches=warm_counts,
+                          workload_launches=workload_counts,
+                          admitted_shapes=dict(card=shapes_card, reference=shapes_ref),
+                          non_finite=len(nonfinite),
+                          float64_max_backward=max(d["backward"] for d in sample if d["finite"]))
+
+    # (c) and (d) per bucket: the replay profiled, its launches, the readings
+    per = {}
+    names_seen = set()
+    for spec in server.buckets:
+        fn, sp = server.bucket_callable(spec)
+        a, b, ridge = fn._inputs()
+        names = serve_profile(fn)
+        launched = {k: sum(v for name, v in names.items() if f"{k}_kernel" in name)
+                    for k in ("syrk", "potrf", "trsm", "gemm_tn")}
+        names_seen |= {k for k, v in launched.items() if v}
+        if launched != {k: fn.capture_launches[k] for k in launched}:
+            failed.append(f"{spec.label()}: profiled replay {launched} != capture "
+                          f"{fn.capture_launches}")
+        replay_ms = time_ms(fn._graph.replay, runs=10)
+        eager_ms = time_ms(lambda: fn.run(a, b, ridge), runs=5)
+        # B per-request lstsq calls on the batch's slices (what batching saves)
+        twin = server.request_twin(spec, spec.m, spec.r)
+        loop_ms = time_ms(lambda: [serve_one(spec.op, a[i], b[i], twin)
+                                   for i in range(spec.batch)], runs=3)
+        lib_ms, lib_device_ms = serve_yardstick(spec, a, b, ridge)
+        bms, by = flush_bound(spec)
+        lat = serve_metrics.percentiles(f"request.{spec.label()}") or {}
+        # the cold first request of a fresh server on this one bucket
+        cold = Server(ServeConfig(buckets=(spec,), capacity=8, max_wait_s=0.005))
+        req = next(t.request for t in served if t.bucket == spec)
+        t0 = time.perf_counter()
+        cold.submit(req)
+        cold.drain()
+        cold_s = time.perf_counter() - t0
+        del cold
+        per[spec.label()] = dict(
+            warm_s=fn.warm_s, cold_first_request_s=cold_s, replay_ms=replay_ms,
+            eager_batch_ms=eager_ms, per_request_loop_ms=loop_ms, library_ms=lib_ms,
+            library_device_ms=lib_device_ms, bound_ms=bms, bound_by=by,
+            flushes=fn.replays, launches_per_flush=fn.capture_launches,
+            profiled=launched, requests=lat.get("count", 0),
+            latency_ms={k: lat[k] * 1e3 for k in ("p50", "p95", "p99")} if lat else None)
+        log(f"  {spec.label()} ({time.perf_counter() - t_phase:.1f} s): "
+            + json.dumps(per[spec.label()], default=str))
+    res["buckets"] = per
+    if names_seen != {"syrk", "potrf", "trsm", "gemm_tn"}:
+        failed.append(f"profiled replays named only {sorted(names_seen)} of syrk, potrf, trsm, "
+                      "gemm_tn")
+    largest = max(server.buckets, key=lambda s: (s.batch * s.m * s.n, s.r))
+    per_flush = server.bucket_callable(largest)[0].capture_launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  largest bucket {largest.label()}: launches per flush {per_flush}; "
+        f"phase serve took {res['phase_s']:.1f} s")
+    if failed:
+        raise AssertionError("serve: " + "; ".join(failed))
+    return warm_counts, workload_counts, per_flush, res
+
+
+def main(argv) -> int:
+    import time
+
+    import torch
+
+    t_start = time.perf_counter()
+
+    if argv not in ([], ["distributed"], ["serve"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed' and "
+              "'serve'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -2232,6 +2630,10 @@ def main(argv) -> int:
         _, dist_res = phase_distributed(ops)
         log("end_to_end " + json.dumps({"distributed": dist_res}, default=str))
         return 0
+    if argv == ["serve"]:
+        _, _, _, serve_res = phase_serve(ops)
+        log("end_to_end " + json.dumps({"serve": serve_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -2260,15 +2662,21 @@ def main(argv) -> int:
     optim_counts, optim_res = phase_optim(checks, ops, plain)
     torch.cuda.empty_cache()
     dist_counts, dist_res = phase_distributed(ops)
+    torch.cuda.empty_cache()
+    serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
                                     "tune": tune_res, "optim": optim_res,
-                                    "distributed": dist_res}, default=str))
+                                    "distributed": dist_res, "serve": serve_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
-    # them, the launches of phase optim's Shampoo refresh step (p = 2, packed)
+    # them, the launches of phase optim's Shampoo refresh step (p = 2, packed),
+    # of phase distributed, of phase serve's warm (b) (eager runs and
+    # captures), the launches (b)'s workload replayed (each bucket's replays
+    # times its capture's launches), and the launches one flush of serve's
+    # largest bucket replays
     table = {
         "gemm_tn": ("gemm_tn.cu", "src/repro/kernels/gemm_tn.py:78", counts),
         "syrk": ("syrk.cu", "src/repro/kernels/syrk.py:136", counts),
@@ -2283,8 +2691,12 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": replaces, "launches": path_counts[name],
             "optim_refresh_step_launches": optim_counts[name],
-            "distributed_launches": dist_counts[name], **checks.rows[name],
+            "distributed_launches": dist_counts[name],
+            "serve_warm_launches": serve_warm[name],
+            "serve_workload_launches": serve_workload[name],
+            "serve_launches": serve_flush.get(name, 0), **checks.rows[name],
         })
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

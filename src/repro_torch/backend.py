@@ -9,13 +9,14 @@ PyTorch version. There is no fallback between the two.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 
 import torch
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes", "planner_key",
-           "device_cached", "device_table"]
+           "device_cached", "device_table", "holding_tables"]
 
 # Tensors made from nothing (zeros, converters, chip_smoke data) land here
 # unless the caller asks for another device.
@@ -32,6 +33,8 @@ def resolve_device(device=None) -> torch.device:
 _TABLES: OrderedDict = OrderedDict()
 _TABLES_MAX = 256
 _TABLES_LOCK = threading.Lock()
+# lists open in holding_tables(): each collects every value handed out
+_HOLDERS: list = []
 
 
 def device_cached(key, make):
@@ -45,14 +48,35 @@ def device_cached(key, make):
     with _TABLES_LOCK:
         if key in _TABLES:
             _TABLES.move_to_end(key)
-            return _TABLES[key]
+            value = _TABLES[key]
+            for held in _HOLDERS:
+                held.append(value)
+            return value
     value = make()
     with _TABLES_LOCK:
         value = _TABLES.setdefault(key, value)
         _TABLES.move_to_end(key)
         while len(_TABLES) > _TABLES_MAX:
             _TABLES.popitem(last=False)
+        for held in _HOLDERS:
+            held.append(value)
     return value
+
+
+@contextlib.contextmanager
+def holding_tables():
+    """Yield a list that collects every value :func:`device_cached` hands
+    out inside the block. Whoever keeps the list keeps those values alive
+    after the LRU drops them: a captured CUDA graph reads a table's memory
+    with no Python object watching it (``repro_torch.serve.engine``)."""
+    held: list = []
+    with _TABLES_LOCK:
+        _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        with _TABLES_LOCK:
+            _HOLDERS.remove(held)
 
 
 def device_table(key, device, make) -> torch.Tensor:

@@ -124,7 +124,32 @@ def resolve_tunables(
 
 def _dot_tn(a, b, acc_dtype):
     """Plain ``AᵀB`` over the last two dims (leading dims are batch), with
-    an ``acc_dtype`` accumulator — ``torch.matmul``, ``Aᵀ`` a view."""
+    an ``acc_dtype`` accumulator, ``Aᵀ`` never formed.
+
+    On a CUDA device, float32 or bfloat16 operands of at most
+    ``UNSPLIT_MAX_ROWS`` rows go to the ``gemm_tn`` kernel (``ops.gemm_tn``):
+    it sums each output as one ``fmaf`` chain over ascending rows, and each
+    column of ``B`` on its own, so zero rows and zero columns leave every
+    other output's bits as they were. The serving layer bands ``m`` and
+    ``r`` on that (``repro_torch.serve.bucketing``). Above it, or in
+    float64, ``torch.matmul``: cuBLAS picks its split of the contraction
+    from the shape, and a serving bucket keeps ``m`` and ``r`` exact there.
+
+    On the CPU a one-column ``B`` is the first column of a two-column
+    product: MKL sums a matrix-vector product in another order than a
+    matrix product, so a vector right-hand side would otherwise round
+    differently from the same column inside a wider ``B``."""
+    if a.is_cuda:
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
+
+        if a.shape[-2] <= UNSPLIT_MAX_ROWS and torch.float64 not in (a.dtype, b.dtype, acc_dtype):
+            # the kernel reads rows of unit column stride
+            a, b = (x if x.stride(-1) == 1 else x.contiguous() for x in (a, b))
+            return ops.gemm_tn(a, b, out_dtype=acc_dtype)
+        return gemm_tn_plain(a, b, out_dtype=acc_dtype)
+    if b.shape[-1] == 1:
+        return gemm_tn_plain(a, F.pad(b, (0, 1)), out_dtype=acc_dtype)[..., :1]
     return gemm_tn_plain(a, b, out_dtype=acc_dtype)
 
 

@@ -94,10 +94,15 @@ def _devices(result):
 def dispatch_finish(plan, t0, result):
     """Close a measurement opened by :func:`dispatch_start`: wait for the
     result's devices, record the pair, hand the result back. With no
-    measurement open it returns at once and synchronises nothing."""
+    measurement open it returns at once and synchronises nothing; while a
+    CUDA graph is being captured it synchronises nothing and records no
+    row (the host clock measured the capture, not the work)."""
     if t0 is None:
         return result
-    for device in _devices(result):
+    devices = _devices(result)
+    if devices and torch.cuda.is_current_stream_capturing():
+        return result
+    for device in devices:
         torch.cuda.synchronize(device)
     calibrate.record(plan, time.perf_counter() - t0)
     return result

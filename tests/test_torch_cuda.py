@@ -978,3 +978,245 @@ def test_distributed_schedules_on_the_card(dev):
         assert r["bfs_is_tile"] and r["launched"]["gemm_tn"] > 0 and r["launched"]["syrk"] > 0
     assert np.array_equal(ranks[0]["bfs"], ranks[1]["bfs"])
     assert np.array_equal(ranks[0]["gram"], ranks[1]["gram"])
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card: one captured CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+def _serve_twin(server, ticket):
+    """The per-request twin of a served ticket on the card, as numpy."""
+    import dataclasses
+
+    from repro_torch.solve import solve_triangular
+
+    req = ticket.request
+    a = torch.as_tensor(req.a, device=server.device)
+    b = torch.as_tensor(req.b, device=server.device)
+    twin = server.request_twin(ticket.bucket, a.shape[0], 1 if b.ndim == 1 else b.shape[-1])
+    if req.op == "lstsq":
+        return lstsq(a, b, ridge=req.ridge, plan=twin).cpu().numpy()
+    ata_plan = dataclasses.replace(twin, op="ata", k=twin.n, out="packed", method=None,
+                                   predicted_s=None)
+    gram = ata(a.float(), plan=ata_plan, out="packed",
+               packed_block=twin.packed_block).add_scaled_identity(req.ridge)
+    return solve_triangular(cholesky(gram, plan=twin), b.float(), transpose=False,
+                            plan=twin).cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def smoke_server():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from repro_torch.serve.engine import Server, smoke_config
+
+    server = Server(smoke_config())
+    server.warm()
+    return server
+
+
+def test_serve_smoke_bitwise_to_twins_without_recapture(dev, smoke_server):
+    """The smoke lattice under the card's rule: every served slice of the
+    CLI's mixed workload bitwise equals its twin on the card, each bucket
+    was captured once, and no dispatch captured again."""
+    from repro_torch.serve.__main__ import _mixed_workload, _run_workload
+
+    served, rejected = _run_workload(smoke_server, _mixed_workload(48, 3))
+    assert served and all(t.done() for t in served) and rejected == 0
+    assert smoke_server.retraces() == 0
+    for t in served:
+        np.testing.assert_array_equal(_serve_twin(smoke_server, t), t.result(),
+                                      err_msg=t.bucket.label())
+    progs = smoke_server.stats()["programs"]
+    assert all(p["builds"] == 1 for p in progs.values())
+    used = [p for p in progs.values() if p["replays"]]
+    assert used and all(p["launches_per_replay"]["syrk"] == 1 for p in used)
+    # the card's rule adds nothing at these shapes: m and r band as in the
+    # reference, Aᵀb one gemm_tn launch per entry
+    assert smoke_server.buckets == smoke_server.config.buckets
+    assert any(t.request.a.shape[0] < t.bucket.m for t in served)
+    assert any(t.request.b.ndim == 2 and t.request.b.shape[-1] < t.bucket.r for t in served)
+    for s in smoke_server.buckets:
+        p = progs.get(s.label())
+        if p and p["replays"] and s.op == "lstsq":
+            assert p["launches_per_replay"]["gemm_tn"] == s.batch
+
+
+def test_serve_card_rule_at_the_syrk_split(dev):
+    """A whiten bucket whose m band crosses ``UNSPLIT_MAX_ROWS``: the card's
+    rule makes it exact_m, so a request of fewer rows is refused and one of
+    the bucket's rows is served bitwise equal to its twin. The rule is
+    needed: the gram of a request padded into the band (K splits of the
+    contraction cut from m) differs from its twin's."""
+    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS, syrk_splits
+    from repro_torch.serve.bucketing import BucketSpec, for_device, make_buckets
+    from repro_torch.serve.engine import Server, ServeConfig
+    from repro_torch.serve.queue import Rejected, Request
+
+    m_band, n = 2048, 128
+    assert syrk_splits(m_band, n) > syrk_splits(1500, n) > 1 and 1500 > UNSPLIT_MAX_ROWS
+    ref = make_buckets(ops=("whiten",), n_values=(n,), m_bands=(m_band,), r_bands=(4,),
+                       batch=2)[0]
+    assert not ref.exact_m                              # the reference's rule alone
+    spec = for_device(ref, dev)
+    assert spec.exact_m and not spec.exact_r
+    server = Server(ServeConfig(buckets=(ref,), capacity=8))
+    assert server.buckets == (spec,)                    # the server adds the rule itself
+    server.warm()
+    rng = np.random.default_rng(60)
+    short = rng.standard_normal((1500, n), dtype=np.float32)
+    with pytest.raises(Rejected):
+        server.submit(Request(op="whiten", a=short, b=rng.standard_normal((n, 3),
+                                                                          dtype=np.float32)))
+    t = server.submit(Request(op="whiten", a=rng.standard_normal((m_band, n), dtype=np.float32),
+                              b=rng.standard_normal((n, 3), dtype=np.float32), ridge=1e-3))
+    server.drain()
+    np.testing.assert_array_equal(_serve_twin(server, t), t.result())
+    padded = np.zeros((m_band, n), np.float32)
+    padded[:1500] = short
+    g_pad = ata(torch.as_tensor(padded, device=dev), n_base=n, out="packed")
+    g_twin = ata(torch.as_tensor(short, device=dev), n_base=n, out="packed")
+    assert not torch.equal(g_pad.blocks, g_twin.blocks)
+
+
+def test_dot_tn_routes_small_m_through_the_kernel(dev):
+    """``Aᵀb`` of at most ``UNSPLIT_MAX_ROWS`` rows is one gemm_tn launch,
+    and zero rows or zero columns appended to the operands leave its bits
+    as they were (what lets a serving bucket band m and r there); above
+    it, cuBLAS, no launch."""
+    from repro_torch.core.strassen import _dot_tn
+    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
+
+    def dv(x):
+        return torch.as_tensor(x, device=dev)
+
+    rng = np.random.default_rng(64)
+    for m, n, r, mp, rp in ((33, 32, 3, 48, 4), (300, 256, 8, 512, 8), (512, 256, 37, 512, 64),
+                            (256, 512, 1, 512, 8)):
+        a = rng.standard_normal((m, n), dtype=np.float32)
+        b = rng.standard_normal((m, r), dtype=np.float32)
+        ap = np.zeros((mp, n), np.float32)
+        bp = np.zeros((mp, rp), np.float32)
+        ap[:m], bp[:m, :r] = a, b
+        ops.reset_launches()
+        got = _dot_tn(dv(a), dv(b), torch.float32)
+        pad = _dot_tn(dv(ap), dv(bp), torch.float32)
+        assert ops.launches["gemm_tn"] == 2
+        assert torch.equal(got, pad[:, :r]), (m, n, r)
+        _close(got, torch.matmul(dv(a).T, dv(b)), m)
+        vec = _dot_tn(dv(a), dv(b[:, 0])[:, None], torch.float32)
+        assert torch.equal(vec, got[:, :1])
+    ops.reset_launches()
+    _dot_tn(_t(rng, (UNSPLIT_MAX_ROWS + 1, 64), dev), _t(rng, (UNSPLIT_MAX_ROWS + 1, 4), dev),
+            torch.float32)
+    assert ops.launches["gemm_tn"] == 0
+
+
+def test_serve_eager_work_on_a_flush_counts_as_a_recapture(dev):
+    """A flush whose program runs the pipeline eagerly instead of replaying
+    its graph launches kernels through the wrappers: the engine counts the
+    launches in ``serve.retraces`` and raises."""
+    from repro_torch.serve.bucketing import BucketSpec
+    from repro_torch.serve.engine import Server, ServeConfig
+    from repro_torch.serve.queue import Request
+
+    spec = BucketSpec(op="lstsq", m=48, n=32, r=4, batch=2)
+    server = Server(ServeConfig(buckets=(spec,), capacity=8))
+    server.warm()
+    fn, _ = server.bucket_callable(spec)
+    per_replay = sum(fn.capture_launches.values())
+    assert fn.capture_launches["syrk"] == 1 and fn.capture_launches["gemm_tn"] == spec.batch
+
+    class EagerGraph:
+        def replay(self):
+            fn._out.copy_(fn.run(*fn._inputs()))
+
+    fn._graph = EagerGraph()
+    start = server.retraces()
+    rng = np.random.default_rng(65)
+    with pytest.raises(RuntimeError, match="zero-recapture"):
+        server.submit(Request(op="lstsq", a=rng.standard_normal((40, 32), dtype=np.float32),
+                              b=rng.standard_normal((40, 2), dtype=np.float32)))
+        server.drain()
+    assert server.retraces() - start == per_replay
+    from repro_torch.obs import metrics as obs_metrics
+
+    obs_metrics.inc("serve.retraces", start - server.retraces())   # process-global
+
+
+def test_serve_tables_survive_the_lru(dev, smoke_server):
+    """Cycle the device tables' LRU past its 256 entries (every table a
+    graph read is dropped from it), overwrite freed memory, and replay: the
+    results stay bitwise, because the programs hold the tables."""
+    from repro_torch import backend
+    from repro_torch.serve.__main__ import _mixed_workload, _run_workload
+
+    first, _ = _run_workload(smoke_server, _mixed_workload(16, 4))
+    for i in range(backend._TABLES_MAX + 44):
+        backend.device_table(("serve_lru_cycle", i), dev, lambda: np.full(4096, i, np.float32))
+    junk = [torch.full((1 << 16,), float("nan"), device=dev) for _ in range(64)]
+    again, _ = _run_workload(smoke_server, _mixed_workload(16, 4))
+    del junk
+    for t0, t1 in zip(first, again):
+        np.testing.assert_array_equal(t0.result(), t1.result(), err_msg=t0.bucket.label())
+    assert smoke_server.retraces() == 0
+
+
+def test_dispatch_finish_records_nothing_while_capturing(dev):
+    """A planned lstsq with obs on, captured in a CUDA graph: the
+    calibration hook neither synchronises (which would break the capture)
+    nor records a row."""
+    from repro_torch import obs, tune
+
+    a = _t(np.random.default_rng(61), (256, 64), dev)
+    b = _t(np.random.default_rng(62), (256, 4), dev)
+    plan = tune.plan(op="solve", m=256, n=64, k=4, out="packed", backend="cuda")
+    assert plan.predicted_s is not None
+    stream = torch.cuda.Stream()
+    obs.enable()
+    try:
+        with torch.cuda.stream(stream):
+            lstsq(a, b, plan=plan)
+            torch.cuda.synchronize()
+            rows = len(obs.calibrate.rows())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                x = lstsq(a, b, plan=plan)
+            assert len(obs.calibrate.rows()) == rows
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(x, lstsq(a, b, plan=plan))
+    finally:
+        obs.disable()
+
+
+def test_serve_failed_capture_raises_and_runs_nothing_eagerly(dev, monkeypatch):
+    """A host sync inside the bucket's pipeline breaks the capture: warm
+    raises, and a dispatch raises too instead of serving an eager result."""
+    from repro_torch.serve.bucketing import BucketSpec
+    from repro_torch.serve.engine import Server, ServeConfig
+    from repro_torch.serve.queue import Request
+
+    real = ops.potrf
+
+    def syncing_potrf(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()          # not permitted while capturing
+        return real(*args, **kw)
+
+    spec = BucketSpec(op="whiten", m=48, n=32, r=4, batch=2)
+    server = Server(ServeConfig(buckets=(spec,), capacity=8))
+    monkeypatch.setattr(ops, "potrf", syncing_potrf)
+    with pytest.raises(RuntimeError):
+        server.warm()
+    rng = np.random.default_rng(63)
+    t = None
+    with pytest.raises(RuntimeError):
+        t = server.submit(Request(op="whiten", a=rng.standard_normal((40, 32), dtype=np.float32),
+                                  b=rng.standard_normal((32, 2), dtype=np.float32)))
+        server.drain()
+    assert t is None or not t.done()
+    fn, _ = server.bucket_callable(spec)
+    assert fn._graph is None
+    torch.cuda.synchronize()

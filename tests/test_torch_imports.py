@@ -55,7 +55,10 @@ def test_port_files_exist():
                 "repro_torch/optim/powersgd.py", "repro_torch/configs/base.py",
                 "repro_torch/configs/qwen15_05b.py", "repro_torch/core/distributed.py",
                 "repro_torch/launch/__init__.py", "repro_torch/launch/mesh.py",
-                "repro_torch/launch/collectives.py"):
+                "repro_torch/launch/collectives.py", "repro_torch/serve/__init__.py",
+                "repro_torch/serve/bucketing.py", "repro_torch/serve/queue.py",
+                "repro_torch/serve/metrics.py", "repro_torch/serve/engine.py",
+                "repro_torch/serve/__main__.py"):
         assert mod in names, mod
     for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -100,6 +103,7 @@ def test_obs_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch.obs, repro_torch.solve.cg, repro_torch.optim\n"
         "import repro_torch.optim.powersgd, repro_torch.configs.qwen15_05b\n"
+        "import repro_torch.serve, repro_torch.serve.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )
@@ -160,3 +164,63 @@ def test_plan_keyword_diff_sees_the_reference():
     assert _params("repro", "solve/cg.py", "cg_lstsq") >= {"plan", "gemm_plan"}
     assert "plan" not in _params("repro", "kernels/ops.py", "potrf")
     assert "plan" in _params("repro", "core/distributed.py", "ata_bfs_dfs")
+
+
+# the serving layer's public functions and methods: (module, class or None, name)
+SERVE_SIGNATURES = [("serve/bucketing.py", None, f) for f in (
+    "make_buckets", "pad_operands", "crop_result")] + [
+    ("serve/bucketing.py", "BucketSpec", f) for f in ("admits", "label", "to_json",
+                                                       "from_json")] + [
+    ("serve/bucketing.py", "BucketLattice", f) for f in ("__init__", "bucket_for")] + [
+    ("serve/engine.py", None, f) for f in ("smoke_config", "per_slice_trsm",
+                                           "serve_abstract_args")] + [
+    ("serve/engine.py", "Server", f) for f in (
+        "__init__", "bucket_plan", "request_twin", "bucket_callable", "warm", "submit",
+        "pump", "drain", "retraces", "stats")] + [
+    ("serve/queue.py", "MicroBatchQueue", f) for f in ("__init__", "offer", "due", "depth",
+                                                       "lane_depths")] + [
+    ("serve/queue.py", "Ticket", f) for f in ("__init__", "result", "set_result", "done")] + [
+    ("serve/queue.py", "Rejected", "__init__")] + [
+    ("serve/metrics.py", None, f) for f in (
+        "record_latency", "samples", "percentile", "percentiles", "latency_summary",
+        "publish_percentiles", "reset")] + [
+    ("serve/__main__.py", None, f) for f in ("main", "_mixed_workload", "_make_request",
+                                             "_parity_spot_check", "_run_workload")]
+
+
+def _member_params(package: str, module: str, cls, name: str):
+    """Parameter names of ``cls.name`` (or module-level ``name``) and the
+    names the module lists in ``__all__``."""
+    path = ROOT / "src" / package / module
+    tree = ast.parse(path.read_text(), filename=str(path))
+    scope = tree.body
+    if cls is not None:
+        scope = next(n.body for n in tree.body if isinstance(n, ast.ClassDef) and n.name == cls)
+    for node in scope:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            a = node.args
+            return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    raise AssertionError(f"{package}/{module} defines no {cls}.{name}")
+
+
+@pytest.mark.parametrize("module,cls,name", SERVE_SIGNATURES, ids=lambda x: str(x))
+def test_serve_signatures_cover_the_reference(module, cls, name):
+    """Every parameter of a reference serving function or method exists on
+    the port's, in the same order (the port may add keyword-only ones, such
+    as ``device=`` and ``out=``); no serving signature takes ``plan=`` in
+    either package."""
+    want = _member_params("repro", module, cls, name)
+    got = _member_params("repro_torch", module, cls, name)
+    assert got[:len(want)] == want, (want, got)
+    assert "plan" not in want and "plan" not in got
+
+
+def test_serve_exports_match_the_reference():
+    for module in ("serve/__init__.py", "serve/bucketing.py", "serve/queue.py",
+                   "serve/metrics.py", "serve/engine.py"):
+        def names(package):
+            path = ROOT / "src" / package / module
+            for node in ast.parse(path.read_text()).body:
+                if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+                    return {e.value for e in node.value.elts}
+        assert names("repro") <= names("repro_torch"), module
