@@ -135,12 +135,31 @@ phase fails):
              events and in a CUDA graph, and the flush's bound;
              requests/s, graph memory held.
 
+13. check  — the contract checker (``repro_torch.check``) on the card:
+             ``python -m repro_torch.check --json`` (the canonical grid on
+             fake CUDA tensors, planned on ``cuda_h100``), ``--quick`` and
+             ``--serve``, each exiting 0 with zero findings; for every plan
+             of the grid, the ``repro_torch.*`` nodes of its trace equal
+             the ``ops.launches`` of one real run of the same callable;
+             traces at full width with zero findings, each beside a real
+             run whose launches equal its kernel nodes: planned ata 8192²
+             packed, the same fused and unrolled (``n_base=512`` pinned),
+             planned strassen_tn 4096³ and the lstsq 16384×4096×8 factor
+             path at ``packed_block=512``; that lstsq run on the card in
+             float32 (every diagonal tile through the wrappers' potrf/trsm
+             split) within 1e-3 of float64, its launches on the kernels
+             line; the split's device times at n = 512 (potrf of one tile,
+             trsm of a 7-tile panel) beside ``torch.linalg`` and their
+             bounds; and the host time of one wrapper call through the
+             dispatcher operator against the bare launch.
+
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
 calls are planned, and those phases measure the dispatches they name.
 ``python3 chip_smoke.py distributed`` runs the build and phase 11 alone
-(what a call on four cards needs) and ``python3 chip_smoke.py serve`` the
-build and phase 12 alone; neither prints the final line.
+(what a call on four cards needs), ``python3 chip_smoke.py serve`` the
+build and phase 12 alone and ``python3 chip_smoke.py check`` the build and
+phase 13 alone; none of them prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -1041,11 +1060,8 @@ def obs_hooks_removed(ops):
 
     null = contextlib.nullcontext()
 
-    def run(name, cuda, kernel, plain, *args, **kw):
-        out = (kernel if cuda else plain)(*args, **kw)
-        if cuda:
-            ops.launches[name] += 1
-        return out
+    def run(name, cuda, *args):
+        return ops.OPS[name](*args)      # the operator counts its launch
 
     stubs = [(obs.metrics, "inc", lambda *a, **k: None),
              (obs.metrics, "set_gauge", lambda *a, **k: None),
@@ -2589,6 +2605,191 @@ def phase_serve(ops):
     return warm_counts, workload_counts, per_flush, res
 
 
+
+CHECK_SPLIT_N = 512     # the packed block of phase check's lstsq (two 256 tiles)
+
+
+def phase_check(checks, ops):
+    """Phase 13 (module docstring): the contract checker on the card."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.check import harness, run, trace_plan
+    from repro_torch.check.artifacts import abstract_args, is_kernel
+    from repro_torch.core.reference import potrf_flops, trsm_flops
+    from repro_torch.kernels.gemm_tn import gemm_tn_cuda
+    from repro_torch.kernels.syrk import syrk_cuda
+    from repro_torch.solve import lstsq
+    from repro_torch.tune import apply
+
+    log("phase check")
+    rng = np.random.default_rng(SEED + 13)
+    res = {}
+
+    # (a) the CLI: the grid (JSON), the quick subset and the serve layer
+    out_json = os.path.join(ROOT, "build", "check_report.json")
+    os.makedirs(os.path.dirname(out_json), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for argv in (["--json", out_json], ["--quick"], ["--serve"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.check", *argv], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=600)
+        summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("repro_torch.check:")]
+        log(f"  python -m repro_torch.check {' '.join(argv)}: exit {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s, {summary}")
+        if proc.returncode or not summary or " 0 findings" not in summary[0]:
+            raise AssertionError(f"check {argv} failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        res["grid" if argv[0] == "--json" else argv[0].lstrip("-")] = summary[0]
+    with open(out_json) as f:
+        report = json.load(f)
+    if report["counts"]["findings"] or report["meta"]["backend"] != "cuda":
+        raise AssertionError(f"check report: {report['counts']} {report['meta']}")
+    res["grid_artifacts"] = report["counts"]["artifacts"]
+    res["grid_allowlisted"] = report["counts"]["allowlisted"]
+
+    def traced_and_run(plan, label, allowlist=()):
+        """Trace ``plan`` on fake CUDA tensors, check it, run it for real:
+        its kernel nodes must equal the run's launches."""
+        t0 = time.perf_counter()
+        art = trace_plan(plan, device="cuda")
+        trace_s = time.perf_counter() - t0
+        found = run(art, allowlist=allowlist).findings
+        nodes = sum(1 for site in art.sites() if is_kernel(site.node))
+        args = [torch.as_tensor(rng.standard_normal(x.shape, dtype=np.float32),
+                                device="cuda").to(x.dtype)
+                for x in abstract_args(plan, "cuda")]
+        ops.reset_launches()
+        apply.build_callable(plan)(*args)
+        torch.cuda.synchronize()
+        launched = dict(ops.launches)
+        del args
+        if found or nodes != sum(launched.values()):
+            raise AssertionError(f"{label}: findings {[f.message for f in found]}, kernel "
+                                 f"nodes {nodes} vs launches {launched}")
+        return dict(label=harness.plan_label(plan), kernel_nodes=nodes, trace_s=trace_s,
+                    graph_nodes=len(art.graph.graph.nodes), findings=0)
+
+    # (b) every plan of the card's grid: kernel nodes == launches of a real run
+    for plan in harness.canonical_plans("cuda"):
+        traced_and_run(plan, harness.plan_label(plan), harness.CARD_ALLOWLIST)
+    log(f"  grid: {len(harness.canonical_plans('cuda'))} plans, kernel nodes == launches")
+
+    # (c) full width: zero findings, kernel nodes == launches
+    planned = tune.plan(op="ata", m=8192, n=8192, out="packed", backend="cuda")
+    full = {
+        "ata_8192_planned": planned,
+        "ata_8192_fused": dataclasses.replace(planned, algorithm="strassen",
+                                              n_base=DEFAULT_N_BASE, leaf_dispatch="fused",
+                                              use_kernels=True),
+        "ata_8192_unrolled": dataclasses.replace(planned, algorithm="strassen",
+                                                 n_base=DEFAULT_N_BASE,
+                                                 leaf_dispatch="unrolled", use_kernels=True),
+        "strassen_tn_4096_planned": tune.plan(op="gemm_tn", m=4096, n=4096, k=4096,
+                                              backend="cuda"),
+        "lstsq_16384x4096x8_factor_pb512": dataclasses.replace(
+            tune.plan(op="solve", m=16384, n=4096, k=8, out="packed", backend="cuda"),
+            method="factor", packed_block=CHECK_SPLIT_N),
+    }
+    res["full_width"] = {}
+    for name, plan in full.items():
+        got = traced_and_run(plan, name)
+        log(f"  {name} ({got['label']}): {got['graph_nodes']} nodes, {got['kernel_nodes']} "
+            f"kernel nodes == launches, 0 findings, traced in {got['trace_s']:.1f} s")
+        res["full_width"][name] = got
+        torch.cuda.empty_cache()
+
+    # (d) the 256-wide refusal repaired at full width: lstsq at packed_block=512
+    a = cuda_tensor(rng, (16384, 4096))
+    b = cuda_tensor(rng, (16384, 8))
+    ops.reset_launches()
+    x = lstsq(a, b, ridge=1e-3, method="factor", packed_block=CHECK_SPLIT_N)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    ad = a.double()
+    x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(4096, device="cuda",
+                                                          dtype=torch.float64),
+                             ad.T @ b.double())
+    del ad
+    rel = float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64))
+    nbk = 4096 // CHECK_SPLIT_N
+    want_potrf = nbk * ops.split_launches("potrf", CHECK_SPLIT_N)["potrf"]
+    ms = time_ms(lambda: lstsq(a, b, ridge=1e-3, method="factor", packed_block=CHECK_SPLIT_N),
+                 runs=3)
+    log(f"  lstsq 16384x4096x8 packed_block={CHECK_SPLIT_N} float32: rel err {rel:.3e}, "
+        f"{ms:.2f} ms, launches {counts}")
+    if not rel <= 1e-3 or counts["potrf"] != want_potrf or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"lstsq packed_block={CHECK_SPLIT_N}: rel {rel}, potrf "
+                             f"{counts['potrf']} != {want_potrf}")
+    res["lstsq_packed512"] = dict(rel_err=rel, ms=ms, launches=counts)
+    del a, b, x, x64
+    torch.cuda.empty_cache()
+
+    # (e) the split's device times at n = 512 beside torch.linalg and the bound
+    n = CHECK_SPLIT_N
+    g = torch.as_tensor(rng.standard_normal((n + 64, n)), device="cuda")
+    s = (g.T @ g / n + torch.eye(n, device="cuda", dtype=torch.float64)).float()
+    l = ops.potrf(s)
+    panel = cuda_tensor(rng, (7, n, n))
+    lx = l.expand(7, n, n)
+    split = {}
+    for name, fn, lib_fn, flops, nbytes in (
+            ("potrf", lambda: ops.potrf(s), lambda: torch.linalg.cholesky_ex(s),
+             potrf_flops(n), 4 * (n * n + n * n)),
+            ("trsm", lambda: ops.trsm(lx, panel), lambda: torch.linalg.solve_triangular(
+                lx.mT, panel, upper=True, left=False),
+             7 * trsm_flops(n, n), 4 * (n * n + 2 * 7 * n * n))):
+        ops.reset_launches()
+        fn()
+        launched = {k: v for k, v in ops.launches.items() if v}
+        if launched != ops.split_launches(name, n):
+            raise AssertionError(f"{name} split at n={n}: launches {launched}")
+        want = (torch.linalg.cholesky(s.double()) if name == "potrf"
+                else torch.linalg.solve_triangular(lx.double().mT, panel.double(), upper=True,
+                                                   left=False))
+        err = float((fn().double() - want).abs().max() / want.abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"{name} split at n={n}: rel err {err} vs float64")
+        bms, by = bound(flops, nbytes)
+        split[name] = dict(n=n, launches=launched, rel_err_vs_float64=err,
+                           device_ms=graph_ms(fn, 20), ms=time_ms(fn),
+                           library_ms=time_ms(lib_fn), library_device_ms=graph_ms(lib_fn, 20),
+                           bound_ms=bms, bound_by=by)
+        checks.rows.setdefault(name, {})[f"split_{n}"] = split[name]
+        log(f"  {name} split n={n}: {json.dumps(split[name])}")
+    res["split"] = split
+
+    # (f) host time of one wrapper call (counter, dispatcher operator,
+    # launch) against the bare launch, on a 512² leaf (best of bursts)
+    x5, y5 = cuda_tensor(rng, (512, 512)), cuda_tensor(rng, (512, 512))
+
+    def host_us(fn, calls=200):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return best
+
+    host = {"ops.gemm_tn": host_us(lambda: ops.gemm_tn(x5, y5)),
+            "gemm_tn_cuda": host_us(lambda: gemm_tn_cuda(x5, y5)),
+            "ops.syrk": host_us(lambda: ops.syrk(x5)),
+            "syrk_cuda": host_us(lambda: syrk_cuda(x5)),
+            "add": host_us(lambda: x5 + y5)}
+    host["gemm_tn_op_us"] = host["ops.gemm_tn"] - host["gemm_tn_cuda"]
+    host["syrk_op_us"] = host["ops.syrk"] - host["syrk_cuda"]
+    log(f"  host us a call: {json.dumps(host)}")
+    res["host_us"] = host
+    return res
+
+
 def main(argv) -> int:
     import time
 
@@ -2596,9 +2797,9 @@ def main(argv) -> int:
 
     t_start = time.perf_counter()
 
-    if argv not in ([], ["distributed"], ["serve"]):
-        print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed' and "
-              "'serve'", file=sys.stderr)
+    if argv not in ([], ["distributed"], ["serve"], ["check"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
+              "'serve' and 'check'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -2634,6 +2835,10 @@ def main(argv) -> int:
         _, _, _, serve_res = phase_serve(ops)
         log("end_to_end " + json.dumps({"serve": serve_res}, default=str))
         return 0
+    if argv == ["check"]:
+        check_res = phase_check(Checks(ops.launches), ops)
+        log("end_to_end " + json.dumps({"check": check_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -2664,11 +2869,14 @@ def main(argv) -> int:
     dist_counts, dist_res = phase_distributed(ops)
     torch.cuda.empty_cache()
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
+    torch.cuda.empty_cache()
+    check_res = phase_check(checks, ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
                                     "tune": tune_res, "optim": optim_res,
-                                    "distributed": dist_res, "serve": serve_res}, default=str))
+                                    "distributed": dist_res, "serve": serve_res,
+                                    "check": check_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
@@ -2694,7 +2902,9 @@ def main(argv) -> int:
             "distributed_launches": dist_counts[name],
             "serve_warm_launches": serve_warm[name],
             "serve_workload_launches": serve_workload[name],
-            "serve_launches": serve_flush.get(name, 0), **checks.rows[name],
+            "serve_launches": serve_flush.get(name, 0),
+            "lstsq_packed512_launches": check_res["lstsq_packed512"]["launches"][name],
+            **checks.rows[name],
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

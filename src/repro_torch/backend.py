@@ -14,9 +14,11 @@ import threading
 from collections import OrderedDict
 
 import torch
+from torch._C import _get_dispatch_mode
+from torch._C import _TorchDispatchModeKey as _ModeKey
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "on_cuda", "kernel_dtypes", "planner_key",
-           "device_cached", "device_table", "holding_tables"]
+           "tracing", "device_cached", "device_table", "holding_tables"]
 
 # Tensors made from nothing (zeros, converters, chip_smoke data) land here
 # unless the caller asks for another device.
@@ -37,6 +39,15 @@ _TABLES_LOCK = threading.Lock()
 _HOLDERS: list = []
 
 
+def tracing() -> bool:
+    """True while a fake-tensor or proxy mode is active (``make_fx``,
+    ``torch.export``, ``torch.compile``): a value made then is a fake or a
+    graph constant of that trace, never a tensor a later run may read."""
+    return (_get_dispatch_mode(_ModeKey.FAKE) is not None
+            or _get_dispatch_mode(_ModeKey.PROXY) is not None
+            or torch.compiler.is_compiling())
+
+
 def device_cached(key, make):
     """``make()``, made once per ``key`` and kept while it is among the
     :data:`_TABLES_MAX` most recently used values. ``key`` must name
@@ -44,7 +55,12 @@ def device_cached(key, make):
     write to what it holds. A copy from pageable host memory waits for the
     device, so the packed paths and the fused launches take their static
     tables from here and, after the first call at a shape, copy nothing to
-    the card."""
+    the card. While :func:`tracing`, the cache is neither read nor written:
+    ``make()`` runs, so the trace records the table as its own constant (a
+    kept real tensor may not enter a fake-tensor trace, and a value made in
+    one is a fake)."""
+    if tracing():
+        return make()
     with _TABLES_LOCK:
         if key in _TABLES:
             _TABLES.move_to_end(key)

@@ -144,8 +144,6 @@ def _dot_tn(a, b, acc_dtype):
         from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
 
         if a.shape[-2] <= UNSPLIT_MAX_ROWS and torch.float64 not in (a.dtype, b.dtype, acc_dtype):
-            # the kernel reads rows of unit column stride
-            a, b = (x if x.stride(-1) == 1 else x.contiguous() for x in (a, b))
             return ops.gemm_tn(a, b, out_dtype=acc_dtype)
         return gemm_tn_plain(a, b, out_dtype=acc_dtype)
     if b.shape[-1] == 1:

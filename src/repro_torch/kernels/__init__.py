@@ -28,7 +28,7 @@ The kernels build at first use (``_build.load``); importing this package
 needs no CUDA toolkit.
 """
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import gemm_tn, gemm_tn_fused, potrf, syrk, syrk_gather, trsm
 
-__all__ = ["ops", "gemm_tn", "gemm_tn_fused", "syrk", "syrk_gather", "potrf", "trsm"]
+__all__ = ["ops", "ref", "gemm_tn", "gemm_tn_fused", "syrk", "syrk_gather", "potrf", "trsm"]

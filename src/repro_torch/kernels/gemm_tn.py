@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.backend import device_cached, kernel_dtypes
+from repro_torch.tune.defaults import GEMM_BLOCKS as DEFAULT_BLOCKS
 
-__all__ = ["gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
+__all__ = ["DEFAULT_BLOCKS", "gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
            "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
 
 # slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
@@ -205,17 +206,23 @@ def _device_launch_tables(a_blocks, b_blocks, tables):
     """:func:`fused_launch_tables` with ``off``/``sgn`` on the grids' device.
 
     Returns ``((rows, cols, sgn) × 2, T, W, off, sgn, lds, sbs, vec16)``.
-    Kept per tables object (``backend.device_cached``), which is treated as
+    Kept per table memory (``backend.device_cached``), which is treated as
     immutable: the slot and level tables are cached (``_slot_tables``,
-    ``_level_tables``), so the launches of one level pass the same object
-    and a repeated launch validates nothing anew and copies nothing to the
-    card. The key also holds the grids' shapes, strides, dtypes (vec16
-    depends on the element size: the same pointer and strides may allow
-    16-byte copies of bfloat16 and not of float32), pointer alignment and
-    device; the entry holds the object, so its ``id`` is not reused while
-    it is kept.
+    ``_level_tables``) and ``ops.gemm_tn_fused`` hands the operator views
+    of them, so the launches of one level read the same memory and a
+    repeated launch validates nothing anew and copies nothing to the card.
+    The key holds each table's address, shape, strides and dtype, and the
+    grids' shapes, strides, dtypes (vec16 depends on the element size: the
+    same pointer and strides may allow 16-byte copies of bfloat16 and not
+    of float32), pointer alignment and device; the entry holds the tables,
+    so their memory is not reused while it is kept.
     """
-    key = ("gemm_tn_fused", id(tables), tuple(a_blocks.shape), a_blocks.stride(),
+    tables = tuple(tuple(x if isinstance(x, torch.Tensor) else torch.as_tensor(x) for x in side)
+                   for side in tables)
+    key = ("gemm_tn_fused",
+           tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+                 for side in tables for x in side),
+           tuple(a_blocks.shape), a_blocks.stride(),
            a_blocks.data_ptr() % 16, a_blocks.dtype, tuple(b_blocks.shape), b_blocks.stride(),
            b_blocks.data_ptr() % 16, b_blocks.dtype, str(a_blocks.device))
 

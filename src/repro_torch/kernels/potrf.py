@@ -3,8 +3,9 @@
 Port of ``repro.kernels.potrf.potrf_pallas``; the kernel is
 ``csrc/potrf.cu``. ``a: (n, n)`` or ``(B, n, n)`` SPD tiles; the output's
 strict upper half is zero. The kernel holds a tile's lower triangle and one
-32-column panel in shared memory, which bounds it at ``n ≤ 256`` (161 KB),
-and factors it in panels of 32 columns, one CTA per tile. It loads float32
+32-column panel in shared memory, which bounds one launch at ``n ≤ 256``
+(161 KB: :data:`MAX_N`; ``ops.potrf`` splits a wider tile into launches of
+it), and factors it in panels of 32 columns, one CTA per tile. It loads float32
 or bfloat16 tiles, factors in float32 and stores ``out_dtype`` (float32 or
 bfloat16), as the reference's kernel casts any input to float32.
 """
@@ -20,7 +21,7 @@ __all__ = ["potrf_plain", "potrf_cuda", "MAX_N"]
 MAX_N = 256
 
 
-def _check(a):
+def check_shape(a):
     if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"potrf expects (n, n) or (B, n, n) SPD input, got {tuple(a.shape)}")
 
@@ -32,7 +33,7 @@ def potrf_plain(a, *, out_dtype=torch.float32):
         L[j,j] = sqrt(A[j,j]);  L[j+1:,j] = A[j+1:,j] / L[j,j]
         A[j+1:,j+1:] -= L[j+1:,j]·L[j+1:,j]ᵀ
     """
-    _check(a)
+    check_shape(a)
     acc = torch.float64 if torch.float64 in (a.dtype, out_dtype) else torch.float32
     x = a.to(acc).clone()
     for j in range(x.shape[-1]):
@@ -48,7 +49,7 @@ def potrf_cuda(a, *, out_dtype=torch.float32):
     """Launch ``csrc/potrf.cu`` once on the current stream."""
     from repro_torch.kernels import _build
 
-    _check(a)
+    check_shape(a)
     (a,), dtypes = kernel_dtypes(a, out_dtype=out_dtype, what="potrf")
     if not a.is_contiguous():
         raise ValueError("potrf kernel needs contiguous tiles; pass .contiguous()")

@@ -36,8 +36,9 @@ import torch
 from repro_torch.backend import device_table, kernel_dtypes
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
 from repro_torch.kernels.gemm_tn import vec16
+from repro_torch.tune.defaults import SYRK_BLOCKS as DEFAULT_BLOCKS
 
-__all__ = ["tri_coords", "syrk_splits", "syrk_plain", "syrk_cuda", "syrk_gather_plain",
+__all__ = ["DEFAULT_BLOCKS", "tri_coords", "syrk_splits", "syrk_plain", "syrk_cuda", "syrk_gather_plain",
            "syrk_gather_cuda"]
 
 # The split rule's constants (tools/kernel_variants.py times the choices).

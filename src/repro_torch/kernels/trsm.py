@@ -6,7 +6,9 @@ Solves ``X·Lᵀ = B`` (``transpose=True``, the Cholesky panel op) or
 ``L: (n, n)`` or ``(B, n, n)`` lower triangular and ``B: (m, n)`` or
 ``(B, m, n)``, one factor per stack entry. The kernel reads the factor
 through its batch stride, so ``L`` may be an ``expand``-ed single factor
-(stride 0) and is then not copied. It loads float32 or bfloat16, solves in
+(stride 0) and is then not copied. One launch takes ``n ≤ 256``
+(:data:`MAX_N`; ``ops.trsm`` splits a wider factor into launches of it).
+It loads float32 or bfloat16, solves in
 float32 and stores ``out_dtype`` (float32 or bfloat16), as the reference's
 kernel casts both inputs to float32.
 """
@@ -22,7 +24,7 @@ __all__ = ["trsm_plain", "trsm_cuda", "MAX_N"]
 MAX_N = 256
 
 
-def _check(l, b):
+def check_shapes(l, b):
     if l.ndim not in (2, 3) or l.shape[-1] != l.shape[-2]:
         raise ValueError(f"trsm expects (n, n) or (B, n, n) factor, got {tuple(l.shape)}")
     if b.ndim != l.ndim or b.shape[-1] != l.shape[-1] or b.shape[:-2] != l.shape[:-2]:
@@ -34,13 +36,14 @@ def trsm_plain(l, b, *, transpose: bool = True, out_dtype=torch.float32):
 
         X[:,j] = (B[:,j] − Σ_k X[:,k]·op(L)[k,j]) / L[j,j]
 
-    ``j`` ascending for ``X·Lᵀ = B``, descending for ``X·L = B``.
+    ``j`` ascending for ``X·Lᵀ = B``, descending for ``X·L = B``. ``X``
+    is contiguous whatever ``B``'s layout, so the sums' order is too.
     """
-    _check(l, b)
+    check_shapes(l, b)
     acc = torch.float64 if torch.float64 in (l.dtype, b.dtype, out_dtype) else torch.float32
     lf, bf = l.to(acc), b.to(acc)
     n = l.shape[-1]
-    x = torch.zeros_like(bf)
+    x = torch.zeros(bf.shape, dtype=acc, device=bf.device)
     for step in range(n):
         j = step if transpose else n - 1 - step
         if transpose:   # op(L)[k, j] = L[j, k], known for k < j
@@ -56,7 +59,7 @@ def trsm_cuda(l, b, *, transpose: bool = True, out_dtype=torch.float32):
     """Launch ``csrc/trsm.cu`` once on the current stream."""
     from repro_torch.kernels import _build
 
-    _check(l, b)
+    check_shapes(l, b)
     (l, b), dtypes = kernel_dtypes(l, b, out_dtype=out_dtype, what="trsm")
     n = l.shape[-1]
     if n > MAX_N:

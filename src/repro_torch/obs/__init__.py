@@ -33,6 +33,7 @@ import time
 
 import torch
 
+from repro_torch.backend import tracing
 from repro_torch.obs import calibrate, metrics, trace
 from repro_torch.obs.trace import disable, enable, enabled, span
 
@@ -68,14 +69,15 @@ def dispatch_start(plan, operand):
     * obs disabled (the common case — one branch);
     * no plan / no ``predicted_s`` on it (pinned calls, hand-built plans,
       the inner gram plan of ``lstsq``);
-    * the call is being traced by ``torch.compile``, where a host clock
-      measures compilation (the reference's tracer check).
+    * the call is being traced (``make_fx``, ``torch.export``,
+      ``torch.compile``: ``backend.tracing``), where a host clock measures
+      the trace (the reference's tracer check).
     """
     if not trace.enabled():
         return None
     if plan is None or getattr(plan, "predicted_s", None) is None:
         return None
-    if torch.compiler.is_compiling():
+    if tracing():
         return None
     return time.perf_counter()
 
@@ -96,8 +98,9 @@ def dispatch_finish(plan, t0, result):
     result's devices, record the pair, hand the result back. With no
     measurement open it returns at once and synchronises nothing; while a
     CUDA graph is being captured it synchronises nothing and records no
-    row (the host clock measured the capture, not the work)."""
-    if t0 is None:
+    row (the host clock measured the capture, not the work), and neither
+    while a trace is being recorded (``backend.tracing``)."""
+    if t0 is None or tracing():
         return result
     devices = _devices(result)
     if devices and torch.cuda.is_current_stream_capturing():

@@ -32,10 +32,13 @@ def _left_solve(l, c, *, transpose: bool, plan=None):
 
         L·y = c   ⇔  yᵀ·Lᵀ = cᵀ    (trsm transpose=True)
         Lᵀ·y = c  ⇔  yᵀ·L  = cᵀ    (trsm transpose=False)
+
+    ``cᵀ`` is a view: the plain version reads it in place; the kernel
+    wrapper copies it once, counted in ``kernels.copy.trsm``.
     """
     from repro_torch.tune.apply import engine
 
-    ct = c.transpose(-1, -2).contiguous()
+    ct = c.transpose(-1, -2)
     acc = torch.promote_types(torch.promote_types(l.dtype, c.dtype), torch.float32)
     trsm = functools.partial(engine(plan, acc).trsm, out_dtype=acc)
     yt = _flat_call(lambda lf, cf: trsm(lf, cf, transpose=not transpose), l, ct)

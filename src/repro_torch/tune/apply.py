@@ -9,11 +9,14 @@ callable the autotuner times.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 from repro_torch.tune import cost
 
 __all__ = [
+    "base_fns",
+    "fused_fns",
     "engine",
     "build_callable",
     "ata_with_plan",
@@ -34,6 +37,31 @@ def engine(plan: Optional[cost.Plan], *dtypes):
     if plan is not None and not plan.use_kernels:
         return ops.PLAIN
     return ops.bases(*dtypes)
+
+
+def base_fns(plan: cost.Plan):
+    """(base_syrk, base_dot) for the recursion bottom under this plan: the
+    ``kernels.ops`` wrappers of :func:`engine`'s kernel path with the plan's
+    block shapes, or ``(None, None)`` when the plan does not use kernels,
+    so the recursion keeps its plain base case (the reference's contract).
+    """
+    if not plan.use_kernels:
+        return None, None
+    eng = engine(plan)
+    return (functools.partial(eng.syrk, blocks=plan.syrk_blocks),
+            functools.partial(eng.gemm_tn, blocks=plan.gemm_blocks))
+
+
+def fused_fns(plan: cost.Plan):
+    """(fused_syrk, fused_dot) for ``leaf_dispatch='fused'`` under this
+    plan: the ``syrk_gather`` and ``gemm_tn_fused`` wrappers of
+    :func:`engine` with the plan's block shapes, or ``(None, None)`` when
+    the plan does not use kernels (the recursion then gathers per leaf)."""
+    if not plan.use_kernels:
+        return None, None
+    eng = engine(plan)
+    return (functools.partial(eng.syrk_gather, blocks=plan.syrk_blocks),
+            functools.partial(eng.gemm_tn_fused, blocks=plan.gemm_blocks))
 
 
 def ata_with_plan(a, plan: cost.Plan, **kw):

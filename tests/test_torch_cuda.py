@@ -230,6 +230,13 @@ def test_trsm_kernel_panel_edges(dev, n, m):
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):
+    """The wrappers raise on what no kernel takes (float64, empty operands,
+    mixed devices). What a kernel cannot read as it lies — a column stride
+    other than 1, a potrf/trsm operand that is not contiguous, a tile over
+    256 — the wrapper copies once (``kernels.copy.<name>``) or splits, and
+    computes as the CPU path does."""
+    from repro_torch.obs import metrics
+
     a = torch.zeros(16, 8, device=dev)
     with pytest.raises(TypeError):
         ops.gemm_tn(a.double(), a.double())
@@ -238,14 +245,19 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     got = ops.gemm_tn(a + 1, a + 1, out_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16 and ops.launches["gemm_tn"] == 1
     assert torch.equal(got, torch.full((8, 8), 16.0, device=dev, dtype=torch.bfloat16))
-    with pytest.raises(ValueError):
-        ops.gemm_tn(a.t(), a.t())          # column stride ≠ 1
+    copies = metrics.get("kernels.copy.gemm_tn")
+    at = (a + 2).t()                     # column stride ≠ 1: copied once a operand
+    assert torch.equal(ops.gemm_tn(at, at), gemm_tn_plain(at, at))
+    assert metrics.get("kernels.copy.gemm_tn") == copies + 2
     with pytest.raises(ValueError):
         ops.syrk(torch.zeros(0, 8, device=dev))
-    with pytest.raises(ValueError):
-        ops.potrf(torch.eye(264, device=dev))
-    with pytest.raises(ValueError):
-        ops.trsm(torch.eye(8, device=dev).t(), torch.zeros(3, 8, device=dev))  # tile not contiguous
+    ops.reset_launches()
+    assert torch.equal(ops.potrf(torch.eye(264, device=dev)), torch.eye(264, device=dev))
+    assert {k: v for k, v in ops.launches.items() if v} == ops.split_launches("potrf", 264)
+    copies = metrics.get("kernels.copy.trsm")
+    x = ops.trsm(torch.eye(8, device=dev).t(), torch.ones(3, 8, device=dev))
+    assert torch.equal(x, torch.ones(3, 8, device=dev))
+    assert metrics.get("kernels.copy.trsm") == copies + 1     # the transposed tile, once
     with pytest.raises(ValueError):
         ops.gemm_tn(a, torch.zeros(16, 8))  # one operand on the CPU
 
@@ -1220,3 +1232,110 @@ def test_serve_failed_capture_raises_and_runs_nothing_eagerly(dev, monkeypatch):
     fn, _ = server.bucket_callable(spec)
     assert fn._graph is None
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# packed blocks over the kernels' 256-wide tiles: the wrappers' split
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bn", [384, 512])
+def test_lstsq_and_cholesky_at_wide_packed_blocks(dev, bn, dt):
+    """lstsq and cholesky at a packed block over 256 compute on the card
+    (each diagonal tile through the split) within the existing tolerances
+    of float64, and the packed gram's factor equals the dense one's."""
+    rng = np.random.default_rng(bn)
+    a = _t(rng, (2048, 1024), dev).to(dt)
+    b = _t(rng, (2048, 8), dev).to(dt)
+    ops.reset_launches()
+    x = lstsq(a, b, ridge=1e-3, method="factor", packed_block=bn)
+    torch.cuda.synchronize()
+    # every padded bn × bn diagonal tile splits in two
+    nbk = -(-1024 // bn)
+    assert ops.launches["potrf"] == nbk * ops.split_launches("potrf", bn)["potrf"], ops.launches
+    assert ops.launches["syrk"] > nbk and ops.launches["gemm_tn"] > 1
+    ad, bd = a.double(), b.double()
+    x64 = torch.linalg.solve(ad.T @ ad + 1e-3 * torch.eye(1024, device=dev, dtype=torch.float64),
+                             ad.T @ bd)
+    assert _normwise(x, x64) <= 1e-3
+    g = ata(a, n_base=512, out="packed", packed_block=bn)
+    fp = cholesky(g, ridge=1.0)
+    fd = cholesky(g.to_dense(), ridge=1.0, packed_block=bn)
+    assert torch.equal(fp.blocks, fd.blocks)
+    l64 = torch.linalg.cholesky(g.to_dense().double() + torch.eye(1024, device=dev,
+                                                                 dtype=torch.float64))
+    assert _normwise(fp.to_dense(), l64) <= 1e-5
+
+
+@pytest.mark.parametrize("bn", [384, 512])
+def test_shampoo_p2_at_wide_gram_blocks(dev, bn, monkeypatch):
+    """Shampoo p = 2 with ``gram_block`` over 256 on the card: each refresh
+    factors 384- or 512-wide tiles through the split. Each packed factor
+    lies within 1e-5 (normwise) of the float64 Cholesky factor of its own
+    ridged stats, and every update lies within the card-vs-CPU band of
+    ``test_shampoo_step_on_card_matches_cpu`` (2e-3, normwise) of the same
+    steps on CPU tensors through the same split (``ops.on_cuda`` made to
+    answer True there, as in ``tests/test_torch_split.py``), so the two
+    sides differ only by the kernels' rounding against the plain versions'.
+    The split itself moves the updates: on the CPU, split against unsplit
+    reads up to 1.70e-3 at step 1
+    (``test_torch_split.py::test_shampoo_p2_split_against_unsplit``)."""
+    from repro_torch.optim import _tree, constant, shampoo
+
+    rng = np.random.default_rng(bn + 1)
+    params = {"w": _t(rng, (768, 640), dev)}
+    grads = [{"w": _t(rng, (768, 640), dev)} for _ in range(3)]
+    runs = {}
+    for where, cast in (("cuda", lambda t: t), ("cpu", lambda t: t.cpu())):
+        with monkeypatch.context() as mp:
+            if where == "cpu":
+                mp.setattr(ops, "on_cuda", lambda *tensors: True)
+            opt = shampoo(constant(1e-2), block=1024, update_every=1, precond_p=2,
+                          packed_grams=True, gram_block=bn, n_base=512)
+            prm = _tree.tree_map(cast, params)
+            st = opt.init(prm)
+            ops.reset_launches()
+            us = []
+            for g in grads:
+                u, st = opt.update(_tree.tree_map(cast, g), st, prm)
+                us.append(u["w"].cpu())
+            runs[where] = (us, st, dict(ops.launches))
+    (cu, st, launches), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    assert launches["potrf"] >= 3 * ops.split_launches("potrf", bn)["potrf"], launches
+    w = st["shampoo"]["w"]
+    for stat, factor in ((w["l"], w["pl"]), (w["r"], w["pr"])):
+        g = stat.to_dense().double()
+        d = g.shape[-1]
+        tr = torch.diagonal(g, dim1=-2, dim2=-1).sum(-1)
+        ridge = 1e-6 * (tr / d + 1e-30) + 1e-30
+        l64 = torch.linalg.cholesky(g + ridge[:, None, None] * torch.eye(d, device=dev,
+                                                                         dtype=torch.float64))
+        assert _normwise(factor.to_dense(), l64) <= 1e-5
+    assert all(torch.isfinite(x).all() for x in cu)
+    for x, y in zip(cu, cpu):
+        assert _normwise(x, y) <= 2e-3
+
+
+def test_trace_op_nodes_equal_launches_on_the_card(dev):
+    """A fake-tensor trace of one planned ata on the card records one
+    ``repro_torch.*`` node per kernel launch of a real run of the same
+    callable, and leaves no fake tensor in the table cache."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch import backend, tune
+    from repro_torch.check import run, trace_plan
+    from repro_torch.check.artifacts import is_kernel
+    from repro_torch.tune import apply
+
+    plan = tune.plan(op="ata", m=4096, n=4096, out="packed", backend="cuda", dtype="float32")
+    art = trace_plan(plan, device=dev)
+    nodes = sum(1 for s in art.sites() if is_kernel(s.node))
+    assert not any(isinstance(v, FakeTensor) for v in backend._TABLES.values())
+    rng = np.random.default_rng(5)
+    a = _t(rng, (4096, 4096), dev)
+    ops.reset_launches()
+    apply.build_callable(plan)(a)
+    torch.cuda.synchronize()
+    assert nodes == sum(ops.launches.values()) > 0, (nodes, ops.launches)
+    assert run(art).exit_code == 0

@@ -1,8 +1,8 @@
 """``repro_torch.serve`` on the CPU, against ``repro.serve`` and against
 itself.
 
-* The cases of ``tests/test_serve.py`` on ``device="cpu"`` (all but the
-  check harness's, whose ``check/`` is not ported yet).
+* The cases of ``tests/test_serve.py`` on ``device="cpu"``, the check
+  harness's included (``repro_torch.check.harness.run_serve``).
 * Equal to the reference, exactly: the lattice (fields, keys, labels,
   JSON), routing, ``pad_operands``'s bits, the queue's decisions and reject
   reasons on a fake clock, and the ``serve.*`` counters of one seeded
@@ -723,6 +723,21 @@ def test_both_runs_bitwise_to_port_twins(both_runs):
 
 # ---------------------------------------------------------------------------
 # CLI
+
+
+_TINY = ServeConfig(
+    buckets=(BucketSpec(op="lstsq", m=48, n=32, r=4, batch=2),),
+    capacity=8, max_wait_s=0.005)
+
+
+def test_check_harness_run_serve_is_clean():
+    from repro_torch.check import harness
+
+    report = harness.run_serve(config=_TINY, steady_batches=1, device=CPU)
+    assert report.exit_code == 0, report.summary()
+    labels = [a["label"] for a in report.artifacts]
+    assert any(lb.startswith("serve:lstsq") for lb in labels)
+    assert "serve:steady-state" in labels
 
 
 def test_cli_smoke_gate_in_process(tmp_path):

@@ -11,10 +11,15 @@ into its own ``build/kernels/``. The processes run in N pairs (default
 Each process measures, on one NVIDIA card:
 
 * ``ata(a, out="packed")`` at 8192² and ``strassen_tn`` at 4096³ under the
-  default unrolled dispatch (one wrapper call and one launch per leaf:
-  1686 and 343 of them): the median over nine calls of the CUDA-event
-  time, and of the host time from the call to its return (the enqueue,
-  no synchronisation inside);
+  unrolled dispatch with ``n_base=512`` pinned (one wrapper call and one
+  launch per leaf: 1686 and 343 of them): the median over nine calls of
+  the CUDA-event time, and of the host time from the call to its return
+  (the enqueue, no synchronisation inside);
+* the CUDA-event time of ``ata(a, out="packed")`` at 8192² planned (no
+  pins) and under the fused dispatch (``n_base=512``); for the fused one
+  also its enqueue, and both again with ``ops.gemm_tn_fused`` and
+  ``ops.syrk_gather`` replaced by the bare launch functions of the kernel
+  modules (``*_bare_*``: no wrapper, no dispatcher);
 * the device time of one 512³ ``gemm_tn`` leaf and one (512, 512) ``syrk``
   leaf (CUDA graphs of 50 launches);
 * the host time of one wrapper call on those leaves and of one elementwise
@@ -41,7 +46,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MEASURE = r'''
-import json, statistics, sys, time
+import importlib, json, statistics, sys, time
 import numpy as np, torch
 sys.path.insert(0, "src")
 import repro_torch  # noqa: F401
@@ -104,13 +109,41 @@ def host_us(fn, n=200):
     return best
 
 
+def bare(fn):
+    """``fn`` run with the fused wrappers replaced by the bare launches."""
+    gm = importlib.import_module("repro_torch.kernels.gemm_tn")
+    sk = importlib.import_module("repro_torch.kernels.syrk")
+
+    def fused(a_blocks, b_blocks, tables, *, alpha=1.0, out_dtype=torch.float32, **_):
+        return gm.gemm_tn_fused_cuda(a_blocks, b_blocks, tables, alpha=alpha,
+                                     out_dtype=out_dtype)
+
+    def gather(a_blocks, rows, cols, *, alpha=1.0, out_dtype=torch.float32, **_):
+        return sk.syrk_gather_cuda(a_blocks, rows, cols, alpha=alpha, out_dtype=out_dtype)
+
+    def run():
+        wrapped = ops.gemm_tn_fused, ops.syrk_gather
+        ops.gemm_tn_fused, ops.syrk_gather = fused, gather
+        try:
+            return fn()
+        finally:
+            ops.gemm_tn_fused, ops.syrk_gather = wrapped
+    return run
+
+
+fused = lambda: ata(a, out="packed", n_base=512, leaf_dispatch="fused")
 x, y = a[:512, :512].contiguous(), a[512:1024, :512].contiguous()
 s = a[:4096, :4096].contiguous()
 print(json.dumps({
-    "ata_8192_unrolled_ms": events_ms(lambda: ata(a, out="packed")),
-    "ata_8192_unrolled_enqueue_ms": enqueue_ms(lambda: ata(a, out="packed")),
-    "strassen_4096_unrolled_ms": events_ms(lambda: strassen_tn(s, s)),
-    "strassen_4096_unrolled_enqueue_ms": enqueue_ms(lambda: strassen_tn(s, s)),
+    "ata_8192_unrolled_ms": events_ms(lambda: ata(a, out="packed", n_base=512)),
+    "ata_8192_unrolled_enqueue_ms": enqueue_ms(lambda: ata(a, out="packed", n_base=512)),
+    "strassen_4096_unrolled_ms": events_ms(lambda: strassen_tn(s, s, n_base=512)),
+    "strassen_4096_unrolled_enqueue_ms": enqueue_ms(lambda: strassen_tn(s, s, n_base=512)),
+    "ata_8192_planned_ms": events_ms(lambda: ata(a, out="packed")),
+    "ata_8192_fused_ms": events_ms(fused),
+    "ata_8192_fused_enqueue_ms": enqueue_ms(fused),
+    "ata_8192_fused_bare_ms": events_ms(bare(fused)),
+    "ata_8192_fused_bare_enqueue_ms": enqueue_ms(bare(fused)),
     "gemm_tn_512_device_ms": graph_ms(lambda: ops.gemm_tn(x, y)),
     "syrk_512_device_ms": graph_ms(lambda: ops.syrk(x)),
     "gemm_tn_512_host_us": host_us(lambda: ops.gemm_tn(x, y)),
