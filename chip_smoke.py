@@ -64,7 +64,8 @@ phase fails):
              where the memory budget leaves no batched or fused tree,
              planned and run within 1e-4 of the float64 product;
 10. optim  — the optimizers (``repro_torch.optim``) on qwen1.5-0.5b's full
-             parameter tree (``param_shapes``: 24 layers, d_model 1024,
+             parameter tree (``param_shapes``, the shapes of the port's
+             ``transformer.init`` on the meta device: 24 layers, d_model 1024,
              619.57 M float32 parameters; seeded parameters and gradients):
              each gram block shape's plan and peak memory beside
              ``tune.cost.peak_bytes``; wq's L (384, 64, 1024) and wg's
@@ -153,13 +154,36 @@ phase fails):
              bounds; and the host time of one wrapper call through the
              dispatcher operator against the bare launch.
 
+14. train — (after optim) the trainer (``repro_torch.models``,
+             ``train.train_step``, ``launch.train``) on qwen1.5-0.5b at full
+             width and depth (24 layers, 619.57 M float32 parameters from a
+             seeded ``torch.Generator``), batch 4 × 2048 tokens from
+             ``SyntheticLM`` (one query block against two KV blocks, so the
+             flash recurrence runs across blocks), remat ``dots``, bfloat16
+             compute: (a) the first step's loss and global grad norm in
+             float32 and bfloat16 against the same step in float64 (remat
+             ``full``): within 1e-4 / 1e-3 (float32) and 2e-2 (bfloat16),
+             relative; (b) three AdamW and three Shampoo steps through
+             ``make_train_step`` with the reference's ``OptimizerConfig``
+             defaults apart from the name (no Shampoo refresh before step
+             10): step ms (CUDA events, median of steps 2–3), tokens/s,
+             peak memory, each gram stack's plan, each step's launches,
+             every loss and grad norm finite, and every kernel the plans
+             name (syrk; gemm_tn where a plan recurses) launched by each
+             Shampoo step; (c) ``python -m repro_torch.launch.train --arch
+             qwen1.5-0.5b --optimizer shampoo --steps 4 --save-every 2`` in
+             a subprocess, then the same command after deleting the step-4
+             checkpoint: the resumed steps 3–4 within 1e-5 (relative) of the
+             straight run's, and whether they are bitwise equal.
+
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
 calls are planned, and those phases measure the dispatches they name.
 ``python3 chip_smoke.py distributed`` runs the build and phase 11 alone
 (what a call on four cards needs), ``python3 chip_smoke.py serve`` the
-build and phase 12 alone and ``python3 chip_smoke.py check`` the build and
-phase 13 alone; none of them prints the final line.
+build and phase 12 alone, ``python3 chip_smoke.py check`` the build and
+phase 13 alone and ``python3 chip_smoke.py train`` the build and phase 14
+alone; none of them prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -172,6 +196,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -291,33 +316,13 @@ def spd_tiles(rng, batch: int, n: int):
 
 
 def param_shapes(cfg) -> dict:
-    """Shapes of the reference's ``models.transformer.init`` tree for a
-    dense ``ModelConfig`` (no mesh), as nested dicts with sorted keys:
-    ``embed``, ``final_norm``, ``layers`` (stacked on a leading
-    ``num_layers`` dim under ``scan_layers``, else a list of per-layer
-    dicts) and, unless the embeddings are tied, ``lm_head``."""
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
-        raise ValueError(f"param_shapes covers dense configs, got family {cfg.family!r}")
-    d, h, kv, hd, ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d),
-            "norm": (d,)}
-    if cfg.qkv_bias:
-        attn.update(bq=(h, hd), bk=(kv, hd), bv=(kv, hd))
-    layer = {"attn": attn}
-    if ff:
-        layer["mlp"] = {"wg": (d, ff), "wu": (d, ff), "wd": (ff, d), "norm": (d,)}
+    """Shapes of ``models.transformer.init``'s tree for ``cfg``, as the
+    same tree of shape tuples (dicts with sorted keys): the port's ``init``
+    on the ``meta`` device, which allocates nothing."""
+    from repro_torch.models.transformer import init
+    from repro_torch.optim import _tree
 
-    def lead(tree, dims):
-        if isinstance(tree, dict):
-            return {k: lead(v, dims) for k, v in sorted(tree.items())}
-        return (*dims, *tree)
-
-    out = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
-           "layers": lead(layer, (cfg.num_layers,)) if cfg.scan_layers
-           else [lead(layer, ()) for _ in range(cfg.num_layers)]}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (d, max(cfg.num_codebooks, 1) * cfg.vocab_size)
-    return dict(sorted(out.items()))
+    return _tree.tree_map(lambda x: tuple(x.shape), init(None, cfg, device="meta"))
 
 
 class Checks:
@@ -1927,6 +1932,210 @@ def phase_optim(checks, ops, plain):
     return refresh_launches, res
 
 
+# ---------------------------------------------------------------------------
+# phase train: the trainer at qwen1.5-0.5b's full width and depth
+# ---------------------------------------------------------------------------
+
+# 4 sequences of 2048 tokens a step: one 2048 query block against two 1024
+# KV blocks, so the flash recurrence runs across blocks
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 3
+# the first step in float32 and bfloat16 against float64 (loss, grad norm)
+TRAIN_F32_RTOL = (1e-4, 1e-3)
+TRAIN_BF16_RTOL = 2e-2
+# the CLI on the card: a straight run of 4 steps saving every 2, then the
+# same command resumed from step 2
+TRAIN_CLI = ("--arch", "qwen1.5-0.5b", "--optimizer", "shampoo", "--steps", "4",
+             "--save-every", "2", "--log-every", "1")
+
+
+def phase_train(ops):
+    """The trainer (``repro_torch.launch.train``'s stack) on qwen1.5-0.5b at
+    full width and depth, batch 4 × 2048 tokens, remat ``dots``, bfloat16
+    compute (the reference's ``RunConfig`` defaults); see the module
+    docstring. Returns the launches of one Shampoo step and the results."""
+    import time
+
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.core.strassen import tree_depth
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import init
+    from repro_torch.optim import _tree
+    from repro_torch.optim.shampoo import _plan, _use_shampoo
+    from repro_torch.train.train_step import loss_and_grads, make_loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    res = {}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shape = ShapeConfig("train_phase", TRAIN_SEQ, TRAIN_BATCH, "train")
+    log(f"phase train: {CONFIG.name} ({CONFIG.num_layers} layers, d_model {CONFIG.d_model}, "
+        f"vocab {CONFIG.vocab_size}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} = {tokens} tokens "
+        "a step")
+    params = init(torch.Generator(device="cuda").manual_seed(SEED + 20), CONFIG, device="cuda")
+    flat, _ = _tree.tree_flatten_with_path(params)
+    n_params = sum(x.numel() for _, x in flat)
+    data = SyntheticLM(CONFIG, shape, seed=SEED)
+    try:
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
+                   for _ in range(TRAIN_STEPS)]
+    finally:
+        data.close()
+    sham = [(p, tuple(x.shape)) for p, x in flat if _use_shampoo(p, x.shape)]
+    log(f"  {len(flat)} leaves, {n_params} float32 parameters; Shampoo takes {len(sham)} "
+        f"leaves, Adam {[p for p, x in flat if not _use_shampoo(p, x.shape)]}")
+    if len(sham) != 12:
+        raise AssertionError(f"train: Shampoo takes {len(sham)} leaves of the model, expected 12")
+    res["n_params"] = n_params
+
+    # (a) the first step's loss and global grad norm on batch 0 with the same
+    # parameters: float64 (the yardstick), float32 and bfloat16
+    def first_step(dtype, remat, prm):
+        run = RunConfig(model=CONFIG, shape=shape, remat=remat, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m, g = loss_and_grads(make_loss_fn(CONFIG, None, run), prm, batches[0])
+        sq = sum(torch.sum(torch.square(x.double())) for x in _tree.tree_leaves(g))
+        out = dict(loss=float(m["loss"]), grad_norm=float(torch.sqrt(sq)), remat=remat,
+                   s=time.perf_counter() - t0, peak_bytes=torch.cuda.max_memory_allocated())
+        del m, g
+        torch.cuda.empty_cache()
+        return out
+
+    params64 = _tree.tree_map(lambda x: x.double(), params)
+    first = {"float64": first_step("float64", "full", params64)}
+    del params64
+    torch.cuda.empty_cache()
+    first["float32"] = first_step("float32", "dots", params)
+    first["bfloat16"] = first_step("bfloat16", "dots", params)
+    ref = first["float64"]
+    for name, (tl, tg) in (("float32", TRAIN_F32_RTOL),
+                           ("bfloat16", (TRAIN_BF16_RTOL, TRAIN_BF16_RTOL))):
+        r = first[name]
+        r["loss_rel"] = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        r["grad_norm_rel"] = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        ok = r["loss_rel"] <= tl and r["grad_norm_rel"] <= tg
+        log(f"  (a) first step {name} (remat {r['remat']}): loss {r['loss']!r} grad_norm "
+            f"{r['grad_norm']!r}; against float64 loss rel {r['loss_rel']:.3e} (limit {tl}), "
+            f"grad_norm rel {r['grad_norm_rel']:.3e} (limit {tg}); {r['s']:.2f} s, peak "
+            f"{r['peak_bytes']} B {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train: the {name} first step is off float64's")
+    log(f"  (a) first step float64 (remat full, batch {TRAIN_BATCH}): loss {ref['loss']!r} "
+        f"grad_norm {ref['grad_norm']!r}; {ref['s']:.2f} s, peak {ref['peak_bytes']} B")
+    res["first_step"] = first
+
+    # (b) three AdamW and three Shampoo steps through make_train_step, the
+    # reference's OptimizerConfig defaults apart from the name
+    # the kernels a Shampoo step must launch follow from the grams' plans:
+    # syrk for every gram (each has a diagonal leaf), gemm_tn where a plan
+    # recurses (or the fused pair under the fused dispatch)
+    grams, path_kernels = {}, {"syrk"}
+    for path, shp in sham:
+        pt = _plan(shp, OptimizerConfig().shampoo_block)
+        nb = pt.n1 * pt.n2
+        for side, (m, n) in (("L", (pt.b2, pt.b1)), ("R", (pt.b1, pt.b2))):
+            p = tune.plan(op="ata", m=m, n=n, batch=nb, out="packed", backend="cuda")
+            depth = tree_depth((m, n), p.n_base)
+            if depth and p.leaf_dispatch == "fused":
+                path_kernels |= {"gemm_tn_fused", "syrk_gather"}
+            elif depth:
+                path_kernels.add("gemm_tn")
+            grams.setdefault(f"{nb}x{m}x{n}", dict(
+                first=f"{path} {side}", depth=depth,
+                plan=f"{p.algorithm}/{p.n_base}/{p.leaf_dispatch}"))
+    log("  (b) Shampoo's gram plans (cuda_h100, unpinned): " + "; ".join(
+        f"({k}) {v['plan']} depth {v['depth']} [{v['first']}]" for k, v in grams.items())
+        + f"; so each step must launch {sorted(path_kernels)}")
+    res["gram_plans"] = grams
+    res["path_kernels"] = sorted(path_kernels)
+    shampoo_launches = None
+    for name in ("adamw", "shampoo"):
+        run = RunConfig(model=CONFIG, shape=shape, optimizer=OptimizerConfig(name=name))
+        step_fn, opt = make_train_step(CONFIG, None, run)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            ops.reset_launches()
+            start.record()
+            state, m = step_fn(state, batches[i])
+            end.record()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in ops.launches.items() if v}
+            steps.append(dict(ms=start.elapsed_time(end), loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), launches=launched))
+            log(f"  (b) {name} step {i + 1}: ms={steps[-1]['ms']:.2f} loss "
+                f"{steps[-1]['loss']!r} grad_norm {steps[-1]['grad_norm']!r} launches {launched}")
+            if not (math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"])):
+                raise AssertionError(f"train: {name} step {i + 1} is not finite")
+            missing = sorted(k for k in path_kernels if not launched.get(k))
+            if name == "shampoo" and missing:
+                raise AssertionError(f"train: Shampoo step {i + 1} launched no {missing}")
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(s["ms"] for s in steps[1:])
+        res[name] = dict(steps=steps, step_ms=ms, tokens_per_s=tokens / (ms / 1e3),
+                         peak_bytes=peak)
+        log(f"  (b) {name}: step ms {ms:.2f} (median of steps 2-{TRAIN_STEPS}), "
+            f"{res[name]['tokens_per_s']:.0f} tokens/s, peak device memory {peak} B")
+        if name == "shampoo":
+            shampoo_launches = dict(ops.launches)
+        del state, step_fn, opt
+        torch.cuda.empty_cache()
+    del params, batches
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on the card: a straight run, then the same command after
+    # deleting the step-4 checkpoint, which resumes from step 2
+    out = os.path.join(ROOT, "build", "train_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI, "--out", out]
+    runs = []
+    try:
+        for label in ("straight", "resumed"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=600)
+            runs.append(time.perf_counter() - t0)
+            if proc.returncode:
+                raise AssertionError(f"train: the CLI ({label}) exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            log(f"  (c) CLI {label}: {runs[-1]:.1f} s; " + " | ".join(
+                line for line in proc.stdout.splitlines() if "loss" in line or "resumed" in line))
+            if label == "straight":
+                shutil.rmtree(os.path.join(out, "ckpt", "step_000000004"))
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if [r["step"] for r in recs] != [1, 2, 3, 4, 3, 4]:
+        raise AssertionError(f"train: the CLI logged steps {[r['step'] for r in recs]}")
+    pairs = [((a["loss"], a["grad_norm"]), (b["loss"], b["grad_norm"]))
+             for a, b in zip(recs[2:4], recs[4:6])]
+    bitwise = all(a == b for a, b in pairs)
+    worst = max(abs(x - y) / abs(x) for a, b in pairs for x, y in zip(a, b))
+    log(f"  (c) resumed steps 3-4 against the straight run: "
+        f"{'bitwise equal' if bitwise else f'max relative difference {worst:.3e}'} "
+        f"(losses {[p[0][0] for p in pairs]} / {[p[1][0] for p in pairs]})")
+    if not worst <= 1e-5:
+        raise AssertionError("train: the resumed CLI run does not match the straight run")
+    res["cli"] = dict(seconds=runs, bitwise=bitwise, max_rel=worst,
+                      losses=[r["loss"] for r in recs])
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase train took {res['phase_s']:.1f} s")
+    return shampoo_launches, res
+
+
 # phase distributed: ata 8192² over four ranks, gram_rowshard, colshard, PowerSGD
 DIST_RANKS = 4
 DIST_N = 8192
@@ -2797,9 +3006,9 @@ def main(argv) -> int:
 
     t_start = time.perf_counter()
 
-    if argv not in ([], ["distributed"], ["serve"], ["check"]):
+    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"]):
         print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
-              "'serve' and 'check'", file=sys.stderr)
+              "'serve', 'check' and 'train'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -2839,6 +3048,10 @@ def main(argv) -> int:
         check_res = phase_check(Checks(ops.launches), ops)
         log("end_to_end " + json.dumps({"check": check_res}, default=str))
         return 0
+    if argv == ["train"]:
+        _, train_res = phase_train(ops)
+        log("end_to_end " + json.dumps({"train": train_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -2866,6 +3079,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     optim_counts, optim_res = phase_optim(checks, ops, plain)
     torch.cuda.empty_cache()
+    train_counts, train_res = phase_train(ops)
+    torch.cuda.empty_cache()
     dist_counts, dist_res = phase_distributed(ops)
     torch.cuda.empty_cache()
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
@@ -2874,13 +3089,14 @@ def main(argv) -> int:
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
-                                    "tune": tune_res, "optim": optim_res,
+                                    "tune": tune_res, "optim": optim_res, "train": train_res,
                                     "distributed": dist_res, "serve": serve_res,
                                     "check": check_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
     # them, the launches of phase optim's Shampoo refresh step (p = 2, packed),
+    # of one Shampoo step of phase train (p = 4, planned grams),
     # of phase distributed, of phase serve's warm (b) (eager runs and
     # captures), the launches (b)'s workload replayed (each bucket's replays
     # times its capture's launches), and the launches one flush of serve's
@@ -2899,6 +3115,7 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
             "replaces": replaces, "launches": path_counts[name],
             "optim_refresh_step_launches": optim_counts[name],
+            "train_shampoo_step_launches": train_counts[name],
             "distributed_launches": dist_counts[name],
             "serve_warm_launches": serve_warm[name],
             "serve_workload_launches": serve_workload[name],

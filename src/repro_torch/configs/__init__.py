@@ -1,2 +1,2 @@
-"""Configs of the port (partial copy of ``repro.configs``): the dataclasses
-of ``base`` and qwen1.5-0.5b's ``CONFIG``/``SMOKE``."""
+"""Configs of the port (copy of ``repro.configs``): the dataclasses of
+``base``, the ten architectures' ``CONFIG``/``SMOKE`` and the registry."""

@@ -2,10 +2,10 @@
 
 The port does not import the reference package, so the dataclasses of
 models, shapes, optimizers and runs are repeated here field for field with
-the reference's defaults: ``repro_torch.optim.build`` reads
-``OptimizerConfig`` and ``chip_smoke.py`` reads qwen1.5-0.5b's
-``ModelConfig`` (``configs/qwen15_05b.py``). The other architectures and
-the registry wait for the port of ``models/``.
+the reference's defaults. Every assigned architecture gets a
+``configs/<id>.py`` exporting ``CONFIG`` (the exact published config) and
+``SMOKE`` (a reduced same-family config for CPU tests); ``registry.py``
+resolves ``--arch <id>``.
 """
 
 from __future__ import annotations

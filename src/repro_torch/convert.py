@@ -8,6 +8,9 @@ port's next stage (for example, the JAX packed gram into the port's
 ``cholesky``) and back. :func:`tree_from_numpy` carries a whole tree
 across — parameters, gradients, or an optimizer's state with its packed
 stats and factors, its step counter and its ``PowerSGDState``.
+:func:`params_from_reference` carries a model's parameter tree (the
+reference's ``models.transformer.init`` output) after checking it against
+the port's own ``init``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from repro_torch.backend import resolve_device
 from repro_torch.core.symmetric import SymmetricMatrix
 from repro_torch.solve.cholesky import CholeskyFactor
 
-__all__ = ["symmetric_from_numpy", "factor_from_numpy", "to_numpy", "tree_from_numpy"]
+__all__ = ["symmetric_from_numpy", "factor_from_numpy", "to_numpy", "tree_from_numpy",
+           "params_from_reference"]
 
 
 def _blocks(blocks, n, bn, device):
@@ -88,3 +92,23 @@ def tree_from_numpy(tree, *, device="cuda", named_tuples=()):
             resolve_device(device))
 
     return conv(tree)
+
+
+def params_from_reference(cfg, tree, *, device="cuda"):
+    """The port's parameter tree for ``cfg`` holding the arrays of ``tree``
+    (the reference's ``transformer.init(key, cfg)`` output, or any tree of
+    that structure as numpy). Every leaf's key path and shape is checked
+    against the port's ``transformer.init`` on the ``meta`` device before
+    anything is copied, so a tree of another config or layout raises
+    instead of loading."""
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_flatten_with_path
+
+    want, _ = tree_flatten_with_path(init(None, cfg, device="meta"))
+    got, _ = tree_flatten_with_path(tree)
+    want_shapes = [(k, tuple(x.shape)) for k, x in want]
+    got_shapes = [(k, tuple(np.shape(x))) for k, x in got]
+    if got_shapes != want_shapes:
+        bad = sorted(set(got_shapes) ^ set(want_shapes))
+        raise ValueError(f"the tree does not match {cfg.name}'s parameters: {bad[:6]}")
+    return tree_from_numpy(tree, device=device)

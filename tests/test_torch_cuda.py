@@ -1339,3 +1339,101 @@ def test_trace_op_nodes_equal_launches_on_the_card(dev):
     torch.cuda.synchronize()
     assert nodes == sum(ops.launches.values()) > 0, (nodes, ops.launches)
     assert run(art).exit_code == 0
+
+
+# --- the trainer (models/, train/) ---------------------------------------------
+
+
+def _smoke_train(arch, opt, device, steps=1, **opt_kw):
+    """``steps`` train steps of ``arch``'s SMOKE config from one seeded init
+    (made on the CPU, copied to ``device``), float32 compute; the metrics
+    and the final parameters on the CPU."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, shape = get_smoke(arch), ShapeConfig("small", 64, 4, "train")
+    params = tree_map(lambda x: x.to(device),
+                      init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    run = RunConfig(model=cfg, shape=shape, compute_dtype="float32",
+                    optimizer=OptimizerConfig(name=opt, lr=1e-3, warmup_steps=5, **opt_kw))
+    step_fn, o = make_train_step(cfg, None, run, total_steps=50)
+    state = {"params": params, "opt": o.init(params), "step": torch.zeros((), dtype=torch.int32)}
+    metrics, launches = [], []
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in make_batch(cfg, shape, 0, i).items()}
+        ops.reset_launches()
+        state, m = step_fn(state, batch)
+        launches.append(dict(ops.launches))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, tree_map(lambda x: x.cpu(), state["params"]), launches
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma-7b", "command-r-plus-104b"])
+def test_forward_train_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke model's float32 logits on the card against the same
+    weights and tokens on the CPU, within ``8·√k·eps32·max|ref|`` (k the
+    longest contraction); bfloat16 within 2e-2 normwise."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.transformer import forward_train, init
+    from repro_torch.optim._tree import tree_map
+
+    cfg = get_smoke(arch)
+    p = init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
+    pc = tree_map(lambda x: x.to(dev), p)
+    for dt in (torch.float32, torch.bfloat16):
+        ref, _ = forward_train(p, {"tokens": toks}, cfg, compute_dtype=dt)
+        got, _ = forward_train(pc, {"tokens": toks.to(dev)}, cfg, compute_dtype=dt)
+        assert got.device.type == "cuda" and got.dtype == dt
+        got, ref = got.float().cpu(), ref.float()
+        if dt == torch.float32:
+            _close(got, ref, max(cfg.d_model, cfg.d_ff, 40))
+        else:
+            assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 2e-2
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One AdamW step of the qwen smoke model: loss and grad norm within
+    1e-5 relative of the CPU's, every updated leaf finite and within 1e-3
+    normwise of the CPU's update (Adam's first step amplifies tiny
+    gradient differences where |g| is near ε)."""
+    m_cpu, p_cpu, _ = _smoke_train("qwen1.5-0.5b", "adamw", "cpu")
+    m_gpu, p_gpu, _ = _smoke_train("qwen1.5-0.5b", "adamw", dev)
+    for k in ("loss", "grad_norm"):
+        assert abs(m_gpu[0][k] - m_cpu[0][k]) <= 1e-5 * abs(m_cpu[0][k]), k
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_flatten_with_path
+
+    p0 = tree_flatten_with_path(init(torch.Generator().manual_seed(0),
+                                     get_smoke("qwen1.5-0.5b"), device="cpu"))[0]
+    for (k, g), (_, c), (_, b) in zip(tree_flatten_with_path(p_gpu)[0],
+                                      tree_flatten_with_path(p_cpu)[0], p0):
+        assert torch.isfinite(g).all(), k
+        rel = float(torch.linalg.norm(g - c) / torch.linalg.norm(c - b))
+        assert rel <= 1e-3, (k, rel)
+
+
+def test_shampoo_train_step_launches_the_gram_kernels(dev):
+    """Two Shampoo steps of the qwen smoke model at its own widths, the
+    reference's Shampoo defaults (1024-blocks, so the smoke leaves are one
+    block each, and no refresh before step 10), the grams planned on
+    cuda_h100: every gram stack has a side of at most 128, so each plan is
+    one leaf and a step launches syrk once per gram stack (L and R of each
+    of the 10 Shampoo leaves) and nothing else; the losses and grad norms
+    are finite and within 1e-5 of the CPU's."""
+    m_gpu, p_gpu, launches = _smoke_train("qwen1.5-0.5b", "shampoo", dev, steps=2)
+    m_cpu, _, _ = _smoke_train("qwen1.5-0.5b", "shampoo", "cpu", steps=2)
+    for step in launches:
+        assert {k: v for k, v in step.items() if v} == {"syrk": 20}, step
+    for g, c in zip(m_gpu, m_cpu):
+        for k in ("loss", "grad_norm"):
+            assert math.isfinite(g[k]) and abs(g[k] - c[k]) <= 1e-5 * abs(c[k]), k
+    from repro_torch.optim._tree import tree_leaves
+
+    assert all(torch.isfinite(x).all() for x in tree_leaves(p_gpu))
