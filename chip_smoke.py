@@ -176,14 +176,44 @@ phase fails):
              checkpoint: the resumed steps 3–4 within 1e-5 (relative) of the
              straight run's, and whether they are bitwise equal.
 
+15. decode — (after train) the model server (``launch.serve``,
+             ``train.serve_step``, ``forward_decode``) for every family and
+             modality at full width, seeded weights: (a) qwen1.5-0.5b at
+             full depth through ``launch.serve.serve`` (4 slots, 8 requests,
+             prompt 512, gen 64, greedy, bfloat16): prefill ms, decode ms a
+             step, tokens/s, peak memory; one bfloat16 decode step under
+             ``torch.profiler`` (kernels, device busy ms) beside the bytes
+             of the weights' casts; (b) mamba2-1.3b and (c) hymba-1.5b
+             (prefill 3072, so hymba's 2048 window masks, decode 32), each
+             with one AdamW step at batch 2 × 2048; (d) deepseek-moe-16b at
+             4 of its 28 layers (prefill 512, decode 32, bfloat16): two
+             identical decode steps bitwise equal, one AdamW step at batch
+             2 × 1024 on 3 of the layers (AdamW's state of 4 does not fit),
+             loss and aux finite; (e) musicgen-medium (4 codebooks) and (f)
+             llava-next-mistral-7b (2880 stub patches, 128 text tokens),
+             prefill and 16 decode steps. Every config but the MoE's runs
+             the float32 teacher-forced check: each prefill and decode
+             step's logits within rtol = atol = 2e-3 (the reference's
+             bound) of ``forward_train`` over the whole sequence. Every
+             config's bfloat16 prefill and decode steps (the served path)
+             must be finite and no farther from the same float32 logits
+             (the MoE's: its float32 prefill and decode) than
+             ``DECODE_BF16_RATIO`` times bfloat16 ``forward_train``'s
+             distance from float32 ``forward_train`` at those positions;
+             qwen's served greedy tokens of the first batch must each be,
+             under ``forward_train`` in float32 over the same prompts and
+             tokens, within twice that bound of the largest logit. No kernel of the six is on this path: their launches
+             over the phase are recorded (0).
+
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
 calls are planned, and those phases measure the dispatches they name.
 ``python3 chip_smoke.py distributed`` runs the build and phase 11 alone
 (what a call on four cards needs), ``python3 chip_smoke.py serve`` the
 build and phase 12 alone, ``python3 chip_smoke.py check`` the build and
-phase 13 alone and ``python3 chip_smoke.py train`` the build and phase 14
-alone; none of them prints the final line.
+phase 13 alone, ``python3 chip_smoke.py train`` the build and phase 14
+alone and ``python3 chip_smoke.py decode`` the build and phase 15 alone;
+none of them prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -2136,6 +2166,365 @@ def phase_train(ops):
     return shampoo_launches, res
 
 
+# ---------------------------------------------------------------------------
+# phase decode: the model server (prefill, then one token a step against the
+# KV/SSM cache) for every family and modality at full width
+# ---------------------------------------------------------------------------
+
+# teacher-forced decode against forward_train over the whole sequence, float32:
+# the reference's own bound (tests/test_train_serve.py), rtol = atol = 2e-3
+DECODE_TF_TOL = 2e-3
+# the bfloat16 prefill and decode may be this many times as far from
+# float32 as bfloat16 forward_train is over the same sequence (largest
+# difference over the largest |logit|). Bfloat16 forward_train itself
+# drifts with depth in the SSD families with random weights (mamba2-1.3b
+# 1.6e-2 at 1 layer, 0.72 at 48; qwen1.5-0.5b 2.2e-2 at 24), and at full
+# width the decode path read 0.83-1.08 times it (PERF.md §6)
+DECODE_BF16_RATIO = 1.5
+# (a) launch.serve's loop at qwen1.5-0.5b
+DECODE_SERVE = dict(batch=4, requests=8, prompt_len=512, gen_len=64)
+# (arch, layers kept or None for full depth, prompt, decode steps, batch of the
+# float32 check, (train batch, seq, layers trained or None) or None);
+# musicgen's and llava's prompts are 128 text tokens (llava's behind 2880 stub
+# patches). deepseek-moe-16b trains its first 3 of the 4 layers: AdamW holds
+# parameters, gradients and the old and new moments (6 copies of 2.35 GB a
+# layer, plus one leaf's temporaries), which at 4 layers exceeds 80 GB
+DECODE_CASES = (
+    ("mamba2-1.3b", None, 3072, 32, 2, (2, 2048, None)),
+    ("hymba-1.5b", None, 3072, 32, 2, (2, 2048, None)),
+    ("deepseek-moe-16b", 4, 512, 32, 4, (2, 1024, 3)),
+    ("musicgen-medium", None, 128, 16, 2, None),
+    ("llava-next-mistral-7b", None, 128, 16, 2, None),
+)
+
+
+def _decode_inputs(cfg, batch: int, seq: int):
+    """Tokens (and stub patch embeddings) of ``seq`` text positions from the
+    data pipeline's stub front ends, on the card."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+
+    extra = cfg.num_patches if cfg.modality == "vision_text" else 0
+    b = make_batch(cfg, ShapeConfig("decode", seq + extra, batch, "prefill"), SEED, 0)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in b.items() if k != "labels"}
+
+
+def _prefill_decode(cfg, params, inputs, s_p: int, dtype, ref=None):
+    """Prefill the first ``s_p`` text positions of ``inputs``, then decode
+    the rest one token a step, teacher-forced. With ``ref`` (float32 logits
+    at positions ``s_p - 1`` on) every step's logits are held against it.
+    Returns times (CUDA events), errors and whether every logit is finite,
+    the logits of every step (B, steps, ...) and the last cache."""
+    import torch
+
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+
+    toks = inputs["tokens"]
+    n_img = inputs["image_embeds"].shape[1] if "image_embeds" in inputs else 0
+    s = toks.shape[1]
+    prefill = make_prefill_step(cfg, None, dtype, cache_len=n_img + s)
+    decode = make_decode_step(cfg, None, dtype)
+    pre = dict(inputs, tokens=toks[:, :s_p])
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(s - s_p + 1)]
+    marks[0].record()
+    lg, cache = prefill(params, pre)
+    marks[1].record()
+    outs = [lg]
+    for t in range(s_p, s - 1):
+        pos = torch.full((toks.shape[0],), n_img + t, dtype=torch.int32, device="cuda")
+        lg, cache = decode(params, toks[:, t:t + 1], cache, pos)
+        marks[t - s_p + 2].record()
+        outs.append(lg)
+    torch.cuda.synchronize()
+    steps = [a.elapsed_time(b) for a, b in zip(marks[1:-1], marks[2:])]
+    got = torch.cat(outs, dim=1).float()
+    del outs
+    res = dict(prefill_ms=marks[0].elapsed_time(marks[1]), decode_steps=len(steps),
+               decode_ms=statistics.median(steps), finite=bool(torch.isfinite(got).all()))
+    if ref is not None:
+        ref = ref[:, :got.shape[1]]
+        d = (got - ref).abs()
+        n = got.shape[1]
+        top = float(ref.abs().max())
+        norm = (d.transpose(0, 1).reshape(n, -1).norm(dim=1)
+                / ref.transpose(0, 1).reshape(n, -1).norm(dim=1))
+        res.update(max_abs_err=float(d.max()), max_abs_ref=top,
+                   max_rel_err=float(d.max()) / top, max_norm_err=float(norm.max()))
+        if dtype == torch.float32:
+            res["allclose_ratio"] = float((d / (DECODE_TF_TOL + DECODE_TF_TOL * ref.abs())).max())
+        del d
+    return res, got, cache
+
+
+def _decode_checks(cfg, params, inputs, s_p: int):
+    """The float32 check, then the bfloat16 one. Float32: prefill and
+    teacher-forced decode within rtol = atol = 2e-3 of ``forward_train``
+    over the whole sequence (not for the MoE, whose capacity drops differ
+    between a sequence and a token). Bfloat16 (the served path): every
+    step's logits finite and no farther from the same float32 logits (the
+    MoE's: its own float32 prefill and decode) than ``DECODE_BF16_RATIO``
+    times bfloat16 ``forward_train``'s distance from float32's at those
+    positions, each distance the largest difference over the largest
+    |logit|. Returns both results and the bfloat16 run's cache."""
+    import torch
+
+    from repro_torch.models.transformer import forward_train
+
+    with torch.no_grad():
+        full, _ = forward_train(params, inputs, cfg, compute_dtype=torch.float32)
+        full = full[:, s_p - 1:].clone()
+        full16, _ = forward_train(params, inputs, cfg, compute_dtype=torch.bfloat16)
+        full16 = full16[:, s_p - 1:].float()
+    ft_rel = float((full16 - full).abs().max()) / float(full.abs().max())
+    del full16
+    if cfg.moe is None:
+        f32, _, cache = _prefill_decode(cfg, params, inputs, s_p, torch.float32, ref=full)
+        ref = full
+        ok = f32["finite"] and f32["allclose_ratio"] <= 1.0
+        log(f"  {cfg.name} float32 teacher-forced: prefill {s_p} ms={f32['prefill_ms']:.2f}, "
+            f"{f32['decode_steps']} steps ms={f32['decode_ms']:.3f} (median); max_abs_err="
+            f"{f32['max_abs_err']:.3e} of max|logit| {f32['max_abs_ref']:.3e} (relative "
+            f"{f32['max_rel_err']:.3e}), allclose ratio {f32['allclose_ratio']:.3f} (rtol = atol = "
+            f"{DECODE_TF_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode: {cfg.name}'s teacher-forced decode is off forward_train")
+    else:
+        f32, ref, cache = _prefill_decode(cfg, params, inputs, s_p, torch.float32)
+        log(f"  {cfg.name} float32: prefill {s_p} ms={f32['prefill_ms']:.2f}, "
+            f"{f32['decode_steps']} steps ms={f32['decode_ms']:.3f} (median), logits "
+            f"{'finite' if f32['finite'] else 'NOT FINITE'} (the bfloat16 run's reference)")
+        if not f32["finite"]:
+            raise AssertionError(f"decode: {cfg.name}'s float32 logits are not finite")
+    del cache, full
+    bf, _, cache = _prefill_decode(cfg, params, inputs, s_p, torch.bfloat16, ref=ref)
+    del ref
+    bf.update(forward_train_rel_err=ft_rel, bound_rel=DECODE_BF16_RATIO * ft_rel)
+    ok = bf["finite"] and bf["max_rel_err"] <= bf["bound_rel"]
+    log(f"  {cfg.name} bfloat16 at batch {inputs['tokens'].shape[0]}: prefill {s_p} "
+        f"ms={bf['prefill_ms']:.2f}, {bf['decode_steps']} steps ms={bf['decode_ms']:.3f} "
+        f"(median); logits {'finite' if bf['finite'] else 'NOT FINITE'}, max_abs_err "
+        f"{bf['max_abs_err']:.3e} of max|logit| {bf['max_abs_ref']:.3e} (relative "
+        f"{bf['max_rel_err']:.3e}, worst step normwise {bf['max_norm_err']:.3e}); bfloat16 "
+        f"forward_train {ft_rel:.3e} from float32, so {bf['max_rel_err'] / ft_rel:.3f} times it "
+        f"(bound {DECODE_BF16_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode: {cfg.name}'s bfloat16 decode is off float32")
+    return f32, bf, cache
+
+
+def _served_tokens_check(cfg, params, out, bound_rel: float):
+    """The first served batch's bfloat16 greedy tokens against float32:
+    ``forward_train`` in float32 over its prompts and generated tokens;
+    each chosen token's float32 logit must be within ``2 · bound_rel ·
+    max|logit|`` of the position's largest (the argmax of logits within
+    ``bound_rel · max|logit|`` of float32 can lose no more), ``bound_rel``
+    the bound the teacher-forced bfloat16 decode was held to."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import forward_train
+
+    b, p = DECODE_SERVE["batch"], DECODE_SERVE["prompt_len"]
+    seq = np.concatenate([out["prompts"][:b], out["tokens"][:b, :-1]], axis=1)
+    with torch.no_grad():
+        full, _ = forward_train(params, {"tokens": torch.as_tensor(seq, device="cuda")}, cfg,
+                                compute_dtype=torch.float32)
+    lg = full[:, p - 1:]
+    del full
+    tok = torch.as_tensor(out["tokens"][:b], device="cuda").long()
+    gap = lg.amax(-1) - lg.gather(-1, tok[..., None])[..., 0]
+    res = dict(max_gap=float(gap.max()), max_abs_ref=float(lg.abs().max()),
+               argmax_agree=float((lg.argmax(-1) == tok).float().mean()))
+    res["bound"] = 2 * bound_rel * res["max_abs_ref"]
+    ok = res["max_gap"] <= res["bound"]
+    log(f"  (a) the first served batch's {tuple(tok.shape)} bfloat16 greedy tokens under float32 "
+        f"forward_train: {res['argmax_agree']:.4f} of them the float32 argmax, the largest "
+        f"shortfall from the float32 maximum {res['max_gap']:.3e} (bound {res['bound']:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode: the served bfloat16 tokens are off float32's choice")
+    return res
+
+
+def _decode_train_step(cfg, batch: int, seq: int, layers, params):
+    """One AdamW step through ``make_train_step`` (remat ``dots``, bfloat16,
+    the reference's ``RunConfig`` defaults) on the synthetic stream; with
+    ``layers``, on the first ``layers`` layers of the stack only."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim._tree import tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    if layers is not None and layers < cfg.num_layers:
+        log(f"  {cfg.name}: the train step keeps {layers} of the {cfg.num_layers} layers "
+            "(AdamW's state of all of them does not fit)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = dict(params, layers=tree_map(lambda x: x[:layers], params["layers"]))
+
+    shape = ShapeConfig("decode_train", seq, batch, "train")
+    run = RunConfig(model=cfg, shape=shape, optimizer=OptimizerConfig(name="adamw"))
+    step_fn, opt = make_train_step(cfg, None, run)
+    data = {k: torch.as_tensor(v, device="cuda")
+            for k, v in make_batch(cfg, shape, SEED, 0).items()}
+    state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, data)
+    torch.cuda.synchronize()
+    res = dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(m["loss"]), aux=float(m["aux"]),
+               grad_norm=float(m["grad_norm"]), batch=batch, seq=seq, layers=cfg.num_layers,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    ok = all(math.isfinite(res[k]) for k in ("loss", "aux", "grad_norm"))
+    log(f"  {cfg.name} AdamW step at {batch} x {seq}, {cfg.num_layers} layers (remat dots, "
+        f"bfloat16): ms={res['ms']:.1f} (first step) loss {res['loss']!r} aux {res['aux']!r} "
+        f"grad_norm {res['grad_norm']!r}, peak {res['peak_bytes'] / 1e9:.2f} GB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode: {cfg.name}'s train step is not finite")
+    del state, step_fn, opt
+    return res
+
+
+def phase_decode(ops):
+    """The model server (``repro_torch.launch.serve``, ``train.serve_step``,
+    ``models.transformer.forward_decode``) for every family and modality at
+    full width; see the module docstring. Returns the six kernels' launches
+    over the phase (none is on this path) and the results."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_leaves
+    from repro_torch.train.serve_step import make_decode_step
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    res = {}
+
+    # (a) qwen1.5-0.5b, full depth: launch.serve's loop, greedy, bfloat16
+    cfg = get_config("qwen1.5-0.5b")
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device="cuda").manual_seed(SEED + 30), cfg, device="cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"phase decode: (a) {cfg.name}, {cfg.num_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} float32 parameters; launch.serve "
+        f"{DECODE_SERVE}, greedy, bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, params, temperature=0.0, seed=SEED, device="cuda",
+                compute_dtype=torch.bfloat16, log=lambda line: log("  " + line),
+                **DECODE_SERVE)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(out["decode_ms"])
+    toks = out["tokens"]
+    a = dict(prefill_ms=out["prefill_ms"], decode_ms=step_ms, decode_steps=len(out["decode_ms"]),
+             tokens_per_s=out["tokens_out"] / out["seconds"],
+             decode_tokens_per_s=DECODE_SERVE["batch"] / (step_ms / 1e3), peak_bytes=peak,
+             seconds=out["seconds"], distinct_tokens=int(np.unique(toks).size))
+    log(f"  (a) prefill ms {[round(x, 2) for x in a['prefill_ms']]} (4 x 512 tokens), decode "
+        f"ms {step_ms:.3f} a step (median of {a['decode_steps']}), {a['tokens_per_s']:.1f} "
+        f"tokens/s over the run ({a['decode_tokens_per_s']:.1f} a decode step), peak "
+        f"{peak / 1e9:.2f} GB, {a['distinct_tokens']} distinct tokens generated")
+    if toks.shape != (DECODE_SERVE["requests"], DECODE_SERVE["gen_len"]):
+        raise AssertionError(f"decode: launch.serve returned tokens of shape {toks.shape}")
+    # one bfloat16 decode step under torch.profiler, in a process of its
+    # own (a profiler session here would leave CUPTI missing kernels of
+    # phase serve's profiled replays): launches or bytes?
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "profile_decode.py"),
+                           "--batch", str(DECODE_SERVE["batch"]),
+                           "--prompt", str(DECODE_SERVE["prompt_len"])],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"decode: tools/profile_decode.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  (a) one bfloat16 decode step under torch.profiler (tools/profile_decode.py): "
+        f"{prof['events_ms']:.3f} ms events, device busy {prof['device_busy_ms']:.3f} ms, "
+        f"{prof['kernels']} kernels; the weights' bytes (float32 read, bfloat16 written and "
+        f"read) bound it at {prof['bytes_bound_ms']:.3f} ms; top operators by device time: "
+        + ", ".join(f"{op['op']} {op['device_ms']:.3f} ms x{op['count']}"
+                    for op in prof["top_ops"]))
+    a["profile"] = prof
+    a["teacher_forced"], a["bfloat16"], _ = _decode_checks(
+        cfg, params, _decode_inputs(cfg, 2, DECODE_SERVE["prompt_len"] + DECODE_SERVE["gen_len"]),
+        DECODE_SERVE["prompt_len"])
+    a["served_tokens"] = _served_tokens_check(cfg, params, out, a["bfloat16"]["bound_rel"])
+    a["s"] = time.perf_counter() - t0
+    log(f"  (a) {cfg.name} took {a['s']:.1f} s")
+    res[cfg.name] = a
+    del params
+    torch.cuda.empty_cache()
+
+    # (b)-(f) each family and modality at full width
+    for label, (arch, layers, s_p, n_dec, b_tf, train) in zip("bcdef", DECODE_CASES):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cut = ""
+        if layers is not None and layers < cfg.num_layers:
+            cut = f" (depth cut from {cfg.num_layers}: float32 weights must fit)"
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = init(torch.Generator(device="cuda").manual_seed(SEED + 31), cfg, device="cuda")
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        log(f"phase decode: ({label}) {cfg.name}, {cfg.num_layers} layers{cut}, d_model "
+            f"{cfg.d_model}, {n_params} float32 parameters; prefill {s_p}, decode {n_dec}")
+        r = dict(layers=cfg.num_layers, full_layers=get_config(arch).num_layers, n_params=n_params)
+        inputs = _decode_inputs(cfg, b_tf, s_p + n_dec + 1)
+        f32, r["bfloat16"], cache = _decode_checks(cfg, params, inputs, s_p)
+        r["teacher_forced" if cfg.moe is None else "float32"] = f32
+        if cfg.moe is not None:
+            # two identical decode steps on two copies of the cache: bitwise
+            dec = make_decode_step(cfg, None, torch.bfloat16)
+            pos = torch.full((b_tf,), s_p + n_dec - 1, dtype=torch.int32, device="cuda")
+            tok = inputs["tokens"][:, -1:]
+            outs = []
+            for _ in range(2):
+                c2 = {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
+                lg, c2 = dec(params, tok, c2, pos)
+                outs.append((lg, c2))
+            same = (torch.equal(outs[0][0].view(torch.int16), outs[1][0].view(torch.int16))
+                    and all(torch.equal(outs[0][1]["layers"][k], outs[1][1]["layers"][k])
+                            for k in cache["layers"]))
+            finite = bool(torch.isfinite(outs[0][0]).all())
+            log(f"  {cfg.name}: two identical bfloat16 decode steps "
+                f"{'bitwise equal' if same else 'DIFFER'} (logits and caches), logits "
+                f"{'finite' if finite else 'NOT FINITE'}")
+            if not (same and finite):
+                raise AssertionError(f"decode: {cfg.name}'s decode step does not repeat bitwise")
+            r["repeat_bitwise"] = same
+            del outs, c2
+        del cache, inputs
+        torch.cuda.empty_cache()
+        if train is not None:
+            r["train"] = _decode_train_step(cfg, *train, params)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["s"] = time.perf_counter() - t0
+        log(f"  ({label}) {cfg.name} took {r['s']:.1f} s, peak {r['peak_bytes'] / 1e9:.2f} GB")
+        res[cfg.name] = r
+        del params
+        torch.cuda.empty_cache()
+
+    counts = dict(ops.launches)
+    res["launches"] = {k: v for k, v in counts.items() if v}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase decode: kernel launches {res['launches'] or 'none'}; took "
+        f"{res['phase_s']:.1f} s")
+    return counts, res
+
+
 # phase distributed: ata 8192² over four ranks, gram_rowshard, colshard, PowerSGD
 DIST_RANKS = 4
 DIST_N = 8192
@@ -3006,9 +3395,9 @@ def main(argv) -> int:
 
     t_start = time.perf_counter()
 
-    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"]):
+    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"]):
         print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
-              "'serve', 'check' and 'train'", file=sys.stderr)
+              "'serve', 'check', 'train' and 'decode'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -3052,6 +3441,10 @@ def main(argv) -> int:
         _, train_res = phase_train(ops)
         log("end_to_end " + json.dumps({"train": train_res}, default=str))
         return 0
+    if argv == ["decode"]:
+        _, decode_res = phase_decode(ops)
+        log("end_to_end " + json.dumps({"decode": decode_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -3081,6 +3474,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     train_counts, train_res = phase_train(ops)
     torch.cuda.empty_cache()
+    decode_counts, decode_res = phase_decode(ops)
+    torch.cuda.empty_cache()
     dist_counts, dist_res = phase_distributed(ops)
     torch.cuda.empty_cache()
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
@@ -3090,13 +3485,15 @@ def main(argv) -> int:
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
                                     "tune": tune_res, "optim": optim_res, "train": train_res,
+                                    "decode": decode_res,
                                     "distributed": dist_res, "serve": serve_res,
                                     "check": check_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
     # them, the launches of phase optim's Shampoo refresh step (p = 2, packed),
-    # of one Shampoo step of phase train (p = 4, planned grams),
+    # of one Shampoo step of phase train (p = 4, planned grams), of phase
+    # decode (none: the server's path runs no kernel of the six),
     # of phase distributed, of phase serve's warm (b) (eager runs and
     # captures), the launches (b)'s workload replayed (each bucket's replays
     # times its capture's launches), and the launches one flush of serve's
@@ -3116,6 +3513,7 @@ def main(argv) -> int:
             "replaces": replaces, "launches": path_counts[name],
             "optim_refresh_step_launches": optim_counts[name],
             "train_shampoo_step_launches": train_counts[name],
+            "decode_launches": decode_counts[name],
             "distributed_launches": dist_counts[name],
             "serve_warm_launches": serve_warm[name],
             "serve_workload_launches": serve_workload[name],

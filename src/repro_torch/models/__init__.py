@@ -1,2 +1,2 @@
-"""Models of the port (port of ``repro.models``): the dense family's layers
-and the decoder-LM assembly."""
+"""Models of the port (port of ``repro.models``): the shared layers, the
+MoE and SSM blocks, and the decoder-LM assembly of every family."""

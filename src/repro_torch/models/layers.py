@@ -1,5 +1,6 @@
-"""Shared transformer layers of the dense family: norms, RoPE, GQA attention
-(flash-style chunked), gated MLPs (port of ``repro.models.layers``).
+"""Shared transformer layers: norms, RoPE, GQA attention (flash-style
+chunked for training and prefill, one token against a cache for decode),
+gated MLPs (port of ``repro.models.layers``).
 
 Plain functions over parameter dicts of tensors, as in the reference. The
 reference has no Pallas kernel here (its attention is chunked ``jnp``), and
@@ -22,9 +23,12 @@ Departures:
 * query and key/value blocks are slices of the sequence, the last one
   short, where the reference pads both to whole blocks (its padded keys
   are masked and its padded queries dropped, so the real rows agree);
-* the decode and sequence-parallel attention (``attention_decode``,
-  ``attention_decode_sp``, ``attention_train_cp``) wait for the decode
-  and sharding slices.
+* :func:`attention_decode` writes the new key and value into the cache
+  tensors it is given, in place, and returns them; the reference returns
+  fresh arrays. A cache is therefore used once: after a step, only the
+  returned one is current;
+* the sequence-parallel attention (``attention_decode_sp``,
+  ``attention_train_cp``) needs a mesh and waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ __all__ = [
     "rms_norm",
     "rope",
     "attention_train",
+    "attention_decode",
     "mlp_gated",
     "init_attn",
     "init_mlp",
@@ -49,10 +54,28 @@ Q_BLOCK = 2048
 KV_BLOCK = 1024
 
 
+def check_mesh(mesh) -> None:
+    """Raise for any mesh: vocab and expert padding, sharded layers and the
+    pinned head grids wait for the sharding slice."""
+    if mesh is not None:
+        raise NotImplementedError("a mesh (vocab and expert padding, sharded layers) waits "
+                                  "for the sharding slice (parallel/sharding.py)")
+
+
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype of the reference's float32 statistics under compute
     ``dtype``: float32, or float64 for float64 compute."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, checkpointed while autograd records (the backward
+    pass recomputes it, as ``jax.checkpoint`` does); a plain call under
+    ``torch.no_grad()`` (prefill and decode), where there is no backward
+    pass to save for."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def normal(generator, shape, scale: float, device) -> torch.Tensor:
@@ -166,8 +189,9 @@ def _flash_body(q_blk, k, v, q_pos, kv_pos, window, scale, groups):
     Chunked over KV with running (max, denom, acc) in :func:`acc_dtype` —
     the flash recurrence — so the (S × S) score matrix is never
     materialized. Each KV step is checkpointed (the reference's
-    ``jax.checkpoint``): the backward pass recomputes the (B, H, Qb, C)
-    score and probability blocks instead of keeping S² of them.
+    ``jax.checkpoint``, :func:`remat`): the backward pass recomputes the
+    (B, H, Qb, C) score and probability blocks instead of keeping S² of
+    them.
     """
     b, qb, h, hd = q_blk.shape
     s = k.shape[1]
@@ -177,8 +201,8 @@ def _flash_body(q_blk, k, v, q_pos, kv_pos, window, scale, groups):
     acc = torch.zeros((b, h, qb, hd), dtype=acc_t, device=q_blk.device)
     for c0 in range(0, s, KV_BLOCK):
         c1 = min(c0 + KV_BLOCK, s)
-        m, l, acc = checkpoint(_kv_step, m, l, acc, q_blk, k[:, c0:c1], v[:, c0:c1], q_pos,
-                               kv_pos[c0:c1], window, scale, groups, use_reentrant=False)
+        m, l, acc = remat(_kv_step, m, l, acc, q_blk, k[:, c0:c1], v[:, c0:c1], q_pos,
+                          kv_pos[c0:c1], window, scale, groups)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q_blk.dtype)  # (B, Qb, H, D)
 
@@ -195,7 +219,8 @@ def attention_train(
 
     x: (B, S, D) → (B, S, D). Never materializes S×S scores; used for both
     train and prefill. With ``return_kv`` also returns the roped (k, v)
-    (B, S, KV, D).
+    (B, S, KV, D) for prefill cache construction. ``window`` is an int, a
+    0-d tensor (a scanned hybrid stack's window as data) or None.
     """
     b, s, d = x.shape
     positions = torch.arange(s, device=x.device)
@@ -211,6 +236,76 @@ def attention_train(
     if return_kv:
         return out, (k, v)
     return out
+
+
+def attention_decode(
+    p: dict,
+    x: torch.Tensor,
+    cfg,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step with a (ring-buffered when windowed) KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_cache, KV, D) — stores *roped* keys at
+    absolute slot ``pos % S_cache``; pos: (B,) absolute positions.
+    Returns (out (B,1,D), cache_k, cache_v). The new key and value are
+    written into ``cache_k`` and ``cache_v`` in place (the reference
+    returns updated copies): the returned caches are the ones passed in.
+
+    ``window``: None (an absolute cache), an int equal to ``S_cache`` (a
+    ring buffer, every slot valid once ``pos >= S_cache``), or any other
+    int or a 0-d tensor (an absolute cache masked by distance < window).
+    """
+    b = x.shape[0]
+    s_cache = cache_k.shape[1]
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+
+    rows = torch.arange(b, device=x.device)
+    slot = pos.to(torch.int64) % s_cache
+    cache_k.index_put_((rows, slot), k[:, 0].to(cache_k.dtype))
+    cache_v.index_put_((rows, slot), v[:, 0].to(cache_v.dtype))
+
+    groups = cfg.num_heads // cfg.num_kv_heads
+    acc = acc_dtype(x.dtype)
+    # grouped-query einsum — no materialized repeat of the KV cache
+    _, s_, _, hd_ = q.shape
+    qk_t = torch.promote_types(q.dtype, cache_k.dtype)
+    qg = q.reshape(b, s_, cfg.num_kv_heads, groups, hd_).to(qk_t)
+    scores = torch.einsum("bskgd,bckd->bkgsc", qg, cache_k.to(qk_t)).to(acc)
+    scores = scores.reshape(b, cfg.num_heads, s_, -1)
+    scores = scores * (cfg.head_dim ** -0.5)
+
+    # validity: slot c holds an absolute position; with a ring buffer the
+    # absolute position of slot c is recoverable from (pos, window)
+    slots = torch.arange(s_cache, device=x.device)[None, :]    # (1, S_cache)
+    pos_c = pos.to(torch.int64)[:, None]
+    if window is None:
+        valid = slots <= pos_c                  # slot index == position
+    elif isinstance(window, int) and window == s_cache:
+        # ring buffer: before it wraps, slots <= pos; after, every slot
+        valid = (slots <= pos_c) | (pos_c >= s_cache)
+    else:
+        # absolute cache, a (possibly tensor) window: causal and distance
+        valid = (slots <= pos_c) & ((pos_c - slots) < window)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(cache_v.dtype)
+    wg = w.reshape(b, cfg.num_kv_heads, groups, s_, -1)
+    out = torch.einsum("bkgsc,bckd->bskgd", wg, cache_v)
+    out = out.reshape(b, s_, cfg.num_heads * hd_).to(x.dtype)
+    out = torch.matmul(out, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+    return out, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.transformer import forward_train
 from repro_torch.optim import apply_updates, build as build_optimizer
-from repro_torch.optim._tree import tree_flatten, tree_map
+from repro_torch.optim._tree import tree_flatten, tree_flatten_with_path, tree_map
 from repro_torch.optim.adamw import clip_by_global_norm
 
 __all__ = [
@@ -63,19 +63,46 @@ def make_loss_fn(cfg: ModelConfig, mesh, run: RunConfig):
         logits, aux = forward_train(params, batch, cfg, mesh, remat=run.remat,
                                     compute_dtype=compute_dtype)
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_coef * aux
         return loss, {"loss": loss, "aux": aux}
 
     return loss_fn
 
 
+def _unused_by_design(params, batch) -> set:
+    """Key paths of the leaves no loss reads: a hybrid layer's ``ssm.norm``
+    (the layer normalizes its input once, with ``attn.norm``, for both
+    branches), and ``embed`` under precomputed ``embeds`` with an untied
+    head."""
+    out = set()
+    layers = params.get("layers")
+    per = layers if isinstance(layers, list) else [layers]
+    for i, p in enumerate(per):
+        if isinstance(p, dict) and "attn" in p and "ssm" in p:
+            out.add("['layers']" + (f"[{i}]" if isinstance(layers, list) else "")
+                    + "['ssm']['norm']")
+    if "embeds" in batch and "lm_head" in params:
+        out.add("['embed']")
+    return out
+
+
 def loss_and_grads(loss_fn, params, batch):
     """``(metrics, grads)`` of ``loss_fn(params, batch) -> (loss, metrics)``:
     the reference's ``jax.value_and_grad(loss_fn, has_aux=True)``. The
-    metrics are detached; the gradients have the tree of ``params``."""
+    metrics are detached; the gradients have the tree of ``params``. A
+    leaf the loss does not use by design (:func:`_unused_by_design`) gets a
+    zero gradient, as in JAX; any other leaf cut off from the loss raises
+    ``RuntimeError``."""
+    paths = [k for k, _ in tree_flatten_with_path(params)[0]]
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     loss, metrics = loss_fn(treedef.unflatten(leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    cut = {k for k, g in zip(paths, grads) if g is None} - _unused_by_design(params, batch)
+    if cut:
+        raise RuntimeError(f"the loss does not reach the leaves {sorted(cut)}")
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return {k: v.detach() for k, v in metrics.items()}, treedef.unflatten(grads)
 
 

@@ -1437,3 +1437,67 @@ def test_shampoo_train_step_launches_the_gram_kernels(dev):
     from repro_torch.optim._tree import tree_leaves
 
     assert all(torch.isfinite(x).all() for x in tree_leaves(p_gpu))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b", "hymba-1.5b",
+                                  "deepseek-moe-16b", "musicgen-medium"])
+def test_decode_step_on_the_card_matches_the_cpu(dev, arch):
+    """Prefill 20 tokens and decode 3 of the smoke model, float32, on the
+    card and on the CPU with the same weights: every step's logits and the
+    final cache within ``8·√k·eps32·max|ref|`` (k the longest contraction
+    of the model)."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_flatten_with_path, tree_map
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+
+    cfg = get_smoke(arch)
+    k = max(cfg.d_model, cfg.d_ff, cfg.moe.d_ff_expert if cfg.moe else 0,
+            cfg.ssm.d_inner(cfg.d_model) if cfg.ssm else 0)
+    p = init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    shape = (2, 23, cfg.num_codebooks) if cfg.num_codebooks > 1 else (2, 23)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator().manual_seed(2))
+
+    def run(device):
+        pd = tree_map(lambda x: x.to(device), p)
+        td = toks.to(device)
+        lg, cache = make_prefill_step(cfg, compute_dtype=torch.float32, cache_len=23)(
+            pd, {"tokens": td[:, :20]})
+        outs = [lg]
+        dec = make_decode_step(cfg, compute_dtype=torch.float32)
+        for t in range(20, 23):
+            lg, cache = dec(pd, td[:, t:t + 1], cache,
+                            torch.full((2,), t, dtype=torch.int32, device=device))
+            outs.append(lg)
+        return outs, cache
+
+    got, gcache = run(dev)
+    ref, rcache = run("cpu")
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda"
+        _close(g.cpu(), r, k)
+    for (key, g), (_, r) in zip(tree_flatten_with_path(gcache)[0],
+                                tree_flatten_with_path(rcache)[0]):
+        _close(g.float().cpu(), r.float(), k)
+
+
+def test_moe_combine_repeats_bitwise_on_the_card(dev):
+    """The MoE layer in bfloat16 on the card, twice on the same inputs:
+    bitwise equal outputs (the combine sums each token's slots in expert
+    order, never with atomics), and within 2e-2 normwise of the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import init_moe, moe_layer
+
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=16))
+    p = init_moe(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).bfloat16()
+    a, aux_a = moe_layer(p, x, cfg)
+    b, aux_b = moe_layer(p, x, cfg)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16)) and torch.equal(aux_a, aux_b)
+    c, _ = moe_layer({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg)
+    assert float(torch.linalg.norm(a.float().cpu() - c.float()) / torch.linalg.norm(c.float())) \
+        <= 2e-2

@@ -67,7 +67,9 @@ def test_port_files_exist():
                 "repro_torch/data/pipeline.py", "repro_torch/models/layers.py",
                 "repro_torch/models/transformer.py", "repro_torch/train/train_step.py",
                 "repro_torch/checkpoint/manager.py", "repro_torch/runtime/fault_tolerance.py",
-                "repro_torch/launch/train.py"):
+                "repro_torch/launch/train.py", "repro_torch/models/moe.py",
+                "repro_torch/models/ssm.py", "repro_torch/train/serve_step.py",
+                "repro_torch/launch/serve.py"):
         assert mod in names, mod
     for src in ("gemm_tn.cu", "syrk.cu", "potrf.cu", "trsm.cu", "dtype.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -250,18 +252,15 @@ EXPORT_DEPARTURES = {
     "launch/mesh.py": {"make_production_mesh", "SINGLE_POD", "MULTI_POD"},
     "analysis/roofline.py": {"PEAK_FLOPS", "HBM_BW", "LINK_BW", "compose_cell", "load_cells",
                              "render_markdown"},
-    "models/transformer.py": {"forward_decode", "init_cache"},
-    "models/layers.py": {"attention_decode"},
     "train/train_step.py": {"state_specs"},
 }
 # reference modules with no port: no counterpart (HLO text, JAX version
-# shims), or not ported yet (the decode path, MoE and SSM models, the
-# sharding layer, the dry-run and the rest of analysis)
+# shims), or not ported yet (the sharding layer, the dry-run and the rest
+# of analysis)
 UNPORTED = {
     "analysis/hlo.py", "compat.py",
-    "analysis/fill_experiments.py", "launch/dryrun.py", "launch/serve.py",
-    "models/moe.py", "models/ssm.py", "parallel/sharding.py", "runtime/elastic.py",
-    "train/serve_step.py",
+    "analysis/fill_experiments.py", "launch/dryrun.py", "parallel/sharding.py",
+    "runtime/elastic.py",
 }
 REFERENCE_MODULES = sorted(p.relative_to(ROOT / "src" / "repro").as_posix()
                            for p in (ROOT / "src" / "repro").rglob("*.py"))

@@ -114,7 +114,7 @@ def test_cell_supported_and_input_specs_equal_the_reference(arch):
 # --- parameter trees ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [a for a in sorted(jreg.ARCH_MODULES) if a not in DENSE])
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
 @pytest.mark.parametrize("scan", [True, False])
 def test_init_shapes_equal_the_reference(arch, which, scan):
@@ -134,8 +134,35 @@ def test_init_shapes_equal_the_reference(arch, which, scan):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-moe-16b", "hymba-1.5b",
                                   "musicgen-medium", "llava-next-mistral-7b"])
 def test_families_of_later_slices_raise(arch):
+    """Every family runs on one device now; what still waits for a later
+    slice is a mesh (the sharding slice), for every family."""
+    cfg = treg.get_smoke(arch)
+    p = tT.init(None, cfg, device="meta")
     with pytest.raises(NotImplementedError, match="slice"):
-        tT.init(None, treg.get_smoke(arch), device="meta")
+        tT.init(None, cfg, object(), device="meta")
+    with pytest.raises(NotImplementedError, match="slice"):
+        tT.forward_train(p, {"tokens": torch.zeros((1, 4), dtype=torch.int32, device="meta")},
+                         cfg, object())
+
+
+@pytest.mark.parametrize("arch", sorted(jreg.ARCH_MODULES))
+def test_params_from_reference_takes_every_config(arch):
+    """A tree of the reference's SMOKE init structure (its
+    ``jax.eval_shape``, filled with seeded numpy draws) crosses into the
+    port unchanged, leaf for leaf; another config's tree is refused."""
+    cfg = jreg.get_smoke(arch)
+    rng = np.random.default_rng(0)
+    ref = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
+                       jax.eval_shape(lambda k: jT.init(k, cfg), jax.random.key(0)))
+    tp = params_from_reference(treg.get_smoke(arch), ref, device="cpu")
+    got = tree_flatten_with_path(tp)[0]
+    want = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert [k for k, _ in got] == [jax.tree_util.keystr(k) for k, _ in want]
+    for (k, x), (_, y) in zip(got, want):
+        assert np.array_equal(x.numpy(), y), k
+    other = "mamba2-1.3b" if arch != "mamba2-1.3b" else "qwen1.5-0.5b"
+    with pytest.raises(ValueError, match="does not match"):
+        params_from_reference(treg.get_smoke(other), ref, device="cpu")
 
 
 def test_init_draws_are_seeded_and_scaled():
