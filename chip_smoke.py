@@ -171,10 +171,12 @@ phase fails):
              every loss and grad norm finite, and every kernel the plans
              name (syrk; gemm_tn where a plan recurses) launched by each
              Shampoo step; (c) ``python -m repro_torch.launch.train --arch
-             qwen1.5-0.5b --optimizer shampoo --steps 4 --save-every 2`` in
-             a subprocess, then the same command after deleting the step-4
-             checkpoint: the resumed steps 3–4 within 1e-5 (relative) of the
-             straight run's, and whether they are bitwise equal.
+             qwen1.5-0.5b --optimizer shampoo --steps 4 --save-every 2
+             --layers 2`` in a subprocess (full width, the depth cut to 2
+             layers so that phase mesh fits the script's time), then the
+             same command after deleting the step-4 checkpoint: the resumed
+             steps 3–4 within 1e-5 (relative) of the straight run's, and
+             whether they are bitwise equal.
 
 15. decode — (after train) the model server (``launch.serve``,
              ``train.serve_step``, ``forward_decode``) for every family and
@@ -204,6 +206,38 @@ phase fails):
              under ``forward_train`` in float32 over the same prompts and
              tokens, within twice that bound of the largest logit. No kernel of the six is on this path: their launches
              over the phase are recorded (0).
+16. mesh   — the sharding layer (``repro_torch.parallel``) on four ranks
+             (``launch.mesh.spawn``: NCCL with one card a rank when four
+             cards are there, at full depth; else gloo with all four on
+             card 0, hymba-1.5b cut to 2 layers (one global, one
+             sliding-window) and qwen2-moe-a2.7b to 1; widths are never
+             cut; qwen1.5-0.5b 1 layer there): (a) qwen1.5-0.5b ZeRO-1 at
+             (data 4, model 1), batch 4 × 2048, float32: two AdamW steps
+             and two Shampoo steps (p = 2 packed, the second refreshes),
+             each step's loss and grad norm within phase train's float32
+             bounds of the single-rank steps on the same batches, and the
+             parameters after both steps (each block's ZeRO-1 update, then
+             the all-gather) within ``MESH_UPDATE_RTOL`` of the single
+             rank's, each leaf's distance over its update; each rank's
+             optimizer bytes beside the single rank's, syrk on every rank
+             and potrf/trsm in every refresh; Shampoo's owned stats
+             bitwise (sha256) equal to the single rank's on the same
+             seeded gradients (a check beside the path, not counted); (b) hymba-1.5b at (1, 4):
+             context-parallel attention and the P-split SSD in
+             ``forward_train`` and one train step, then prefill 4088 and 8
+             sequence-parallel decode steps, against rank 0 alone; (c)
+             qwen2-moe-a2.7b at (2, 2): its 60 experts (``pad_experts``
+             pads to a multiple of ``model`` = 2: none added), 30 a rank,
+             forward, aux and one decode step against rank 0 alone on the
+             padded weights, each data shard routed on its own; (d) the
+             train CLI (qwen1.5-0.5b; under gloo ``--layers 1``) at ``--mesh 2x2`` for 3
+             steps saving step 2, then step 3 again at ``--mesh 4x1``
+             through ``restore_sharded``, the losses within phase train's
+             bfloat16 bound; the serve CLI (hymba-1.5b) at ``--mesh 1x4``:
+             each greedy float32 token within ``MESH_SERVE_MARGIN`` of the
+             largest logit of one rank's float32 ``forward_train`` over the
+             same tokens. Step ms per rank and the
+             collective bytes by kind are logged.
 
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
@@ -212,8 +246,9 @@ calls are planned, and those phases measure the dispatches they name.
 (what a call on four cards needs), ``python3 chip_smoke.py serve`` the
 build and phase 12 alone, ``python3 chip_smoke.py check`` the build and
 phase 13 alone, ``python3 chip_smoke.py train`` the build and phase 14
-alone and ``python3 chip_smoke.py decode`` the build and phase 15 alone;
-none of them prints the final line.
+alone, ``python3 chip_smoke.py decode`` the build and phase 15 alone and
+``python3 chip_smoke.py mesh`` the build and phase 16 alone; none of them
+prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
 events over a few runs after one warm-up. Output: the card's name and
@@ -1975,9 +2010,10 @@ TRAIN_STEPS = 3
 TRAIN_F32_RTOL = (1e-4, 1e-3)
 TRAIN_BF16_RTOL = 2e-2
 # the CLI on the card: a straight run of 4 steps saving every 2, then the
-# same command resumed from step 2
+# same command resumed from step 2; full width, 2 of the 24 layers (its
+# checkpoints' I/O, not its steps, set its time)
 TRAIN_CLI = ("--arch", "qwen1.5-0.5b", "--optimizer", "shampoo", "--steps", "4",
-             "--save-every", "2", "--log-every", "1")
+             "--save-every", "2", "--log-every", "1", "--layers", "2")
 
 
 def phase_train(ops):
@@ -2140,7 +2176,7 @@ def phase_train(ops):
             if proc.returncode:
                 raise AssertionError(f"train: the CLI ({label}) exited {proc.returncode}:\n"
                                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-            log(f"  (c) CLI {label}: {runs[-1]:.1f} s; " + " | ".join(
+            log(f"  (c) CLI {label} (2 of 24 layers): {runs[-1]:.1f} s; " + " | ".join(
                 line for line in proc.stdout.splitlines() if "loss" in line or "resumed" in line))
             if label == "straight":
                 shutil.rmtree(os.path.join(out, "ckpt", "step_000000004"))
@@ -2835,6 +2871,596 @@ def phase_distributed(ops):
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: the sharding layer on four ranks
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# (a) ZeRO-1 training, qwen1.5-0.5b, global batch 4 × 2048 over data = 4
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 2048
+# the loss and grad norm of step 1 against the single-rank step: phase
+# train's float32 bounds
+MESH_TRAIN_RTOL = TRAIN_F32_RTOL
+# (b) hymba-1.5b at model = 4: forward (B, S), prefill S_p then 8 decode steps
+MESH_HYB_BATCH, MESH_HYB_SEQ, MESH_HYB_PREFILL, MESH_HYB_STEPS = 1, 4096, 4088, 8
+# (c) qwen2-moe-a2.7b at 2 × 2: 4 sequences, prefill 255 then one decode step
+MESH_MOE_BATCH, MESH_MOE_SEQ = 4, 256
+# meshed logits against one rank's: relative to the largest reference logit
+MESH_LOGIT_RTOL = 1e-4
+# (a)'s parameters after two steps against the single rank's: each leaf's
+# distance over its update, normwise (tests/test_torch_mesh.py's bounds):
+# 1e-3, and 1e-2 for the key bias, whose gradient is rounding noise that
+# the data-parallel mean rounds differently and Adam's g / (|g| + eps)
+# turns into steps of the step size's order
+MESH_UPDATE_RTOL, MESH_UPDATE_BK_RTOL = 1e-3, 1e-2
+MESH_CLI_STEPS = 3
+
+
+def _mesh_shampoo():
+    """Phase optim's Shampoo: p = 2, packed, block 1024, refresh every 2nd
+    step, n_base pinned, ridge 1e-4."""
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.optim.shampoo import shampoo
+
+    return shampoo(warmup_cosine(3e-4, 1, 100), block=1024, update_every=2, precond_p=2,
+                   n_base=DEFAULT_N_BASE, precond_ridge=1e-4)
+
+
+def _mesh_grads(params, seed: int, device):
+    """Seeded float32 gradients shaped like ``params`` on ``device`` (the
+    same on every rank and in the parent)."""
+    import torch
+
+    from repro_torch.optim._tree import tree_map
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_map(lambda p: torch.randn(p.shape, generator=gen, device=device) * 1e-3, params)
+
+
+def _stat_hashes(state, ranks: int, rank=None):
+    """sha256 of each Shampoo stat block (l, r, pl, pr): per data rank's
+    slice of the block dim where ``ranks`` divides it (``rank`` None: every
+    rank's slice from the whole stats), else of the whole stack."""
+    import hashlib
+
+    from repro_torch.optim._tree import tree_flatten_with_path
+
+    out = {}
+    for key, s in tree_flatten_with_path(state["shampoo"])[0]:
+        if not any(key.endswith(f"['{k}']") for k in ("l", "r", "pl", "pr")):
+            continue
+        blocks = getattr(s, "blocks", s)
+        nb = blocks.shape[0]
+        if rank is None:
+            full = blocks.shape[0]
+            split = full % ranks == 0
+            parts = ([blocks[i * full // ranks:(i + 1) * full // ranks] for i in range(ranks)]
+                     if split else [blocks] * ranks)
+            out[key] = [hashlib.sha256(p.contiguous().cpu().numpy().tobytes()).hexdigest()
+                        for p in parts]
+        else:
+            out[key] = hashlib.sha256(blocks.contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _update_rel(p0, got, want) -> dict:
+    """Each parameter's distance from the single rank's after the same
+    steps, over the single rank's update: ``|got - want| / |want - p0|``
+    (Frobenius norms; 0 where both are equal)."""
+    import torch
+
+    from repro_torch.optim._tree import tree_flatten_with_path
+
+    norm = torch.linalg.vector_norm
+    out = {}
+    for (k, a), (_, g), (_, w) in zip(*(tree_flatten_with_path(t)[0] for t in (p0, got, want))):
+        diff = float(norm(g - w))
+        out[k] = 0.0 if diff == 0 else diff / max(float(norm(w - a)), 1e-30)
+    return out
+
+
+def _state_bytes(tree) -> int:
+    from repro_torch.optim._tree import tree_leaves
+
+    return sum(getattr(x, "blocks", x).numel() * getattr(x, "blocks", x).element_size()
+               for x in tree_leaves(tree) if hasattr(getattr(x, "blocks", x), "numel"))
+
+
+def _mesh_depth(cfg, backend: str, **kw):
+    """``cfg`` at full depth with a card a rank; on one card (gloo) the
+    fewest layers that run every layer kind: ``kw`` (hymba's one global
+    and one sliding-window layer), else one layer."""
+    import dataclasses
+
+    if backend == "nccl":
+        return cfg
+    return dataclasses.replace(cfg, **(kw or {"num_layers": 1}))
+
+
+def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
+    """One rank of phase mesh: cases (a)-(c) on the meshes (4, 1), (1, 4)
+    and (2, 2) of the same four ranks."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.collectives import all_gather_dim
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim._tree import tree_leaves
+    from repro_torch.parallel.sharding import gather_tree, held, param_specs
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.train.train_step import (held_state_specs, init_state, loss_and_grads,
+                                              make_loss_fn, make_train_step)
+
+    dev = _dist_device(rank, backend)
+    torch.cuda.set_device(dev)
+    ref = torch.load(ref_path)
+    out = dict(rank=rank, device=str(dev), cases={})
+    path = {n: 0 for n in ops.launches}
+
+    def counted(fn):
+        """One run of the meshed main path: ``fn()``'s result, the kernel
+        launches it made (the counts are set to 0 just before it and read
+        just after, and added to the path's) and its collective bytes."""
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        b0 = obs.metrics.counters("collective_bytes.")
+        for n in ops.launches:
+            ops.launches[n] = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {n: v for n, v in ops.launches.items() if v}
+        for n, v in launched.items():
+            path[n] += v
+        b1 = obs.metrics.counters("collective_bytes.")
+        return res, dict(ms=ms, launches=launched,
+                         bytes={k.split(".", 1)[1]: b1[k] - b0.get(k, 0) for k in b1
+                                if b1[k] - b0.get(k, 0)})
+
+    # (a) ZeRO-1 training at data = 4
+    from repro_torch.configs.qwen15_05b import CONFIG as QWEN
+
+    qcfg = _mesh_depth(QWEN, backend)
+    mesh = make_mesh((4, 1), ("data", "model"), backend=backend, device=dev)
+    shape = ShapeConfig("mesh_a", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    data = SyntheticLM(qcfg, shape, seed=SEED)
+    try:
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+                   for _ in range(2)]
+    finally:
+        data.close()
+    params = T.init(torch.Generator(device=dev).manual_seed(SEED + 40), qcfg, mesh, device=dev)
+    for name in ("adamw", "shampoo"):
+        run = RunConfig(model=qcfg, shape=shape, compute_dtype="float32", remat="dots",
+                        optimizer=OptimizerConfig(name=name))
+        opt = _mesh_shampoo() if name == "shampoo" else None
+        step, opt = make_train_step(qcfg, mesh, run, optimizer=opt)
+        state = init_state(qcfg, mesh, run, opt, params)
+        opt_bytes = _state_bytes(state["opt"])
+        steps = []
+        for i in range(2):
+            obs.metrics.reset()
+            (state, m), rec = counted(lambda: step(state, batches[i]))
+            rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            steps.append(rec)
+        case = dict(steps=steps, opt_bytes=opt_bytes,
+                    peak_bytes=torch.cuda.max_memory_allocated(dev))
+        if rank == 0:
+            # the parameters after both steps (the ZeRO-1 update of each
+            # block, then the all-gather) against the single rank's
+            want = torch.load(os.path.join(os.path.dirname(ref_path), f"params_{name}.pt"),
+                              map_location=dev)
+            case["update_rel"] = _update_rel(params, state["params"], want)
+            del want
+        out["cases"][f"a {name}"] = case
+        del state, step
+        torch.cuda.empty_cache()
+    # the owned stats against the single rank's on the same gradients (a
+    # check beside the path: its launches are not counted)
+    opt = _mesh_shampoo()
+    run = RunConfig(model=qcfg, shape=shape, optimizer=OptimizerConfig(name="shampoo"))
+    specs = held_state_specs(qcfg, mesh, run, opt, params)["opt"]
+    s_blk = init_state(qcfg, mesh, run, opt, params)["opt"]
+    torch.cuda.empty_cache()
+    for i in range(2):
+        g = _mesh_grads(params, SEED + 41 + i, dev)
+        _, s_blk = opt.update(g, s_blk, params, mesh=mesh, specs=specs)
+        del g
+    mine = _stat_hashes(s_blk, MESH_RANKS, rank=mesh.axis_index("data"))
+    want = ref["stat_hashes"]
+    out["owned_stats"] = dict(
+        leaves=len(mine), bitwise=all(mine[k] == want[k][mesh.axis_index("data")]
+                                      for k in want),
+        owned_blocks={k: int(getattr(s, "blocks", s).shape[0]) for k, s in
+                      __import__("repro_torch.optim._tree", fromlist=["x"])
+                      .tree_flatten_with_path(s_blk["shampoo"])[0] if k.endswith("['l']")})
+    del s_blk, params, batches
+    torch.cuda.empty_cache()
+
+    # (b) hymba-1.5b at model = 4: context-parallel attention, the P-split SSD
+    from repro_torch.configs.hymba_15b import CONFIG as HYMBA
+
+    hcfg = _mesh_depth(HYMBA, backend, num_layers=2, global_attn_layers=(0,))
+    mesh = make_mesh((1, 4), ("data", "model"), backend=backend, device=dev)
+    params = T.init(torch.Generator(device=dev).manual_seed(SEED + 50), hcfg, mesh, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    toks = torch.randint(0, hcfg.vocab_size, (MESH_HYB_BATCH, MESH_HYB_SEQ + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    run = RunConfig(model=hcfg, shape=ShapeConfig("mesh_b", MESH_HYB_SEQ, MESH_HYB_BATCH,
+                                                  "train"), compute_dtype="float32",
+                    remat="dots")
+    with torch.no_grad():
+        (logits, _), rec_f = counted(lambda: T.forward_train(
+            params, {"tokens": batch["tokens"]}, hcfg, mesh, compute_dtype=torch.float32))
+    step, opt = make_train_step(hcfg, mesh, run)
+    state = init_state(hcfg, mesh, run, opt, params)
+    (state, m), rec_s = counted(lambda: step(state, batch))
+    del state, step
+    torch.cuda.empty_cache()
+    prefill = make_prefill_step(hcfg, mesh, torch.float32, cache_len=MESH_HYB_SEQ)
+    decode = make_decode_step(hcfg, mesh, torch.float32, sp_decode=True)
+
+    def serve(prefill, decode):
+        lg, cache = prefill(params, {"tokens": batch["tokens"][:, :MESH_HYB_PREFILL]})
+        outs = [lg]
+        for t in range(MESH_HYB_PREFILL, MESH_HYB_PREFILL + MESH_HYB_STEPS):
+            pos = torch.full((MESH_HYB_BATCH,), t, dtype=torch.int32, device=dev)
+            lg, cache = decode(params, batch["tokens"][:, t:t + 1], cache, pos)
+            outs.append(lg)
+        return torch.cat(outs, 1)
+
+    dec, rec_d = counted(lambda: serve(prefill, decode))
+    res_b = dict(forward=rec_f, step=rec_s, decode=rec_d, loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), layers=hcfg.num_layers)
+    if rank == 0:
+        # the same on this rank alone
+        with torch.no_grad():
+            ref_logits, _ = T.forward_train(params, {"tokens": batch["tokens"]}, hcfg, None,
+                                            compute_dtype=torch.float32)
+        res_b["forward_max_rel"] = float((logits - ref_logits).abs().max()
+                                         / ref_logits.abs().max())
+        del logits, ref_logits
+        torch.cuda.empty_cache()
+        mr, g = loss_and_grads(make_loss_fn(hcfg, None, run), params, batch)
+        res_b["loss_ref"] = float(mr["loss"])
+        res_b["grad_norm_ref"] = float(torch.sqrt(sum(torch.sum(torch.square(x))
+                                                      for x in tree_leaves(g))))
+        del g
+        torch.cuda.empty_cache()
+        one = serve(make_prefill_step(hcfg, None, torch.float32, cache_len=MESH_HYB_SEQ),
+                    make_decode_step(hcfg, None, torch.float32))
+        res_b["decode_max_rel"] = float((dec - one).abs().max() / one.abs().max())
+        res_b["decode_steps"] = MESH_HYB_STEPS
+    out["cases"]["b hymba 1x4"] = res_b
+    del params, dec
+    torch.cuda.empty_cache()
+
+    # (c) qwen2-moe-a2.7b at 2 × 2: expert parallelism, 30 of the 60 experts a rank
+    from repro_torch.configs.qwen2_moe_a27b import CONFIG as MOE
+
+    mcfg = _mesh_depth(MOE, backend)
+    mesh = make_mesh((2, 2), ("data", "model"), backend=backend, device=dev)
+    params = T.init(torch.Generator(device=dev).manual_seed(SEED + 60), mcfg, mesh, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    toks = torch.randint(0, mcfg.vocab_size, (MESH_MOE_BATCH, MESH_MOE_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    half = MESH_MOE_BATCH // 2
+    mine = toks[mesh.axis_index("data") * half:(mesh.axis_index("data") + 1) * half]
+    with torch.no_grad():
+        (lg, aux), rec_f = counted(lambda: T.forward_train(
+            params, {"tokens": mine}, mcfg, mesh, compute_dtype=torch.float32))
+    prefill = make_prefill_step(mcfg, mesh, torch.float32, cache_len=MESH_MOE_SEQ)
+    decode = make_decode_step(mcfg, mesh, torch.float32, sp_decode=True)
+
+    def moe_serve(prefill, decode, p, t):
+        l1, cache = prefill(p, {"tokens": t[:, :-1]})
+        pos = torch.full((t.shape[0],), MESH_MOE_SEQ - 1, dtype=torch.int32, device=dev)
+        l2, _ = decode(p, t[:, -1:], cache, pos)
+        return torch.cat([l1, l2], 1)
+
+    dec, rec_d = counted(lambda: moe_serve(prefill, decode, params, mine))
+    lg_all = all_gather_dim(lg, mesh, "data", 0)
+    dec_all = all_gather_dim(dec, mesh, "data", 0)
+    p_specs = held(param_specs(mesh, mcfg), mcfg)
+    full = gather_tree(params, mesh, p_specs)
+    res_c = dict(forward=rec_f, decode=rec_d, aux=float(aux), layers=mcfg.num_layers,
+                 experts_held=int(params["layers"]["moe"]["wg"].shape[1]),
+                 experts_padded=int(full["layers"]["moe"]["wg"].shape[1]))
+    del params
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # one rank, no mesh, on the padded weights, each data shard alone
+        # (each routes with its own capacity)
+        with torch.no_grad():
+            outs = [T.forward_train(full, {"tokens": toks[i * half:(i + 1) * half]}, mcfg, None,
+                                    compute_dtype=torch.float32) for i in range(2)]
+        ref_lg = torch.cat([o[0] for o in outs])
+        res_c["aux_ref"] = float(sum(o[1] for o in outs) / 2)
+        res_c["forward_max_rel"] = float((lg_all - ref_lg).abs().max() / ref_lg.abs().max())
+        del outs, ref_lg
+        one = torch.cat([moe_serve(make_prefill_step(mcfg, None, torch.float32,
+                                                     cache_len=MESH_MOE_SEQ),
+                                   make_decode_step(mcfg, None, torch.float32), full,
+                                   toks[i * half:(i + 1) * half]) for i in range(2)])
+        res_c["decode_max_rel"] = float((dec_all - one).abs().max() / one.abs().max())
+    out["cases"]["c qwen2-moe 2x2"] = res_c
+    del full
+    torch.cuda.empty_cache()
+    out["path_launches"] = path
+    return out
+
+
+# a served greedy token must be, under one rank's float32 forward over the
+# same prompt and tokens, within this share of the largest |logit| of the
+# position's maximum (an argmax may flip on a near tie: 32 random-weight
+# layers amplify the 1e-6 differences of phase mesh (b))
+MESH_SERVE_MARGIN = 1e-3
+
+
+def _serve_margins(served) -> dict:
+    """The meshed server's tokens held to one rank's float32
+    ``forward_train`` of hymba-1.5b (the serve CLI's weights: seed 0; the
+    padded vocab's rows are zeros, so they are one rank's weights) over its
+    own prompts and tokens: each token's shortfall from the position's
+    largest logit, over the largest |logit|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.hymba_15b import CONFIG
+    from repro_torch.models.transformer import forward_train, init
+
+    prompts, toks = np.asarray(served["prompts"]), np.asarray(served["tokens"])
+    params = init(torch.Generator(device="cuda").manual_seed(0), CONFIG, device="cuda")
+    seq = torch.as_tensor(np.concatenate([prompts, toks[:, :-1]], 1), dtype=torch.int32,
+                          device="cuda")
+    with torch.no_grad():
+        lg, _ = forward_train(params, {"tokens": seq}, CONFIG, compute_dtype=torch.float32)
+    lg = lg[:, prompts.shape[1] - 1:].float()
+    chosen = lg.gather(-1, torch.as_tensor(toks, device="cuda").long()[..., None])[..., 0]
+    short = float((lg.amax(-1) - chosen).max() / lg.abs().max())
+    argmax = float((lg.argmax(-1).cpu().numpy() == toks).mean())
+    del params, lg
+    torch.cuda.empty_cache()
+    return dict(argmax_share=argmax, max_shortfall=short, margin=MESH_SERVE_MARGIN,
+                ok=short <= MESH_SERVE_MARGIN)
+
+
+def _mesh_cli(args, label, timeout=900):
+    import time
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", *args], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"mesh: {label} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc, secs
+
+
+def phase_mesh(ops):
+    """Phase 16: the sharding layer on four ranks (see the module
+    docstring). Returns (launches on the meshed path, summed over the
+    ranks, results)."""
+    import tempfile
+    import time
+
+    import torch
+
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.qwen15_05b import CONFIG as QWEN
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= MESH_RANKS else "gloo"
+    where = ("one card per rank, full depth" if backend == "nccl" else
+             f"{MESH_RANKS} ranks on card 0, time-sliced (times are not per-card times); "
+             "the fewest layers that run every layer kind: qwen1.5-0.5b and "
+             "qwen2-moe-a2.7b 1 layer (the train CLI too, through --layers), hymba-1.5b 2 "
+             "(one global, one sliding-window); the serve CLI at full depth")
+    log(f"phase mesh: backend {backend}, {MESH_RANKS} ranks, {where}")
+    res = dict(backend=backend, ranks=MESH_RANKS)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    failed = []
+    try:
+        # (a)'s single-rank references on card 0: two steps of each
+        # optimizer (loss, grad norm, the parameters after them), and
+        # Shampoo's stats after two updates on seeded gradients
+        t0 = time.perf_counter()
+        qcfg = _mesh_depth(QWEN, backend)
+        shape = ShapeConfig("mesh_a", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+        data = SyntheticLM(qcfg, shape, seed=SEED)
+        try:
+            batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
+                       for _ in range(2)]
+        finally:
+            data.close()
+        params = init(torch.Generator(device="cuda").manual_seed(SEED + 40), qcfg,
+                      device="cuda")
+        ref = {}
+        for name in ("adamw", "shampoo"):
+            run = RunConfig(model=qcfg, shape=shape, compute_dtype="float32", remat="dots",
+                            optimizer=OptimizerConfig(name=name))
+            step, opt = make_train_step(qcfg, None, run,
+                                        optimizer=_mesh_shampoo() if name == "shampoo" else None)
+            state = {"params": params, "opt": opt.init(params),
+                     "step": torch.zeros((), dtype=torch.int32)}
+            ref[f"opt_bytes_{name}"] = _state_bytes(state["opt"])
+            ref[name] = []
+            for b in batches:
+                state, m = step(state, b)
+                ref[name].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+            torch.save(tree_map(lambda x: x.cpu(), state["params"]),
+                       os.path.join(tmp, f"params_{name}.pt"))
+            del state, step, m
+            torch.cuda.empty_cache()
+        del batches
+        opt = _mesh_shampoo()
+        state = opt.init(params)
+        for i in range(2):
+            g = _mesh_grads(params, SEED + 41 + i, "cuda")
+            _, state = opt.update(g, state, params)
+            del g
+        ref["stat_hashes"] = _stat_hashes(state, MESH_RANKS)
+        del state, params
+        torch.cuda.empty_cache()
+        log(f"  (a) single-rank references ({time.perf_counter() - t0:.1f} s): AdamW "
+            f"{ref['adamw']}, Shampoo {ref['shampoo']}; optimizer state bytes AdamW "
+            f"{ref['opt_bytes_adamw']}, Shampoo {ref['opt_bytes_shampoo']}")
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        # the ranks share one card under gloo: keep their caches from
+        # fragmenting it (their environment only)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ranks = spawn(_mesh_rank, MESH_RANKS, backend=backend, timeout_s=900.0,
+                      args=(backend, path))
+        res["spawn_s"] = time.perf_counter() - t0
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  ranks (a)-(c): {res['spawn_s']:.1f} s")
+
+    # (a)
+    for name in ("adamw", "shampoo"):
+        per = [r["cases"][f"a {name}"] for r in ranks]
+        rel = [dict(loss_rel=abs(s["loss"] - w["loss"]) / abs(w["loss"]),
+                    grad_norm_rel=abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+               for s, w in zip(per[0]["steps"], ref[name])]
+        upd = per[0]["update_rel"]
+        worst = {k: v for k, v in upd.items() if v > 0.1 * MESH_UPDATE_RTOL}
+        bad_upd = {k: v for k, v in upd.items()
+                   if v > (MESH_UPDATE_BK_RTOL if k.endswith("['bk']") else MESH_UPDATE_RTOL)}
+        ok = not bad_upd and all(r["loss_rel"] <= MESH_TRAIN_RTOL[0]
+                                 and r["grad_norm_rel"] <= MESH_TRAIN_RTOL[1] for r in rel)
+        line = dict(step_ms=[[round(s["ms"], 1) for s in c["steps"]] for c in per],
+                    losses=[s["loss"] for s in per[0]["steps"]], rel=rel,
+                    update_rel_max=max(upd.values()), update_rel_over_tenth_bound=worst,
+                    opt_bytes=[c["opt_bytes"] for c in per],
+                    opt_bytes_single=ref[f"opt_bytes_{name}"],
+                    opt_share=max(c["opt_bytes"] for c in per) / ref[f"opt_bytes_{name}"],
+                    collective_bytes=[s["bytes"] for s in per[0]["steps"]],
+                    peak_bytes=[c["peak_bytes"] for c in per],
+                    launches=[[s["launches"] for s in c["steps"]] for c in per])
+        log(f"  (a) ZeRO-1 {name} at 4x1, steps 1-2 against the single rank's: "
+            + json.dumps(line) + (" ok" if ok else " FAIL"))
+        res[f"a {name}"] = line
+        if not ok:
+            failed.append(f"(a) {name}: off the single rank's ({rel}, parameters {bad_upd})")
+        if name == "shampoo":
+            for r, c in zip(ranks, per):
+                if not c["steps"][0]["launches"].get("syrk"):
+                    failed.append(f"(a) rank {r['rank']} launched no syrk")
+                refresh = c["steps"][1]["launches"]
+                if not (refresh.get("potrf") and refresh.get("trsm")):
+                    failed.append(f"(a) rank {r['rank']}'s refresh launched {refresh}")
+    owned = [r["owned_stats"] for r in ranks]
+    log("  (a) Shampoo owned stats against the single rank's on the same gradients: "
+        + json.dumps(dict(bitwise=[o["bitwise"] for o in owned], leaves=owned[0]["leaves"],
+                          blocks_owned=owned[0]["owned_blocks"])))
+    res["a owned stats"] = owned[0]
+    if not all(o["bitwise"] for o in owned):
+        failed.append("(a) owned stats differ from the single rank's")
+    # (b), (c)
+    for label, keys in (("b hymba 1x4", ("forward_max_rel", "decode_max_rel")),
+                        ("c qwen2-moe 2x2", ("forward_max_rel", "decode_max_rel"))):
+        c0 = ranks[0]["cases"][label]
+        line = {k: v for k, v in c0.items() if not isinstance(v, dict)}
+        line.update({k: dict(ms=[round(r["cases"][label][k]["ms"], 1) for r in ranks],
+                             bytes=c0[k]["bytes"]) for k, v in c0.items() if isinstance(v, dict)})
+        bad = [k for k in keys if not c0[k] <= MESH_LOGIT_RTOL]
+        if label.startswith("b"):
+            loss_rel = abs(c0["loss"] - c0["loss_ref"]) / abs(c0["loss_ref"])
+            gn_rel = abs(c0["grad_norm"] - c0["grad_norm_ref"]) / c0["grad_norm_ref"]
+            line.update(loss_rel=loss_rel, grad_norm_rel=gn_rel)
+            if not (loss_rel <= MESH_TRAIN_RTOL[0] and gn_rel <= MESH_TRAIN_RTOL[1]):
+                bad.append("loss or grad norm")
+        else:
+            if not abs(c0["aux"] - c0["aux_ref"]) <= MESH_LOGIT_RTOL * abs(c0["aux_ref"]):
+                bad.append("aux")
+            if c0["experts_held"] * 2 != c0["experts_padded"]:
+                bad.append("experts_held")
+        log(f"  ({label}): " + json.dumps(line, default=str) + (" FAIL" if bad else " ok"))
+        res[label] = line
+        if bad:
+            failed.append(f"({label}) off one rank's: {bad}")
+
+    # (d) the CLIs: 3 steps at 2x2, checkpointed at step 2 (the unbroken
+    # run), then step 3 again at 4x1 from that checkpoint
+    out = os.path.join(ROOT, "build", "mesh_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    layers = QWEN.num_layers if backend == "nccl" else 1
+    base = ["repro_torch.launch.train", "--arch", "qwen1.5-0.5b", "--batch", "4", "--seq", "256",
+            "--log-every", "1", "--save-every", str(MESH_CLI_STEPS - 1), "--steps",
+            str(MESH_CLI_STEPS), "--layers", str(layers), "--out", out]
+    try:
+        procs = []
+        for m, label in (("2x2", "train --mesh 2x2"), ("4x1", "train --mesh 4x1 resumed")):
+            procs.append(_mesh_cli(base + ["--mesh", m], label))
+            log(f"  (d) {label}: {procs[-1][1]:.1f} s; " + " | ".join(
+                line for line in procs[-1][0].stdout.splitlines()))
+        (_, s1), (proc, s2) = procs
+        if f"resumed from checkpoint step {MESH_CLI_STEPS - 1}" not in proc.stdout:
+            failed.append(f"(d) the 4x1 run did not resume from step {MESH_CLI_STEPS - 1}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        a, b = recs[-1], recs[-2]
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        res["d train"] = dict(seconds=[s1, s2], steps=[r["step"] for r in recs],
+                              resumed_loss=a["loss"], unbroken_loss=b["loss"], loss_rel=rel)
+        ok = a["step"] == b["step"] == MESH_CLI_STEPS and rel <= TRAIN_BF16_RTOL
+        log(f"  (d) train CLI qwen1.5-0.5b ({layers} of 24 layers, bfloat16 compute, the CLI's "
+            "default): "
+            f"{MESH_CLI_STEPS} steps at 2x2 saving step {MESH_CLI_STEPS - 1}, step "
+            f"{MESH_CLI_STEPS} again at 4x1 from it: " + json.dumps(res["d train"])
+            + (" ok" if ok else " FAIL"))
+        if not ok:
+            failed.append("(d) the resumed step is off the unbroken run's")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    serve_args = ["repro_torch.launch.serve", "--arch", "hymba-1.5b", "--requests", "4",
+                  "--batch", "4", "--prompt-len", "32", "--gen-len", "4", "--temperature", "0",
+                  "--compute-dtype", "float32"]
+    o = os.path.join(ROOT, "build", "mesh_serve.json")
+    _, secs = _mesh_cli(serve_args + ["--mesh", "1x4", "--out", o], "serve --mesh 1x4")
+    with open(o) as f:
+        served = json.load(f)
+    os.remove(o)
+    res["d serve"] = dict(_serve_margins(served), seconds=secs)
+    log("  (d) serve CLI hymba-1.5b (32 layers) --mesh 1x4, greedy float32, against one "
+        "rank's float32 forward: " + json.dumps(res["d serve"]))
+    if not res["d serve"]["ok"]:
+        failed.append("(d) the 1x4 server's tokens are not float32's greedy choices")
+
+    launches = {n: sum(r["path_launches"][n] for r in ranks) for n in ranks[0]["path_launches"]}
+    log(f"  launches on the meshed path, summed over the ranks: {launches}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase mesh took {res['phase_s']:.1f} s")
+    if failed:
+        raise AssertionError("mesh: " + "; ".join(failed))
+    return launches, res
+
+
+# ---------------------------------------------------------------------------
 # phase serve: the serving layer (repro_torch.serve) on the card
 # ---------------------------------------------------------------------------
 
@@ -3395,9 +4021,9 @@ def main(argv) -> int:
 
     t_start = time.perf_counter()
 
-    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"]):
+    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"], ["mesh"]):
         print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
-              "'serve', 'check', 'train' and 'decode'", file=sys.stderr)
+              "'serve', 'check', 'train', 'decode' and 'mesh'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -3445,6 +4071,10 @@ def main(argv) -> int:
         _, decode_res = phase_decode(ops)
         log("end_to_end " + json.dumps({"decode": decode_res}, default=str))
         return 0
+    if argv == ["mesh"]:
+        _, mesh_res = phase_mesh(ops)
+        log("end_to_end " + json.dumps({"mesh": mesh_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -3478,6 +4108,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     dist_counts, dist_res = phase_distributed(ops)
     torch.cuda.empty_cache()
+    mesh_counts, mesh_res = phase_mesh(ops)
+    torch.cuda.empty_cache()
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
     torch.cuda.empty_cache()
     check_res = phase_check(checks, ops)
@@ -3486,7 +4118,8 @@ def main(argv) -> int:
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
                                     "tune": tune_res, "optim": optim_res, "train": train_res,
                                     "decode": decode_res,
-                                    "distributed": dist_res, "serve": serve_res,
+                                    "distributed": dist_res, "mesh": mesh_res,
+                                    "serve": serve_res,
                                     "check": check_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
@@ -3494,7 +4127,8 @@ def main(argv) -> int:
     # them, the launches of phase optim's Shampoo refresh step (p = 2, packed),
     # of one Shampoo step of phase train (p = 4, planned grams), of phase
     # decode (none: the server's path runs no kernel of the six),
-    # of phase distributed, of phase serve's warm (b) (eager runs and
+    # of phase distributed, of phase mesh (summed over its ranks), of phase
+    # serve's warm (b) (eager runs and
     # captures), the launches (b)'s workload replayed (each bucket's replays
     # times its capture's launches), and the launches one flush of serve's
     # largest bucket replays
@@ -3515,6 +4149,7 @@ def main(argv) -> int:
             "train_shampoo_step_launches": train_counts[name],
             "decode_launches": decode_counts[name],
             "distributed_launches": dist_counts[name],
+            "mesh_launches": mesh_counts[name],
             "serve_warm_launches": serve_warm[name],
             "serve_workload_launches": serve_workload[name],
             "serve_launches": serve_flush.get(name, 0),

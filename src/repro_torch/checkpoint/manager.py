@@ -28,8 +28,13 @@ reference's manager. A packed ``SymmetricMatrix`` or ``CholeskyFactor`` is
 one leaf, its block array, as it is one array leaf in the reference;
 Python numbers are 0-d arrays. ``meta.json``'s ``treedef`` is the list of
 leaf key paths (``optim._tree``'s), not JAX's serialized structure.
-``restore_sharded`` (re-placing leaves on a mesh) waits for the port of
-``parallel/sharding.py``.
+
+On a mesh (one process a rank, ``launch.mesh``) every rank calls ``save``
+with its blocks and their specs (``parallel.sharding``): each leaf is
+gathered back to the full array the format stores, one leaf at a time, and
+rank 0 writes them. ``restore_sharded(like, shardings)`` reads the full
+arrays and cuts each rank's block (``parallel.sharding.local_block``), so
+a run saved on one mesh resumes on another (``runtime.elastic``).
 """
 
 from __future__ import annotations
@@ -96,12 +101,30 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, blocking: bool = True, extra: dict = None):
+    def save(self, step: int, tree: Any, blocking: bool = True, extra: dict = None, *,
+             shardings=None):
         """Checkpoint ``tree`` at ``step``. Non-blocking saves copy to host
-        first (consistent), then write in the background."""
+        first (consistent), then write in the background. ``shardings``: a
+        tree of ``parallel.sharding.NamedSharding`` (one a leaf of
+        ``tree``): ``tree`` holds this rank's blocks, every rank of the
+        mesh must call ``save``, and rank 0 writes."""
         self.wait()  # at most one in-flight writer
         flat, _ = tree_flatten_with_path(tree)
-        host_leaves = [_host(x) for _, x in flat]
+        if shardings is None:
+            host_leaves = [_host(x) for _, x in flat]
+        else:
+            from repro_torch.parallel.sharding import gather, spec_leaves
+
+            named = spec_leaves(shardings)
+            mesh = named[0].mesh
+            host_leaves = []
+            for (_, x), ns in zip(flat, named):
+                full = gather(x, mesh, ns.spec) if hasattr(x, "shape") or hasattr(
+                    x, "blocks") else x
+                host_leaves.append(_host(full) if mesh.rank == 0 else None)
+                del full
+            if mesh.rank != 0:
+                return
         meta = {
             "step": step,
             "treedef": [path for path, _ in flat],
@@ -175,6 +198,40 @@ class CheckpointManager:
                 )
         out = treedef.unflatten(_like(got, want) for got, want in zip(restored, leaves))
         return out, step
+
+    def restore_sharded(self, like: Any, shardings, step: Optional[int] = None, fit=None):
+        """Restore and place with target shardings (the elastic re-mesh
+        path): ``like`` is this rank's tree of blocks (or anything with
+        their structure, devices and dtypes), ``shardings`` a tree of
+        ``parallel.sharding.NamedSharding``; each full array read is cut to
+        this rank's block under its spec. ``fit(key, array, shape)``, where
+        given, maps a stored array whose shape is not the one wanted (a key
+        path of ``optim._tree``) onto ``shape``; any other mismatch raises.
+        Returns ``(tree, step)``."""
+        from repro_torch.parallel.sharding import global_shape, local_block, spec_leaves
+
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        keys = [k for k, _ in tree_flatten_with_path(like)[0]]
+        leaves, treedef = tree_flatten(like)
+        named = spec_leaves(shardings)
+        if len(named) != len(leaves):
+            raise ValueError(f"{len(named)} shardings for {len(leaves)} leaves")
+        out = []
+        with np.load(os.path.join(self._step_dir(step), "shard_00000.npz")) as data:
+            for i, (want, ns) in enumerate(zip(leaves, named)):
+                got = data[f"leaf_{i}"]
+                full = global_shape(want, ns.mesh, ns.spec)
+                if tuple(got.shape) != full and fit is not None:
+                    got = fit(keys[i], got, full)
+                if tuple(got.shape) != full:
+                    raise ValueError(f"checkpoint leaf shape {got.shape} != expected {full}")
+                if got.ndim:
+                    got = np.ascontiguousarray(local_block(torch.from_numpy(got), ns.mesh,
+                                                           ns.spec).numpy())
+                out.append(_like(got, want))
+        return treedef.unflatten(out), step
 
     def extra(self, step: Optional[int] = None) -> dict:
         step = step if step is not None else self.latest_step()

@@ -94,17 +94,22 @@ def tree_from_numpy(tree, *, device="cuda", named_tuples=()):
     return conv(tree)
 
 
-def params_from_reference(cfg, tree, *, device="cuda"):
+def params_from_reference(cfg, tree, *, device="cuda", mesh=None):
     """The port's parameter tree for ``cfg`` holding the arrays of ``tree``
     (the reference's ``transformer.init(key, cfg)`` output, or any tree of
-    that structure as numpy). Every leaf's key path and shape is checked
+    that structure as numpy; with ``mesh``, of ``init(key, cfg, mesh)``:
+    vocab and experts padded, every array whole). Every leaf's key path and shape is checked
     against the port's ``transformer.init`` on the ``meta`` device before
     anything is copied, so a tree of another config or layout raises
     instead of loading."""
     from repro_torch.models.transformer import init
     from repro_torch.optim._tree import tree_flatten_with_path
 
-    want, _ = tree_flatten_with_path(init(None, cfg, device="meta"))
+    if mesh is not None and hasattr(mesh, "axis_index"):
+        from repro_torch.launch.mesh import AbstractMesh
+
+        mesh = AbstractMesh(tuple(mesh.shape.values()), tuple(mesh.shape))
+    want, _ = tree_flatten_with_path(init(None, cfg, mesh, device="meta"))
     got, _ = tree_flatten_with_path(tree)
     want_shapes = [(k, tuple(x.shape)) for k, x in want]
     got_shapes = [(k, tuple(np.shape(x))) for k, x in got]

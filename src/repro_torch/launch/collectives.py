@@ -26,7 +26,8 @@ import torch.distributed as dist
 
 from repro_torch import obs
 
-__all__ = ["all_reduce", "reduce_scatter", "all_gather", "group_size"]
+__all__ = ["all_reduce", "reduce_scatter", "all_gather", "group_size", "all_gather_dim",
+           "gather_replicas", "reduce_replicas", "sum_grads"]
 
 
 def group_size(group) -> int:
@@ -82,3 +83,122 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     _timed("all-gather", out,
            lambda: dist.all_gather_into_tensor(out, x.contiguous(), group=group))
     return out
+
+
+# ---------------------------------------------------------------------------
+# along a mesh axis, and under autograd
+# ---------------------------------------------------------------------------
+#
+# The model code's split regions (context-parallel attention, the split SSD,
+# the expert-parallel MoE) run inside a computation every ``model`` rank
+# otherwise repeats whole: the same input, the same weights, the same loss.
+# Their collectives are differentiable under that rule, as Megatron's are:
+#
+# * :func:`gather_replicas` gathers the ranks' slices along a dim; what
+#   follows is repeated on every rank, so each rank's cotangent of the
+#   gathered tensor is the whole one, and the backward pass keeps this
+#   rank's slice of it (no collective);
+# * :func:`reduce_replicas` sums (or takes the maximum of) the ranks'
+#   partial results; the cotangent of the result is the same on every rank
+#   and passes to each rank's part unchanged (for the maximum: to the ranks
+#   that hold it);
+# * :func:`sum_grads` is the identity forward and sums the cotangent over
+#   the ranks backward: it marks a replicated tensor (an input of the
+#   region, or a weight the region reads whole) whose gradient each rank
+#   computes only in part, from its own slice of the work.
+#
+# A region that reads a replicated weight or input and omits
+# :func:`sum_grads` leaves that gradient partial; one that adds it to a
+# tensor used whole by every rank multiplies its gradient by the rank
+# count.
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of the line along ``axes`` concatenated along
+    ``dim``, in the order of :meth:`Mesh.axis_index` (for merged axes, the
+    first named slowest). Not differentiable."""
+    group = mesh.group(axes)
+    p = group_size(group)
+    if p == 1:
+        return x
+    moved = x.movedim(dim, 0).contiguous()
+    out = all_gather(moved, group)
+    order = mesh.pool_order(axes) if not isinstance(axes, str) else None
+    if order is not None:
+        chunks = out.chunk(p, 0)
+        out = torch.cat([chunks[order.index(i)] for i in range(p)], 0)
+    return out.movedim(0, dim)
+
+
+class _GatherReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.size = mesh, axes, dim, x.shape[dim]
+        return all_gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.axis_index(ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+class _ReduceReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, op):
+        group = mesh.group(axes)
+        if op == "sum":
+            out = all_reduce(x, group)
+        else:
+            out = x.clone(memory_format=torch.contiguous_format)
+            obs.metrics.record_collective_bytes({"all-reduce": out.numel() * out.element_size()})
+            _timed("all-reduce", out,
+                   lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group))
+            ctx.save_for_backward(x == out)
+        ctx.op = op
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op == "sum":
+            return g, None, None, None
+        (holds,) = ctx.saved_tensors
+        return g * holds, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh.group(ctx.axes)), None, None
+
+
+def gather_replicas(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """:func:`all_gather_dim`, differentiable for ranks that repeat what
+    follows: the backward pass keeps this rank's slice of the cotangent."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _GatherReplicas.apply(x, mesh, axes, dim)
+
+
+def reduce_replicas(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="sum"``) or maximum (``op="max"``) of ``x`` over the line
+    along ``axes``, differentiable for ranks that repeat what follows: the
+    cotangent passes to each rank's ``x`` unchanged (sum) or to the ranks
+    whose ``x`` holds the maximum (max)."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _ReduceReplicas.apply(x, mesh, axes, op)
+
+
+def sum_grads(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` itself; its cotangent is summed over the line along ``axes``
+    (the gradient of a replicated tensor each rank uses in part)."""
+    if mesh.axis_size(axes) == 1 or not torch.is_grad_enabled():
+        return x
+    return _SumGrads.apply(x, mesh, axes)

@@ -40,12 +40,47 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "merged_axis", "split_axis", "spawn"]
+__all__ = ["Mesh", "AbstractMesh", "make_mesh", "merged_axis", "split_axis", "spawn"]
 
 Axes = Union[str, Sequence[str]]
 
 
-class Mesh:
+class AbstractMesh:
+    """A mesh's shape and nothing else (``jax.sharding.AbstractMesh``):
+    ``shape`` maps axis name → size in ``axis_names`` order. The sharding
+    rules (``parallel.sharding``) read only this, so they can be held
+    against the reference on the production meshes, (16, 16) and
+    (2, 16, 16), with no process group. :class:`Mesh` is one rank's."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {tuple(shape)} and axes {tuple(axis_names)} must pair up")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"axis names must be distinct, got {tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def _axes(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` as a tuple of mesh axis names, in the caller's order."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for name in names:
+            if name not in self.shape:
+                raise ValueError(f"axis {name!r} not in mesh {self.axis_names}")
+        return names
+
+    def axis_size(self, axes: Axes) -> int:
+        """Ranks along ``axes`` (one name or several, merged)."""
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+class Mesh(AbstractMesh):
     """This rank's place in a named mesh of ranks, and the mesh's groups.
 
     ``shape``: axis name → size, in ``axis_names`` order. ``coords``: this
@@ -56,21 +91,12 @@ class Mesh:
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *, backend: str,
                  device, rank: int):
-        if len(shape) != len(axis_names):
-            raise ValueError(f"shape {tuple(shape)} and axes {tuple(axis_names)} must pair up")
-        if len(set(axis_names)) != len(axis_names):
-            raise ValueError(f"axis names must be distinct, got {tuple(axis_names)}")
-        self.axis_names = tuple(axis_names)
-        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        super().__init__(shape, axis_names)
         self.backend = backend
         self.device = torch.device(device)
         self.rank = int(rank)
         self.coords = dict(zip(self.axis_names, self._coords_of(self.rank)))
         self._groups = self._build_groups()
-
-    @property
-    def size(self) -> int:
-        return math.prod(self.shape.values())
 
     def _coords_of(self, rank: int) -> Tuple[int, ...]:
         coords = []
@@ -84,14 +110,6 @@ class Mesh:
         for name in self.axis_names:
             r = r * self.shape[name] + coords[name]
         return r
-
-    def _axes(self, axes: Axes) -> Tuple[str, ...]:
-        """``axes`` as a tuple of mesh axis names, in the caller's order."""
-        names = (axes,) if isinstance(axes, str) else tuple(axes)
-        for name in names:
-            if name not in self.shape:
-                raise ValueError(f"axis {name!r} not in mesh {self.axis_names}")
-        return names
 
     def _members(self, axes: Tuple[str, ...], coords: dict) -> list:
         """Flat ranks that share ``coords`` off ``axes``, in the order of
@@ -122,10 +140,6 @@ class Mesh:
                         mine = group
                 groups[frozenset(axes)] = mine
         return groups
-
-    def axis_size(self, axes: Axes) -> int:
-        """Ranks along ``axes`` (one name or several, merged)."""
-        return math.prod(self.shape[a] for a in self._axes(axes))
 
     def axis_index(self, axes: Axes) -> int:
         """This rank's index along ``axes``; for several axes, the merged

@@ -13,11 +13,22 @@ are refilled from the queue. The prompts come from
 Departures from the reference: ``--device`` (default ``cuda``),
 ``--compute-dtype`` (default ``bfloat16``, the reference's) and ``--out``
 (a JSON file of the prompts, the generated tokens and the step times);
-``--mesh`` other than ``1x1`` raises until the sharding slice; the
-weights are the port's own seeded draws (``init`` from a
+the weights are the port's own seeded draws (``init`` from a
 ``torch.Generator``); sampling draws from a ``torch.Generator`` seeded
 with ``seed + 1`` (``train.serve_step.sample_logits``); prefill and decode
 run eagerly (no ``jit``, no CUDA graph).
+
+``--mesh DxM`` with ``D·M > 1`` starts ``D·M`` ranks as
+``launch.train`` does (NCCL with one card a rank where the host has them,
+else gloo on card 0, or gloo with CPU tensors under ``--device cpu``).
+Every rank draws the same prompts and takes its ``D``-th of the slots;
+prefill runs context-parallel attention under ``cfg.cp_attention``, and
+decode the sequence-parallel flash-decode over the ``model`` ranks, each
+holding its chunk of the cache. The generated tokens are gathered to
+rank 0, which prints and writes ``--out``. Sampling at a temperature
+draws each rank's rows from that rank's generator (seeded alike), so only
+greedy decoding (``--temperature 0``) gives the tokens of a run on one
+rank.
 """
 
 from __future__ import annotations
@@ -70,16 +81,26 @@ class _Clock:
 
 def serve(cfg, params, *, batch: int, requests: int, prompt_len: int, gen_len: int,
           temperature: float, seed: int, device, compute_dtype=torch.bfloat16,
-          log=print) -> dict:
+          log=print, mesh=None) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens through ``batch``
     slots, ``gen_len`` tokens each. Returns the prompts and generated
     tokens of every request (numpy, in order), each prefill's and each
     decode step's milliseconds (sampling included), the tokens counted
-    as the reference counts them and the seconds taken."""
+    as the reference counts them and the seconds taken. With a mesh this
+    rank serves its block of every batch of slots, and the tokens are
+    gathered over the data axes."""
+    from repro_torch.parallel.sharding import data_axes
+
     device = torch.device(device)
     b, p_len, g_len = batch, prompt_len, gen_len
-    prefill = make_prefill_step(cfg, None, compute_dtype, cache_len=p_len + g_len)
-    decode = make_decode_step(cfg, None, compute_dtype)
+    prefill = make_prefill_step(cfg, mesh, compute_dtype, cache_len=p_len + g_len)
+    decode = make_decode_step(cfg, mesh, compute_dtype, sp_decode=mesh is not None)
+    dp = data_axes(mesh) if mesh is not None else ()
+    n_data = mesh.axis_size(dp) if dp else 1
+    if b % n_data:
+        raise ValueError(f"the data axes ({n_data} ranks) do not divide the {b} slots")
+    rows = slice(mesh.axis_index(dp) * (b // n_data), (mesh.axis_index(dp) + 1) * (b // n_data)) \
+        if dp else slice(None)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     clock = _Clock(device)
@@ -95,13 +116,13 @@ def serve(cfg, params, *, batch: int, requests: int, prompt_len: int, gen_len: i
     while served < requests:
         n = min(b, requests - served)
         real = new_prompts(n)
-        toks = torch.as_tensor(_pad_slots(real, b), dtype=torch.int32, device=device)
+        toks = torch.as_tensor(_pad_slots(real, b)[rows], dtype=torch.int32, device=device)
         marks = [clock.mark()]
         logits, cache = prefill(params, {"tokens": toks})
         tok = sample_logits(logits, gen, temperature, cfg.vocab_size)
         marks.append(clock.mark())
         out = [tok]
-        pos = torch.full((b,), p_len, dtype=torch.int32, device=device)
+        pos = torch.full((toks.shape[0],), p_len, dtype=torch.int32, device=device)
         for _ in range(g_len - 1):
             lg, cache = decode(params, tok, cache, pos)
             tok = sample_logits(lg, gen, temperature, cfg.vocab_size)
@@ -110,7 +131,12 @@ def serve(cfg, params, *, batch: int, requests: int, prompt_len: int, gen_len: i
             pos = pos + 1
             tokens_out += n
         prompts.append(real)
-        outputs.append(torch.cat(out, dim=1)[:n].cpu().numpy())
+        tokens = torch.cat(out, dim=1)
+        if dp:
+            from repro_torch.launch.collectives import all_gather_dim
+
+            tokens = all_gather_dim(tokens, mesh, dp, 0)
+        outputs.append(tokens[:n].cpu().numpy())
         prefill_ms.append(clock.read(marks[0], marks[1]))
         decode_ms += [clock.read(a, c) for a, c in zip(marks[1:-1], marks[2:])]
         del cache
@@ -134,7 +160,7 @@ def build_argparser():
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; only 1x1 until sharding")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 1x4 (one rank each)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--out", default=None,
@@ -142,20 +168,50 @@ def build_argparser():
     return ap
 
 
+def _serve(args, mesh, device) -> dict:
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    params = init(torch.Generator(device=device).manual_seed(args.seed), cfg, mesh,
+                  device=device)
+    quiet = mesh is not None and mesh.rank != 0
+    return serve(cfg, params, batch=args.batch, requests=args.requests,
+                 prompt_len=args.prompt_len, gen_len=args.gen_len,
+                 temperature=args.temperature, seed=args.seed, device=device,
+                 compute_dtype=getattr(torch, args.compute_dtype), mesh=mesh,
+                 log=(lambda line: None) if quiet else (lambda line: print(line, flush=True)))
+
+
+def _rank(rank: int, world: int, argv, backend: str) -> dict:
+    """One rank of a meshed server (``launch.mesh.spawn``'s body)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import mesh_dims, rank_device
+
+    args = build_argparser().parse_args(argv)
+    device = rank_device(rank, backend, args.device)
+    mesh = make_mesh(mesh_dims(args.mesh), ("data", "model"), backend=backend, device=device)
+    return _serve(args, mesh, device)
+
+
 def main(argv=None):
+    import sys
+
+    from repro_torch.launch.train import backend_for, mesh_dims
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    d, m = (int(x) for x in args.mesh.split("x"))
-    if d * m > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: a mesh waits for the port of "
-                                  "parallel/sharding.py; run with --mesh 1x1")
+    d, m = mesh_dims(args.mesh)
     device = torch.device(args.device)
-    params = init(torch.Generator(device=device).manual_seed(args.seed), cfg, device=device)
-    res = serve(cfg, params, batch=args.batch, requests=args.requests,
-                prompt_len=args.prompt_len, gen_len=args.gen_len,
-                temperature=args.temperature, seed=args.seed, device=device,
-                compute_dtype=getattr(torch, args.compute_dtype),
-                log=lambda line: print(line, flush=True))
+    if d * m == 1:
+        res = _serve(args, None, device)
+    elif args.batch % d:
+        raise ValueError(f"--mesh {args.mesh}: the data axis ({d}) does not divide the "
+                         f"{args.batch} slots")
+    else:
+        from repro_torch.launch.mesh import spawn
+
+        backend = backend_for(args.device, d * m)
+        res = spawn(_rank, d * m, backend=backend, timeout_s=float("inf"),
+                    args=(argv, backend))[0]
     print(f"throughput: {res['tokens_out'] / res['seconds']:.1f} tok/s "
           f"({args.requests} requests in {res['seconds']:.1f}s)")
     if args.out:

@@ -27,8 +27,28 @@ Departures:
   tensors it is given, in place, and returns them; the reference returns
   fresh arrays. A cache is therefore used once: after a step, only the
   returned one is current;
-* the sequence-parallel attention (``attention_decode_sp``,
-  ``attention_train_cp``) needs a mesh and waits for the sharding slice.
+* :func:`attention_decode_sp` masks the slots of its chunk by the three
+  validity rules of :func:`attention_decode` (absolute cache, ring buffer,
+  absolute cache with a window), where the reference's sequence-parallel
+  decode applies the last rule to every windowed cache; they differ on a
+  ring buffer after it wraps, where the port's agrees with
+  ``attention_decode``.
+
+The mesh paths run on one process per rank (``launch.mesh``), every rank
+with its own block of the batch and the whole weights:
+
+* :func:`attention_train_cp` (context-parallel attention, for head counts
+  that do not divide the ``model`` axis): each ``model`` rank attends with
+  its slice of the queries against the keys and values of the whole
+  sequence and the slices are gathered. Each rank's gradients of ``x`` and
+  of the attention weights cover its own queries only, so the region marks
+  them with ``launch.collectives.sum_grads``, and the gather keeps each
+  rank's slice of the cotangent (``gather_replicas``);
+* :func:`attention_decode_sp` (sequence-parallel decode): each rank holds
+  its chunk of the cache sequence, writes the new key and value only if
+  the slot is in its chunk, and the ranks combine their softmax statistics
+  with all-reduces of the maximum, the denominator and the accumulator
+  (the flash-decode combine).
 """
 
 from __future__ import annotations
@@ -39,11 +59,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import collectives as C
+
 __all__ = [
     "rms_norm",
     "rope",
     "attention_train",
     "attention_decode",
+    "attention_decode_sp",
+    "attention_train_cp",
     "mlp_gated",
     "init_attn",
     "init_mlp",
@@ -54,12 +78,11 @@ Q_BLOCK = 2048
 KV_BLOCK = 1024
 
 
-def check_mesh(mesh) -> None:
-    """Raise for any mesh: vocab and expert padding, sharded layers and the
-    pinned head grids wait for the sharding slice."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh (vocab and expert padding, sharded layers) waits "
-                                  "for the sharding slice (parallel/sharding.py)")
+def model_ranks(mesh) -> int:
+    """Ranks on the mesh's ``model`` axis (1 without a mesh or axis)."""
+    if mesh is None:
+        return 1
+    return mesh.shape.get("model", 1)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -86,6 +109,14 @@ def normal(generator, shape, scale: float, device) -> torch.Tensor:
     if device.type == "meta":
         return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=generator, dtype=torch.float32, device=device) * scale
+
+
+def padded(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to ``size``."""
+    if x.shape[dim] == size:
+        return x
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, size - x.shape[dim]]
+    return F.pad(x, pad)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -228,14 +259,87 @@ def attention_train(
     groups = cfg.num_heads // cfg.num_kv_heads
     scale = cfg.head_dim ** -0.5
 
-    outs = [_flash_body(q[:, q0:q0 + Q_BLOCK], k, v, positions[q0:q0 + Q_BLOCK], positions,
-                        window, scale, groups)
-            for q0 in range(0, s, Q_BLOCK)]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = _flash_blocks(q, k, v, positions, positions, window, scale, groups)
     out = torch.matmul(out.reshape(b, s, -1), p["wo"].to(x.dtype).reshape(-1, d))
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _flash_blocks(q, k, v, q_pos, kv_pos, window, scale, groups):
+    """:func:`_flash_body` over the query blocks of ``q`` (B, Sq, H, D)."""
+    sq = q.shape[1]
+    outs = [_flash_body(q[:, q0:q0 + Q_BLOCK], k, v, q_pos[q0:q0 + Q_BLOCK], kv_pos,
+                        window, scale, groups)
+            for q0 in range(0, sq, Q_BLOCK)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def attention_train_cp(p: dict, x: torch.Tensor, cfg, mesh, *, window=None,
+                       return_kv: bool = False, seq_axis: str = "model"):
+    """Context-parallel :func:`attention_train`: the queries' sequence is
+    split over ``seq_axis``. x: (B, S, D), the same on every rank of the
+    axis → (B, S, D), gathered. Each rank projects the queries of its slice
+    and the keys and values of the whole sequence (absolute positions), runs
+    the flash body on its slice, then ``wo``; ``return_kv`` gives the whole
+    (k, v). Falls back to :func:`attention_train` when the axis does not
+    divide S, as the reference does."""
+    b, s, d = x.shape
+    n_seq = mesh.shape[seq_axis]
+    if s % n_seq:
+        return attention_train(p, x, cfg, window=window, return_kv=return_kv)
+    s_loc = s // n_seq
+    j = mesh.axis_index(seq_axis)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    scale = cfg.head_dim ** -0.5
+    # replicated tensors each rank uses for its own queries only
+    x = C.sum_grads(x, mesh, seq_axis)
+    w = {k: C.sum_grads(p[k], mesh, seq_axis)
+         for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv") if k in p}
+    q = _proj(x[:, j * s_loc:(j + 1) * s_loc], w["wq"])
+    k = _proj(x, w["wk"])
+    v = _proj(x, w["wv"])
+    if cfg.qkv_bias:
+        q = q + w["bq"].to(x.dtype)
+        k = k + w["bk"].to(x.dtype)
+        v = v + w["bv"].to(x.dtype)
+    kv_pos = torch.arange(s, device=x.device)
+    q_pos = kv_pos[j * s_loc:(j + 1) * s_loc]
+    q = rope(q, q_pos[None, :], cfg.rope_theta)
+    k = rope(k, kv_pos[None, :], cfg.rope_theta)
+    out = _flash_blocks(q, k, v, q_pos, kv_pos, window, scale, groups)
+    out = torch.matmul(out.reshape(b, s_loc, -1), w["wo"].to(x.dtype).reshape(-1, d))
+    out = C.gather_replicas(out, mesh, seq_axis, 1)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _valid_slots(slots, pos, s_cache: int, window):
+    """(B, len(slots)) mask of the cache slots (absolute indices ``slots``
+    of a cache of ``s_cache``) a query at ``pos`` attends to. A slot holds
+    an absolute position; with a ring buffer the absolute position of slot c
+    is recoverable from (pos, window)."""
+    slots = slots[None, :]
+    pos_c = pos.to(torch.int64)[:, None]
+    if window is None:
+        return slots <= pos_c                   # slot index == position
+    if isinstance(window, int) and window == s_cache:
+        # ring buffer: before it wraps, slots <= pos; after, every slot
+        return (slots <= pos_c) | (pos_c >= s_cache)
+    # absolute cache, a (possibly tensor) window: causal and distance
+    return (slots <= pos_c) & ((pos_c - slots) < window)
+
+
+def _decode_qkv(p, x, cfg, pos):
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return rope(q, pos[:, None], cfg.rope_theta), rope(k, pos[:, None], cfg.rope_theta), v
 
 
 def attention_decode(
@@ -262,15 +366,7 @@ def attention_decode(
     """
     b = x.shape[0]
     s_cache = cache_k.shape[1]
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    q, k, v = _decode_qkv(p, x, cfg, pos)
 
     rows = torch.arange(b, device=x.device)
     slot = pos.to(torch.int64) % s_cache
@@ -287,22 +383,76 @@ def attention_decode(
     scores = scores.reshape(b, cfg.num_heads, s_, -1)
     scores = scores * (cfg.head_dim ** -0.5)
 
-    # validity: slot c holds an absolute position; with a ring buffer the
-    # absolute position of slot c is recoverable from (pos, window)
-    slots = torch.arange(s_cache, device=x.device)[None, :]    # (1, S_cache)
-    pos_c = pos.to(torch.int64)[:, None]
-    if window is None:
-        valid = slots <= pos_c                  # slot index == position
-    elif isinstance(window, int) and window == s_cache:
-        # ring buffer: before it wraps, slots <= pos; after, every slot
-        valid = (slots <= pos_c) | (pos_c >= s_cache)
-    else:
-        # absolute cache, a (possibly tensor) window: causal and distance
-        valid = (slots <= pos_c) & ((pos_c - slots) < window)
+    slots = torch.arange(s_cache, device=x.device)
+    valid = _valid_slots(slots, pos, s_cache, window)
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(cache_v.dtype)
     wg = w.reshape(b, cfg.num_kv_heads, groups, s_, -1)
     out = torch.einsum("bkgsc,bckd->bskgd", wg, cache_v)
+    out = out.reshape(b, s_, cfg.num_heads * hd_).to(x.dtype)
+    out = torch.matmul(out, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+    return out, cache_k, cache_v
+
+
+def attention_decode_sp(
+    p: dict,
+    x: torch.Tensor,
+    cfg,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    mesh,
+    *,
+    window=None,
+    seq_axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode attention with the KV cache **sequence-chunked over**
+    ``seq_axis``: this rank's cache_k/v are (B, S_cache / n, KV, D), chunk
+    ``j`` of the axis' ``n`` holding slots ``[j·S/n, (j+1)·S/n)``.
+
+    * the new (roped) key and value are written, in place, only by the rank
+      whose chunk holds slot ``pos % S_cache`` (a predicated write: the
+      others write back the slot's old value);
+    * each rank attends over its chunk with grouped-query heads (no repeat
+      of the cache), and the ranks combine their partial softmax with an
+      all-reduce of the maximum, then of the denominator and the
+      accumulator (the flash-decode combine).
+
+    Returns (out (B,1,D), cache_k, cache_v) like :func:`attention_decode`.
+    """
+    b = x.shape[0]
+    n_seq = mesh.shape[seq_axis]
+    chunk = cache_k.shape[1]
+    s_cache = chunk * n_seq
+    j = mesh.axis_index(seq_axis)
+    q, k, v = _decode_qkv(p, x, cfg, pos)
+
+    rows = torch.arange(b, device=x.device)
+    slot_loc = pos.to(torch.int64) % s_cache - j * chunk
+    mine = ((slot_loc >= 0) & (slot_loc < chunk))[:, None, None]
+    idx = slot_loc.clamp(0, chunk - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        old = cache[rows, idx]
+        cache.index_put_((rows, idx), torch.where(mine, new[:, 0].to(cache.dtype), old))
+
+    groups = cfg.num_heads // cfg.num_kv_heads
+    acc = acc_dtype(x.dtype)
+    _, s_, _, hd_ = q.shape
+    qk_t = torch.promote_types(q.dtype, cache_k.dtype)
+    qg = q.reshape(b, s_, cfg.num_kv_heads, groups, hd_).to(qk_t)
+    scores = torch.einsum("bskgd,bckd->bkgsc", qg, cache_k.to(qk_t)).to(acc)
+    scores = scores.reshape(b, cfg.num_heads, s_, -1) * (cfg.head_dim ** -0.5)
+    slots = j * chunk + torch.arange(chunk, device=x.device)
+    valid = _valid_slots(slots, pos, s_cache, window)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+
+    m = C.reduce_replicas(scores.amax(dim=-1), mesh, seq_axis, "max")     # (B,H,1)
+    pr = torch.exp(scores - m[..., None])
+    l = C.reduce_replicas(pr.sum(dim=-1), mesh, seq_axis)                   # (B,H,1)
+    pg = pr.to(cache_v.dtype).reshape(b, cfg.num_kv_heads, groups, s_, -1)
+    out = torch.einsum("bkgsc,bckd->bskgd", pg, cache_v).reshape(b, s_, cfg.num_heads, hd_)
+    out = C.reduce_replicas(out.to(acc), mesh, seq_axis)
+    out = out / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     out = out.reshape(b, s_, cfg.num_heads * hd_).to(x.dtype)
     out = torch.matmul(out, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
     return out, cache_k, cache_v

@@ -16,9 +16,6 @@ Departures:
 * the reference's float32 statistics and SSD state are :func:`acc_dtype`
   of the compute dtype here (float32, or float64 for float64 compute), as
   in ``models.layers``;
-* the chunk loop takes a short last chunk where the reference pads the
-  sequence to whole chunks (padded steps have ``dt = 0``, so they add
-  nothing to the state, and their outputs are dropped);
 * a chunk's decay exponents (the sums of ``dt·A`` over a segment) are
   summed directly, where the reference subtracts two running sums. The
   subtraction loses ``|Σ dt·A|·eps`` of each exponent: at mamba2-1.3b's
@@ -29,8 +26,15 @@ Departures:
   exact arithmetic;
 * ``F.softplus`` returns ``x`` itself above 20, where ``jax.nn.softplus``
   computes ``log1p(exp(x))``: the two differ by less than 2e-9;
-* a mesh (the reference pins the head grid's sharding) raises until the
-  sharding slice.
+* with a mesh whose ``model`` axis has ``M > 1`` ranks, the reference pins
+  the head grid's sharding and leaves the SSD to GSPMD; the port splits it
+  explicitly: each ``model`` rank scans its slice of the H heads when
+  ``M`` divides H, else its slice of the P channels when ``M`` divides P
+  (hymba's ``p_major`` layout), and the slices are gathered. The scan is
+  independent per head and per P channel. ``return_state`` then returns
+  this rank's block of the final state ``h`` and of the conv tail, as
+  ``parallel.sharding.cache_specs`` lays the decode cache out, and
+  :func:`ssm_decode` takes and returns those blocks.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from repro_torch.models.layers import acc_dtype, check_mesh, normal, remat
+from repro_torch.launch import collectives as C
+from repro_torch.models.layers import acc_dtype, model_ranks, normal, remat
 
 __all__ = ["init_ssm", "ssm_train", "ssm_decode", "init_ssm_state"]
 
@@ -143,14 +148,50 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
     """
     bsz, s, h, p = x.shape
     n = b.shape[-1]
+    pad = -s % chunk
+    if pad:
+        # whole chunks, as the reference pads: the padded steps have dt = 0
+        # (decay 1, increment 0) and their outputs are dropped. Every chunk
+        # then has one shape, so a head's or P channel's products do not
+        # depend on how many others ride along (the split SSD, bitwise)
+        x, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, b, c))
+        dt = F.pad(dt, (0, 0, 0, pad))
     h_carry = torch.zeros((bsz, h, p, n), dtype=x.dtype, device=x.device)
     ys = []
-    for c0 in range(0, s, chunk):
-        c1 = min(c0 + chunk, s)
-        h_carry, y = remat(_ssd_chunk, h_carry, x[:, c0:c1], dt[:, c0:c1], b[:, c0:c1],
-                           c[:, c0:c1], a)
+    for c0 in range(0, s + pad, chunk):
+        h_carry, y = remat(_ssd_chunk, h_carry, x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk],
+                           b[:, c0:c0 + chunk], c[:, c0:c0 + chunk], a)
         ys.append(y)
-    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h_carry
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    return y[:, :s], h_carry
+
+
+def _split(cfg, mesh):
+    """How the SSD splits over the ``model`` axis: ``(dim, ranks)``, dim 1
+    of the (B, H, P, N) state for heads, 2 for P channels, or None (not
+    split: one rank, or neither H nor P divides)."""
+    m = model_ranks(mesh)
+    if m == 1:
+        return None
+    s_cfg = cfg.ssm
+    if s_cfg.num_heads(cfg.d_model) % m == 0:
+        return 1, m
+    if s_cfg.head_dim % m == 0:
+        return 2, m
+    return None
+
+
+def _conv_split(cfg, mesh) -> bool:
+    """Whether the conv state's channels are split over ``model``."""
+    m = model_ranks(mesh)
+    ch = cfg.ssm.d_inner(cfg.d_model) + 2 * cfg.ssm.d_state
+    return m > 1 and ch % m == 0 and ch >= m
+
+
+def _block(x, mesh, dim: int):
+    """This ``model`` rank's block of ``x`` along ``dim``."""
+    n = x.shape[dim] // mesh.shape["model"]
+    return x.narrow(dim, mesh.axis_index("model") * n, n)
 
 
 def _heads(x, s_cfg, nh):
@@ -179,7 +220,6 @@ def ssm_train(p: dict, x_in: torch.Tensor, cfg, return_state: bool = False, mesh
     hand off to the recurrent decode path: the SSD state in float32 (or
     float64) and the last ``K-1`` *pre-conv* channels, left-padded with
     zeros when the sequence is shorter."""
-    check_mesh(mesh)
     s_cfg = cfg.ssm
     di = s_cfg.d_inner(cfg.d_model)
     nh = s_cfg.num_heads(cfg.d_model)
@@ -199,7 +239,20 @@ def ssm_train(p: dict, x_in: torch.Tensor, cfg, return_state: bool = False, mesh
     dt = F.softplus(dt.to(acc))
     a = -torch.exp(p["a_log"].to(acc))
     xh = _heads(x, s_cfg, nh)
-    y, h_final = _ssd_chunked(xh.to(acc), dt, a, b.to(acc), c.to(acc), s_cfg.chunk)
+    split = _split(cfg, mesh)
+    if split is None:
+        y, h_final = _ssd_chunked(xh.to(acc), dt, a, b.to(acc), c.to(acc), s_cfg.chunk)
+    else:
+        # each rank scans its heads (or P channels); its gradients of the
+        # replicated inputs cover its slice only, so they are summed
+        dim, _ = split
+        xs, dts, a_s, bs, cs = (C.sum_grads(t, mesh, "model")
+                                for t in (xh.to(acc), dt, a, b.to(acc), c.to(acc)))
+        xs = _block(xs, mesh, dim + 1)
+        if dim == 1:
+            dts, a_s = _block(dts, mesh, 2), _block(a_s, mesh, 0)
+        y, h_final = _ssd_chunked(xs, dts, a_s, bs, cs, s_cfg.chunk)
+        y = C.gather_replicas(y, mesh, "model", dim + 1)
     y = y + xh.to(acc) * p["d_skip"].to(acc)[None, None, :, None]
     if s_cfg.p_major:
         y = y.transpose(-1, -2)
@@ -210,6 +263,8 @@ def ssm_train(p: dict, x_in: torch.Tensor, cfg, return_state: bool = False, mesh
         tail = xbc_raw[:, -k:].to(acc)
         if tail.shape[1] < k:  # sequences shorter than the conv receptive field
             tail = F.pad(tail, (0, 0, k - tail.shape[1], 0))
+        if _conv_split(cfg, mesh):
+            tail = _block(tail, mesh, 2)
         return out, (h_final.to(acc), tail)
     return out
 
@@ -220,13 +275,16 @@ def ssm_decode(
     cfg,
     h: torch.Tensor,
     conv_state: torch.Tensor,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token recurrent step.
 
     x_in: (B, 1, D); h: (B, H, P, N); conv_state: (B, K-1, C).
     Returns (y (B,1,D), new_h, new_conv_state), new tensors (the caller
     stores them; ``transformer.forward_decode`` copies them into its
-    cache).
+    cache). With a mesh, ``h`` and ``conv_state`` are this rank's blocks
+    (``parallel.sharding.cache_specs``): each rank steps its conv channels
+    and its heads or P channels, and the results are gathered.
     """
     s_cfg = cfg.ssm
     di = s_cfg.d_inner(cfg.d_model)
@@ -244,22 +302,38 @@ def ssm_decode(
     # as jnp.concatenate promotes
     win_t = torch.promote_types(conv_state.dtype, dtype)
     xbc = torch.cat([x, bc], dim=-1)[:, 0]                             # (B, C)
-    window = torch.cat([conv_state.to(win_t), xbc[:, None].to(win_t)], dim=1)  # (B, K, C)
-    new_conv_state = window[:, 1:]
+    if not _conv_split(cfg, mesh):
+        window = torch.cat([conv_state.to(win_t), xbc[:, None].to(win_t)], dim=1)  # (B, K, C)
+        new_conv_state = window[:, 1:]
     w = p["conv"].to(dtype).to(win_t)                                   # (C, K)
-    xbc = F.silu(torch.einsum("bkc,ck->bc", window, w))
+    if _conv_split(cfg, mesh):
+        window = torch.cat([conv_state.to(win_t), _block(xbc[:, None], mesh, 2).to(win_t)], 1)
+        new_conv_state = window[:, 1:]
+        xbc = F.silu(torch.einsum("bkc,ck->bc", window, _block(w, mesh, 0)))
+        xbc = C.all_gather_dim(xbc, mesh, "model", 1)
+    else:
+        xbc = F.silu(torch.einsum("bkc,ck->bc", window, w))
     x, b, c = torch.split(xbc, [di, ns, ns], dim=-1)
 
     dt = F.softplus(dt[:, 0].to(acc))                                   # (B, H)
     a = -torch.exp(p["a_log"].to(acc))
     da = torch.exp(dt * a[None])                                        # (B, H)
     xh = _heads(x, s_cfg, nh).to(acc)
+    d_skip = p["d_skip"].to(acc)
+    split = _split(cfg, mesh)
+    if split is not None:
+        dim, _ = split
+        xh = _block(xh, mesh, dim)
+        if dim == 1:
+            dt, da, d_skip = _block(dt, mesh, 1), _block(da, mesh, 1), _block(d_skip, mesh, 0)
 
     # h ← h·exp(dt·A) + dt · B ⊗ x
     inc = (dt[:, :, None] * xh)[..., None] * b.to(acc)[:, None, None, :]
     h = h * da[..., None, None] + inc
     y = torch.einsum("bn,bhpn->bhp", c.to(acc), h)
-    y = y + xh * p["d_skip"].to(acc)[None, :, None]
+    y = y + xh * d_skip[None, :, None]
+    if split is not None:
+        y = C.all_gather_dim(y, mesh, "model", split[0])
     if s_cfg.p_major:
         y = y.transpose(-1, -2)
     y = y.reshape(-1, 1, di).to(dtype)

@@ -53,8 +53,33 @@ layer's new key, value and SSM state into the cache it is given and
 returns that cache (the reference returns a new one). A cache is used
 once: after a step only the returned one is current.
 
-A mesh raises ``NotImplementedError`` (the sharding slice), as does
-``sp_decode=True``.
+With a mesh (``launch.mesh.Mesh``, one process a rank), every rank runs
+these functions on its block of the batch and returns its block of the
+output:
+
+* :func:`init` pads the vocab (``parallel.sharding.pad_vocab``) and the
+  experts (``pad_experts``); on a rank's mesh the expert-parallel expert
+  weights are the rank's experts. Every other weight is whole on every
+  rank: the reference shards the dense weights by ``param_specs`` and
+  leaves their tensor-parallel compute to GSPMD, which the port does not
+  have (see ROADMAP);
+* :func:`forward_train` runs context-parallel attention
+  (``layers.attention_train_cp``) under ``cfg.cp_attention`` with more
+  than one ``model`` rank, splits the hybrid's SSD over ``model``
+  (``ssm.ssm_train``) and the MoE over it (``moe.moe_layer``); a prefill
+  cache comes back as this rank's blocks, as ``cache_specs`` lays it out;
+* :func:`init_cache` gives this rank's blocks of the cache: its batch
+  rows, its chunk of every attention layer's sequence, its SSD heads (or P
+  channels) and conv channels;
+* :func:`forward_decode` attends over the rank's sequence chunk with
+  ``layers.attention_decode_sp`` whenever the ``model`` axis has more than
+  one rank (whatever ``sp_decode`` says: the rank holds only its chunk),
+  and steps its blocks of the SSM state.
+
+Departure: under a mesh with more than one ``model`` rank a cache length
+the axis does not divide raises ``ValueError`` in :func:`init_cache` and
+the prefill (the reference keeps such a cache whole on every rank and
+decodes it through GSPMD).
 """
 
 from __future__ import annotations
@@ -79,8 +104,9 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 def padded_vocab(cfg: ModelConfig, mesh=None) -> int:
-    L.check_mesh(mesh)
-    return cfg.vocab_size
+    from repro_torch.parallel.sharding import pad_vocab
+
+    return pad_vocab(cfg.vocab_size, mesh) if mesh is not None else cfg.vocab_size
 
 
 def _head_width(cfg: ModelConfig) -> int:
@@ -92,7 +118,7 @@ def _head_width(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(generator, cfg: ModelConfig, device, lead=()) -> dict:
+def _init_layer(generator, cfg: ModelConfig, mesh, device, lead=()) -> dict:
     """One layer's parameters, each with the leading dims ``lead`` (the
     stacked layers under ``scan_layers``)."""
     p: dict = {}
@@ -101,7 +127,7 @@ def _init_layer(generator, cfg: ModelConfig, device, lead=()) -> dict:
     if cfg.ssm is not None:
         p["ssm"] = SSM.init_ssm(generator, cfg, device, lead)
     if cfg.moe is not None:
-        p["moe"] = MOE.init_moe(generator, cfg, None, device, lead)
+        p["moe"] = MOE.init_moe(generator, cfg, mesh, device, lead)
         if cfg.moe.num_shared:
             shared = L.init_mlp(generator, cfg.d_model, cfg.moe.num_shared * cfg.moe.d_ff_expert,
                                 device, lead)
@@ -117,22 +143,30 @@ def init(generator, cfg: ModelConfig, mesh=None, *, device=None) -> dict:
     reference scales them, constants (norms, biases, the SSD's ``a_log``
     and ``d_skip``) as the reference sets them. ``generator`` is a
     ``torch.Generator`` on ``device`` (or None); ``device="meta"`` gives
-    the shapes with no storage. The draws are the port's own: a test that
+    the shapes with no storage. With a mesh the vocab and the experts are
+    padded with zeros (the rows no token reaches, the dummy experts the
+    router masks), so the draws, and the weights of the real vocab and
+    experts, do not depend on the mesh; on a rank's mesh the
+    expert-parallel expert weights are this rank's block
+    (``moe.init_moe``). The draws are the port's own: a test that
     needs the reference's weights carries them across with
     ``convert.params_from_reference``."""
     device = resolve_device(device)
     v = padded_vocab(cfg, mesh)
     params: dict = {
-        "embed": L.normal(generator, (v, cfg.d_model), cfg.d_model ** -0.5, device),
+        "embed": L.padded(L.normal(generator, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5,
+                                   device), 0, v),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.normal(generator, (cfg.d_model, _head_width(cfg) * v),
-                                     cfg.d_model ** -0.5, device)
+        k = _head_width(cfg)
+        head = L.normal(generator, (cfg.d_model, k, cfg.vocab_size), cfg.d_model ** -0.5, device)
+        params["lm_head"] = L.padded(head, 2, v).reshape(cfg.d_model, k * v)
     if cfg.scan_layers:
-        params["layers"] = _init_layer(generator, cfg, device, lead=(cfg.num_layers,))
+        params["layers"] = _init_layer(generator, cfg, mesh, device, lead=(cfg.num_layers,))
     else:
-        params["layers"] = [_init_layer(generator, cfg, device) for _ in range(cfg.num_layers)]
+        params["layers"] = [_init_layer(generator, cfg, mesh, device)
+                            for _ in range(cfg.num_layers)]
     return params
 
 
@@ -214,13 +248,13 @@ def _zero(device):
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
-def _feed_forward(x, p_layer, cfg):
+def _feed_forward(x, p_layer, cfg, mesh=None):
     """A layer's feed-forward half, residual added: the routed experts
     (plus the shared ones) or the gated MLP. Returns ``(x, aux)``, aux the
     MoE load-balance loss or None without experts."""
     if cfg.moe is not None:
         xn = L.rms_norm(x, p_layer["moe"]["norm"], cfg.norm_eps)
-        y, aux = MOE.moe_layer(p_layer["moe"], xn, cfg)
+        y, aux = MOE.moe_layer(p_layer["moe"], xn, cfg, mesh)
         if cfg.moe.num_shared:
             y = y + L.mlp_gated(p_layer["shared_mlp"], xn, cfg.mlp_activation)
         return x + y, aux
@@ -230,56 +264,77 @@ def _feed_forward(x, p_layer, cfg):
     return x, None
 
 
-def _dense_body(x, p_layer, *, cfg, return_cache, cache_len, seq):
+def _attn(p_attn, x, window, return_kv, cfg, mesh):
+    """Self-attention of a layer: context-parallel under ``cp_attention``
+    with more than one ``model`` rank, else whole on every rank."""
+    if cfg.cp_attention and L.model_ranks(mesh) > 1:
+        return L.attention_train_cp(p_attn, x, cfg, mesh, window=window, return_kv=return_kv)
+    return L.attention_train(p_attn, x, cfg, window=window, return_kv=return_kv)
+
+
+def _kv_block(c, mesh):
+    """A layer's prefill cache as this rank's sequence chunk of k and v."""
+    if L.model_ranks(mesh) == 1:
+        return c
+    from repro_torch.parallel.sharding import P, local_block
+
+    spec = P(None, "model")
+    return {**c, "k": local_block(c["k"], mesh, spec).contiguous(),
+            "v": local_block(c["v"], mesh, spec).contiguous()}
+
+
+def _dense_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None):
     """A dense or MoE layer: (x, aux, cache or None)."""
     h = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
     c = None
     if return_cache:
-        y, (kk, vv) = L.attention_train(p_layer["attn"], h, cfg, window=cfg.sliding_window,
-                                        return_kv=True)
+        y, (kk, vv) = _attn(p_layer["attn"], h, cfg.sliding_window, True, cfg, mesh)
         c_len = min(cfg.sliding_window or cache_len, cache_len)
         if cfg.sliding_window is not None and seq > c_len:
             c = {"k": _ring_kv(kk, c_len), "v": _ring_kv(vv, c_len)}
         else:
             c = {"k": _pad_kv_to(kk, c_len), "v": _pad_kv_to(vv, c_len)}
+        c = _kv_block(c, mesh)
     else:
-        y = L.attention_train(p_layer["attn"], h, cfg, window=cfg.sliding_window)
-    x, aux = _feed_forward(x + y, p_layer, cfg)
+        y = _attn(p_layer["attn"], h, cfg.sliding_window, False, cfg, mesh)
+    x, aux = _feed_forward(x + y, p_layer, cfg, mesh)
     return x, _zero(x.device) if aux is None else aux, c
 
 
-def _ssm_body(x, p_layer, *, cfg, return_cache, cache_len, seq):
+def _ssm_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None):
     xn = L.rms_norm(x, p_layer["ssm"]["norm"], cfg.norm_eps)
     if return_cache:
-        y, (h_f, conv) = SSM.ssm_train(p_layer["ssm"], xn, cfg, return_state=True)
+        y, (h_f, conv) = SSM.ssm_train(p_layer["ssm"], xn, cfg, return_state=True, mesh=mesh)
         c = {"h": h_f, "conv": conv}
     else:
-        y = SSM.ssm_train(p_layer["ssm"], xn, cfg)
+        y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh)
         c = None
     return x + y, _zero(x.device), c
 
 
-def _hybrid_body(x, p_layer, window, *, cfg, return_cache, cache_len, seq, ring=False):
+def _hybrid_body(x, p_layer, window, *, cfg, return_cache, cache_len, seq, ring=False,
+                 mesh=None):
     """A hybrid layer: ``x + ½(attention + SSM)``, then the MLP. ``window``
     is an int, a 0-d tensor or None; ``ring`` (unscanned stacks) keeps a
     sliding-window layer's cache as a ring of ``min(window, cache_len)``
     slots when the sequence outgrows it."""
     xn = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
     if return_cache:
-        attn_y, (kk, vv) = L.attention_train(p_layer["attn"], xn, cfg, window=window,
-                                             return_kv=True)
+        attn_y, (kk, vv) = _attn(p_layer["attn"], xn, window, True, cfg, mesh)
         c_len = min(window, cache_len) if ring and window is not None else cache_len
         if ring and window is not None and c_len < seq:
             c = {"k": _ring_kv(kk, c_len), "v": _ring_kv(vv, c_len)}
         else:
             c = {"k": _pad_kv_to(kk, c_len), "v": _pad_kv_to(vv, c_len)}
-        ssm_y, (h_f, conv) = SSM.ssm_train(p_layer["ssm"], xn, cfg, return_state=True)
+        c = _kv_block(c, mesh)
+        ssm_y, (h_f, conv) = SSM.ssm_train(p_layer["ssm"], xn, cfg, return_state=True,
+                                           mesh=mesh)
         c.update({"h": h_f, "conv": conv})
     else:
-        attn_y = L.attention_train(p_layer["attn"], xn, cfg, window=window)
-        ssm_y = SSM.ssm_train(p_layer["ssm"], xn, cfg)
+        attn_y = _attn(p_layer["attn"], xn, window, False, cfg, mesh)
+        ssm_y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh)
         c = None
-    x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg)
+    x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg, mesh)
     return x, _zero(x.device), c
 
 
@@ -323,7 +378,6 @@ def forward_train(
     (logits, aux_loss, cache) when ``return_cache`` (prefill): the
     auxiliary loss is the MoE load-balance loss summed over the layers, a
     float32 zero for the other families."""
-    L.check_mesh(mesh)
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"remat must be 'none', 'dots' or 'full', got {remat!r}")
     v = params["embed"].shape[0]
@@ -336,7 +390,7 @@ def forward_train(
         x = torch.cat([img, x], dim=1)
     seq = x.shape[1]
     cache_len = cache_len or seq
-    kw = dict(cfg=cfg, return_cache=return_cache, cache_len=cache_len, seq=seq)
+    kw = dict(cfg=cfg, return_cache=return_cache, cache_len=cache_len, seq=seq, mesh=mesh)
 
     aux_total = _zero(x.device)
     caches = []
@@ -402,9 +456,15 @@ def init_cache(
     (sliding-window layers mask by distance, the window as data); an
     unscanned one carries per-layer dicts, ring buffers of window size on
     the sliding-window layers and full-length caches on the global ones.
+
+    With a rank's mesh the cache is this rank's blocks of it, as
+    ``parallel.sharding.cache_specs`` lays it out (``batch`` is the global
+    batch); a batch the data axes do not divide, or a cache length the
+    ``model`` axis does not divide, raises ``ValueError``.
     """
-    L.check_mesh(mesh)
     device = resolve_device(device)
+    if mesh is not None and hasattr(mesh, "axis_index"):
+        return _cache_blocks(cfg, batch, max_seq, mesh, dtype, device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
 
     def attn_cache(window):
@@ -430,6 +490,31 @@ def init_cache(
     return {"layers": _stack([attn_cache(cfg.sliding_window) for _ in range(cfg.num_layers)])}
 
 
+def _cache_blocks(cfg, batch, max_seq, mesh, dtype, device):
+    """This rank's zero blocks of the cache (:func:`init_cache` on a mesh)."""
+    from repro_torch.parallel.sharding import cache_specs, data_axes, map_named, map_specs
+
+    dp = data_axes(mesh)
+    if dp and batch % mesh.axis_size(dp):
+        raise ValueError(f"the data axes ({mesh.axis_size(dp)} ranks) do not divide the "
+                         f"batch {batch}")
+    full = init_cache(cfg, batch, max_seq, None, dtype, device="meta")
+    m = L.model_ranks(mesh)
+
+    def block(spec, leaf):
+        name, x = leaf
+        if name in ("k", "v") and m > 1 and spec[x.dim() - 3] is None:
+            raise ValueError(f"the model axis ({m} ranks) does not divide a cache length "
+                             f"of {x.shape[-3]}")
+        shape = list(x.shape)
+        for d, axes in enumerate(spec):
+            if axes is not None:
+                shape[d] //= mesh.axis_size(axes)
+        return torch.zeros(shape, dtype=x.dtype, device=device)
+
+    return map_specs(block, cache_specs(mesh, cfg, full), map_named(lambda n, x: (n, x), full))
+
+
 def forward_decode(
     params: dict,
     tokens: torch.Tensor,
@@ -445,20 +530,29 @@ def forward_decode(
     """One decode step. tokens: (B, 1[, K]); pos: (B,) absolute positions.
     Returns (logits (B, 1, [K,] V), cache): ``cache`` itself, its tensors
     updated in place. ``unroll_layers`` is accepted and ignored (the
-    layers are a Python loop); ``sp_decode`` (the sequence-parallel
-    flash-decode) needs a mesh and raises, as a mesh does."""
-    L.check_mesh(mesh)
-    if sp_decode:
-        raise NotImplementedError("sp_decode (attention_decode_sp) needs a mesh; it waits "
-                                  "for the sharding slice (parallel/sharding.py)")
+    layers are a Python loop). ``sp_decode`` selects the sequence-parallel
+    flash-decode (``layers.attention_decode_sp``) when the mesh has more
+    than one ``model`` rank; there it is the only decode, since each rank
+    holds its chunk of the cache (module docstring). Without such a mesh
+    it changes nothing, as in the reference."""
     v = params["embed"].shape[0]
+    sp = L.model_ranks(mesh) > 1
+
+    def attend(p_attn, xn, c_layer, window):
+        if sp:
+            return L.attention_decode_sp(p_attn, xn, cfg, c_layer["k"], c_layer["v"], pos,
+                                         mesh, window=window)
+        return L.attention_decode(p_attn, xn, cfg, c_layer["k"], c_layer["v"], pos,
+                                  window=window)
+
     x = _embed_tokens(params, tokens, cfg, compute_dtype)
 
     if cfg.scan_layers:
         layers = _unstack(params["layers"], cfg.num_layers)
         c_layers = _unstack(cache["layers"], cfg.num_layers)
         if cfg.family == "hybrid":
-            windows = _layer_windows(cfg, cache["layers"]["k"].shape[2], x.device)
+            s_cache = cache["layers"]["k"].shape[2] * (L.model_ranks(mesh) if sp else 1)
+            windows = _layer_windows(cfg, s_cache, x.device)
         else:
             windows = [cfg.sliding_window] * cfg.num_layers
     else:
@@ -469,24 +563,23 @@ def forward_decode(
     for p_layer, c_layer, window in zip(layers, c_layers, windows):
         if cfg.family == "ssm":
             xn = L.rms_norm(x, p_layer["ssm"]["norm"], cfg.norm_eps)
-            y, h, conv = SSM.ssm_decode(p_layer["ssm"], xn, cfg, c_layer["h"], c_layer["conv"])
+            y, h, conv = SSM.ssm_decode(p_layer["ssm"], xn, cfg, c_layer["h"], c_layer["conv"],
+                                        mesh)
             c_layer["h"].copy_(h)
             c_layer["conv"].copy_(conv)
             x = x + y
         elif cfg.family == "hybrid":
             xn = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
-            attn_y, _, _ = L.attention_decode(p_layer["attn"], xn, cfg, c_layer["k"],
-                                              c_layer["v"], pos, window=window)
+            attn_y, _, _ = attend(p_layer["attn"], xn, c_layer, window)
             ssm_y, h, conv = SSM.ssm_decode(p_layer["ssm"], xn, cfg, c_layer["h"],
-                                            c_layer["conv"])
+                                            c_layer["conv"], mesh)
             c_layer["h"].copy_(h)
             c_layer["conv"].copy_(conv)
-            x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg)
+            x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg, mesh)
         else:
             xn = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
-            y, _, _ = L.attention_decode(p_layer["attn"], xn, cfg, c_layer["k"], c_layer["v"],
-                                         pos, window=window)
-            x, _ = _feed_forward(x + y, p_layer, cfg)
+            y, _, _ = attend(p_layer["attn"], xn, c_layer, window)
+            x, _ = _feed_forward(x + y, p_layer, cfg, mesh)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x, cfg, v), cache

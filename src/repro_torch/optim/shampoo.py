@@ -39,6 +39,19 @@ Differences of form, not of result, from the reference:
 
 Adam grafting transplants the step size per block; 1-D, scalar and
 embedding parameters take Adam.
+
+**Block ownership on a mesh** (``update(..., mesh=, specs=)``, the train
+step's ZeRO-1 path under ``train_step.state_specs``): the gradients and
+parameters come in whole, the state as this rank's blocks. The moments are
+updated on their ZeRO-1 blocks. Each data rank keeps, accumulates and
+refreshes the stats of its own parameter blocks only (the stat stacks'
+block dim is split over ``data`` where it divides, else every rank holds
+all of them), so its grams, Cholesky factors and whitening solves run on
+its own blocks; the preconditioned blocks are then all-gathered over
+``data`` and grafted. The grams of a block do not depend on the other blocks of the
+batch, so the owned stats equal the unsharded run's bitwise. Each update
+comes back as the block of its leaf's momentum (``mom``) spec, or of the
+``m`` spec for the Adam leaves.
 """
 
 from __future__ import annotations
@@ -295,7 +308,24 @@ def shampoo(
             "step": torch.zeros((), dtype=torch.int32),
         }
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, mesh=None, specs=None):
+        from repro_torch.parallel.sharding import P, gather, local_block
+
+        if mesh is None:
+            def cut(x, spec):
+                return x
+
+            def whole(x, spec):
+                return x
+        else:
+            def cut(x, spec):
+                return local_block(x, mesh, spec)
+
+            def whole(x, spec):
+                # contiguous, as the unsharded tensors are: a reduction's
+                # order follows the layout
+                return gather(x, mesh, spec).contiguous()
+
         step = state["step"] + 1
         lr = lr_schedule(step)
         bc1, bc2 = bias_corrections(step, beta1, beta2)
@@ -306,26 +336,35 @@ def shampoo(
         m_leaves = tree_leaves(state["m"])
         v_leaves = tree_leaves(state["v"])
         s_leaves = treedef.flatten_up_to(state["shampoo"])
+        if mesh is None:
+            m_specs = s_specs = [None] * len(g_leaves)
+        else:
+            m_specs = treedef.flatten_up_to(specs["m"])
+            s_specs = treedef.flatten_up_to(specs["shampoo"])
 
         new_updates, new_m, new_v, new_s = [], [], [], []
-        for path, g, p, m, v, s in zip(
-            g_paths, g_leaves, p_leaves, m_leaves, v_leaves, s_leaves
+        for path, g, p, m, v, s, ms, ss in zip(
+            g_paths, g_leaves, p_leaves, m_leaves, v_leaves, s_leaves, m_specs, s_specs
         ):
             g = g.to(torch.float32)
-            m = beta1 * m + (1 - beta1) * g
-            v = beta2 * v + (1 - beta2) * g * g
+            gm = cut(g, ms)
+            m = beta1 * m + (1 - beta1) * gm
+            v = beta2 * v + (1 - beta2) * gm * gm
             adam_dir = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             new_m.append(m)
             new_v.append(v)
 
             if not isinstance(s, dict):
-                u = -lr * (adam_dir + weight_decay * p.to(torch.float32))
+                u = -lr * (adam_dir + weight_decay * cut(p, ms).to(torch.float32))
                 new_updates.append(u)
                 new_s.append(s)
                 continue
 
             pt = _plan(p.shape, block)
-            gb = _to_blocks(g, pt)                              # (nb, b1, b2)
+            # this rank's blocks: dim 0 of every stat stack (all of them
+            # where the stacks are not split)
+            own = None if ss is None else P(ss["l"][0])
+            gb = cut(_to_blocks(g, pt), own)                    # (nb, b1, b2)
 
             # --- the paper's product: gram statistics via batched ATA ---
             l_new, r_new = _gram_stats(gb)
@@ -346,15 +385,19 @@ def shampoo(
                 pg = _whiten_apply(pl, gb, pr)
             else:
                 pg = torch.matmul(torch.matmul(pl, gb), pr)
-            # Adam grafting: per-block norm transplant
-            ab = _to_blocks(adam_dir, pt)
+            # Adam grafting: per-block norm transplant, over every block
+            # (the owned blocks gathered) in one memory layout, so the
+            # norms' sums run in the same order sharded or not
+            pg = whole(pg, own).contiguous()   # (the packed whitening's is a transpose)
+            ab = _to_blocks(whole(adam_dir, ms), pt)
             a_norm = torch.sqrt(torch.sum(ab * ab, dim=(1, 2)) + 1e-30)
             s_norm = torch.sqrt(torch.sum(pg * pg, dim=(1, 2)) + 1e-30)
             pg = pg * (a_norm / s_norm)[:, None, None]
             pg = _from_blocks(pg, pt, p.shape)
 
-            mom = beta1 * s["mom"] + pg
-            u = -lr * (mom + weight_decay * p.to(torch.float32))
+            mom_spec = None if ss is None else ss["mom"]
+            mom = beta1 * s["mom"] + cut(pg, mom_spec)
+            u = -lr * (mom + weight_decay * cut(p, mom_spec).to(torch.float32))
             new_updates.append(u)
             new_s.append({"l": l, "r": r, "pl": pl, "pr": pr, "mom": mom})
 

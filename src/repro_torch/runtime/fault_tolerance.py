@@ -24,8 +24,8 @@ SPMD lockstep means a slow chip stalls the psum ring; mitigations wired
 into this framework:
   1. the launcher's watchdog marks hosts whose heartbeat lags > T and
      triggers an elastic re-mesh (drop the slice and reshard the last
-     checkpoint onto the surviving topology: `runtime/elastic.py`, which
-     waits for the port of the sharding layer);
+     checkpoint onto the surviving topology: `runtime/elastic.py` and
+     `CheckpointManager.restore_sharded`);
   2. checkpoint cadence bounds lost work to `save_every` steps;
   3. data is step-indexed, so no pipeline state needs recovery, and
      "skip-ahead" after re-mesh is a counter bump.

@@ -6,6 +6,15 @@ The steps run eagerly under ``torch.no_grad()``; the reference's are
 traced by ``jax.jit`` in the caller. Decode updates the cache in place
 (``models.transformer.forward_decode``).
 
+With a mesh (one process a rank, ``launch.mesh``) both steps take this
+rank's block of the batch (``parallel.sharding.batch_input_specs``) and
+return its block of the logits; the cache is the rank's blocks of it
+(``cache_specs``: its batch rows, its chunk of the cache sequence, its
+SSD heads or P channels). The prefill runs context-parallel attention under
+``cfg.cp_attention``; the decode attends by the sequence-parallel
+flash-decode whenever the ``model`` axis has more than one rank
+(``sp_decode`` is passed on to ``forward_decode``).
+
 Departure: :func:`sample_logits` draws with ``torch.multinomial`` from an
 explicit ``torch.Generator`` where the reference draws with
 ``jax.random.categorical`` from a key. The two streams differ; the mask of
@@ -59,13 +68,14 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, compute_dtype=torch.bfloat16,
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, mesh=None, compute_dtype=torch.bfloat16):
+def make_decode_step(cfg: ModelConfig, mesh=None, compute_dtype=torch.bfloat16,
+                     sp_decode: bool = False):
     """decode(params, tokens, cache, pos) -> (logits, cache), the cache
     updated in place."""
 
     @torch.no_grad()
     def decode(params, tokens, cache, pos):
         return forward_decode(params, tokens, cache, pos, cfg, mesh,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, sp_decode=sp_decode)
 
     return decode

@@ -8,8 +8,27 @@ float32 gradients divided by ``n_micro`` in the reference's order; then
 come ``clip_by_global_norm``, ``opt.update``, ``apply_updates`` and the
 step counter. The optimizer is ``repro_torch.optim.build``.
 
-``state_specs`` and ZeRO-1 (``_zero1``) wait for the port of
-``parallel/sharding.py``; a mesh other than None raises.
+With a mesh (``launch.mesh.Mesh``, one process a rank) the step is the
+reference's under ``state_specs``, run by every rank on its blocks:
+
+1. each rank takes its block of the global batch (``batch_input_specs``;
+   a batch the data axes do not divide raises ``ValueError``, where the
+   reference shards the sequence instead) and computes its gradients.
+   Gradients the ``model`` ranks compute in part (context-parallel
+   attention, the split SSD, the MoE) are summed over ``model`` inside
+   those layers (``launch.collectives.sum_grads``);
+2. the gradients are averaged with an all-reduce over the data axes;
+3. ``clip_by_global_norm`` runs on the whole gradients (the expert
+   weights' squares summed over ``model``, where each rank holds its own
+   experts);
+4. the optimizer updates only this rank's ZeRO-1 block of each moment and
+   parameter (Shampoo: its own stat blocks, ``optim.shampoo``);
+5. the updated blocks are all-gathered over ``data``.
+
+The state a rank holds is ``held(state_specs(...))``
+(``parallel.sharding.held``): the dense weights whole, the expert weights
+as the rank's experts, the moments and Shampoo's stats as their blocks.
+:func:`init_state` makes it.
 """
 
 from __future__ import annotations
@@ -21,7 +40,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.transformer import forward_train
 from repro_torch.optim import apply_updates, build as build_optimizer
-from repro_torch.optim._tree import tree_flatten, tree_flatten_with_path, tree_map
+from repro_torch.optim._tree import tree_flatten, tree_flatten_with_path, tree_leaves, tree_map
 from repro_torch.optim.adamw import clip_by_global_norm
 
 __all__ = [
@@ -29,6 +48,9 @@ __all__ = [
     "make_loss_fn",
     "make_train_step",
     "loss_and_grads",
+    "state_specs",
+    "init_state",
+    "held_state_specs",
     "TrainState",
 ]
 
@@ -112,32 +134,26 @@ def make_train_step(
     run: RunConfig = None,
     total_steps: int = 10_000,
     max_grad_norm: float = 1.0,
+    optimizer=None,
 ):
     """Returns (train_step, optimizer). train_step(state, batch) -> (state,
     metrics); microbatches split the batch's leading dim and accumulate
-    float32 grads."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh waits for the port of parallel/sharding.py")
-    opt = build_optimizer(run.optimizer, total_steps)
+    float32 grads. ``optimizer`` (an ``optim.Optimizer``) replaces the one
+    ``run.optimizer`` builds: the way to train with an optimizer that
+    ``OptimizerConfig`` cannot express (Shampoo with ``precond_p=2`` and a
+    ridge, as ``chip_smoke.py``'s phase mesh does). With a mesh, ``state`` is this rank's
+    (:func:`init_state`) and ``batch`` the global batch; the metrics are
+    the global ones."""
+    opt = optimizer or build_optimizer(run.optimizer, total_steps)
     loss_fn = make_loss_fn(cfg, mesh, run)
     n_micro = max(run.microbatch, 1)
+    if mesh is not None:
+        return _meshed_step(cfg, mesh, run, opt, loss_fn, n_micro, max_grad_norm), opt
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         params = state["params"]
 
-        if n_micro == 1:
-            metrics, grads = loss_and_grads(loss_fn, params, batch)
-        else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            ms = []
-            for i in range(n_micro):
-                mb = {k: x[i * (x.shape[0] // n_micro):(i + 1) * (x.shape[0] // n_micro)]
-                      for k, x in batch.items()}
-                m, g = loss_and_grads(loss_fn, params, mb)
-                grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / n_micro, grads, g)
-                ms.append(m)
-            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        metrics, grads = _grads(loss_fn, params, batch, n_micro)
 
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         updates, opt_state = opt.update(grads, state["opt"], params)
@@ -146,3 +162,202 @@ def make_train_step(
         return {"params": params, "opt": opt_state, "step": state["step"] + 1}, metrics
 
     return train_step, opt
+
+
+def _grads(loss_fn, params, batch, n_micro: int):
+    """``(metrics, grads)`` over ``n_micro`` microbatches of ``batch``."""
+    if n_micro == 1:
+        return loss_and_grads(loss_fn, params, batch)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+    ms = []
+    for i in range(n_micro):
+        mb = {k: x[i * (x.shape[0] // n_micro):(i + 1) * (x.shape[0] // n_micro)]
+              for k, x in batch.items()}
+        m, g = loss_and_grads(loss_fn, params, mb)
+        grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / n_micro, grads, g)
+        ms.append(m)
+    return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}, grads
+
+
+# ---------------------------------------------------------------------------
+# sharding specs for the full train state
+# ---------------------------------------------------------------------------
+
+
+def _zero1(spec, shape, mesh):
+    """Add 'data' sharding to the first unsharded, divisible dim (ZeRO-1)."""
+    from repro_torch.parallel.sharding import P
+
+    if "data" not in mesh.shape:
+        return spec
+    d = mesh.shape["data"]
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (ax, dim) in enumerate(zip(parts, shape)):
+        if ax is None and dim % d == 0 and dim >= d:
+            parts[i] = "data"
+            return P(*parts)
+    return spec
+
+
+def state_specs(cfg: ModelConfig, mesh, run: RunConfig, params_abs, opt_state_abs) -> TrainState:
+    """Spec tree (``parallel.sharding.P`` leaves) for {"params", "opt",
+    "step"}, the reference's: optimizer moments mirror the param specs and
+    with ZeRO-1 additionally shard over 'data'; Shampoo's stat stacks
+    ((nb, b, b) dense, (nb, T, bn, bn) packed) shard their block dim over
+    'data' (block ownership). ``params_abs``/``opt_state_abs`` may be
+    tensors on the ``meta`` device."""
+    from repro_torch.parallel.sharding import P, leaf_shape, map_specs, param_specs
+
+    p_specs = param_specs(mesh, cfg)
+    zero1 = run.optimizer.zero1
+
+    def like_param(spec_tree, abs_tree):
+        return map_specs(lambda spec, ab: _zero1(spec, leaf_shape(ab), mesh) if zero1 else spec,
+                         spec_tree, abs_tree)
+
+    opt_specs = {"m": like_param(p_specs, params_abs), "v": like_param(p_specs, params_abs),
+                 "step": P()}
+    if run.optimizer.name != "adamw":
+        def shampoo_leaf_spec(ab):
+            shape = leaf_shape(ab)
+            if len(shape) in (3, 4):
+                shard = zero1 and "data" in mesh.shape and shape[0] % mesh.shape["data"] == 0
+                return P(*(["data" if shard else None] + [None] * (len(shape) - 1)))
+            return P(*([None] * len(shape)))
+
+        opt_specs["shampoo"] = tree_map(shampoo_leaf_spec, opt_state_abs["shampoo"])
+    return {"params": p_specs, "opt": opt_specs, "step": P()}
+
+
+def _reshard(x, mesh, src, dst):
+    """A block held under spec ``src`` as the block under ``dst``."""
+    from repro_torch.parallel.sharding import P, gather, local_block
+
+    nd = x.dim()
+    a = list(src) + [None] * (nd - len(src))
+    b = list(dst) + [None] * (nd - len(dst))
+    common = P(*(s if s == t else None for s, t in zip(a, b)))
+    return local_block(gather(x, mesh, P(*a), keep=common), mesh, P(*b), have=common)
+
+
+def held_state_specs(cfg, mesh, run: RunConfig, opt, params) -> TrainState:
+    """The spec tree of the train state a rank holds,
+    ``held(state_specs(...))``, for this rank's ``params`` (the experts as
+    its block): the specs come from the parameters and optimizer state of
+    the global shapes, made on the ``meta`` device."""
+    from repro_torch.parallel.sharding import global_shape, held, map_specs, param_specs
+
+    p_held = held(param_specs(mesh, cfg), cfg)
+    meta = map_specs(lambda s, x: torch.empty(global_shape(x, mesh, s), dtype=x.dtype,
+                                              device="meta"), p_held, params)
+    return held(state_specs(cfg, mesh, run, meta, opt.init(meta)), cfg)
+
+
+def init_state(cfg: ModelConfig, mesh, run: RunConfig, opt, params) -> TrainState:
+    """This rank's train state: ``params`` as ``transformer.init`` gives
+    them on ``mesh`` (the expert-parallel experts as this rank's block),
+    the optimizer state cut to its held blocks (``held(state_specs)``).
+    The state is made one parameter at a time (``opt.init`` of a tree
+    whose other leaves are on the ``meta`` device) and cut at once, so no
+    rank ever holds the whole optimizer state. ``opt``'s state must be a
+    dict of trees shaped like the parameters and of scalars."""
+    from repro_torch.parallel.sharding import held, map_specs, param_specs
+    from repro_torch.runtime.elastic import reshard_tree
+
+    p_held = held(param_specs(mesh, cfg), cfg)
+    specs = held_state_specs(cfg, mesh, run, opt, params)["opt"]
+    leaves, treedef = tree_flatten(
+        map_specs(lambda s, x: _reshard(x, mesh, s, ()), p_held, params))
+    meta = [torch.empty_like(x, device="meta") for x in leaves]
+    parts, scalars = {}, {}
+    for i, x in enumerate(leaves):
+        one = opt.init(treedef.unflatten(meta[:i] + [x] + meta[i + 1:]))
+        for key, sub in one.items():
+            if key in specs and isinstance(specs[key], dict | list):
+                mine = treedef.flatten_up_to(sub)[i]
+                spec = treedef.flatten_up_to(specs[key])[i]
+                parts.setdefault(key, []).append(reshard_tree(mine, mesh, spec))
+            elif i == 0:
+                scalars[key] = sub
+        del one
+    state = {k: treedef.unflatten(v) for k, v in parts.items()}
+    return {"params": params, "opt": {**state, **scalars},
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def _meshed_step(cfg, mesh, run, opt, loss_fn, n_micro, max_grad_norm):
+    """The train step of one rank of ``mesh`` (module docstring)."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.parallel.sharding import (batch_input_specs, data_axes, held,
+                                               local_block, map_specs, param_specs,
+                                               spec_leaves)
+
+    dp = data_axes(mesh)
+    n_data = mesh.axis_size(dp) if dp else 1
+    dgroup = mesh.group(dp) if dp else None
+    p_held = held(param_specs(mesh, cfg), cfg)
+    specs = {}
+
+    def local_batch(batch):
+        out = {}
+        for k, spec in batch_input_specs(mesh, batch).items():
+            x = batch[k]
+            if dp and (x.dim() == 0 or spec[0] is None) and n_data > 1:
+                raise ValueError(f"the data axes ({n_data} ranks) do not divide the batch "
+                                 f"of {k!r} {tuple(x.shape)} (the reference would shard "
+                                 "its sequence)")
+            out[k] = local_block(x, mesh, spec)
+        return out
+
+    def average(x):
+        return C.all_reduce(x, dgroup) / n_data if n_data > 1 else x
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        params = state["params"]
+        metrics, grads = _grads(loss_fn, params, local_batch(batch), n_micro)
+        grads = tree_map(average, grads)
+        metrics = {k: (v if k == "aux" else average(v)) for k, v in metrics.items()}
+
+        # the global norm: each leaf's squares, summed over the ranks that
+        # hold its blocks (the expert-parallel experts)
+        def sq(spec, g):
+            s = torch.sum(torch.square(g.to(torch.float32)))
+            axes = tuple(a for a in spec if a is not None)
+            return C.all_reduce(s, mesh.group(axes)) if axes else s
+
+        gnorm = torch.sqrt(torch.sum(torch.stack(tree_leaves(map_specs(sq, p_held, grads)))))
+        scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        grads = tree_map(lambda g: g * scale, grads)
+
+        if "opt" not in specs:
+            specs["opt"] = held_state_specs(cfg, mesh, run, opt, params)["opt"]
+        o_specs = specs["opt"]
+        m_specs = spec_leaves(o_specs["m"])
+        if "shampoo" in state["opt"]:
+            # whole gradients and parameters in; each update comes back as
+            # the block of its leaf's momentum spec (Adam: m's)
+            g_full = map_specs(lambda s, x: _reshard(x, mesh, s, ()), p_held, grads)
+            p_full = map_specs(lambda s, x: _reshard(x, mesh, s, ()), p_held, params)
+            updates, opt_state = opt.update(g_full, state["opt"], p_full, mesh=mesh,
+                                            specs=o_specs)
+            del grads, g_full     # before the parameters' all-gathers
+            s_leaves = tree_flatten(params)[1].flatten_up_to(o_specs["shampoo"])
+            u_specs = [s["mom"] if isinstance(s, dict) else m for s, m in zip(s_leaves, m_specs)]
+            p_blocks = [local_block(p, mesh, s) for p, s in zip(tree_leaves(p_full), u_specs)]
+        else:
+            g_blk = map_specs(lambda s, h, x: _reshard(x, mesh, h, s), o_specs["m"], p_held,
+                              grads)
+            p_blk = map_specs(lambda s, h, x: _reshard(x, mesh, h, s), o_specs["m"], p_held,
+                              params)
+            updates, opt_state = opt.update(g_blk, state["opt"], p_blk)
+            del grads, g_blk      # before the parameters' all-gathers
+            u_specs, p_blocks = m_specs, tree_leaves(p_blk)
+        u_leaves, treedef = tree_flatten(updates)
+        new = [_reshard((p + u).to(p.dtype), mesh, s, h)
+               for p, u, s, h in zip(p_blocks, u_leaves, u_specs, spec_leaves(p_held))]
+        metrics = dict(metrics, grad_norm=gnorm)
+        return {"params": treedef.unflatten(new), "opt": opt_state,
+                "step": state["step"] + 1}, metrics
+
+    return train_step

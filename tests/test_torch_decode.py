@@ -152,8 +152,39 @@ def test_init_cache_equals_the_reference(arch, scan):
     got = tT.init_cache(tcfg, 3, 20, dtype=torch.float32, device="cpu")
     _leaves_close(got, want, 1, "init_cache")
     assert all(not x.any() for _, x in tree_flatten_with_path(got)[0])
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tT.init_cache(tcfg, 3, 20, mesh=object(), device="meta")
+    # a shape-only mesh gives the global cache; a rank's mesh whose model
+    # axis does not divide a cache length raises (the reference keeps such
+    # a cache whole on every rank)
+    from repro_torch.launch.mesh import AbstractMesh
+
+    got = tT.init_cache(tcfg, 4, 20, mesh=AbstractMesh((2, 2), ("data", "model")),
+                        dtype=torch.float32, device="meta")
+    want = jax.eval_shape(lambda: jT.init_cache(jcfg, 4, 20, dtype=jnp.float32))
+    assert [tuple(x.shape) for _, x in tree_flatten_with_path(got)[0]] == [
+        x.shape for x in jax.tree.leaves(want)]
+    if tcfg.family != "ssm":
+        with pytest.raises(ValueError, match="does not divide a cache length"):
+            tT.init_cache(tcfg, 4, 21, mesh=_RankView((2, 2)), device="meta")
+    with pytest.raises(ValueError, match="do not divide the batch"):
+        tT.init_cache(tcfg, 3, 20, mesh=_RankView((2, 2)), device="meta")
+
+
+class _RankView:
+    """Rank 0's view of a (data, model) mesh, with no process group: enough
+    for the checks that raise before any collective."""
+
+    def __init__(self, shape):
+        self.axis_names = ("data", "model")
+        self.shape = dict(zip(self.axis_names, shape))
+        self.rank = 0
+        self.coords = {"data": 0, "model": 0}
+
+    def axis_size(self, axes):
+        axes = (axes,) if isinstance(axes, str) else axes
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def axis_index(self, axes):
+        return 0
 
 
 @pytest.mark.parametrize("arch,kw", [
@@ -318,5 +349,8 @@ def test_serve_cli_matches_the_reference(tmp_path):
 
 
 def test_serve_cli_mesh_raises():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tserve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--mesh", "2x1"])
+    """A data axis that does not divide the slots raises before any rank
+    starts (``tests/test_torch_mesh.py`` serves on a mesh)."""
+    with pytest.raises(ValueError, match="does not divide the 4 slots"):
+        tserve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--mesh", "3x1",
+                     "--batch", "4"])

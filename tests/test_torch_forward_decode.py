@@ -1,7 +1,8 @@
 """``forward_train`` and ``forward_decode`` of the port's models at all ten
 SMOKE configs — the dense, MoE, SSM and hybrid families, text, audio and
-vision inputs — against the reference on the CPU, and the mesh and
-sequence-parallel options that wait for the sharding slice.
+vision inputs — against the reference on the CPU, and the
+sequence-parallel option off a mesh (the mesh paths themselves are
+``tests/test_torch_mesh.py``'s).
 
 The reference's weights are carried into the port with
 ``convert.params_from_reference``; each reference call is jitted inside a
@@ -112,14 +113,24 @@ def test_forward_and_decode_equal_the_reference(arch):
 
 
 def test_mesh_and_sp_decode_raise():
+    """Without a mesh of several ``model`` ranks (none, or a shape-only
+    mesh of one) ``sp_decode`` changes nothing, as in the reference: the
+    step is the plain decode, bitwise."""
+    from repro_torch.launch.mesh import AbstractMesh
+
     tcfg = treg.get_smoke("qwen1.5-0.5b")
-    p = tT.init(None, tcfg, device="meta")
-    cache = tT.init_cache(tcfg, 1, 4, device="meta")
-    toks = torch.zeros((1, 1), dtype=torch.int32, device="meta")
-    pos = torch.zeros((1,), dtype=torch.int32, device="meta")
-    for kw in ({"sp_decode": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            tT.forward_decode(p, toks, cache, pos, tcfg, **kw)
+    p = tT.init(torch.Generator().manual_seed(3), tcfg, device="cpu")
+    toks = torch.tensor([[5], [9]], dtype=torch.int32)
+    pos = torch.tensor([2, 3], dtype=torch.int32)
+    outs = []
+    for kw in ({}, {"sp_decode": True},
+               {"sp_decode": True, "mesh": AbstractMesh((1, 1), ("data", "model"))}):
+        cache = tT.init_cache(tcfg, 2, 4, dtype=torch.float32, device="cpu")
+        lg, cache = tT.forward_decode(p, toks, cache, pos, tcfg, compute_dtype=torch.float32,
+                                      **kw)
+        outs.append((lg, cache["layers"]["k"]))
+    for lg, k in outs[1:]:
+        assert torch.equal(lg, outs[0][0]) and torch.equal(k, outs[0][1])
 
 
 def test_hybrid_windows_are_made_once_per_cache_length():

@@ -134,15 +134,27 @@ def test_init_shapes_equal_the_reference(arch, which, scan):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-moe-16b", "hymba-1.5b",
                                   "musicgen-medium", "llava-next-mistral-7b"])
 def test_families_of_later_slices_raise(arch):
-    """Every family runs on one device now; what still waits for a later
-    slice is a mesh (the sharding slice), for every family."""
+    """Every family takes a mesh now (the sharding slice): ``init`` on a
+    mesh pads the vocab and the experts as the reference's does (same key
+    paths and shapes), and ``forward_train`` on a shape-only mesh of one
+    rank gives the padded vocab's logits."""
+    from repro_torch.launch.mesh import AbstractMesh
+
     cfg = treg.get_smoke(arch)
-    p = tT.init(None, cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tT.init(None, cfg, object(), device="meta")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tT.forward_train(p, {"tokens": torch.zeros((1, 4), dtype=torch.int32, device="meta")},
-                         cfg, object())
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    jcfg = jreg.get_smoke(arch)
+    want = jax.eval_shape(lambda k: jT.init(k, jcfg, mesh), jax.random.key(0))
+    got = tT.init(None, cfg, mesh, device="meta")
+    assert [(k, tuple(x.shape)) for k, x in tree_flatten_with_path(got)[0]] == [
+        (jax.tree_util.keystr(k), x.shape)
+        for k, x in jax.tree_util.tree_flatten_with_path(want)[0]]
+    assert tT.padded_vocab(cfg, mesh) == -(-cfg.vocab_size // 512) * 512
+    one = AbstractMesh((1, 1), ("data", "model"))
+    p = tT.init(None, cfg, one, device="meta")
+    toks = torch.zeros((1, 4, cfg.num_codebooks) if cfg.num_codebooks > 1 else (1, 4),
+                       dtype=torch.int32, device="meta")
+    logits, _ = tT.forward_train(p, {"tokens": toks}, cfg, one)
+    assert logits.shape[-1] == tT.padded_vocab(cfg, one)
 
 
 @pytest.mark.parametrize("arch", sorted(jreg.ARCH_MODULES))

@@ -142,17 +142,24 @@ def test_moe_bfloat16_and_repeatable():
 
 
 def test_moe_mesh_raises():
-    _, tcfg = _cfgs("deepseek-moe-16b")
+    """A mesh pads the experts to its model axis, as the reference's
+    ``init_moe`` does (a shape-only mesh: every expert, whole); a mesh of
+    one rank runs the local path, bitwise. The meshed paths are
+    ``tests/test_torch_mesh.py``'s."""
+    from repro_torch.launch.mesh import AbstractMesh
 
-    class _Mesh:
-        shape = {"data": 1, "model": 2}
-
-    p = TM.init_moe(None, tcfg, device="meta")
-    for mesh in (_Mesh(), type("M", (), {"shape": {"model": 1}})()):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            TM.moe_layer(p, torch.zeros((1, 2, tcfg.d_model), device="meta"), tcfg, mesh)
-    assert TM.moe_layer(p, torch.zeros((1, 2, tcfg.d_model), device="meta"),
-                        tcfg)[0].shape == (1, 2, 64)
+    jcfg, tcfg = _cfgs("deepseek-moe-16b")
+    for m in (1, 2, 4, 5):
+        mesh = AbstractMesh((1, m), ("data", "model"))
+        want = jax.eval_shape(lambda k: JM.init_moe(k, jcfg, mesh), jax.random.key(0))
+        got = TM.init_moe(None, tcfg, mesh, device="meta")
+        assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape
+                                                                for k, v in want.items()}
+    p = TM.init_moe(torch.Generator().manual_seed(1), tcfg, device="cpu")
+    x = torch.randn((1, 2, tcfg.d_model), generator=torch.Generator().manual_seed(2))
+    one = AbstractMesh((1, 1), ("data", "model"))
+    a, b = TM.moe_layer(p, x, tcfg), TM.moe_layer(p, x, tcfg, one)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[0].shape == (1, 2, 64)
 
 
 # --- SSM ---------------------------------------------------------------------
@@ -298,6 +305,13 @@ def test_init_ssm_and_state_shapes():
     jh, jc = JS.init_ssm_state(jcfg, 3)
     th, tc = TS.init_ssm_state(tcfg, 3, device="cpu")
     assert (tuple(th.shape), tuple(tc.shape)) == (jh.shape, jc.shape)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        TS.ssm_train(got, torch.zeros((1, 2, tcfg.d_model)), tcfg,
-                     mesh=type("M", (), {"shape": {"model": 4}})())
+    # the split over the model axis: heads where they divide, else P, else
+    # none; a mesh of one rank is the unsplit scan, bitwise
+    from repro_torch.launch.mesh import AbstractMesh
+
+    assert (tcfg.ssm.num_heads(tcfg.d_model), tcfg.ssm.head_dim) == (8, 16)
+    for m, want_split in ((1, None), (2, (1, 2)), (8, (1, 8)), (16, (2, 16)), (24, None)):
+        assert TS._split(tcfg, AbstractMesh((1, m), ("data", "model"))) == want_split, m
+    x = torch.randn((1, 5, tcfg.d_model), generator=torch.Generator().manual_seed(4))
+    assert torch.equal(TS.ssm_train(got, x, tcfg),
+                       TS.ssm_train(got, x, tcfg, mesh=AbstractMesh((1, 1), ("data", "model"))))

@@ -344,20 +344,43 @@ def test_cli_crash_and_restart_resumes_bitwise(tmp_path, monkeypatch, optimizer)
 
 
 def test_cli_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tlaunch.main(_cli(tmp_path, "--mesh", "2x1"))
+    """A data axis that does not divide the batch raises before any rank
+    starts (the reference would shard the sequence); ``tests/
+    test_torch_mesh.py`` trains on a mesh."""
+    args = _cli(tmp_path, "--mesh", "3x1")
+    assert "--batch" in args and int(args[args.index("--batch") + 1]) % 3
+    with pytest.raises(ValueError, match="does not divide --batch"):
+        tlaunch.main(args)
+
+
+def test_cli_layers_cuts_the_depth(tmp_path):
+    """``--layers 1`` trains the config's first layer at full width: each
+    layer stack of the checkpoint holds one layer where the uncut run's
+    holds the config's depth, and every other shape is the uncut run's."""
+    tlaunch.main(_cli(tmp_path / "cut", "--steps", "2", "--layers", "1"))
+    tlaunch.main(_cli(tmp_path / "full", "--steps", "2"))
+    shapes = {}
+    for d in ("cut", "full"):
+        with np.load(os.path.join(tmp_path, d, "ckpt", "step_000000002", "shard_00000.npz")) as z:
+            shapes[d] = {k: z[k].shape for k in z.files}
+    n = tsmoke("qwen1.5-0.5b").num_layers
+    assert n > 1 and shapes["cut"].keys() == shapes["full"].keys()
+    cut = [k for k in shapes["full"] if shapes["cut"][k] != shapes["full"][k]]
+    assert cut
+    for k in cut:
+        assert shapes["full"][k][0] == n and shapes["cut"][k] == (1, *shapes["full"][k][1:]), k
 
 
 def test_cli_flags_cover_the_reference():
     """Every flag of the reference's trainer, with its default (the output
     directory's default is under the temporary directory), plus
-    ``--device``."""
+    ``--device`` and ``--layers`` (off by default)."""
     from repro.launch import train as jlaunch
 
     want = {a.dest: a.default for a in jlaunch.build_argparser()._actions}
     got = {a.dest: a.default for a in tlaunch.build_argparser()._actions}
-    assert set(got) == set(want) | {"device"}
-    assert got["device"] == "cuda"
+    assert set(got) == set(want) | {"device", "layers"}
+    assert got["device"] == "cuda" and got["layers"] is None
     for k in set(want) - {"out", "help"}:
         assert got[k] == want[k], k
     assert dataclasses.asdict(tbase.OptimizerConfig()) == dataclasses.asdict(

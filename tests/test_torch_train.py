@@ -189,7 +189,62 @@ def test_train_step_decreases_loss():
     assert int(state["step"]) == 25
 
 
+def test_make_train_step_takes_an_optimizer():
+    """``make_train_step(optimizer=)`` (for an optimizer ``OptimizerConfig``
+    cannot express: Shampoo with p = 2 and a ridge) returns that optimizer
+    and its step is, bitwise, the gradients clipped then that optimizer's
+    update; two steps, the second a p = 2 refresh."""
+    from repro_torch.optim import apply_updates
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.optim.shampoo import shampoo
+
+    arch = "qwen1.5-0.5b"
+    _, trun = _runs(arch, "shampoo")
+    o = shampoo(warmup_cosine(1e-3, 1, 50), block=16, update_every=2, precond_p=2,
+                precond_ridge=1e-4)
+    step_fn, opt = tts.make_train_step(tsmoke(arch), None, trun, optimizer=o)
+    assert opt is o
+    p0 = tT.init(torch.Generator().manual_seed(5), tsmoke(arch), device="cpu")
+    state = {"params": p0, "opt": o.init(p0), "step": torch.zeros((), dtype=torch.int32)}
+    params, opt_state = p0, o.init(p0)
+    loss_fn = tts.make_loss_fn(tsmoke(arch), None, trun)
+    for i in range(2):
+        batch = {k: torch.as_tensor(v) for k, v in _batch(arch, i).items()}
+        state, m = step_fn(state, batch)
+        _, g = tts.loss_and_grads(loss_fn, params, batch)
+        g, gnorm = tts.clip_by_global_norm(g, 1.0)
+        u, opt_state = o.update(g, opt_state, params)
+        params = apply_updates(params, u)
+        assert float(m["grad_norm"]) == float(gnorm)
+    for (k, a), (_, b) in zip(tree_flatten_with_path(state["params"])[0],
+                              tree_flatten_with_path(params)[0]):
+        assert torch.equal(a, b), k
+
+
 def test_a_mesh_is_not_ported_yet():
+    """The meshed step's departure: a global batch the data axes do not
+    divide raises ``ValueError`` before any collective (the reference
+    shards the sequence instead). The meshed step itself is
+    ``tests/test_torch_mesh.py``'s."""
     _, trun = _runs("qwen1.5-0.5b", "adamw")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tts.make_train_step(tsmoke("qwen1.5-0.5b"), object(), trun)
+
+    class RankView:          # rank 0 of a (data=2, model=1) mesh, no process group
+        axis_names = ("data", "model")
+        shape = {"data": 2, "model": 1}
+        rank = 0
+
+        def axis_size(self, axes):
+            axes = (axes,) if isinstance(axes, str) else axes
+            return int(np.prod([self.shape[a] for a in axes]))
+
+        def axis_index(self, axes):
+            return 0
+
+        def group(self, axes):
+            return None
+
+    step, _ = tts.make_train_step(tsmoke("qwen1.5-0.5b"), RankView(), trun)
+    batch = {k: torch.as_tensor(v) for k, v in _batch("qwen1.5-0.5b", 0).items()}
+    odd = {k: v[:3] for k, v in batch.items()}
+    with pytest.raises(ValueError, match="do not divide the batch"):
+        step({"params": None}, odd)
