@@ -238,6 +238,25 @@ phase fails):
              largest logit of one rank's float32 ``forward_train`` over the
              same tokens. Step ms per rank and the
              collective bytes by kind are logged.
+17. dryrun — (last) the production dry-run (``repro_torch.launch.dryrun``)
+             and its abstraction held against real runs: (a) ``python -m
+             repro_torch.launch.dryrun --arch gram --shape 65536x16384
+             --mesh single`` and ``--arch qwen1.5-0.5b --shape decode_32k
+             --mesh single --no-analysis``, subprocesses on fake CUDA
+             tensors over the (16, 16) fake group, each exiting 0 with
+             status ok, qwen's peak under 80e9 B a rank; (b) qwen1.5-0.5b's
+             single-rank train step at phase train's shape (remat
+             ``dots``, AdamW) traced on fake CUDA tensors, then run once on
+             the card under the same counters: equal flops, kernel nodes
+             equal to ``ops.launches``, and ``max_memory_allocated`` over
+             the step (arguments resident, less what was held before they
+             were made) within ``DRYRUN_PEAK_BAND`` of the predicted peak;
+             (c) ``ata_tile_parallel`` of a (16384, 8192) operand on mesh
+             (2, 2), rows over ``data``: each rank traced over a fake (2, 2)
+             group, then four gloo ranks on card 0 (``launch.mesh.spawn``)
+             each run once: equal flops and collective bytes by kind,
+             kernel nodes equal to launches (gemm_tn: every tile is a
+             ``strassen_tn`` product), the peak in the same band.
 
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
@@ -247,7 +266,8 @@ calls are planned, and those phases measure the dispatches they name.
 build and phase 12 alone, ``python3 chip_smoke.py check`` the build and
 phase 13 alone, ``python3 chip_smoke.py train`` the build and phase 14
 alone, ``python3 chip_smoke.py decode`` the build and phase 15 alone and
-``python3 chip_smoke.py mesh`` the build and phase 16 alone; none of them
+``python3 chip_smoke.py mesh`` the build and phase 16 alone and
+``python3 chip_smoke.py dryrun`` the build and phase 17 alone; none of them
 prints the final line.
 
 Inputs are made with numpy from fixed seeds. Times are medians of CUDA
@@ -4014,6 +4034,260 @@ def phase_check(checks, ops):
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the dry-run on the card
+# ---------------------------------------------------------------------------
+
+# (c)'s gram and its mesh: ata_tile_parallel of a (16384, 8192) operand on
+# (data 2, model 2), rows over data
+DRYRUN_GRAM = (16384, 8192)
+DRYRUN_MESH = (2, 2)
+# the measured peak over the predicted one, both ends included
+DRYRUN_PEAK_BAND = (0.90, 1.10)
+
+
+def _dryrun_gram_fn(mesh):
+    """(c)'s call on one rank: the tile schedule with the static cutoff and
+    the unrolled leaves (every tile, diagonal ones too, is a ``strassen_tn``
+    product: gemm_tn launches, no syrk)."""
+    import functools
+
+    from repro_torch.core.distributed import ata_tile_parallel
+
+    return functools.partial(ata_tile_parallel, mesh=mesh, task_axis="model", row_axis="data",
+                             n_base=DEFAULT_N_BASE, leaf_dispatch="unrolled")
+
+
+def _dryrun_peak(run):
+    """(``run()``, the device's peak allocated bytes over it); the caller
+    subtracts what it held before it made the arguments."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def _dryrun_gram_rank(rank: int, world: int) -> dict:
+    """One gloo rank of (c): its row block of the seeded operand, one real
+    call under the dry-run's counters; returns the artifact, the
+    allocator's peak above what the rank held before it made its block,
+    and the kernels' launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(DRYRUN_MESH, ("data", "model"), backend="gloo", device=dev)
+    base = torch.cuda.memory_allocated(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    full = torch.randn(DRYRUN_GRAM, generator=g, device=dev)
+    a = mesh.local_block(full, ("data", None)).clone()
+    del full
+    fn = _dryrun_gram_fn(mesh)
+    ops.reset_launches()
+    art, peak = _dryrun_peak(lambda: dryrun._artifact(fn, a, device=dev))
+    return dict(rank=rank, art=art, peak=peak - base, launches=dict(ops.launches))
+
+
+def _dryrun_band(label, predicted, measured):
+    ratio = measured / predicted
+    ok = DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]
+    log(f"  {label}: peak predicted {predicted} B, measured {measured} B "
+        f"(max_memory_allocated), ratio {ratio:.4f} (band {DRYRUN_PEAK_BAND}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dryrun {label}: the measured peak is outside the band")
+    return ratio
+
+
+def _dryrun_equal(label, what, predicted, measured):
+    ok = predicted == measured
+    log(f"  {label}: {what} predicted {predicted}, measured {measured} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dryrun {label}: {what} differ")
+
+
+def phase_dryrun(ops):
+    """Phase 17: the production dry-run (``repro_torch.launch.dryrun``) and
+    its abstraction held against real runs on the card (see the module
+    docstring). Returns the kernels' launches of (b)'s and (c)'s real runs
+    (summed over (c)'s ranks) and the results."""
+    import tempfile
+    import time
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, spawn
+    from repro_torch.models.transformer import init
+    from repro_torch.optim._tree import tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    log("phase dryrun")
+    res = {}
+    path_launches = {k: 0 for k in ops.launches}
+
+    # (a) the CLI on the production mesh, fake CUDA tensors, in two
+    # subprocesses that run while (b) and (c) do
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cells = {"gram": ["--arch", "gram", "--shape", "65536x16384", "--mesh", "single"],
+             "qwen_decode": ["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--mesh",
+                             "single", "--no-analysis"]}
+    procs = {k: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                                  "--out", os.path.join(out_dir, k)],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, argv in cells.items()}
+    try:
+        # (b) qwen1.5-0.5b's single-rank train step at phase train's shape:
+        # traced on fake CUDA tensors, then run once for real
+        shape = ShapeConfig("dryrun_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        run = RunConfig(model=CONFIG, shape=shape, remat="dots")
+        step_fn, opt = make_train_step(CONFIG, None, run)
+        with FakeTensorMode():
+            params = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="cuda"),
+                              init(None, CONFIG, device="meta"))
+            state = {"params": params, "opt": opt.init(params),
+                     "step": torch.zeros((), dtype=torch.int32)}
+            batch = {k: torch.zeros(x.shape, dtype=x.dtype, device="cuda")
+                     for k, x in input_specs(CONFIG, shape, "train").items()}
+            fake = dryrun._artifact(step_fn, state, batch, device="cuda")
+            del params, state, batch
+        log(f"  (b) {CONFIG.name} train step {TRAIN_BATCH} x {TRAIN_SEQ}, remat dots, "
+            f"AdamW, traced on fake CUDA tensors in {fake['trace_s']} s: "
+            + json.dumps({k: fake[k] for k in ("memory", "cost", "kernels")}))
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = init(torch.Generator(device="cuda").manual_seed(SEED + 17), CONFIG,
+                      device="cuda")
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        data = SyntheticLM(CONFIG, shape, seed=SEED + 17)
+        try:
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
+        finally:
+            data.close()
+        del params
+        kept = {}
+
+        def step_kept(st, b):
+            kept["out"] = step_fn(st, b)
+            return kept["out"]
+
+        ops.reset_launches()
+        real, peak = _dryrun_peak(lambda: dryrun._artifact(step_kept, state, batch,
+                                                           device="cuda"))
+        peak -= base
+        loss = float(kept.pop("out")[1]["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"dryrun (b): the real step's loss is {loss}")
+        launches = dict(ops.launches)
+        for k, v in launches.items():
+            path_launches[k] += v
+        log(f"  (b) the same step run once on the card in {real['trace_s']} s, loss {loss!r}: "
+            + json.dumps({k: real[k] for k in ("memory", "cost", "kernels")}))
+        _dryrun_equal("(b)", "flops", fake["cost"]["flops"], real["cost"]["flops"])
+        _dryrun_equal("(b)", "kernel nodes / launches", fake["kernels"],
+                      {k: v for k, v in launches.items() if v})
+        res["train_step"] = dict(
+            trace_s=fake["trace_s"], run_s=real["trace_s"], flops=fake["cost"]["flops"],
+            kernels=fake["kernels"], predicted_peak=fake["memory"]["peak_bytes_est"],
+            measured_peak=peak, tracked_peak_real=real["memory"]["peak_bytes_est"],
+            argument_bytes=fake["memory"]["argument_bytes"],
+            ratio=_dryrun_band("(b)", fake["memory"]["peak_bytes_est"], peak))
+        del state, batch
+        torch.cuda.empty_cache()
+
+        # (c) ata_tile_parallel on (2, 2): each rank traced over a fake group
+        # here, then the four ranks run for real (gloo, all on card 0)
+        m, n = DRYRUN_GRAM
+        p_data, _ = DRYRUN_MESH
+        fakes = []
+        for r in range(math.prod(DRYRUN_MESH)):
+            mesh = fake_mesh(DRYRUN_MESH, ("data", "model"), rank=r, device="cuda")
+            try:
+                with FakeTensorMode():
+                    a = torch.empty((m // p_data, n), device="cuda")
+                    fakes.append(dryrun._artifact(_dryrun_gram_fn(mesh), a, device="cuda"))
+                    del a
+            finally:
+                torch.distributed.destroy_process_group()
+        t0 = time.perf_counter()
+        ranks = spawn(_dryrun_gram_rank, math.prod(DRYRUN_MESH), backend="gloo",
+                      timeout_s=300.0)
+        log(f"  (c) ata_tile_parallel {m}x{n} on {DRYRUN_MESH} (rows over data), four gloo "
+            f"ranks on card 0: spawn and run {time.perf_counter() - t0:.1f} s")
+        res["gram"] = []
+        for f, rk in zip(fakes, ranks):
+            r = rk["rank"]
+            log(f"  (c) rank {r}: traced in {f['trace_s']} s, ran in {rk['art']['trace_s']} s; "
+                f"predicted {json.dumps({k: f[k] for k in ('memory', 'cost', 'collectives')})}")
+            _dryrun_equal(f"(c) rank {r}", "flops", f["cost"]["flops"],
+                          rk["art"]["cost"]["flops"])
+            _dryrun_equal(f"(c) rank {r}", "collective bytes", f["collectives"],
+                          rk["art"]["collectives"])
+            got = {k: v for k, v in rk["launches"].items() if v}
+            _dryrun_equal(f"(c) rank {r}", "kernel nodes / launches", f["kernels"], got)
+            if "gemm_tn" not in got:
+                raise AssertionError(f"dryrun (c) rank {r}: launched {got}, no gemm_tn")
+            for k, v in got.items():
+                path_launches[k] += v
+            res["gram"].append(dict(
+                rank=r, trace_s=f["trace_s"], run_s=rk["art"]["trace_s"],
+                flops=f["cost"]["flops"], collectives=f["collectives"], kernels=f["kernels"],
+                predicted_peak=f["memory"]["peak_bytes_est"], measured_peak=rk["peak"],
+                ratio=_dryrun_band(f"(c) rank {r}", f["memory"]["peak_bytes_est"],
+                                   rk["peak"])))
+
+        # (a) the two CLI cells
+        for k, p in procs.items():
+            out, _ = p.communicate(timeout=max(10.0, 100.0 - (time.perf_counter() - t_phase)))
+            if p.returncode != 0:
+                raise AssertionError(f"dryrun (a) {k}: exit {p.returncode}\n{out[-3000:]}")
+            (fname,) = os.listdir(os.path.join(out_dir, k))
+            with open(os.path.join(out_dir, k, fname)) as f:
+                rec = json.load(f)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun (a) {k}: status {rec['status']}")
+            summary = {label: dict(trace_s=a["trace_s"],
+                                   peak_bytes=a["memory"]["peak_bytes_est"],
+                                   flops=a["cost"]["flops"], collectives=a["collectives"],
+                                   kernels=a["kernels"])
+                       for label, a in rec["artifacts"].items()}
+            log(f"  (a) python -m repro_torch.launch.dryrun {' '.join(cells[k])}: exit 0, "
+                f"status ok, {rec['wall_s']} s: {json.dumps(summary)}")
+            res[k] = dict(wall_s=rec["wall_s"], artifacts=summary)
+        peak = res["qwen_decode"]["artifacts"]["main"]["peak_bytes"]
+        ok = 0 < peak < 80e9
+        log(f"  (a) qwen1.5-0.5b decode_32k on (16, 16): peak {peak} B a rank, under 80e9 B "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("dryrun (a): the decode cell's peak does not fit a card")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase dryrun took {res['phase_s']:.1f} s; real-run launches {path_launches}")
+    return path_launches, res
+
+
 def main(argv) -> int:
     import time
 
@@ -4021,9 +4295,10 @@ def main(argv) -> int:
 
     t_start = time.perf_counter()
 
-    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"], ["mesh"]):
+    if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"], ["mesh"],
+                    ["dryrun"]):
         print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
-              "'serve', 'check', 'train', 'decode' and 'mesh'", file=sys.stderr)
+              "'serve', 'check', 'train', 'decode', 'mesh' and 'dryrun'", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4075,6 +4350,10 @@ def main(argv) -> int:
         _, mesh_res = phase_mesh(ops)
         log("end_to_end " + json.dumps({"mesh": mesh_res}, default=str))
         return 0
+    if argv == ["dryrun"]:
+        _, dryrun_res = phase_dryrun(ops)
+        log("end_to_end " + json.dumps({"dryrun": dryrun_res}, default=str))
+        return 0
     plain = {"gemm_tn": gemm_tn_plain, "syrk": syrk_plain, "potrf": potrf_plain,
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
@@ -4113,6 +4392,8 @@ def main(argv) -> int:
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
     torch.cuda.empty_cache()
     check_res = phase_check(checks, ops)
+    torch.cuda.empty_cache()
+    dryrun_counts, dryrun_res = phase_dryrun(ops)
     log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
@@ -4120,7 +4401,7 @@ def main(argv) -> int:
                                     "decode": decode_res,
                                     "distributed": dist_res, "mesh": mesh_res,
                                     "serve": serve_res,
-                                    "check": check_res}, default=str))
+                                    "check": check_res, "dryrun": dryrun_res}, default=str))
 
     # name -> (source, replaced TPU kernel, launches on the path that runs it:
     # lstsq for the first four, ata 8192² fused for the last two); beside
@@ -4130,8 +4411,8 @@ def main(argv) -> int:
     # of phase distributed, of phase mesh (summed over its ranks), of phase
     # serve's warm (b) (eager runs and
     # captures), the launches (b)'s workload replayed (each bucket's replays
-    # times its capture's launches), and the launches one flush of serve's
-    # largest bucket replays
+    # times its capture's launches), the launches one flush of serve's
+    # largest bucket replays, and those of phase dryrun's real runs
     table = {
         "gemm_tn": ("gemm_tn.cu", "src/repro/kernels/gemm_tn.py:78", counts),
         "syrk": ("syrk.cu", "src/repro/kernels/syrk.py:136", counts),
@@ -4154,6 +4435,7 @@ def main(argv) -> int:
             "serve_workload_launches": serve_workload[name],
             "serve_launches": serve_flush.get(name, 0),
             "lstsq_packed512_launches": check_res["lstsq_packed512"]["launches"][name],
+            "dryrun_launches": dryrun_counts[name],
             **checks.rows[name],
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,11 @@
 """Analytic models of the port (port of ``repro.analysis``).
 
-The write-traffic models that the planner's cost model
-(``repro_torch.tune.cost``) prices (``roofline``) and the report-only perf
-diff (``perf_diff``); the rest of the reference's ``analysis`` package
-(the dry-run roofline, ``fill_experiments``) waits for its slice.
+The dry-run roofline on an H100 and the write-traffic models that the
+planner's cost model (``repro_torch.tune.cost``) prices (``roofline``),
+the report-only perf diff (``perf_diff``) and the tables of the dry-run
+sweep (``fill_experiments``). The reference's ``hlo`` module reads XLA's
+HLO text and has no counterpart; its ``COLLECTIVE_KINDS`` and
+``collective_seconds`` live in ``roofline``.
 """
 
 from repro_torch.analysis import roofline

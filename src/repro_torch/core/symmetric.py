@@ -77,6 +77,45 @@ def write_packed_region(buf, arr, r0, c0, bn):
     return buf
 
 
+def _retile(tiles, nb: int, bn: int, nb_pack: int):
+    """The packed ``(..., T, bn, bn)`` storage over an ``nb_pack``-block grid
+    of a tri-ordered stripe tile stack ``(..., S, w, w)`` on an ``nb``-stripe
+    grid, each diagonal stripe tile symmetrized (:func:`sym_tile`) first,
+    blocks strictly above the diagonal left out and everything past the
+    packed grid's ``nb_pack·bn`` rows and columns cut: what writing each
+    tile with :func:`write_packed_region` gives, bitwise (the same values
+    copied), one stripe row at a time. A stripe row is one row panel of
+    its tiles, cut to block height and copied into each block row it
+    covers at once, so the copies scale with the stripe and block rows,
+    not with the tiles times the blocks each spans."""
+    w = tiles.shape[-1]
+    batch = tiles.shape[:-3]
+    n_pad = nb_pack * bn
+    buf = torch.zeros((*batch, nb_pack * (nb_pack + 1) // 2, bn, bn), dtype=tiles.dtype,
+                      device=tiles.device)
+    for i in range(nb):
+        r0 = i * w
+        if r0 >= n_pad:
+            break
+        h, cols = min(w, n_pad - r0), min((i + 1) * w, n_pad)
+        t0 = i * (i + 1) // 2
+        # stripe row i: tiles (i, 0..i) side by side, the diagonal one symmetrized
+        left = tiles[..., t0:t0 + i, :h, :].movedim(-3, -2).reshape(*batch, h, i * w)
+        panel = torch.cat([left, sym_tile(tiles[..., t0 + i, :, :])[..., :h, :]], dim=-1)
+        top = r0 % bn
+        kr, kc = -(-(top + h) // bn), -(-cols // bn)
+        panel = torch.nn.functional.pad(panel[..., :cols], (0, kc * bn - cols, top,
+                                                            kr * bn - top - h))
+        blocks = panel.reshape(*batch, kr, bn, kc, bn)
+        for r in range(kr):
+            bi = r0 // bn + r
+            lo, hi = max(top - r * bn, 0), min(top + h - r * bn, bn)
+            nk = min(bi + 1, kc)   # blocks (bi, bj ≤ bi) the panel reaches
+            ta = bi * (bi + 1) // 2
+            buf[..., ta:ta + nk, lo:hi, :] = blocks[..., r, lo:hi, :nk, :].movedim(-2, -3)
+    return buf
+
+
 def diag_block_indices(nb: int):
     """Packed indices of the ``nb`` diagonal blocks: ``t = i(i+1)/2 + i``."""
     return np.array([i * (i + 1) // 2 + i for i in range(nb)], np.int64)
@@ -195,8 +234,9 @@ class SymmetricMatrix:
         tile stack over an ``nb``-stripe grid of width ``w``.
 
         Aligned (``w`` equals the packed block size): the first ``T`` stack
-        entries are the packed storage. Misaligned: each stripe tile is
-        re-tiled onto the packed grid with :func:`write_packed_region`.
+        entries are the packed storage. Misaligned: the stripe tiles are
+        re-tiled onto the packed grid (:func:`_retile`, bitwise what
+        :func:`write_packed_region` of each tile gives).
         Diagonal blocks are symmetrized either way, unless the aligned
         producer says they already are (``presymmetrized``).
         """
@@ -220,22 +260,7 @@ class SymmetricMatrix:
         if w == bn:
             packed = cls(tiles[..., :t_pack, :, :], n, bn)
             return packed if presymmetrized else packed._symmetrize_diag()
-        n_pad = nb_pack * bn
-        batch = tiles.shape[:-3]
-        buf = torch.zeros((*batch, t_pack, bn, bn), dtype=tiles.dtype,
-                          device=tiles.device)
-        i_idx, j_idx = tri_block_indices(nb)
-        for t in range(t_src):
-            i, j = int(i_idx[t]), int(j_idx[t])
-            r0, c0 = i * w, j * w
-            if r0 >= n_pad or c0 >= n_pad:
-                continue
-            tile = tiles[..., t, :, :]
-            if i == j:
-                tile = sym_tile(tile)
-            h, wd = min(w, n_pad - r0), min(w, n_pad - c0)
-            write_packed_region(buf, tile[..., :h, :wd], r0, c0, bn)
-        return cls(buf, n, bn)._symmetrize_diag()
+        return cls(_retile(tiles, nb, bn, nb_pack), n, bn)._symmetrize_diag()
 
     @classmethod
     def from_dense(cls, dense, bn: int):

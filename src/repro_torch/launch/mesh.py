@@ -20,8 +20,16 @@ view of the operands, and a :class:`Mesh` tells it where it sits.
 
 :func:`spawn` starts the ranks of one run on this host (the ``spawn``
 start method, a ``file://`` rendezvous in a temporary directory) and joins
-them under a time limit. The reference's ``make_production_mesh`` (TPU
-pods) waits for ``launch/dryrun.py``.
+them under a time limit.
+
+:func:`make_production_mesh` gives one rank's view of the production
+meshes, :data:`SINGLE_POD` and :data:`MULTI_POD`, over torch's fake process
+group (:func:`fake_mesh`): no other process runs, and the collectives
+return at once and move nothing, but the port's collective wrappers still
+count the bytes each would move. ``launch/dryrun.py`` traces a rank's
+program on fake tensors over it. Departure: the reference's mesh holds
+every device of the pod; the port's is one rank's, so it takes the
+``rank`` and the ``device`` of that rank.
 """
 
 from __future__ import annotations
@@ -40,9 +48,15 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "AbstractMesh", "make_mesh", "merged_axis", "split_axis", "spawn"]
+__all__ = ["Mesh", "AbstractMesh", "make_mesh", "make_production_mesh", "fake_mesh",
+           "merged_axis", "split_axis", "spawn", "SINGLE_POD", "MULTI_POD"]
 
 Axes = Union[str, Sequence[str]]
+
+# the production meshes, read as NVIDIA H100s in hosts of 8: 256 cards
+# (32 hosts) as (data, model), and 512 cards (64 hosts) as (pod, data, model)
+SINGLE_POD = (16, 16)
+MULTI_POD = (2, 16, 16)
 
 
 class AbstractMesh:
@@ -85,8 +99,8 @@ class Mesh(AbstractMesh):
 
     ``shape``: axis name → size, in ``axis_names`` order. ``coords``: this
     rank's index along each axis. ``device``: where this rank keeps its
-    tensors. ``backend``: the process groups' backend (``"nccl"`` or
-    ``"gloo"``).
+    tensors. ``backend``: the process groups' backend (``"nccl"``,
+    ``"gloo"``, or ``"fake"`` for :func:`fake_mesh`).
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *, backend: str,
@@ -210,6 +224,46 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str, device
         raise ValueError(f"mesh shape {tuple(shape)} holds {math.prod(shape)} ranks, "
                          f"the process group {dist.get_world_size()}")
     return Mesh(shape, axes, backend=backend, device=device, rank=dist.get_rank())
+
+
+def fake_mesh(shape: Sequence[int], axes: Sequence[str], *, rank: int = 0,
+              device=None) -> Mesh:
+    """Rank ``rank``'s :class:`Mesh` of ``shape`` over torch's fake process
+    group (backend ``"fake"``): collectives return at once and move no
+    data, so one process can trace any rank's program on fake tensors.
+
+    Initialises the default group (world ``prod(shape)``, rank ``rank``)
+    where none is initialised; raises ``ValueError`` where an initialised
+    one is not a fake group of that world size and rank (tear it down with
+    ``torch.distributed.destroy_process_group``). ``device``: where the
+    rank keeps its tensors (None: the card).
+    """
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.backend import resolve_device
+
+    world = math.prod(shape)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is outside a mesh of {world} ranks")
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), world_size=world, rank=rank)
+    elif (dist.get_backend(), dist.get_world_size(), dist.get_rank()) != ("fake", world, rank):
+        raise ValueError(
+            f"the initialised process group ({dist.get_backend()!r}, world "
+            f"{dist.get_world_size()}, rank {dist.get_rank()}) is not the fake group of "
+            f"world {world} and rank {rank} that mesh {tuple(shape)} needs")
+    return Mesh(shape, axes, backend="fake", device=resolve_device(device), rank=rank)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0, device=None) -> Mesh:
+    """Rank ``rank``'s view of the production mesh: :data:`SINGLE_POD`
+    (256 H100s, 32 hosts of 8) with axes ``("data", "model")``, or
+    :data:`MULTI_POD` (512 H100s, 64 hosts of 8) with ``("pod", "data",
+    "model")``, over the fake process group (:func:`fake_mesh`, whose
+    rules on an initialised group apply)."""
+    shape = MULTI_POD if multi_pod else SINGLE_POD
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes, rank=rank, device=device)
 
 
 def merged_axis(task_axis: str, row_axis: Optional[str] = None) -> Union[str, Tuple[str, str]]:

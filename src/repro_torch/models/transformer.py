@@ -91,7 +91,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.backend import resolve_device
+from repro_torch.backend import device_cached, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -208,19 +208,22 @@ def _window_for(cfg: ModelConfig, layer_idx: int) -> Optional[int]:
     return cfg.sliding_window
 
 
-@functools.lru_cache(maxsize=64)
 def _layer_windows(cfg: ModelConfig, max_seq: int, device: torch.device):
     """Per-layer attention windows as data (scanned hybrid stacks; the
     reference's ``_window_array``), one 0-d tensor a layer: global layers
     get window = max_seq+1 (≥ any distance ⇒ full causal attention), SWA
-    layers get the sliding window. Made once per ``(cfg, max_seq,
-    device)``: a decode step reuses its cache length's windows instead of
+    layers get the sliding window. Kept per ``(cfg, max_seq, device)``
+    (``backend.device_cached``, which keeps nothing made in a fake-tensor
+    trace): a decode step reuses its cache length's windows instead of
     copying them to the card every step."""
-    w = []
-    for i in range(cfg.num_layers):
-        wi = _window_for(cfg, i)
-        w.append(max_seq + 1 if wi is None else wi)
-    return torch.tensor(w, dtype=torch.int32, device=device).unbind(0)
+    def make():
+        w = []
+        for i in range(cfg.num_layers):
+            wi = _window_for(cfg, i)
+            w.append(max_seq + 1 if wi is None else wi)
+        return torch.tensor(w, dtype=torch.int32, device=device).unbind(0)
+
+    return device_cached(("layer_windows", cfg, max_seq, torch.device(device)), make)
 
 
 # ---------------------------------------------------------------------------

@@ -506,18 +506,19 @@ def test_mesh_geometry_and_errors():
 @pytest.mark.parametrize("module,names,extra", [
     ("core/distributed.py", None, {"gram_rowshard": {"mesh"},
                                    "tile_parallel_device_flops": {"backend"}}),
-    ("launch/mesh.py", None, {"make_mesh": {"backend", "device"}}),
+    ("launch/mesh.py", None, {"make_mesh": {"backend", "device"},
+                              "make_production_mesh": {"rank", "device"}}),
     ("tune/apply.py", ("ata_distributed_with_plan",), {}),
     ("optim/powersgd.py", ("compress_sharded",), {"compress_sharded": {"mesh"}}),
 ])
 def test_public_names_and_signatures_follow_the_reference(module, names, extra):
     """The functions of this slice (``names``; None: every public function
-    of the reference's module but ``make_production_mesh``, which waits for
-    ``launch/dryrun.py``) exist in the port with the reference's
+    of the reference's module) exist in the port with the reference's
     parameters, in order, plus the mesh adaptations named: a keyword
     ``mesh=`` where the reference runs inside ``shard_map``, an explicit
-    backend and device for the mesh, the operand's backend for the flop
-    model."""
+    backend and device for the mesh, the rank and device of the production
+    mesh (one rank's view over a fake group), the operand's backend for the
+    flop model."""
     import ast
     from pathlib import Path
 
@@ -533,7 +534,7 @@ def test_public_names_and_signatures_follow_the_reference(module, names, extra):
         return out
 
     ref, port = params("repro"), params("repro_torch")
-    for name in names or sorted(set(ref) - {"make_production_mesh"}):
+    for name in names or sorted(ref):
         assert name in port, name
         got = [p for p in port[name] if p not in extra.get(name, set())]
         assert got == ref[name], (name, port[name], ref[name])

@@ -240,8 +240,7 @@ def test_serve_exports_match_the_reference():
 
 # names of a reference module's __all__ the port leaves out on purpose:
 # the Pallas entry points and interpret mode (the CUDA kernels and the
-# device routing take their place), what waits for a later slice (the
-# production mesh and the rest of roofline), and ``MeshAxes``, which the
+# device routing take their place), and ``MeshAxes``, which the
 # reference's sharding module names in its __all__ but never defines
 EXPORT_DEPARTURES = {
     "kernels/gemm_tn.py": {"gemm_tn_pallas", "gemm_tn_fused_pallas"},
@@ -249,17 +248,12 @@ EXPORT_DEPARTURES = {
     "kernels/potrf.py": {"potrf_pallas"},
     "kernels/trsm.py": {"trsm_pallas"},
     "kernels/ops.py": {"interpret_default"},
-    "launch/mesh.py": {"make_production_mesh", "SINGLE_POD", "MULTI_POD"},
-    "analysis/roofline.py": {"PEAK_FLOPS", "HBM_BW", "LINK_BW", "compose_cell", "load_cells",
-                             "render_markdown"},
     "parallel/sharding.py": {"MeshAxes"},
 }
-# reference modules with no port: no counterpart (HLO text, JAX version
-# shims), or not ported yet (the dry-run and the rest of analysis)
-UNPORTED = {
-    "analysis/hlo.py", "compat.py",
-    "analysis/fill_experiments.py", "launch/dryrun.py",
-}
+# reference modules with no port, having no counterpart: HLO text (its
+# collective-time model lives in the port's analysis/roofline.py) and JAX
+# version shims
+UNPORTED = {"analysis/hlo.py", "compat.py"}
 REFERENCE_MODULES = sorted(p.relative_to(ROOT / "src" / "repro").as_posix()
                            for p in (ROOT / "src" / "repro").rglob("*.py"))
 

@@ -141,11 +141,16 @@ def test_zeros_and_geometry():
     (16, 4, 60, 16),    # aligned: a pure slice
     (24, 3, 70, 16),    # misaligned: re-tiled with write_packed_region
     (32, 3, 90, 128),   # misaligned, packed block clamped to n
+    (20, 5, 97, 24),    # misaligned both ways, the stripes past the packed grid cut
+    (40, 4, 150, 16),   # a stripe spans three block rows
+    (12, 6, 64, 16),    # blocks wider than the stripes
+    (30, 4, 70, 16),    # the stripe grid past the packed grid: the last stripe dropped
 ])
-def test_from_tile_stack_bitwise(w, nb_tiles, n, packed_block):
+@pytest.mark.parametrize("batch", [(), (2,)])
+def test_from_tile_stack_bitwise(w, nb_tiles, n, packed_block, batch):
     rng = np.random.default_rng(w + n)
     t = nb_tiles * (nb_tiles + 1) // 2
-    tiles = rng.standard_normal((t + 2, w, w)).astype(np.float32)
+    tiles = rng.standard_normal((*batch, t + 2, w, w)).astype(np.float32)
     with jax.enable_x64(False):
         want = ref.SymmetricMatrix.from_tile_stack(jnp.asarray(tiles), n, nb=nb_tiles,
                                                    packed_block=packed_block)

@@ -146,8 +146,19 @@ def _records():
     return [decode, train, hybrid, raw]
 
 
+@pytest.fixture
+def v5e_rates(monkeypatch):
+    """The port's roofline priced at the reference's TPU v5e rates, so the
+    two compositions can be compared number for number."""
+    from repro.analysis import roofline as jroof
+    from repro_torch.analysis import roofline as troof
+
+    for name in ("PEAK_FLOPS", "HBM_BW", "LINK_BW"):
+        monkeypatch.setattr(troof, name, getattr(jroof, name))
+
+
 @pytest.mark.parametrize("i", range(4))
-def test_summarize_equals_the_reference(i):
+def test_summarize_equals_the_reference(i, v5e_rates):
     rec = _records()[i]
     assert tdiff.summarize(rec) == jdiff.summarize(rec)
 
@@ -157,7 +168,7 @@ def test_fmt_delta_equals_the_reference():
         assert tdiff.fmt_delta(a, b) == jdiff.fmt_delta(a, b)
 
 
-def test_perf_diff_main_prints_the_reference_table(tmp_path, capsys, monkeypatch):
+def test_perf_diff_main_prints_the_reference_table(tmp_path, capsys, monkeypatch, v5e_rates):
     before, after = tmp_path / "before.json", tmp_path / "after.json"
     recs = _records()
     before.write_text(json.dumps(recs[1]))
