@@ -236,8 +236,22 @@ phase fails):
              bfloat16 bound; the serve CLI (hymba-1.5b) at ``--mesh 1x4``:
              each greedy float32 token within ``MESH_SERVE_MARGIN`` of the
              largest logit of one rank's float32 ``forward_train`` over the
-             same tokens. Step ms per rank and the
-             collective bytes by kind are logged.
+             same tokens. Every rank computes with its tensor-parallel
+             blocks of ``held(param_specs)`` (PR 26), and one rank's
+             results are on the blocks gathered. (e) qwen1.5-0.5b
+             tensor-parallel at (1, 4): two AdamW steps on (a)'s batches
+             against (a)'s single rank (loss, grad norm, parameters), a
+             rank's parameter bytes against one rank's (at full depth at
+             most ``MESH_TP_BYTES_SHARE``) and the collective bytes by kind
+             a step; (f) one sequence at (2, 2) (mamba2-1.3b and hymba-1.5b,
+             2 layers under gloo): a train step with the sequence sharded
+             over data, then a prefill and decode steps with a cache of
+             1025 slots (whole on every rank: model = 2 does not divide
+             it), against one rank; (g) qwen2-moe-a2.7b at (4, 1): the
+             global batch routed with one capacity, logits and aux against
+             one rank on the global batch (and the old per-shard rule's
+             distance beside it). Step ms per rank and the collective
+             bytes by kind are logged.
 17. dryrun — (last) the production dry-run (``repro_torch.launch.dryrun``)
              and its abstraction held against real runs: (a) ``python -m
              repro_torch.launch.dryrun --arch gram --shape 65536x16384
@@ -256,7 +270,11 @@ phase fails):
              group, then four gloo ranks on card 0 (``launch.mesh.spawn``)
              each run once: equal flops and collective bytes by kind,
              kernel nodes equal to launches (gemm_tn: every tile is a
-             ``strassen_tn`` product), the peak in the same band.
+             ``strassen_tn`` product), the peak in the same band; (d)
+             qwen1.5-0.5b's tensor-parallel train step (4 layers, 2 × 1024,
+             AdamW) on (1, 4): each rank traced over a fake (1, 4) group,
+             then four gloo ranks run it: equal flops, collective bytes and
+             kernel nodes, the peak in the same band.
 
 Phases 3–8, Shampoo's checked runs in phase 10 and the pinned cases of
 phase 11 pin ``n_base`` (or ``method``) to the static defaults: unpinned
@@ -2913,6 +2931,15 @@ MESH_LOGIT_RTOL = 1e-4
 # turns into steps of the step size's order
 MESH_UPDATE_RTOL, MESH_UPDATE_BK_RTOL = 1e-3, 1e-2
 MESH_CLI_STEPS = 3
+# (e) qwen1.5-0.5b tensor-parallel at (1, 4): (a)'s batches and AdamW
+# reference; a rank's parameter bytes at full depth over one rank's
+MESH_TP_BYTES_SHARE = 0.27
+# (f) one sequence at (2, 2), sharded over data: train 4096 tokens; prefill
+# then decode with a cache of 1025 slots (model = 2 does not divide it)
+MESH_B1_SEQ, MESH_B1_PREFILL, MESH_B1_STEPS = 4096, 1021, 4
+# (g) qwen2-moe-a2.7b at (4, 1): 8 sequences of 256 routed over the global
+# batch (one capacity)
+MESH_C7_BATCH, MESH_C7_SEQ = 8, 256
 
 
 def _mesh_shampoo():
@@ -2976,6 +3003,23 @@ def _update_rel(p0, got, want) -> dict:
         diff = float(norm(g - w))
         out[k] = 0.0 if diff == 0 else diff / max(float(norm(w - a)), 1e-30)
     return out
+
+
+def _crop_vocab(tree, like):
+    """``tree`` with ``embed``'s rows and ``lm_head``'s columns cut to
+    ``like``'s (the padded vocab of another mesh; the padding is zeros that
+    no token reaches)."""
+    out = dict(tree)
+    out["embed"] = tree["embed"][:like["embed"].shape[0]]
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"][:, :like["lm_head"].shape[1]]
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.optim._tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 def _state_bytes(tree) -> int:
@@ -3101,7 +3145,34 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
         owned_blocks={k: int(getattr(s, "blocks", s).shape[0]) for k, s in
                       __import__("repro_torch.optim._tree", fromlist=["x"])
                       .tree_flatten_with_path(s_blk["shampoo"])[0] if k.endswith("['l']")})
-    del s_blk, params, batches
+    del s_blk, params
+    torch.cuda.empty_cache()
+
+    # (e) qwen1.5-0.5b tensor-parallel at (1, 4): (a)'s batches, two AdamW
+    # steps against (a)'s single rank
+    mesh = make_mesh((1, 4), ("data", "model"), backend=backend, device=dev)
+    params = T.init(torch.Generator(device=dev).manual_seed(SEED + 40), qcfg, mesh, device=dev)
+    run = RunConfig(model=qcfg, shape=shape, compute_dtype="float32", remat="dots",
+                    optimizer=OptimizerConfig(name="adamw"))
+    step, opt = make_train_step(qcfg, mesh, run)
+    state = init_state(qcfg, mesh, run, opt, params)
+    p_specs = held(param_specs(mesh, qcfg), qcfg, mesh)
+    res_e = dict(param_bytes=_tree_bytes(params), layers=qcfg.num_layers, steps=[])
+    for i in range(2):
+        obs.metrics.reset()
+        (state, m), rec = counted(lambda: step(state, batches[i]))
+        rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        res_e["steps"].append(rec)
+    res_e["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    got = gather_tree(state["params"], mesh, p_specs)
+    if rank == 0:
+        want = torch.load(os.path.join(os.path.dirname(ref_path), "params_adamw.pt"),
+                          map_location=dev)
+        p0 = T.init(torch.Generator(device=dev).manual_seed(SEED + 40), qcfg, device=dev)
+        res_e["update_rel"] = _update_rel(p0, _crop_vocab(got, want), want)
+        del want, p0
+    out["cases"]["e qwen tp 1x4"] = res_e
+    del state, step, params, got, batches
     torch.cuda.empty_cache()
 
     # (b) hymba-1.5b at model = 4: context-parallel attention, the P-split SSD
@@ -3120,6 +3191,7 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
     with torch.no_grad():
         (logits, _), rec_f = counted(lambda: T.forward_train(
             params, {"tokens": batch["tokens"]}, hcfg, mesh, compute_dtype=torch.float32))
+    logits = T.gather_vocab(logits, hcfg, mesh, T.padded_vocab(hcfg, mesh))
     step, opt = make_train_step(hcfg, mesh, run)
     state = init_state(hcfg, mesh, run, opt, params)
     (state, m), rec_s = counted(lambda: step(state, batch))
@@ -3140,8 +3212,10 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
     dec, rec_d = counted(lambda: serve(prefill, decode))
     res_b = dict(forward=rec_f, step=rec_s, decode=rec_d, loss=float(m["loss"]),
                  grad_norm=float(m["grad_norm"]), layers=hcfg.num_layers)
+    whole = gather_tree(params, mesh, held(param_specs(mesh, hcfg), hcfg, mesh))
     if rank == 0:
-        # the same on this rank alone
+        # the same on this rank alone, on the blocks gathered
+        params = whole
         with torch.no_grad():
             ref_logits, _ = T.forward_train(params, {"tokens": batch["tokens"]}, hcfg, None,
                                             compute_dtype=torch.float32)
@@ -3160,7 +3234,7 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
         res_b["decode_max_rel"] = float((dec - one).abs().max() / one.abs().max())
         res_b["decode_steps"] = MESH_HYB_STEPS
     out["cases"]["b hymba 1x4"] = res_b
-    del params, dec
+    del params, dec, whole
     torch.cuda.empty_cache()
 
     # (c) qwen2-moe-a2.7b at 2 × 2: expert parallelism, 30 of the 60 experts a rank
@@ -3187,9 +3261,10 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
         return torch.cat([l1, l2], 1)
 
     dec, rec_d = counted(lambda: moe_serve(prefill, decode, params, mine))
+    lg = T.gather_vocab(lg, mcfg, mesh, T.padded_vocab(mcfg, mesh))
     lg_all = all_gather_dim(lg, mesh, "data", 0)
     dec_all = all_gather_dim(dec, mesh, "data", 0)
-    p_specs = held(param_specs(mesh, mcfg), mcfg)
+    p_specs = held(param_specs(mesh, mcfg), mcfg, mesh)
     full = gather_tree(params, mesh, p_specs)
     res_c = dict(forward=rec_f, decode=rec_d, aux=float(aux), layers=mcfg.num_layers,
                  experts_held=int(params["layers"]["moe"]["wg"].shape[1]),
@@ -3213,6 +3288,93 @@ def _mesh_rank(rank: int, world: int, backend: str, ref_path: str) -> dict:
         res_c["decode_max_rel"] = float((dec_all - one).abs().max() / one.abs().max())
     out["cases"]["c qwen2-moe 2x2"] = res_c
     del full
+    torch.cuda.empty_cache()
+
+    # (f) one sequence at (2, 2): its train step (the sequence sharded over
+    # data) and a decode with a cache of 1025 slots (whole: model = 2 does
+    # not divide it; the batch whole on both data ranks), against one rank
+    from repro_torch.configs.mamba2_13b import CONFIG as MAMBA
+
+    mesh = make_mesh((2, 2), ("data", "model"), backend=backend, device=dev)
+    for label, cfg_b in (("mamba2", _mesh_depth(MAMBA, backend, num_layers=2)),
+                         ("hymba", _mesh_depth(HYMBA, backend, num_layers=2,
+                                               global_attn_layers=(0,)))):
+        params = T.init(torch.Generator(device=dev).manual_seed(SEED + 70), cfg_b, mesh,
+                        device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        toks = torch.randint(0, cfg_b.vocab_size, (1, MESH_B1_SEQ + 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        run = RunConfig(model=cfg_b, shape=ShapeConfig("mesh_f", MESH_B1_SEQ, 1, "train"),
+                        compute_dtype="float32", remat="dots")
+        step, opt = make_train_step(cfg_b, mesh, run)
+        state = init_state(cfg_b, mesh, run, opt, params)
+        (state, m), rec_s = counted(lambda: step(state, batch))
+        del state, step
+        cache_len = MESH_B1_PREFILL + MESH_B1_STEPS
+        prompt = batch["tokens"][:, :MESH_B1_PREFILL]
+
+        def serve1(p, msh):
+            prefill = make_prefill_step(cfg_b, msh, torch.float32, cache_len=cache_len)
+            decode = make_decode_step(cfg_b, msh, torch.float32, sp_decode=True,
+                                      cache_len=cache_len)
+            lg, cache = prefill(p, {"tokens": prompt})
+            outs = [lg]
+            for t in range(MESH_B1_PREFILL, cache_len):
+                pos = torch.full((1,), t, dtype=torch.int32, device=dev)
+                lg, cache = decode(p, batch["tokens"][:, t:t + 1], cache, pos)
+                outs.append(lg)
+            return torch.cat(outs, 1)
+
+        dec, rec_d = counted(lambda: serve1(params, mesh))
+        res_f = dict(step=rec_s, decode=rec_d, loss=float(m["loss"]),
+                     grad_norm=float(m["grad_norm"]), layers=cfg_b.num_layers,
+                     seq=MESH_B1_SEQ, cache_len=cache_len)
+        whole = gather_tree(params, mesh, held(param_specs(mesh, cfg_b), cfg_b, mesh))
+        del params
+        torch.cuda.empty_cache()
+        if rank == 0:
+            mr, g = loss_and_grads(make_loss_fn(cfg_b, None, run), whole, batch)
+            res_f["loss_ref"] = float(mr["loss"])
+            res_f["grad_norm_ref"] = float(torch.sqrt(sum(torch.sum(torch.square(x))
+                                                          for x in tree_leaves(g))))
+            del g
+            one = serve1(whole, None)
+            res_f["decode_max_rel"] = float((dec - one).abs().max() / one.abs().max())
+        out["cases"][f"f {label} batch 1 2x2"] = res_f
+        del whole, dec
+        torch.cuda.empty_cache()
+
+    # (g) qwen2-moe-a2.7b at (4, 1): the global batch routed with one
+    # capacity, against one rank on the global batch
+    mcfg = _mesh_depth(MOE, backend)
+    mesh = make_mesh((4, 1), ("data", "model"), backend=backend, device=dev)
+    params = T.init(torch.Generator(device=dev).manual_seed(SEED + 80), mcfg, mesh, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    toks = torch.randint(0, mcfg.vocab_size, (MESH_C7_BATCH, MESH_C7_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    n = MESH_C7_BATCH // 4
+    mine = toks[mesh.axis_index("data") * n:(mesh.axis_index("data") + 1) * n]
+    with torch.no_grad():
+        (lg, aux), rec_f = counted(lambda: T.forward_train(
+            params, {"tokens": mine}, mcfg, mesh, compute_dtype=torch.float32))
+    lg_all = all_gather_dim(lg, mesh, "data", 0)
+    res_g = dict(forward=rec_f, aux=float(aux), layers=mcfg.num_layers)
+    if rank == 0:
+        with torch.no_grad():
+            ref_lg, ref_aux = T.forward_train(params, {"tokens": toks}, mcfg, None,
+                                              compute_dtype=torch.float32)
+            shard_lg = torch.cat([T.forward_train(params, {"tokens": toks[i * n:(i + 1) * n]},
+                                                  mcfg, None, compute_dtype=torch.float32)[0]
+                                  for i in range(4)])
+        res_g["aux_ref"] = float(ref_aux)
+        res_g["forward_max_rel"] = float((lg_all - ref_lg).abs().max() / ref_lg.abs().max())
+        # the old rule (each data rank's own capacity) against the global one
+        res_g["per_shard_max_rel"] = float((shard_lg - ref_lg).abs().max()
+                                           / ref_lg.abs().max())
+        del ref_lg, shard_lg
+    out["cases"]["g qwen2-moe 4x1 global routing"] = res_g
+    del params, lg_all
     torch.cuda.empty_cache()
     out["path_launches"] = path
     return out
@@ -3281,7 +3443,7 @@ def phase_mesh(ops):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.mesh import spawn
     from repro_torch.models.transformer import init
-    from repro_torch.optim._tree import tree_map
+    from repro_torch.optim._tree import tree_leaves, tree_map
     from repro_torch.train.train_step import make_train_step
 
     t_phase = time.perf_counter()
@@ -3423,6 +3585,74 @@ def phase_mesh(ops):
         res[label] = line
         if bad:
             failed.append(f"({label}) off one rank's: {bad}")
+
+    # (e) qwen1.5-0.5b tensor-parallel at (1, 4)
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel.sharding import held, param_specs, spec_leaves
+
+    per = [r["cases"]["e qwen tp 1x4"] for r in ranks]
+    e0 = per[0]
+    rel = [dict(loss_rel=abs(s["loss"] - w["loss"]) / abs(w["loss"]),
+                grad_norm_rel=abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+           for s, w in zip(e0["steps"], ref["adamw"])]
+    upd = e0["update_rel"]
+    bad_upd = {k: v for k, v in upd.items()
+               if v > (MESH_UPDATE_BK_RTOL if k.endswith("['bk']") else MESH_UPDATE_RTOL)}
+    one_bytes = _tree_bytes(init(None, qcfg, device="meta")) // 1
+    four = AbstractMesh((1, 4), ("data", "model"))
+    full_leaves = [x for x in tree_leaves(init(None, QWEN, four, device="meta"))]
+    full_one = sum(x.numel() for x in tree_leaves(init(None, QWEN, device="meta")))
+    full_mine = sum(x.numel() // math.prod(four.axis_size(a) for a in sp if a is not None)
+                    for x, sp in zip(full_leaves,
+                                     spec_leaves(held(param_specs(four, QWEN), QWEN, four))))
+    share = full_mine / full_one
+    line = dict(layers=e0["layers"], step_ms=[[round(st["ms"], 1) for st in c["steps"]]
+                                              for c in per],
+                losses=[st["loss"] for st in e0["steps"]], rel=rel,
+                update_rel_max=max(upd.values()),
+                param_bytes_rank=[c["param_bytes"] for c in per],
+                param_bytes_single=one_bytes,
+                param_share=max(c["param_bytes"] for c in per) / one_bytes,
+                param_share_full_depth=share,
+                collective_bytes_a_step=[st["bytes"] for st in e0["steps"]],
+                peak_bytes=[c["peak_bytes"] for c in per])
+    ok = (not bad_upd and share <= MESH_TP_BYTES_SHARE
+          and all(r["loss_rel"] <= MESH_TRAIN_RTOL[0]
+                  and r["grad_norm_rel"] <= MESH_TRAIN_RTOL[1] for r in rel))
+    log("  (e) qwen1.5-0.5b tensor-parallel at 1x4, AdamW steps 1-2 against (a)'s single "
+        "rank: " + json.dumps(line) + (" ok" if ok else " FAIL"))
+    res["e qwen tp 1x4"] = line
+    if not ok:
+        failed.append(f"(e) off the single rank's ({rel}, parameters {bad_upd}, share {share})")
+    # (f) one sequence at (2, 2); (g) the MoE's global routing at (4, 1)
+    for label in ("f mamba2 batch 1 2x2", "f hymba batch 1 2x2"):
+        c0 = ranks[0]["cases"][label]
+        loss_rel = abs(c0["loss"] - c0["loss_ref"]) / abs(c0["loss_ref"])
+        gn_rel = abs(c0["grad_norm"] - c0["grad_norm_ref"]) / c0["grad_norm_ref"]
+        line = {k: v for k, v in c0.items() if not isinstance(v, dict)}
+        line.update(loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                    step=dict(ms=[round(r["cases"][label]["step"]["ms"], 1) for r in ranks],
+                              bytes=c0["step"]["bytes"]),
+                    decode=dict(ms=[round(r["cases"][label]["decode"]["ms"], 1) for r in ranks],
+                                bytes=c0["decode"]["bytes"]))
+        bad = not (loss_rel <= MESH_TRAIN_RTOL[0] and gn_rel <= MESH_TRAIN_RTOL[1]
+                   and c0["decode_max_rel"] <= MESH_LOGIT_RTOL)
+        log(f"  ({label}): " + json.dumps(line) + (" FAIL" if bad else " ok"))
+        res[label] = line
+        if bad:
+            failed.append(f"({label}) off one rank's")
+    c0 = ranks[0]["cases"]["g qwen2-moe 4x1 global routing"]
+    line = dict(c0, forward=dict(ms=[round(r["cases"]["g qwen2-moe 4x1 global routing"]
+                                           ["forward"]["ms"], 1) for r in ranks],
+                                 bytes=c0["forward"]["bytes"]))
+    bad = not (c0["forward_max_rel"] <= MESH_LOGIT_RTOL
+               and abs(c0["aux"] - c0["aux_ref"]) <= MESH_LOGIT_RTOL * abs(c0["aux_ref"]))
+    log("  (g qwen2-moe 4x1 global routing) against one rank on the global batch (and the "
+        "old per-shard routing's distance from it): " + json.dumps(line)
+        + (" FAIL" if bad else " ok"))
+    res["g qwen2-moe 4x1"] = line
+    if bad:
+        failed.append("(g) the global routing is off one rank's")
 
     # (d) the CLIs: 3 steps at 2x2, checkpointed at step 2 (the unbroken
     # run), then step 3 again at 4x1 from that checkpoint
@@ -4096,6 +4326,66 @@ def _dryrun_gram_rank(rank: int, world: int) -> dict:
     return dict(rank=rank, art=art, peak=peak - base, launches=dict(ops.launches))
 
 
+# (d)'s tensor-parallel train step: qwen1.5-0.5b at full width, 4 layers,
+# batch 2 x 1024, on (data 1, model 4)
+DRYRUN_TP_MESH = (1, 4)
+DRYRUN_TP_LAYERS, DRYRUN_TP_BATCH, DRYRUN_TP_SEQ = 4, 2, 1024
+
+
+def _dryrun_tp_setup(mesh):
+    """(d)'s config, run config, step and optimizer on ``mesh``."""
+    import dataclasses
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(CONFIG, num_layers=DRYRUN_TP_LAYERS)
+    shape = ShapeConfig("dryrun_tp", DRYRUN_TP_SEQ, DRYRUN_TP_BATCH, "train")
+    run = RunConfig(model=cfg, shape=shape, remat="dots")
+    step_fn, opt = make_train_step(cfg, mesh, run)
+    return cfg, shape, run, step_fn, opt
+
+
+def _dryrun_tp_rank(rank: int, world: int) -> dict:
+    """One gloo rank of (d): its blocks of the seeded parameters, the
+    global batch, one real step under the dry-run's counters; returns the
+    artifact, the allocator's peak above what the rank held before it made
+    its arguments, and the kernels' launches."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init
+    from repro_torch.train.train_step import init_state
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(DRYRUN_TP_MESH, ("data", "model"), backend="gloo", device=dev)
+    cfg, shape, run, step_fn, opt = _dryrun_tp_setup(mesh)
+    base = torch.cuda.memory_allocated(dev)
+    params = init(torch.Generator(device=dev).manual_seed(SEED + 18), cfg, mesh, device=dev)
+    state = init_state(cfg, mesh, run, opt, params)
+    del params
+    data = SyntheticLM(cfg, shape, seed=SEED + 18)
+    try:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    finally:
+        data.close()
+    kept = {}
+
+    def step_kept(st, b):
+        kept["out"] = step_fn(st, b)
+        return kept["out"]
+
+    ops.reset_launches()
+    art, peak = _dryrun_peak(lambda: dryrun._artifact(step_kept, state, batch, device=dev))
+    loss = float(kept.pop("out")[1]["loss"])
+    return dict(rank=rank, art=art, peak=peak - base, launches=dict(ops.launches), loss=loss)
+
+
 def _dryrun_band(label, predicted, measured):
     ratio = measured / predicted
     ok = DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]
@@ -4133,7 +4423,7 @@ def phase_dryrun(ops):
     from repro_torch.launch.mesh import fake_mesh, spawn
     from repro_torch.models.transformer import init
     from repro_torch.optim._tree import tree_map
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import init_state, make_train_step
 
     t_phase = time.perf_counter()
     log("phase dryrun")
@@ -4251,6 +4541,49 @@ def phase_dryrun(ops):
                 flops=f["cost"]["flops"], collectives=f["collectives"], kernels=f["kernels"],
                 predicted_peak=f["memory"]["peak_bytes_est"], measured_peak=rk["peak"],
                 ratio=_dryrun_band(f"(c) rank {r}", f["memory"]["peak_bytes_est"],
+                                   rk["peak"])))
+
+        # (d) qwen1.5-0.5b's tensor-parallel train step on (1, 4): each rank
+        # traced over a fake (1, 4) group, then four gloo ranks on card 0
+        fakes = []
+        for r in range(math.prod(DRYRUN_TP_MESH)):
+            mesh = fake_mesh(DRYRUN_TP_MESH, ("data", "model"), rank=r, device="cuda")
+            try:
+                cfg_d, shape_d, run_d, step_d, opt_d = _dryrun_tp_setup(mesh)
+                with FakeTensorMode():
+                    params = dryrun._abstract_params(cfg_d, mesh)
+                    state = init_state(cfg_d, mesh, run_d, opt_d, params)
+                    del params
+                    batch = dryrun._abstract_batch(cfg_d, shape_d, "train", mesh, local=False)
+                    fakes.append(dryrun._artifact(step_d, state, batch, device="cuda"))
+                    del state, batch
+            finally:
+                torch.distributed.destroy_process_group()
+        t0 = time.perf_counter()
+        ranks = spawn(_dryrun_tp_rank, math.prod(DRYRUN_TP_MESH), backend="gloo",
+                      timeout_s=300.0)
+        log(f"  (d) {CONFIG.name} tensor-parallel train step ({DRYRUN_TP_LAYERS} layers, "
+            f"{DRYRUN_TP_BATCH} x {DRYRUN_TP_SEQ}, remat dots, AdamW) on {DRYRUN_TP_MESH}, "
+            f"four gloo ranks on card 0: spawn and run {time.perf_counter() - t0:.1f} s")
+        res["tp_train"] = []
+        for f, rk in zip(fakes, ranks):
+            r = rk["rank"]
+            log(f"  (d) rank {r}: traced in {f['trace_s']} s, ran in {rk['art']['trace_s']} s, "
+                f"loss {rk['loss']!r}; predicted "
+                f"{json.dumps({k: f[k] for k in ('memory', 'cost', 'collectives')})}")
+            if not math.isfinite(rk["loss"]):
+                raise AssertionError(f"dryrun (d) rank {r}: loss {rk['loss']}")
+            _dryrun_equal(f"(d) rank {r}", "flops", f["cost"]["flops"],
+                          rk["art"]["cost"]["flops"])
+            _dryrun_equal(f"(d) rank {r}", "collective bytes", f["collectives"],
+                          rk["art"]["collectives"])
+            got = {k: v for k, v in rk["launches"].items() if v}
+            _dryrun_equal(f"(d) rank {r}", "kernel nodes / launches", f["kernels"], got)
+            res["tp_train"].append(dict(
+                rank=r, trace_s=f["trace_s"], run_s=rk["art"]["trace_s"],
+                flops=f["cost"]["flops"], collectives=f["collectives"], kernels=f["kernels"],
+                predicted_peak=f["memory"]["peak_bytes_est"], measured_peak=rk["peak"],
+                ratio=_dryrun_band(f"(d) rank {r}", f["memory"]["peak_bytes_est"],
                                    rk["peak"])))
 
         # (a) the two CLI cells

@@ -27,7 +27,8 @@ import torch.distributed as dist
 from repro_torch import obs
 
 __all__ = ["all_reduce", "reduce_scatter", "all_gather", "group_size", "all_gather_dim",
-           "gather_replicas", "reduce_replicas", "sum_grads"]
+           "reduce_scatter_dim", "gather_replicas", "gather_params", "reduce_replicas",
+           "sum_grads"]
 
 
 def group_size(group) -> int:
@@ -105,7 +106,13 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 # * :func:`sum_grads` is the identity forward and sums the cotangent over
 #   the ranks backward: it marks a replicated tensor (an input of the
 #   region, or a weight the region reads whole) whose gradient each rank
-#   computes only in part, from its own slice of the work.
+#   computes only in part, from its own slice of the work;
+# * :func:`gather_params` gathers the ranks' blocks of a tensor that each
+#   rank then uses whole for its own part of the work (a weight block held
+#   under ``param_specs`` that a region reads whole, or a sequence slice a
+#   layer needs whole); each rank's cotangent of the gathered tensor is
+#   partial, so the backward pass sums the cotangents and gives each rank
+#   its block (a reduce-scatter).
 #
 # A region that reads a replicated weight or input and omits
 # :func:`sum_grads` leaves that gradient partial; one that adds it to a
@@ -128,6 +135,33 @@ def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         chunks = out.chunk(p, 0)
         out = torch.cat([chunks[order.index(i)] for i in range(p)], 0)
     return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the line along ``axes``, cut along ``dim``
+    into equal blocks: this rank gets the block of its
+    :meth:`Mesh.axis_index`. Not differentiable."""
+    group = mesh.group(axes)
+    p = group_size(group)
+    if p == 1:
+        return x
+    moved = x.movedim(dim, 0)
+    order = mesh.pool_order(axes) if not isinstance(axes, str) else None
+    if order is not None:
+        chunks = moved.chunk(p, 0)
+        moved = torch.cat([chunks[order[g]] for g in range(p)], 0)
+    return reduce_scatter(moved.contiguous(), group).movedim(0, dim)
+
+
+class _GatherParams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
 class _GatherReplicas(torch.autograd.Function):
@@ -182,6 +216,16 @@ def gather_replicas(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     if mesh.axis_size(axes) == 1:
         return x
     return _GatherReplicas.apply(x, mesh, axes, dim)
+
+
+def gather_params(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``axes`` concatenated along ``dim``
+    (:func:`all_gather_dim`), for a rank that uses the whole tensor for its
+    own part of the work: the backward pass sums the ranks' cotangents and
+    keeps this rank's block of the sum (a reduce-scatter)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _GatherParams.apply(x, mesh, axes, dim)
 
 
 def reduce_replicas(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:

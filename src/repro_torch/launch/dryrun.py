@@ -61,9 +61,11 @@ Departures:
   the remat policy), and a decode cell traces only ``main``: it is exact,
   so there is no ``analysis_unrolled`` artifact;
 * the meshed train step takes the global batch (``train_step``), prefill
-  and decode take the rank's block of theirs (``serve_step``); what the
-  port's mesh paths refuse (a batch the data axes do not divide, such as
-  long_500k's single sequence) is an ``error`` record;
+  and decode take the rank's block of theirs (``serve_step``): a batch the
+  data axes do not divide is whole on every rank, as long_500k's single
+  sequence and its cache are (the cache's sequence chunked over
+  ``model``); every rank computes with its tensor-parallel blocks of
+  ``held(param_specs)``;
 * the gram cell's ``normal_eq_model`` is priced at ``roofline.HBM_BW``
   (an H100's).
 """
@@ -381,7 +383,8 @@ def _decode_artifacts(cfg, shape, mesh, run, serve_dtype=None, sp_decode=False):
     from repro_torch.models.transformer import init_cache
     from repro_torch.train.serve_step import make_decode_step
 
-    decode = make_decode_step(cfg, mesh, compute_dtype=torch.bfloat16, sp_decode=sp_decode)
+    decode = make_decode_step(cfg, mesh, compute_dtype=torch.bfloat16, sp_decode=sp_decode,
+                              cache_len=shape.seq_len)
     with FakeTensorMode():
         params = _abstract_params(cfg, mesh, serve_dtype)
         cache = init_cache(cfg, shape.global_batch, shape.seq_len, mesh, dtype=torch.bfloat16,

@@ -94,7 +94,8 @@ def serve(cfg, params, *, batch: int, requests: int, prompt_len: int, gen_len: i
     device = torch.device(device)
     b, p_len, g_len = batch, prompt_len, gen_len
     prefill = make_prefill_step(cfg, mesh, compute_dtype, cache_len=p_len + g_len)
-    decode = make_decode_step(cfg, mesh, compute_dtype, sp_decode=mesh is not None)
+    decode = make_decode_step(cfg, mesh, compute_dtype, sp_decode=mesh is not None,
+                              cache_len=p_len + g_len)
     dp = data_axes(mesh) if mesh is not None else ()
     n_data = mesh.axis_size(dp) if dp else 1
     if b % n_data:

@@ -23,29 +23,32 @@ What the port does that the reference leaves to its libraries:
   order, and are summed slot by slot: the reference's order, and bitwise
   repeatable on the card.
 
-With a mesh whose ``model`` axis has ``M > 1`` ranks (one process a
-rank, ``launch.mesh``), each rank holds its block of the batch and routes
-it (capacity from its own tokens, as the reference's ``_moe_local`` sees
-its data shard), with the routing repeated on every ``model`` rank:
+With a mesh (one process a rank, ``launch.mesh``), each rank holds its
+block of the batch:
 
-* **expert parallelism** (``cfg.moe.sharding == "ep"`` and ``M`` dividing
-  the padded expert count): the rank holds its ``E_pad / M`` experts (the
-  expert dim of wg/wu/wd is its block), computes their outputs and the
-  ranks sum them (``launch.collectives.reduce_replicas``);
-* **the TP fallback** (otherwise): every rank holds all experts and
-  computes its slice of the ff dim; the partial outputs are summed.
+* with one ``model`` rank and several data ranks the tokens are routed as
+  the reference's no-mesh path routes the global batch: each rank
+  computes its tokens' routing weights, the ``(T, E_pad)`` weights are
+  all-gathered over the data axes, each expert takes its top-C of all
+  tokens with one capacity (stable sort, lowest index first), and the rank
+  keeps the selections of its own tokens. ``aux`` is the global batch's;
+* with ``M > 1`` ``model`` ranks each rank routes its block of the batch
+  (capacity from its own tokens, as the reference's ``_moe_local`` sees
+  its data shard), with the routing repeated on every ``model`` rank:
 
-Each rank's gradients of the tokens, of the routing weights (and in the TP
-fallback of the whole expert weights) cover its own part, so the region
-marks them with ``collectives.sum_grads``. ``aux`` is the same on every
-``model`` rank (the routing is repeated there) and is averaged over the
-data axes; the reference averages it over every axis, which gives the
-same value.
+  - **expert parallelism** (``cfg.moe.sharding == "ep"`` and ``M``
+    dividing the padded expert count): the rank holds its ``E_pad / M``
+    experts (the expert dim of wg/wu/wd is its block), computes their
+    outputs and the ranks sum them (``launch.collectives.reduce_replicas``);
+  - **the TP fallback** (otherwise): the rank holds its block of every
+    expert's ff dim (``param_specs``' ``P(None, None, "model")``), so its
+    outputs are partial and are summed.
 
-Departure: at a mesh with ``M == 1`` and several data ranks the reference
-runs its no-mesh path over the global batch (one capacity for all
-tokens); the port routes each data rank's tokens with their own capacity
-and averages ``aux``, as the reference does whenever ``M > 1``.
+  Each rank's gradients of the tokens and the routing weights cover its
+  own part, so the region marks them with ``collectives.sum_grads``.
+  ``aux`` is the same on every ``model`` rank (the routing is repeated
+  there) and is averaged over the data axes; the reference averages it
+  over every axis, which gives the same value.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch import collectives as C
-from repro_torch.models.layers import acc_dtype, model_ranks, normal, padded
+from repro_torch.models.layers import acc_dtype, model_ranks, normal, padded, splits
 
 __all__ = ["init_moe", "moe_layer", "moe_capacity"]
 
@@ -65,9 +68,8 @@ def init_moe(generator, cfg, mesh=None, device="cuda", lead=()) -> dict:
     """One MoE block's parameters, each with the leading dims ``lead``.
     With a mesh the experts are padded to a multiple of its ``model`` axis
     (``parallel.sharding.pad_experts``) with zero dummies (the router masks
-    them), so the real experts' draws do not depend on the mesh; on a
-    rank's mesh (``launch.mesh.Mesh``) under expert parallelism the expert
-    weights are this rank's block of the experts, drawn whole and cut."""
+    them), so the real experts' draws do not depend on the mesh
+    (``transformer.init`` cuts a rank's blocks out of them)."""
     from repro_torch.parallel.sharding import pad_experts
 
     d = cfg.d_model
@@ -75,15 +77,10 @@ def init_moe(generator, cfg, mesh=None, device="cuda", lead=()) -> dict:
     e0 = cfg.moe.num_experts
     e = pad_experts(e0, mesh) if mesh is not None else e0
     scale = d ** -0.5
-    cut = _ep(cfg, mesh, e) and hasattr(mesh, "axis_index")
     dim = len(lead)
 
     def experts(shape, s):
-        w = padded(normal(generator, (*lead, e0, *shape), s, device), dim, e)
-        if not cut:
-            return w
-        n = e // mesh.shape["model"]
-        return w.narrow(dim, mesh.axis_index("model") * n, n).clone()
+        return padded(normal(generator, (*lead, e0, *shape), s, device), dim, e)
 
     return {
         "router": padded(normal(generator, (*lead, d, e0), scale, device), dim + 1, e),
@@ -113,11 +110,15 @@ def _top(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_local(x, router, wg, wu, wd, *, cfg, e_pad: int, mesh=None, mode=None):
+def _moe_local(x, router, wg, wu, wd, *, cfg, e_pad: int, mesh=None, mode=None,
+               seq_sharded: bool = False):
     """The MoE compute of one rank. x: (B, S, d). ``mode`` is None (all
-    experts, whole), ``"ep"`` (wg/wu/wd hold this ``model`` rank's experts)
-    or ``"tp"`` (this rank's slice of every expert's ff dim); for the last
-    two the result is this rank's part of the output, to be summed."""
+    experts, whole), ``"ep"`` (wg/wu/wd hold this ``model`` rank's experts),
+    ``"tp"`` (its block of every expert's ff dim) or ``"global"`` (one
+    ``model`` rank, several data ranks: routed over the global batch); for
+    ``"ep"``/``"tp"`` the result is this rank's part of the output, to be
+    summed. ``seq_sharded``: the rank's block is a slice of the sequence
+    (a global batch the data axes do not divide)."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -140,34 +141,40 @@ def _moe_local(x, router, wg, wu, wd, *, cfg, e_pad: int, mesh=None, mode=None):
     chosen = w_full > 0
     frac_tokens = chosen[:, :moe.num_experts].to(acc).mean(0)
     frac_probs = probs[:, :moe.num_experts].mean(0)
+    if mode == "global":
+        from repro_torch.parallel.sharding import data_axes
+
+        dp = data_axes(mesh)
+        n = mesh.axis_size(dp)
+        frac_tokens = C.all_reduce(frac_tokens, mesh.group(dp)) / n
+        # each rank's loss carries the global aux; the train step averages
+        # the ranks' gradients, so each rank's share is summed back
+        frac_probs = C.reduce_replicas(C.sum_grads(frac_probs, mesh, dp), mesh, dp) / n
     aux = moe.num_experts * torch.sum(frac_tokens * frac_probs)
 
     e0 = 0
-    if mode is not None:
-        # each rank's gradients of the tokens and routing weights (and in
-        # the TP fallback of the whole expert weights) cover its part
+    if mode in ("ep", "tp"):
+        # each rank's gradients of the tokens and routing weights (in the
+        # TP fallback: of its own ff blocks) cover its part of the output
         xf = C.sum_grads(xf, mesh, "model")
         w_full = C.sum_grads(w_full, mesh, "model")
-        m, j = mesh.shape["model"], mesh.axis_index("model")
         if mode == "ep":
+            m, j = mesh.shape["model"], mesh.axis_index("model")
             e0 = j * (e_pad // m)
             w_sel = w_full[:, e0:e0 + e_pad // m]
         else:
-            f = wg.shape[-1]
-            if f % m:
-                raise ValueError(f"the model axis ({m}) does not divide d_ff_expert ({f})")
-            fs = slice(j * (f // m), (j + 1) * (f // m))
-            wg, wu, wd = (C.sum_grads(w, mesh, "model") for w in (wg, wu, wd))
-            wg, wu, wd = wg[:, :, fs], wu[:, :, fs], wd[:, fs, :]
             w_sel = w_full
     else:
         w_sel = w_full
 
-    cap = min(moe_capacity(t, e_pad, moe.top_k, moe.capacity_factor), t)
-    # capacity-select: per expert, top-C tokens by routing weight
-    sel_w, sel_t = _top(w_sel.T, cap)                                 # (E, C)
+    if mode == "global":
+        sel_w, sel_t, active = _global_select(w_sel, mesh, moe, e_pad, b, s, seq_sharded)
+    else:
+        cap = min(moe_capacity(t, e_pad, moe.top_k, moe.capacity_factor), t)
+        # capacity-select: per expert, top-C tokens by routing weight
+        sel_w, sel_t = _top(w_sel.T, cap)                             # (E, C)
+        active = sel_w > 0.0
     xg = xf[sel_t]                                                    # (E, C, d)
-    active = sel_w > 0.0
 
     g = torch.bmm(xg, wg.to(xf.dtype))
     u = torch.bmm(xg, wu.to(xf.dtype))
@@ -190,24 +197,70 @@ def _moe_local(x, router, wg, wu, wd, *, cfg, e_pad: int, mesh=None, mode=None):
     return yf.reshape(b, s, d), aux
 
 
-def moe_layer(p: dict, x: torch.Tensor, cfg, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _global_select(w_loc, mesh, moe, e_pad: int, b: int, s: int, seq_sharded: bool):
+    """Each expert's top-C of the global batch's tokens by routing weight
+    (one capacity), restricted to this data rank's tokens: (sel_w, sel_t,
+    active), (E, C') with C' the most any expert keeps here, ``sel_t`` the
+    rank's local token indices and ``sel_w`` the rank's own (differentiable)
+    weights."""
+    from repro_torch.parallel.sharding import data_axes
+
+    dp = data_axes(mesh)
+    n, r = mesh.axis_size(dp), mesh.axis_index(dp)
+    t = b * s
+    w_all = C.all_gather_dim(w_loc.detach(), mesh, dp, 0)             # (n·T, E), rank-major
+    if seq_sharded:
+        # the ranks hold slices of the sequence: global token order is
+        # batch-major over the whole sequence
+        w_all = w_all.reshape(n, b, s, e_pad).transpose(0, 1).reshape(n * t, e_pad)
+        ids = (torch.arange(b, device=w_loc.device)[:, None] * (n * s) + r * s
+               + torch.arange(s, device=w_loc.device)[None, :]).reshape(-1)
+    else:
+        ids = r * t + torch.arange(t, device=w_loc.device)
+    t_all = n * t
+    cap = min(moe_capacity(t_all, e_pad, moe.top_k, moe.capacity_factor), t_all)
+    sel_w, sel_g = _top(w_all.T, cap)                                 # (E, C) global ids
+    local = torch.full((t_all,), -1, dtype=torch.int64, device=w_loc.device)
+    local[ids] = torch.arange(t, device=w_loc.device)
+    sel_l = local[sel_g]                                              # -1: another rank's
+    mine = sel_l >= 0
+    keep = max(int(mine.sum(1).max()), 1)
+    # the rank's entries first, in their order (descending weight)
+    order = torch.sort((~mine).to(torch.int8), dim=1, stable=True).indices[:, :keep]
+    sel_l = torch.gather(sel_l, 1, order).clamp(min=0)
+    active = torch.gather(mine & (sel_w > 0.0), 1, order)
+    experts = torch.arange(w_loc.shape[1], device=w_loc.device)[:, None].expand_as(sel_l)
+    return w_loc[sel_l, experts], sel_l, active
+
+
+def moe_layer(p: dict, x: torch.Tensor, cfg, mesh=None,
+              seq_sharded: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (B, S, d) → (y, aux_loss). Without a mesh (or with one
-    ``model`` rank and one data rank) the local path; with a mesh, this
-    rank's block of the batch, expert-parallel or by the TP fallback (see
-    the module docstring)."""
+    rank) the local path; with one ``model`` rank and several data ranks,
+    the global routing; with several ``model`` ranks, this rank's block of
+    the batch, expert-parallel or by the TP fallback (see the module
+    docstring). ``seq_sharded``: the rank's block is a slice of the
+    sequence."""
     from repro_torch.parallel.sharding import data_axes
 
     e_pad = p["router"].shape[-1]
-    mode = None
-    if model_ranks(mesh) > 1:
-        mode = "ep" if _ep(cfg, mesh, e_pad) else "tp"
-    y, aux = _moe_local(x, p["router"], p["wg"], p["wu"], p["wd"], cfg=cfg, e_pad=e_pad,
-                        mesh=mesh, mode=mode)
-    if mode is not None:
-        y = C.reduce_replicas(y, mesh, "model")
+    m = model_ranks(mesh)
     dp = data_axes(mesh) if mesh is not None else ()
-    if dp and mesh.axis_size(dp) > 1:
+    n_data = mesh.axis_size(dp) if dp else 1
+    mode = None
+    if m > 1:
+        if _ep(cfg, mesh, e_pad):
+            mode = "ep"
+        elif splits(cfg.moe.d_ff_expert, m):
+            mode = "tp"
+    elif n_data > 1:
+        mode = "global"
+    y, aux = _moe_local(x, p["router"], p["wg"], p["wu"], p["wd"], cfg=cfg, e_pad=e_pad,
+                        mesh=mesh, mode=mode, seq_sharded=seq_sharded)
+    if mode in ("ep", "tp"):
+        y = C.reduce_replicas(y, mesh, "model")
+    if mode != "global" and n_data > 1:
         # the mean over the data ranks, each rank's loss a term of the
         # objective: the cotangent is summed back over them
-        aux = C.reduce_replicas(C.sum_grads(aux, mesh, dp), mesh, dp) / mesh.axis_size(dp)
+        aux = C.reduce_replicas(C.sum_grads(aux, mesh, dp), mesh, dp) / n_data
     return y, aux

@@ -25,16 +25,32 @@ Departures:
   the teacher-forced decode bound (2e-3). The two forms are equal in
   exact arithmetic;
 * ``F.softplus`` returns ``x`` itself above 20, where ``jax.nn.softplus``
-  computes ``log1p(exp(x))``: the two differ by less than 2e-9;
-* with a mesh whose ``model`` axis has ``M > 1`` ranks, the reference pins
-  the head grid's sharding and leaves the SSD to GSPMD; the port splits it
-  explicitly: each ``model`` rank scans its slice of the H heads when
-  ``M`` divides H, else its slice of the P channels when ``M`` divides P
-  (hymba's ``p_major`` layout), and the slices are gathered. The scan is
-  independent per head and per P channel. ``return_state`` then returns
-  this rank's block of the final state ``h`` and of the conv tail, as
-  ``parallel.sharding.cache_specs`` lays the decode cache out, and
-  :func:`ssm_decode` takes and returns those blocks.
+  computes ``log1p(exp(x))``: the two differ by less than 2e-9.
+
+With a mesh (one process a rank):
+
+* with ``M > 1`` ``model`` ranks, where the reference pins the head
+  grid's sharding and leaves the SSD to GSPMD, the port computes the
+  block tensor-parallel, on the rank's blocks of ``param_specs``:
+  ``x_proj``/``z_proj`` are column-parallel over ``d_inner``, so each rank
+  computes the ``x`` and ``z`` of its SSD heads (or, in hymba's
+  ``p_major`` layout, of its P channels: the rank's ``d_inner`` block is
+  a block of P there); ``bc_proj``/``dt_proj`` stay whole; the conv acts
+  on the rank's channels and ``[B, C]`` (its weight block is gathered:
+  ``param_specs`` cuts the conv's ``[x, B, C]`` channels in one block
+  each); the gated norm takes its variance over ``model`` and multiplies
+  by the rank's ``gnorm`` block; ``out_proj`` is row-parallel and its
+  partial outputs are summed. The scan is independent per head and per P
+  channel. ``return_state`` returns this rank's block of the final state
+  ``h`` and of the conv tail, as ``parallel.sharding.cache_specs`` lays the
+  decode cache out (which cuts ``h`` by heads wherever ``M`` divides them,
+  so a ``p_major`` block is moved to the heads there), and
+  :func:`ssm_decode` takes and returns those blocks;
+* a batch-1 input whose sequence is sharded over the data axes
+  (``seq_axes``): the reference pins the head grid with the sequence whole,
+  so the port gathers the conv's and the SSD's inputs over those axes
+  (``collectives.gather_params``: the backward pass sums the ranks'
+  cotangents), runs both on the whole sequence and keeps its slice.
 """
 
 from __future__ import annotations
@@ -44,7 +60,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from repro_torch.launch import collectives as C
-from repro_torch.models.layers import acc_dtype, model_ranks, normal, remat
+from repro_torch.models.layers import (acc_dtype, model_block, model_ranks, normal, remat,
+                                       splits)
 
 __all__ = ["init_ssm", "ssm_train", "ssm_decode", "init_ssm_state"]
 
@@ -167,31 +184,62 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
 
 
 def _split(cfg, mesh):
-    """How the SSD splits over the ``model`` axis: ``(dim, ranks)``, dim 1
-    of the (B, H, P, N) state for heads, 2 for P channels, or None (not
-    split: one rank, or neither H nor P divides)."""
+    """How the cache cuts the SSD state over the ``model`` axis
+    (``cache_specs``): ``(dim, ranks)``, dim 1 of the (B, H, P, N) state
+    for heads, 2 for P channels, or None (one rank, or neither divides)."""
     m = model_ranks(mesh)
     if m == 1:
         return None
     s_cfg = cfg.ssm
-    if s_cfg.num_heads(cfg.d_model) % m == 0:
+    if splits(s_cfg.num_heads(cfg.d_model), m):
         return 1, m
-    if s_cfg.head_dim % m == 0:
+    if splits(s_cfg.head_dim, m):
         return 2, m
     return None
+
+
+def _tp(cfg, mesh):
+    """The state dim the rank's ``d_inner`` block covers under tensor
+    parallelism: 2 (its P channels, ``p_major``), 1 (its heads), or None
+    (one ``model`` rank). Raises where the block is not whole heads or P
+    channels."""
+    m = model_ranks(mesh)
+    if m == 1:
+        return None
+    s_cfg = cfg.ssm
+    nh = s_cfg.num_heads(cfg.d_model)
+    if s_cfg.p_major and splits(s_cfg.head_dim, m):
+        return 2
+    if not s_cfg.p_major and splits(nh, m):
+        return 1
+    raise ValueError(f"the model axis ({m} ranks) splits neither the SSD heads ({nh}) nor, "
+                     f"in the p_major layout, the head dim ({s_cfg.head_dim})")
 
 
 def _conv_split(cfg, mesh) -> bool:
     """Whether the conv state's channels are split over ``model``."""
     m = model_ranks(mesh)
     ch = cfg.ssm.d_inner(cfg.d_model) + 2 * cfg.ssm.d_state
-    return m > 1 and ch % m == 0 and ch >= m
+    return splits(ch, m)
 
 
-def _block(x, mesh, dim: int):
-    """This ``model`` rank's block of ``x`` along ``dim``."""
-    n = x.shape[dim] // mesh.shape["model"]
-    return x.narrow(dim, mesh.axis_index("model") * n, n)
+def _move_state(h, mesh, src, dst):
+    """A block of the (B, H, P, N) state cut along ``src`` as the block cut
+    along ``dst`` (both over ``model``; no-grad paths)."""
+    if src == dst:
+        return h
+    return model_block(C.all_gather_dim(h, mesh, "model", src), mesh, dst).contiguous()
+
+
+def _conv_weights(p, cfg, mesh, dtype):
+    """The conv taps of the rank's ``[x, B, C]`` channels, (di/M + 2N, K):
+    the held block of the conv weight (or the whole one) gathered, then
+    the rank's x channels and the B/C channels taken."""
+    w = p["conv"]
+    if _conv_split(cfg, mesh):
+        w = C.gather_params(w, mesh, "model", 0)
+    di = cfg.ssm.d_inner(cfg.d_model)
+    return torch.cat([model_block(w[:di], mesh, 0), w[di:]], 0).to(dtype)
 
 
 def _heads(x, s_cfg, nh):
@@ -202,71 +250,108 @@ def _heads(x, s_cfg, nh):
     return x.reshape(*x.shape[:-1], nh, s_cfg.head_dim)
 
 
-def _gated_out(p, y, z, dtype):
+def _gated_out(p, y, z, dtype, mesh=None):
     """Mamba-2's gated RMSNorm (norm-before-out with the z gate), then the
-    out projection."""
+    out projection. With ``mesh``, y and z are the rank's ``d_inner`` block:
+    the variance is summed over ``model`` and ``out_proj`` is row-parallel,
+    its partial outputs summed."""
     acc = acc_dtype(dtype)
     y = y * F.silu(z)
     yf = y.to(acc)
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        # every rank normalizes its block by the whole variance: its
+        # cotangent is summed back
+        ss = C.reduce_replicas(torch.sum(yf * yf, dim=-1, keepdim=True), mesh, "model")
+        var = C.sum_grads(ss, mesh, "model") / (yf.shape[-1] * mesh.shape["model"])
     y = (yf * torch.rsqrt(var + 1e-6) * (1.0 + p["gnorm"].to(acc))).to(dtype)
-    return torch.matmul(y, p["out_proj"].to(dtype))
+    out = torch.matmul(y, p["out_proj"].to(dtype))
+    return out if mesh is None else C.reduce_replicas(out, mesh, "model")
 
 
-def ssm_train(p: dict, x_in: torch.Tensor, cfg, return_state: bool = False, mesh=None):
+def ssm_train(p: dict, x_in: torch.Tensor, cfg, return_state: bool = False, mesh=None,
+              seq_axes=None):
     """Full-sequence SSD block. x_in: (B, S, D) → (B, S, D).
 
     With ``return_state`` also returns (h_final, conv_state) so prefill can
     hand off to the recurrent decode path: the SSD state in float32 (or
     float64) and the last ``K-1`` *pre-conv* channels, left-padded with
-    zeros when the sequence is shorter."""
+    zeros when the sequence is shorter. With a mesh of several ``model``
+    ranks, ``p`` holds the rank's blocks (module docstring); ``seq_axes``:
+    ``x_in`` is this rank's slice of the sequence over those (data) axes."""
     s_cfg = cfg.ssm
     di = s_cfg.d_inner(cfg.d_model)
     nh = s_cfg.num_heads(cfg.d_model)
     ns = s_cfg.d_state
     dtype = x_in.dtype
     acc = acc_dtype(dtype)
+    tp = _tp(cfg, mesh)
+    m = model_ranks(mesh)
+    d_loc = di // m if tp else di
+    pw = {k: p[k] for k in ("bc_proj", "dt_proj", "a_log", "d_skip")}
+    if tp:
+        # a replicated input and whole weights each rank uses for its own
+        # heads (or P channels): their cotangents are summed
+        x_in = C.sum_grads(x_in, mesh, "model")
+        pw = {k: C.sum_grads(w, mesh, "model") for k, w in pw.items()}
 
     x = torch.matmul(x_in, p["x_proj"].to(dtype))
     z = torch.matmul(x_in, p["z_proj"].to(dtype))
-    bc = torch.matmul(x_in, p["bc_proj"].to(dtype))
-    dt = torch.matmul(x_in, p["dt_proj"].to(dtype))
+    bc = torch.matmul(x_in, pw["bc_proj"].to(dtype))
+    dt = torch.matmul(x_in, pw["dt_proj"].to(dtype))
 
     xbc_raw = torch.cat([x, bc], dim=-1)
-    xbc = F.silu(_depthwise_causal_conv(xbc_raw, p["conv"].to(dtype)))
-    x, b, c = torch.split(xbc, [di, ns, ns], dim=-1)
+    if seq_axes:
+        # the conv and the scan run over the whole sequence
+        xbc_raw = C.gather_params(xbc_raw, mesh, seq_axes, 1)
+        dt = C.gather_params(dt, mesh, seq_axes, 1)
+    w_conv = _conv_weights(p, cfg, mesh, dtype) if tp else p["conv"].to(dtype)
+    xbc = F.silu(_depthwise_causal_conv(xbc_raw, w_conv))
+    x, b, c = torch.split(xbc, [d_loc, ns, ns], dim=-1)
 
     dt = F.softplus(dt.to(acc))
-    a = -torch.exp(p["a_log"].to(acc))
-    xh = _heads(x, s_cfg, nh)
-    split = _split(cfg, mesh)
-    if split is None:
-        y, h_final = _ssd_chunked(xh.to(acc), dt, a, b.to(acc), c.to(acc), s_cfg.chunk)
+    a = -torch.exp(pw["a_log"].to(acc))
+    d_skip = pw["d_skip"].to(acc)
+    if tp == 1:
+        dt = model_block(dt, mesh, 2)
+        a, d_skip = model_block(a, mesh, 0), model_block(d_skip, mesh, 0)
+    h_loc = nh // m if tp == 1 else nh
+    p_loc = s_cfg.head_dim // m if tp == 2 else s_cfg.head_dim
+    if s_cfg.p_major:
+        # (…, P, H) → (…, H, P): the model-sharded d_inner axis lands on P
+        xh = x.reshape(*x.shape[:-1], p_loc, h_loc).transpose(-1, -2)
     else:
-        # each rank scans its heads (or P channels); its gradients of the
-        # replicated inputs cover its slice only, so they are summed
-        dim, _ = split
-        xs, dts, a_s, bs, cs = (C.sum_grads(t, mesh, "model")
-                                for t in (xh.to(acc), dt, a, b.to(acc), c.to(acc)))
-        xs = _block(xs, mesh, dim + 1)
-        if dim == 1:
-            dts, a_s = _block(dts, mesh, 2), _block(a_s, mesh, 0)
-        y, h_final = _ssd_chunked(xs, dts, a_s, bs, cs, s_cfg.chunk)
-        y = C.gather_replicas(y, mesh, "model", dim + 1)
-    y = y + xh.to(acc) * p["d_skip"].to(acc)[None, None, :, None]
+        xh = x.reshape(*x.shape[:-1], h_loc, p_loc)
+    y, h_final = _ssd_chunked(xh.to(acc), dt, a, b.to(acc), c.to(acc), s_cfg.chunk)
+    y = y + xh.to(acc) * d_skip[None, None, :, None]
     if s_cfg.p_major:
         y = y.transpose(-1, -2)
-    y = y.reshape(*x.shape[:2], di).to(dtype)
-    out = _gated_out(p, y, z, dtype)
+    y = y.reshape(*y.shape[:2], d_loc).to(dtype)
+    if seq_axes:
+        y = _seq_slice(y, mesh, seq_axes)
+    out = _gated_out(p, y, z, dtype, mesh if tp else None)
     if return_state:
         k = s_cfg.d_conv - 1
         tail = xbc_raw[:, -k:].to(acc)
         if tail.shape[1] < k:  # sequences shorter than the conv receptive field
             tail = F.pad(tail, (0, 0, k - tail.shape[1], 0))
-        if _conv_split(cfg, mesh):
-            tail = _block(tail, mesh, 2)
+        if tp:
+            # the cache's blocks: the whole [x, B, C] tail cut by channels,
+            # the state cut as ``cache_specs`` cuts it
+            tail = torch.cat([C.all_gather_dim(tail[..., :d_loc], mesh, "model", 2),
+                              tail[..., d_loc:]], 2)
+            if _conv_split(cfg, mesh):
+                tail = model_block(tail, mesh, 2)
+            h_final = _move_state(h_final, mesh, tp, _split(cfg, mesh)[0])
         return out, (h_final.to(acc), tail)
     return out
+
+
+def _seq_slice(x, mesh, seq_axes):
+    """This rank's slice (dim 1) of a sequence gathered over ``seq_axes``."""
+    n = x.shape[1] // mesh.axis_size(seq_axes)
+    return x.narrow(1, mesh.axis_index(seq_axes) * n, n)
 
 
 def ssm_decode(
@@ -282,9 +367,11 @@ def ssm_decode(
     x_in: (B, 1, D); h: (B, H, P, N); conv_state: (B, K-1, C).
     Returns (y (B,1,D), new_h, new_conv_state), new tensors (the caller
     stores them; ``transformer.forward_decode`` copies them into its
-    cache). With a mesh, ``h`` and ``conv_state`` are this rank's blocks
-    (``parallel.sharding.cache_specs``): each rank steps its conv channels
-    and its heads or P channels, and the results are gathered.
+    cache). With a mesh of several ``model`` ranks, ``p`` holds the rank's
+    blocks and ``h`` and ``conv_state`` are the cache's blocks
+    (``parallel.sharding.cache_specs``): each rank steps its channels and
+    its heads or P channels (module docstring), and the conv state's new
+    column is gathered over ``model``.
     """
     s_cfg = cfg.ssm
     di = s_cfg.d_inner(cfg.d_model)
@@ -292,6 +379,9 @@ def ssm_decode(
     ns = s_cfg.d_state
     dtype = x_in.dtype
     acc = acc_dtype(dtype)
+    tp = _tp(cfg, mesh)
+    m = model_ranks(mesh)
+    d_loc = di // m if tp else di
 
     x = torch.matmul(x_in, p["x_proj"].to(dtype))
     z = torch.matmul(x_in, p["z_proj"].to(dtype))
@@ -302,39 +392,48 @@ def ssm_decode(
     # as jnp.concatenate promotes
     win_t = torch.promote_types(conv_state.dtype, dtype)
     xbc = torch.cat([x, bc], dim=-1)[:, 0]                             # (B, C)
-    if not _conv_split(cfg, mesh):
+    if tp:
+        full = conv_state
+        if _conv_split(cfg, mesh):
+            full = C.all_gather_dim(conv_state, mesh, "model", 2)
+        state = torch.cat([model_block(full[..., :di], mesh, 2), full[..., di:]], 2)
+        window = torch.cat([state.to(win_t), xbc[:, None].to(win_t)], dim=1)
+        new_col = torch.cat([C.all_gather_dim(x[:, 0], mesh, "model", 1), bc[:, 0]], 1)
+        new_conv_state = torch.cat([full[:, 1:].to(win_t), new_col[:, None].to(win_t)], 1)
+        if _conv_split(cfg, mesh):
+            new_conv_state = model_block(new_conv_state, mesh, 2)
+        w = _conv_weights(p, cfg, mesh, dtype).to(win_t)
+    else:
         window = torch.cat([conv_state.to(win_t), xbc[:, None].to(win_t)], dim=1)  # (B, K, C)
         new_conv_state = window[:, 1:]
-    w = p["conv"].to(dtype).to(win_t)                                   # (C, K)
-    if _conv_split(cfg, mesh):
-        window = torch.cat([conv_state.to(win_t), _block(xbc[:, None], mesh, 2).to(win_t)], 1)
-        new_conv_state = window[:, 1:]
-        xbc = F.silu(torch.einsum("bkc,ck->bc", window, _block(w, mesh, 0)))
-        xbc = C.all_gather_dim(xbc, mesh, "model", 1)
-    else:
-        xbc = F.silu(torch.einsum("bkc,ck->bc", window, w))
-    x, b, c = torch.split(xbc, [di, ns, ns], dim=-1)
+        w = p["conv"].to(dtype).to(win_t)                               # (C, K)
+    xbc = F.silu(torch.einsum("bkc,ck->bc", window, w))
+    x, b, c = torch.split(xbc, [d_loc, ns, ns], dim=-1)
 
     dt = F.softplus(dt[:, 0].to(acc))                                   # (B, H)
     a = -torch.exp(p["a_log"].to(acc))
-    da = torch.exp(dt * a[None])                                        # (B, H)
-    xh = _heads(x, s_cfg, nh).to(acc)
     d_skip = p["d_skip"].to(acc)
-    split = _split(cfg, mesh)
-    if split is not None:
-        dim, _ = split
-        xh = _block(xh, mesh, dim)
-        if dim == 1:
-            dt, da, d_skip = _block(dt, mesh, 1), _block(da, mesh, 1), _block(d_skip, mesh, 0)
+    if tp == 1:
+        dt = model_block(dt, mesh, 1)
+        a, d_skip = model_block(a, mesh, 0), model_block(d_skip, mesh, 0)
+    da = torch.exp(dt * a[None])                                        # (B, H)
+    h_loc = nh // m if tp == 1 else nh
+    p_loc = s_cfg.head_dim // m if tp == 2 else s_cfg.head_dim
+    if s_cfg.p_major:
+        xh = x.reshape(-1, p_loc, h_loc).transpose(-1, -2).to(acc)
+    else:
+        xh = x.reshape(-1, h_loc, p_loc).to(acc)
+    if tp:
+        h = _move_state(h, mesh, _split(cfg, mesh)[0], tp)
 
     # h ← h·exp(dt·A) + dt · B ⊗ x
     inc = (dt[:, :, None] * xh)[..., None] * b.to(acc)[:, None, None, :]
     h = h * da[..., None, None] + inc
     y = torch.einsum("bn,bhpn->bhp", c.to(acc), h)
     y = y + xh * d_skip[None, :, None]
-    if split is not None:
-        y = C.all_gather_dim(y, mesh, "model", split[0])
+    if tp:
+        h = _move_state(h, mesh, tp, _split(cfg, mesh)[0])
     if s_cfg.p_major:
         y = y.transpose(-1, -2)
-    y = y.reshape(-1, 1, di).to(dtype)
-    return _gated_out(p, y, z, dtype), h, new_conv_state
+    y = y.reshape(-1, 1, d_loc).to(dtype)
+    return _gated_out(p, y, z, dtype, mesh if tp else None), h, new_conv_state

@@ -54,32 +54,41 @@ returns that cache (the reference returns a new one). A cache is used
 once: after a step only the returned one is current.
 
 With a mesh (``launch.mesh.Mesh``, one process a rank), every rank runs
-these functions on its block of the batch and returns its block of the
-output:
+these functions on its block of the batch and its blocks of the weights
+(``parallel.sharding.held(param_specs)``, the reference's layout) and
+returns its block of the output:
 
 * :func:`init` pads the vocab (``parallel.sharding.pad_vocab``) and the
-  experts (``pad_experts``); on a rank's mesh the expert-parallel expert
-  weights are the rank's experts. Every other weight is whole on every
-  rank: the reference shards the dense weights by ``param_specs`` and
-  leaves their tensor-parallel compute to GSPMD, which the port does not
-  have (see ROADMAP);
-* :func:`forward_train` runs context-parallel attention
-  (``layers.attention_train_cp``) under ``cfg.cp_attention`` with more
-  than one ``model`` rank, splits the hybrid's SSD over ``model``
-  (``ssm.ssm_train``) and the MoE over it (``moe.moe_layer``); a prefill
-  cache comes back as this rank's blocks, as ``cache_specs`` lays it out;
-* :func:`init_cache` gives this rank's blocks of the cache: its batch
-  rows, its chunk of every attention layer's sequence, its SSD heads (or P
-  channels) and conv channels;
+  experts (``pad_experts``) and, on a rank's mesh, draws each leaf as one
+  rank draws it and keeps the rank's block, so a rank's values are one
+  rank's;
+* the layers are tensor-parallel over ``model``: q/k/v column-parallel
+  over the heads (row-parallel over ``d_model`` where the heads do not
+  divide the axis), attention on the rank's heads, ``wo`` and the MLPs'
+  ``wd`` row-parallel with their partial outputs summed
+  (``layers.attention_train``, ``layers.mlp_gated``), the SSM's
+  ``d_inner`` split (``ssm.ssm_train``), the MoE's experts over ``model``
+  (``moe.moe_layer``); context-parallel attention under ``cfg.cp_attention``
+  with more than one ``model`` rank (``layers.attention_train_cp``,
+  which gathers the weights whole, as the reference's ``shard_map``
+  takes them);
+* the embedding is vocab-parallel (:func:`_embed_tokens`) and the head
+  gives the rank's block of the vocab's logits (:func:`_lm_logits`;
+  :func:`gather_vocab` gathers them; the train step's loss is
+  vocab-parallel);
+* :func:`forward_train` with ``seq_axes`` takes a batch whose sequence
+  is sharded over the data axes (a global batch they do not divide, as
+  long-context single sequences are): attention and the SSM's conv and
+  scan gather the sequence, the rest runs on the rank's slice;
+* :func:`init_cache` gives this rank's blocks of the cache
+  (``cache_specs``): its batch rows (the whole batch where the data axes
+  do not divide it), its chunk of every attention layer's sequence (the
+  whole sequence where the ``model`` axis does not divide its length),
+  its SSD heads (or P channels) and conv channels;
 * :func:`forward_decode` attends over the rank's sequence chunk with
-  ``layers.attention_decode_sp`` whenever the ``model`` axis has more than
-  one rank (whatever ``sp_decode`` says: the rank holds only its chunk),
+  ``layers.attention_decode_sp`` (the rank's q/k/v heads gathered), or
+  over a whole cache with ``layers.attention_decode`` on the rank's heads,
   and steps its blocks of the SSM state.
-
-Departure: under a mesh with more than one ``model`` rank a cache length
-the axis does not divide raises ``ValueError`` in :func:`init_cache` and
-the prefill (the reference keeps such a cache whole on every rank and
-decodes it through GSPMD).
 """
 
 from __future__ import annotations
@@ -93,6 +102,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.backend import device_cached, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -153,21 +163,42 @@ def init(generator, cfg: ModelConfig, mesh=None, *, device=None) -> dict:
     ``convert.params_from_reference``."""
     device = resolve_device(device)
     v = padded_vocab(cfg, mesh)
+    cut = _cutter(cfg, mesh)
     params: dict = {
-        "embed": L.padded(L.normal(generator, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5,
-                                   device), 0, v),
+        "embed": cut("embed", L.padded(L.normal(generator, (cfg.vocab_size, cfg.d_model),
+                                                cfg.d_model ** -0.5, device), 0, v)),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
     }
     if not cfg.tie_embeddings:
         k = _head_width(cfg)
         head = L.normal(generator, (cfg.d_model, k, cfg.vocab_size), cfg.d_model ** -0.5, device)
-        params["lm_head"] = L.padded(head, 2, v).reshape(cfg.d_model, k * v)
+        params["lm_head"] = cut("lm_head", L.padded(head, 2, v).reshape(cfg.d_model, k * v))
     if cfg.scan_layers:
-        params["layers"] = _init_layer(generator, cfg, mesh, device, lead=(cfg.num_layers,))
+        params["layers"] = cut("layers", _init_layer(generator, cfg, mesh, device,
+                                                     lead=(cfg.num_layers,)))
     else:
-        params["layers"] = [_init_layer(generator, cfg, mesh, device)
-                            for _ in range(cfg.num_layers)]
+        params["layers"] = [cut("layers", _init_layer(generator, cfg, mesh, device), i)
+                            for i in range(cfg.num_layers)]
     return params
+
+
+def _cutter(cfg: ModelConfig, mesh):
+    """``cut(key, tree[, i])``: the rank's blocks of a part of the
+    parameter tree (``params[key]``, or layer ``i`` of an unscanned stack)
+    under ``held(param_specs)`` on a rank's mesh; the part itself on no
+    mesh or a shape-only one. Each block is copied out, so the whole draw is
+    freed before the next part is drawn."""
+    if mesh is None or not hasattr(mesh, "axis_index"):
+        return lambda key, tree, i=None: tree
+    from repro_torch.parallel.sharding import held, local_block, map_specs, param_specs
+
+    specs = held(param_specs(mesh, cfg), cfg, mesh)
+
+    def cut(key, tree, i=None):
+        spec = specs[key] if i is None else specs[key][i]
+        return map_specs(lambda s, x: local_block(x, mesh, s).clone(), spec, tree)
+
+    return cut
 
 
 # ---------------------------------------------------------------------------
@@ -175,24 +206,68 @@ def init(generator, cfg: ModelConfig, mesh=None, *, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, tokens, cfg, dtype):
-    emb = F.embedding(tokens, params["embed"].to(dtype))
+def _vocab_split(params, cfg, mesh) -> bool:
+    """Whether the embedding (and head) hold the rank's vocab block."""
+    return L.model_ranks(mesh) > 1 and params["embed"].shape[0] < padded_vocab(cfg, mesh)
+
+
+def _vocab(params, cfg, mesh) -> int:
+    """The (padded) vocab width of the whole embedding."""
+    n = params["embed"].shape[0]
+    return n * L.model_ranks(mesh) if _vocab_split(params, cfg, mesh) else n
+
+
+def _embed_tokens(params, tokens, cfg, dtype, mesh=None):
+    """The token embeddings; vocab-parallel where the rank holds its block
+    of the rows: the ids outside it are looked up at row 0 and zeroed, and
+    the ranks' embeddings are summed (exact: one rank adds each id's row)."""
+    w = params["embed"].to(dtype)
+    if _vocab_split(params, cfg, mesh):
+        n = w.shape[0]
+        local = tokens.to(torch.int64) - mesh.axis_index("model") * n
+        mine = (local >= 0) & (local < n)
+        emb = F.embedding(torch.where(mine, local, 0), w) * mine[..., None].to(dtype)
+        if cfg.num_codebooks > 1:
+            emb = emb.sum(dim=2)
+        return C.reduce_replicas(emb, mesh, "model")
+    emb = F.embedding(tokens, w)
     if cfg.num_codebooks > 1:
         # musicgen: (B, S, K) codebook ids → summed embeddings
         return emb.sum(dim=2)
     return emb
 
 
-def _lm_logits(params, x, cfg, v):
+def _lm_logits(params, x, cfg, v, mesh=None):
+    """The logits: (B, S, V), or (B, S, K, V) for K codebooks; where the
+    rank holds its vocab block of the head (or of the tied embedding), its
+    block of the columns, (B, S, V/M) or (B, S, K·V/M) of the flattened
+    codebook-major columns, from ``x`` marked for its partial cotangent."""
+    split = _vocab_split(params, cfg, mesh)
+    if split:
+        x = C.sum_grads(x, mesh, "model")
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype).T  # (d, V)
     else:
         w = params["lm_head"].to(x.dtype)
     logits = torch.matmul(x, w)
-    if cfg.num_codebooks > 1:
+    if cfg.num_codebooks > 1 and not split:
         b, s, _ = logits.shape
         logits = logits.reshape(b, s, cfg.num_codebooks, v)
     return logits
+
+
+def gather_vocab(logits, cfg, mesh, v: int):
+    """The rank's vocab block of logits (:func:`forward_train` /
+    :func:`forward_decode` on a mesh) gathered whole: (…, V) or
+    (…, K, V). Not differentiable; the identity without a split vocab."""
+    m = L.model_ranks(mesh)
+    flat = cfg.num_codebooks <= 1 or logits.dim() == 3
+    if m == 1 or not flat or logits.shape[-1] * m != v * max(cfg.num_codebooks, 1):
+        return logits
+    full = C.all_gather_dim(logits, mesh, "model", logits.dim() - 1)
+    if cfg.num_codebooks > 1:
+        full = full.reshape(*full.shape[:-1], cfg.num_codebooks, v)
+    return full
 
 
 # ---------------------------------------------------------------------------
@@ -251,33 +326,46 @@ def _zero(device):
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
-def _feed_forward(x, p_layer, cfg, mesh=None):
+def _feed_forward(x, p_layer, cfg, mesh=None, seq_axes=None):
     """A layer's feed-forward half, residual added: the routed experts
     (plus the shared ones) or the gated MLP. Returns ``(x, aux)``, aux the
     MoE load-balance loss or None without experts."""
     if cfg.moe is not None:
         xn = L.rms_norm(x, p_layer["moe"]["norm"], cfg.norm_eps)
-        y, aux = MOE.moe_layer(p_layer["moe"], xn, cfg, mesh)
+        y, aux = MOE.moe_layer(p_layer["moe"], xn, cfg, mesh, seq_sharded=bool(seq_axes))
         if cfg.moe.num_shared:
-            y = y + L.mlp_gated(p_layer["shared_mlp"], xn, cfg.mlp_activation)
+            y = y + L.mlp_gated(p_layer["shared_mlp"], xn, cfg.mlp_activation, mesh,
+                                cfg.moe.num_shared * cfg.moe.d_ff_expert)
         return x + y, aux
     if cfg.d_ff:
         xn = L.rms_norm(x, p_layer["mlp"]["norm"], cfg.norm_eps)
-        x = x + L.mlp_gated(p_layer["mlp"], xn, cfg.mlp_activation)
+        x = x + L.mlp_gated(p_layer["mlp"], xn, cfg.mlp_activation, mesh, cfg.d_ff)
     return x, None
 
 
-def _attn(p_attn, x, window, return_kv, cfg, mesh):
+def _attn(p_attn, x, window, return_kv, cfg, mesh, seq_axes=None):
     """Self-attention of a layer: context-parallel under ``cp_attention``
-    with more than one ``model`` rank, else whole on every rank."""
+    with more than one ``model`` rank, else tensor-parallel over the
+    rank's heads. ``seq_axes``: ``x`` is the rank's slice of the sequence
+    over those (data) axes; it is gathered whole first (the backward pass
+    sums the ranks' cotangents) and the rank keeps its slice of the
+    output."""
+    if seq_axes:
+        x = C.gather_params(x, mesh, seq_axes, 1)
     if cfg.cp_attention and L.model_ranks(mesh) > 1:
-        return L.attention_train_cp(p_attn, x, cfg, mesh, window=window, return_kv=return_kv)
-    return L.attention_train(p_attn, x, cfg, window=window, return_kv=return_kv)
+        y = L.attention_train_cp(p_attn, x, cfg, mesh, window=window, return_kv=return_kv)
+    else:
+        y = L.attention_train(p_attn, x, cfg, window=window, return_kv=return_kv, mesh=mesh)
+    if seq_axes:
+        n = x.shape[1] // mesh.axis_size(seq_axes)
+        y = y.narrow(1, mesh.axis_index(seq_axes) * n, n)
+    return y
 
 
 def _kv_block(c, mesh):
-    """A layer's prefill cache as this rank's sequence chunk of k and v."""
-    if L.model_ranks(mesh) == 1:
+    """A layer's prefill cache as this rank's sequence chunk of k and v
+    (whole where the ``model`` axis does not divide its length)."""
+    if not L.splits(c["k"].shape[1], L.model_ranks(mesh)):
         return c
     from repro_torch.parallel.sharding import P, local_block
 
@@ -286,7 +374,7 @@ def _kv_block(c, mesh):
             "v": local_block(c["v"], mesh, spec).contiguous()}
 
 
-def _dense_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None):
+def _dense_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None, seq_axes=None):
     """A dense or MoE layer: (x, aux, cache or None)."""
     h = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
     c = None
@@ -299,24 +387,24 @@ def _dense_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None):
             c = {"k": _pad_kv_to(kk, c_len), "v": _pad_kv_to(vv, c_len)}
         c = _kv_block(c, mesh)
     else:
-        y = _attn(p_layer["attn"], h, cfg.sliding_window, False, cfg, mesh)
-    x, aux = _feed_forward(x + y, p_layer, cfg, mesh)
+        y = _attn(p_layer["attn"], h, cfg.sliding_window, False, cfg, mesh, seq_axes)
+    x, aux = _feed_forward(x + y, p_layer, cfg, mesh, seq_axes)
     return x, _zero(x.device) if aux is None else aux, c
 
 
-def _ssm_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None):
+def _ssm_body(x, p_layer, *, cfg, return_cache, cache_len, seq, mesh=None, seq_axes=None):
     xn = L.rms_norm(x, p_layer["ssm"]["norm"], cfg.norm_eps)
     if return_cache:
         y, (h_f, conv) = SSM.ssm_train(p_layer["ssm"], xn, cfg, return_state=True, mesh=mesh)
         c = {"h": h_f, "conv": conv}
     else:
-        y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh)
+        y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh, seq_axes=seq_axes)
         c = None
     return x + y, _zero(x.device), c
 
 
 def _hybrid_body(x, p_layer, window, *, cfg, return_cache, cache_len, seq, ring=False,
-                 mesh=None):
+                 mesh=None, seq_axes=None):
     """A hybrid layer: ``x + ½(attention + SSM)``, then the MLP. ``window``
     is an int, a 0-d tensor or None; ``ring`` (unscanned stacks) keeps a
     sliding-window layer's cache as a ring of ``min(window, cache_len)``
@@ -334,10 +422,10 @@ def _hybrid_body(x, p_layer, window, *, cfg, return_cache, cache_len, seq, ring=
                                            mesh=mesh)
         c.update({"h": h_f, "conv": conv})
     else:
-        attn_y = _attn(p_layer["attn"], xn, window, False, cfg, mesh)
-        ssm_y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh)
+        attn_y = _attn(p_layer["attn"], xn, window, False, cfg, mesh, seq_axes)
+        ssm_y = SSM.ssm_train(p_layer["ssm"], xn, cfg, mesh=mesh, seq_axes=seq_axes)
         c = None
-    x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg, mesh)
+    x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg, mesh, seq_axes)
     return x, _zero(x.device), c
 
 
@@ -375,32 +463,42 @@ def forward_train(
     compute_dtype=torch.bfloat16,
     return_cache: bool = False,
     cache_len: Optional[int] = None,
+    seq_axes=None,
 ):
     """Training/prefill forward. batch: {'tokens': (B,S[,K])} or
     {'embeds': ..., 'image_embeds': ...}. Returns (logits, aux_loss) or
     (logits, aux_loss, cache) when ``return_cache`` (prefill): the
     auxiliary loss is the MoE load-balance loss summed over the layers, a
-    float32 zero for the other families."""
+    float32 zero for the other families. With a mesh of several ``model``
+    ranks the logits are the rank's vocab block (:func:`_lm_logits`;
+    :func:`gather_vocab` gathers them). ``seq_axes``: the batch is this
+    rank's slice of the sequence over those (data) axes (a global batch
+    they do not divide; train only)."""
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"remat must be 'none', 'dots' or 'full', got {remat!r}")
-    v = params["embed"].shape[0]
+    if seq_axes and (return_cache or "image_embeds" in batch):
+        raise ValueError("a sequence sharded over the data axes is a train step's text or "
+                         "audio input; prefill and image inputs take whole sequences")
+    v = _vocab(params, cfg, mesh)
     if "embeds" in batch:  # audio stub front end: precomputed frame embeddings
         x = batch["embeds"].to(compute_dtype)
     else:
-        x = _embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+        x = _embed_tokens(params, batch["tokens"], cfg, compute_dtype, mesh)
     if cfg.modality == "vision_text" and "image_embeds" in batch:
         img = batch["image_embeds"].to(compute_dtype)
         x = torch.cat([img, x], dim=1)
     seq = x.shape[1]
     cache_len = cache_len or seq
-    kw = dict(cfg=cfg, return_cache=return_cache, cache_len=cache_len, seq=seq, mesh=mesh)
+    kw = dict(cfg=cfg, return_cache=return_cache, cache_len=cache_len, seq=seq, mesh=mesh,
+              seq_axes=seq_axes or None)
 
     aux_total = _zero(x.device)
     caches = []
     if cfg.scan_layers:
         layers = _unstack(params["layers"], cfg.num_layers)
         if cfg.family == "hybrid":
-            windows = _layer_windows(cfg, seq, x.device)
+            n_seq = mesh.axis_size(seq_axes) if seq_axes else 1
+            windows = _layer_windows(cfg, seq * n_seq, x.device)
             body = _remat(functools.partial(_hybrid_body, **kw), remat)
             for p_layer, window in zip(layers, windows):
                 x, a, c = body(x, p_layer, window)
@@ -431,7 +529,7 @@ def forward_train(
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.modality == "vision_text" and "image_embeds" in batch:
         x = x[:, batch["image_embeds"].shape[1]:]  # logits over text positions
-    logits = _lm_logits(params, x, cfg, v)
+    logits = _lm_logits(params, x, cfg, v, mesh)
     if return_cache:
         return logits, aux_total, {"layers": caches}
     return logits, aux_total
@@ -494,28 +592,22 @@ def init_cache(
 
 
 def _cache_blocks(cfg, batch, max_seq, mesh, dtype, device):
-    """This rank's zero blocks of the cache (:func:`init_cache` on a mesh)."""
-    from repro_torch.parallel.sharding import cache_specs, data_axes, map_named, map_specs
+    """This rank's zero blocks of the cache (:func:`init_cache` on a mesh):
+    a batch the data axes do not divide is whole on every rank, and so is
+    the sequence of an attention layer's cache whose length the ``model``
+    axis does not divide (``cache_specs``)."""
+    from repro_torch.parallel.sharding import cache_specs, map_specs
 
-    dp = data_axes(mesh)
-    if dp and batch % mesh.axis_size(dp):
-        raise ValueError(f"the data axes ({mesh.axis_size(dp)} ranks) do not divide the "
-                         f"batch {batch}")
     full = init_cache(cfg, batch, max_seq, None, dtype, device="meta")
-    m = L.model_ranks(mesh)
 
-    def block(spec, leaf):
-        name, x = leaf
-        if name in ("k", "v") and m > 1 and spec[x.dim() - 3] is None:
-            raise ValueError(f"the model axis ({m} ranks) does not divide a cache length "
-                             f"of {x.shape[-3]}")
+    def block(spec, x):
         shape = list(x.shape)
         for d, axes in enumerate(spec):
             if axes is not None:
                 shape[d] //= mesh.axis_size(axes)
         return torch.zeros(shape, dtype=x.dtype, device=device)
 
-    return map_specs(block, cache_specs(mesh, cfg, full), map_named(lambda n, x: (n, x), full))
+    return map_specs(block, cache_specs(mesh, cfg, full), full)
 
 
 def forward_decode(
@@ -529,41 +621,60 @@ def forward_decode(
     compute_dtype=torch.bfloat16,
     unroll_layers: bool = False,
     sp_decode: bool = False,
+    cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1[, K]); pos: (B,) absolute positions.
     Returns (logits (B, 1, [K,] V), cache): ``cache`` itself, its tensors
     updated in place. ``unroll_layers`` is accepted and ignored (the
-    layers are a Python loop). ``sp_decode`` selects the sequence-parallel
-    flash-decode (``layers.attention_decode_sp``) when the mesh has more
-    than one ``model`` rank; there it is the only decode, since each rank
-    holds its chunk of the cache (module docstring). Without such a mesh
-    it changes nothing, as in the reference."""
-    v = params["embed"].shape[0]
-    sp = L.model_ranks(mesh) > 1
+    layers are a Python loop). With a mesh of several ``model`` ranks the
+    logits are the rank's vocab block (as :func:`forward_train`'s), and an
+    attention layer whose cache holds the rank's chunk of the sequence
+    (``cache_specs``) decodes by the sequence-parallel flash-decode
+    (``layers.attention_decode_sp``), whatever ``sp_decode`` says; a layer
+    whose cache is whole (a length the axis does not divide) decodes with
+    ``layers.attention_decode`` on the rank's heads. ``cache_len`` is the
+    cache's global length (``init_cache``'s ``max_seq``, the prefill's
+    ``cache_len``), which tells the two apart; None: every attention cache
+    is a chunk. Without such a mesh ``sp_decode`` changes nothing, as in
+    the reference."""
+    v = _vocab(params, cfg, mesh)
+    m = L.model_ranks(mesh)
 
-    def attend(p_attn, xn, c_layer, window):
+    def chunked(window) -> bool:
+        if m == 1:
+            return False
+        if cache_len is None:
+            return True
+        length = cache_len if not isinstance(window, int) else min(window, cache_len)
+        return L.splits(length, m)
+
+    def attend(p_attn, xn, c_layer, window, sp):
         if sp:
             return L.attention_decode_sp(p_attn, xn, cfg, c_layer["k"], c_layer["v"], pos,
                                          mesh, window=window)
         return L.attention_decode(p_attn, xn, cfg, c_layer["k"], c_layer["v"], pos,
-                                  window=window)
+                                  window=window, mesh=mesh)
 
-    x = _embed_tokens(params, tokens, cfg, compute_dtype)
+    x = _embed_tokens(params, tokens, cfg, compute_dtype, mesh)
 
     if cfg.scan_layers:
         layers = _unstack(params["layers"], cfg.num_layers)
         c_layers = _unstack(cache["layers"], cfg.num_layers)
         if cfg.family == "hybrid":
-            s_cache = cache["layers"]["k"].shape[2] * (L.model_ranks(mesh) if sp else 1)
+            sp = chunked(None)
+            s_cache = cache_len or cache["layers"]["k"].shape[2] * (m if sp else 1)
             windows = _layer_windows(cfg, s_cache, x.device)
+            sps = [sp] * cfg.num_layers
         else:
             windows = [cfg.sliding_window] * cfg.num_layers
+            sps = [chunked(cfg.sliding_window)] * cfg.num_layers
     else:
         layers, c_layers = params["layers"], cache["layers"]
         windows = [_window_for(cfg, i) if cfg.family == "hybrid" else cfg.sliding_window
                    for i in range(cfg.num_layers)]
+        sps = [chunked(w) for w in windows]
 
-    for p_layer, c_layer, window in zip(layers, c_layers, windows):
+    for p_layer, c_layer, window, sp in zip(layers, c_layers, windows, sps):
         if cfg.family == "ssm":
             xn = L.rms_norm(x, p_layer["ssm"]["norm"], cfg.norm_eps)
             y, h, conv = SSM.ssm_decode(p_layer["ssm"], xn, cfg, c_layer["h"], c_layer["conv"],
@@ -573,7 +684,7 @@ def forward_decode(
             x = x + y
         elif cfg.family == "hybrid":
             xn = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
-            attn_y, _, _ = attend(p_layer["attn"], xn, c_layer, window)
+            attn_y, _, _ = attend(p_layer["attn"], xn, c_layer, window, sp)
             ssm_y, h, conv = SSM.ssm_decode(p_layer["ssm"], xn, cfg, c_layer["h"],
                                             c_layer["conv"], mesh)
             c_layer["h"].copy_(h)
@@ -581,8 +692,8 @@ def forward_decode(
             x, _ = _feed_forward(x + 0.5 * (attn_y + ssm_y), p_layer, cfg, mesh)
         else:
             xn = L.rms_norm(x, p_layer["attn"]["norm"], cfg.norm_eps)
-            y, _, _ = attend(p_layer["attn"], xn, c_layer, window)
+            y, _, _ = attend(p_layer["attn"], xn, c_layer, window, sp)
             x, _ = _feed_forward(x + y, p_layer, cfg, mesh)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x, cfg, v), cache
+    return _lm_logits(params, x, cfg, v, mesh), cache

@@ -21,13 +21,22 @@ reference's ``PartitionSpec`` trees entry for entry, as :class:`P` trees.
 How the port holds a spec. The reference hands its trees to GSPMD; the
 port runs one process per rank, and a rank holds a leaf as its block of
 the global array under a spec (:func:`local_block`; :func:`gather` puts
-the blocks back together). What a rank holds is the spec with the
-``model`` entries dropped except on the expert-parallel expert weights
-(:func:`held`): the dense weights are whole on every ``model`` rank (the
-reference leaves their tensor-parallel compute to GSPMD, which has no
-counterpart here), while the ``data`` entries (ZeRO-1 moments, Shampoo's
-owned stat blocks, the batch) and the cache's ``model`` entries (its
-sequence chunk, SSD heads and conv channels) are held as blocks.
+the blocks back together). What a rank holds is the spec itself
+(:func:`held`), with one fallback: a ``model`` entry on a dim the
+``model`` axis does not divide is dropped, and the rank holds that dim
+whole (GSPMD pads such a dim; the port's layers compute with it whole).
+So the dense weights are the rank's tensor-parallel blocks (q/k/v/o by
+heads or, where the heads do not divide the axis, by ``d_model``; the
+MLPs by ``d_ff``; the SSM's ``d_inner``; the embedding and ``lm_head``
+by vocab), the expert weights its experts, and the ``data`` entries
+(ZeRO-1 moments, Shampoo's owned stat blocks, the batch) and the cache's
+``model`` entries (its sequence chunk, SSD heads and conv channels) its
+blocks. ``models`` computes with those blocks and the explicit
+collectives of ``launch.collectives``.
+
+A global batch the data axes do not divide has its sequence sharded over
+them instead (:func:`batch_spec`, :func:`batch_input_specs`), as in the
+reference (the long-context single-sequence cells).
 
 Departure: ``MeshAxes`` is named in the reference's ``__all__`` but never
 defined there, so the port has nothing to export under that name.
@@ -35,6 +44,7 @@ defined there, so the port has nothing to export under that name.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -247,7 +257,7 @@ def cache_specs(mesh, cfg: ModelConfig, cache_abs) -> dict:
 def batch_input_specs(mesh, batch_abs) -> dict:
     """Spec tree for model inputs (tokens/labels/image_embeds/pos): batch
     dim → DP axes when divisible, else the sequence dim (long-context
-    single-sequence cells; the port's train step raises for those)."""
+    single-sequence cells)."""
     dp = data_axes(mesh)
 
     def leaf_spec(name, ab):
@@ -327,27 +337,57 @@ def named(mesh, spec_tree):
 # ---------------------------------------------------------------------------
 
 
-def _expert_leaf(path: Tuple[str, ...]) -> bool:
-    return len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wg", "wu", "wd")
-
-
-def held(spec_tree, cfg: ModelConfig, _path=()):
+def held(spec_tree, cfg: ModelConfig, mesh=None):
     """The part of a param-shaped spec tree (``param_specs``, or a state
     tree whose ``params``/``m``/``v`` mirror it) a rank holds as blocks:
-    the ``model`` entries are dropped except on the expert weights under
-    expert parallelism (``cfg.moe.sharding == "ep"``; ``pad_experts``
-    makes the model axis divide the experts); every other entry is kept."""
-    if isinstance(spec_tree, P):
-        ep = (cfg.moe is not None and cfg.moe.sharding == "ep"
-              and _expert_leaf(tuple(k for k in _path if isinstance(k, str))))
-        if ep:
-            return spec_tree
-        return P(*(_drop_model(a) for a in spec_tree))
+    every entry of the spec, except that with a ``mesh`` a ``model`` entry
+    on a dim the ``model`` axis does not divide is dropped (the rank holds
+    that dim whole). Without a mesh the specs come back as they are."""
+    if mesh is None or "model" not in mesh.shape:
+        return spec_tree
+    shapes = _global_shapes(cfg, tuple(mesh.shape.items()))
+    return _held(spec_tree, shapes, mesh)
+
+
+def _held(spec_tree, shapes, mesh):
     if isinstance(spec_tree, dict):
-        return {k: held(v, cfg, _path + (k,)) for k, v in spec_tree.items()}
-    if isinstance(spec_tree, (list, tuple)):
-        return type(spec_tree)(held(v, cfg, _path + (i,)) for i, v in enumerate(spec_tree))
+        if set(spec_tree) == set(shapes) and "embed" in spec_tree:
+            # a tree that mirrors the parameters: its specs meet their shapes
+            return _fit(spec_tree, shapes, mesh)
+        return {k: _held(v, shapes, mesh) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)) and not isinstance(spec_tree, P):
+        return type(spec_tree)(_held(v, shapes, mesh) for v in spec_tree)
     return spec_tree
+
+
+def _fit(spec, shape, mesh):
+    """``spec`` without its ``model`` entries on dims of ``shape`` that the
+    ``model`` axis does not divide, over a spec tree and the tree of its
+    leaves' shapes (a subtree that is not a spec, such as Shampoo's
+    per-leaf state, passes as it is)."""
+    if isinstance(spec, dict) and isinstance(shape, dict):
+        return {k: _fit(v, shape[k], mesh) if k in shape else v for k, v in spec.items()}
+    if isinstance(spec, list) and isinstance(shape, list):
+        return [_fit(v, sh, mesh) for v, sh in zip(spec, shape)]
+    if not isinstance(spec, P) or not isinstance(shape, tuple):
+        return spec
+    return P(*(_drop_model(a) if a is not None and "model" in _names(a)
+               and not _div(mesh, shape[d], "model") else a for d, a in enumerate(spec)))
+
+
+def _names(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@functools.lru_cache(maxsize=64)
+def _global_shapes(cfg: ModelConfig, mesh_shape: tuple):
+    """The global shape of every parameter leaf of ``cfg`` on a mesh of
+    ``mesh_shape`` (``transformer.init`` on the ``meta`` device)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.transformer import init
+
+    mesh = AbstractMesh([n for _, n in mesh_shape], [a for a, _ in mesh_shape])
+    return map_specs(lambda x: tuple(x.shape), init(None, cfg, mesh, device="meta"))
 
 
 def _drop_model(axes: AxisT) -> AxisT:

@@ -7,13 +7,17 @@ traced by ``jax.jit`` in the caller. Decode updates the cache in place
 (``models.transformer.forward_decode``).
 
 With a mesh (one process a rank, ``launch.mesh``) both steps take this
-rank's block of the batch (``parallel.sharding.batch_input_specs``) and
-return its block of the logits; the cache is the rank's blocks of it
-(``cache_specs``: its batch rows, its chunk of the cache sequence, its
-SSD heads or P channels). The prefill runs context-parallel attention under
+rank's block of the batch (``parallel.sharding.batch_input_specs``; a batch
+the data axes do not divide is whole on every rank) and return its block
+of the logits, the vocab whole: the model returns the rank's vocab block
+and the steps gather the last position's blocks over ``model``
+(``transformer.gather_vocab``) before anything samples. The cache is the
+rank's blocks of it (``cache_specs``: its batch rows, its chunk of the
+cache sequence where the ``model`` axis divides its length, its SSD heads
+or P channels). The prefill runs context-parallel attention under
 ``cfg.cp_attention``; the decode attends by the sequence-parallel
-flash-decode whenever the ``model`` axis has more than one rank
-(``sp_decode`` is passed on to ``forward_decode``).
+flash-decode over a chunked cache and on the rank's heads over a whole one
+(``cache_len``, the cache's global length, tells them apart).
 
 Departure: :func:`sample_logits` draws with ``torch.multinomial`` from an
 explicit ``torch.Generator`` where the reference draws with
@@ -29,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import forward_decode, forward_train
+from repro_torch.models.transformer import _vocab, forward_decode, forward_train, gather_vocab
 
 __all__ = ["make_prefill_step", "make_decode_step", "sample_logits"]
 
@@ -63,19 +67,22 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, compute_dtype=torch.bfloat16,
             params, batch, cfg, mesh,
             compute_dtype=compute_dtype, return_cache=True, cache_len=cache_len,
         )
-        return logits[:, -1:], cache
+        return gather_vocab(logits[:, -1:], cfg, mesh, _vocab(params, cfg, mesh)), cache
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None, compute_dtype=torch.bfloat16,
-                     sp_decode: bool = False):
+                     sp_decode: bool = False, cache_len: Optional[int] = None):
     """decode(params, tokens, cache, pos) -> (logits, cache), the cache
-    updated in place."""
+    updated in place. ``cache_len``: the cache's global length
+    (``transformer.forward_decode``)."""
 
     @torch.no_grad()
     def decode(params, tokens, cache, pos):
-        return forward_decode(params, tokens, cache, pos, cfg, mesh,
-                              compute_dtype=compute_dtype, sp_decode=sp_decode)
+        logits, cache = forward_decode(params, tokens, cache, pos, cfg, mesh,
+                                       compute_dtype=compute_dtype, sp_decode=sp_decode,
+                                       cache_len=cache_len)
+        return gather_vocab(logits, cfg, mesh, _vocab(params, cfg, mesh)), cache
 
     return decode

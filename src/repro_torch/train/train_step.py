@@ -11,24 +11,27 @@ step counter. The optimizer is ``repro_torch.optim.build``.
 With a mesh (``launch.mesh.Mesh``, one process a rank) the step is the
 reference's under ``state_specs``, run by every rank on its blocks:
 
-1. each rank takes its block of the global batch (``batch_input_specs``;
-   a batch the data axes do not divide raises ``ValueError``, where the
-   reference shards the sequence instead) and computes its gradients.
-   Gradients the ``model`` ranks compute in part (context-parallel
-   attention, the split SSD, the MoE) are summed over ``model`` inside
-   those layers (``launch.collectives.sum_grads``);
-2. the gradients are averaged with an all-reduce over the data axes;
-3. ``clip_by_global_norm`` runs on the whole gradients (the expert
-   weights' squares summed over ``model``, where each rank holds its own
-   experts);
+1. each rank takes its block of the global batch (``batch_input_specs``:
+   its rows, or where the data axes do not divide the batch its slice of
+   the sequence, as the reference shards it) and computes its gradients
+   with its tensor-parallel blocks of the weights (``models``); the loss
+   is vocab-parallel (:func:`cross_entropy`), and a region's partial
+   gradients are summed over ``model`` inside the layers
+   (``launch.collectives.sum_grads``, ``gather_params``);
+2. the gradients are averaged with an all-reduce over the data axes (the
+   token mean over all data ranks: their blocks are equal);
+3. ``clip_by_global_norm`` runs on the whole gradients (each leaf's
+   squares summed over the ranks that hold its blocks: ``model`` for the
+   tensor-parallel blocks and the experts);
 4. the optimizer updates only this rank's ZeRO-1 block of each moment and
-   parameter (Shampoo: its own stat blocks, ``optim.shampoo``);
+   parameter (Shampoo: whole gradients in, its own stat blocks,
+   ``optim.shampoo``);
 5. the updated blocks are all-gathered over ``data``.
 
 The state a rank holds is ``held(state_specs(...))``
-(``parallel.sharding.held``): the dense weights whole, the expert weights
-as the rank's experts, the moments and Shampoo's stats as their blocks.
-:func:`init_state` makes it.
+(``parallel.sharding.held``): the weights as the rank's tensor-parallel
+blocks (the experts as its experts), the moments and Shampoo's stats as
+their blocks. :func:`init_state` makes it.
 """
 
 from __future__ import annotations
@@ -57,14 +60,23 @@ __all__ = [
 TrainState = Dict[str, Any]  # {"params": ..., "opt": ..., "step": 0-d int32 on the CPU}
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int, mesh=None,
+                  vocab: int = None) -> torch.Tensor:
     """Mean token NLL; logits may carry padded vocab columns (masked out).
 
     The label logit is picked with an iota-compare masked reduction, as the
     reference picks it (no gather over the vocab axis, so a vocab-sharded
     layout partitions cleanly), and the normalizer is a plain reduction.
     The logits are cast to float32 here, or stay float64.
+
+    With a mesh of several ``model`` ranks and logits that are the rank's
+    vocab block (``transformer.forward_train``), the loss is vocab-parallel
+    (:func:`_vocab_parallel_nll`); ``vocab`` is the padded width of the
+    whole vocab. Nothing vocab-wide is gathered.
     """
+    if (vocab is not None and mesh is not None and _model_ranks(mesh) > 1
+            and (logits.dim() == labels.dim() or logits.shape[-1] < vocab)):
+        return _vocab_parallel_nll(logits, labels, vocab_real, mesh, vocab).mean()
     v_pad = logits.shape[-1]
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     iota = torch.arange(v_pad, device=logits.device)
@@ -78,13 +90,59 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -
     return (lse - label_logit).mean()
 
 
-def make_loss_fn(cfg: ModelConfig, mesh, run: RunConfig):
+def _model_ranks(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def _vocab_parallel_nll(logits, labels, vocab_real: int, mesh, vocab: int) -> torch.Tensor:
+    """Each token's NLL from the rank's vocab block of its logits, (B, S)
+    or (B, S, K) for K codebooks (the block a slice of the flattened
+    codebook-major K·V columns). Per codebook, the ranks combine with
+    all-reduces over ``model``: the maximum (detached), the sum of
+    ``exp``, and the label logit picked by global vocab index; padded
+    columns are masked by global index."""
+    from repro_torch.launch import collectives as C
+
+    n = logits.shape[-1]
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    col = mesh.axis_index("model") * n + torch.arange(n, device=logits.device)
+    book, word = col // vocab, col % vocab
+    logits = torch.where(word >= vocab_real, -1e30, logits)
+    multi = labels.dim() == logits.dim()        # (B, S, K) labels: codebooks
+    books = range(labels.shape[-1]) if multi else (0,)
+    out = []
+    for k in books:
+        lab = (labels[..., k] if multi else labels).to(torch.int64)
+        mine = book == k
+        lk = torch.where(mine, logits, -1e30)
+        with torch.no_grad():
+            m = C.reduce_replicas(lk.amax(dim=-1, keepdim=True), mesh, "model", "max")
+        shifted = lk - m
+        sumexp = torch.sum(torch.where(mine, torch.exp(shifted), 0.0), dim=-1)
+        hit = mine & (word == lab[..., None])
+        picked = torch.sum(torch.where(hit, shifted, 0.0), dim=-1)
+        sumexp = C.reduce_replicas(sumexp, mesh, "model")
+        picked = C.reduce_replicas(picked, mesh, "model")
+        out.append(torch.log(sumexp) - picked)
+    return torch.stack(out, -1) if multi else out[0]
+
+
+def make_loss_fn(cfg: ModelConfig, mesh, run: RunConfig, seq_axes=None):
+    """``loss_fn(params, batch) -> (loss, metrics)``; on a mesh the logits
+    are the rank's vocab block and the loss is vocab-parallel.
+    ``seq_axes``: the batch is the rank's slice of the sequence over those
+    (data) axes."""
     compute_dtype = getattr(torch, run.compute_dtype)
+    vocab = None
+    if mesh is not None:
+        from repro_torch.models.transformer import padded_vocab
+
+        vocab = padded_vocab(cfg, mesh)
 
     def loss_fn(params, batch):
         logits, aux = forward_train(params, batch, cfg, mesh, remat=run.remat,
-                                    compute_dtype=compute_dtype)
-        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+                                    compute_dtype=compute_dtype, seq_axes=seq_axes)
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size, mesh, vocab)
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_coef * aux
         return loss, {"loss": loss, "aux": aux}
@@ -248,10 +306,10 @@ def held_state_specs(cfg, mesh, run: RunConfig, opt, params) -> TrainState:
     the global shapes, made on the ``meta`` device."""
     from repro_torch.parallel.sharding import global_shape, held, map_specs, param_specs
 
-    p_held = held(param_specs(mesh, cfg), cfg)
+    p_held = held(param_specs(mesh, cfg), cfg, mesh)
     meta = map_specs(lambda s, x: torch.empty(global_shape(x, mesh, s), dtype=x.dtype,
                                               device="meta"), p_held, params)
-    return held(state_specs(cfg, mesh, run, meta, opt.init(meta)), cfg)
+    return held(state_specs(cfg, mesh, run, meta, opt.init(meta)), cfg, mesh)
 
 
 def init_state(cfg: ModelConfig, mesh, run: RunConfig, opt, params) -> TrainState:
@@ -265,7 +323,7 @@ def init_state(cfg: ModelConfig, mesh, run: RunConfig, opt, params) -> TrainStat
     from repro_torch.parallel.sharding import held, map_specs, param_specs
     from repro_torch.runtime.elastic import reshard_tree
 
-    p_held = held(param_specs(mesh, cfg), cfg)
+    p_held = held(param_specs(mesh, cfg), cfg, mesh)
     specs = held_state_specs(cfg, mesh, run, opt, params)["opt"]
     leaves, treedef = tree_flatten(
         map_specs(lambda s, x: _reshard(x, mesh, s, ()), p_held, params))
@@ -296,26 +354,31 @@ def _meshed_step(cfg, mesh, run, opt, loss_fn, n_micro, max_grad_norm):
     dp = data_axes(mesh)
     n_data = mesh.axis_size(dp) if dp else 1
     dgroup = mesh.group(dp) if dp else None
-    p_held = held(param_specs(mesh, cfg), cfg)
+    p_held = held(param_specs(mesh, cfg), cfg, mesh)
     specs = {}
+    seq_loss_fn = make_loss_fn(cfg, mesh, run, seq_axes=dp)
 
     def local_batch(batch):
-        out = {}
-        for k, spec in batch_input_specs(mesh, batch).items():
-            x = batch[k]
-            if dp and (x.dim() == 0 or spec[0] is None) and n_data > 1:
-                raise ValueError(f"the data axes ({n_data} ranks) do not divide the batch "
-                                 f"of {k!r} {tuple(x.shape)} (the reference would shard "
-                                 "its sequence)")
-            out[k] = local_block(x, mesh, spec)
-        return out
+        """The rank's block of the global batch (``batch_input_specs``):
+        its rows, or where the data axes do not divide the batch its slice
+        of the sequence (the loss is then the token mean over the data
+        ranks' equal slices). Returns (block, the axes its sequence is
+        sharded over or None)."""
+        specs = batch_input_specs(mesh, batch)
+        seq = None
+        if dp and n_data > 1 and any(x.dim() >= 2 and specs[k][0] is None and
+                                     specs[k][1] is not None for k, x in batch.items()):
+            seq = dp
+        return {k: local_block(batch[k], mesh, spec) for k, spec in specs.items()}, seq
 
     def average(x):
         return C.all_reduce(x, dgroup) / n_data if n_data > 1 else x
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         params = state["params"]
-        metrics, grads = _grads(loss_fn, params, local_batch(batch), n_micro)
+        block, seq = local_batch(batch)
+        fn = loss_fn if seq is None else seq_loss_fn
+        metrics, grads = _grads(fn, params, block, n_micro)
         grads = tree_map(average, grads)
         metrics = {k: (v if k == "aux" else average(v)) for k, v in metrics.items()}
 

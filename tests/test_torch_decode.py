@@ -152,9 +152,9 @@ def test_init_cache_equals_the_reference(arch, scan):
     got = tT.init_cache(tcfg, 3, 20, dtype=torch.float32, device="cpu")
     _leaves_close(got, want, 1, "init_cache")
     assert all(not x.any() for _, x in tree_flatten_with_path(got)[0])
-    # a shape-only mesh gives the global cache; a rank's mesh whose model
-    # axis does not divide a cache length raises (the reference keeps such
-    # a cache whole on every rank)
+    # a shape-only mesh gives the global cache; on a rank's mesh a cache
+    # length the model axis does not divide is whole on every rank, and so
+    # is a batch the data axes do not divide (as the reference keeps them)
     from repro_torch.launch.mesh import AbstractMesh
 
     got = tT.init_cache(tcfg, 4, 20, mesh=AbstractMesh((2, 2), ("data", "model")),
@@ -162,11 +162,16 @@ def test_init_cache_equals_the_reference(arch, scan):
     want = jax.eval_shape(lambda: jT.init_cache(jcfg, 4, 20, dtype=jnp.float32))
     assert [tuple(x.shape) for _, x in tree_flatten_with_path(got)[0]] == [
         x.shape for x in jax.tree.leaves(want)]
-    if tcfg.family != "ssm":
-        with pytest.raises(ValueError, match="does not divide a cache length"):
-            tT.init_cache(tcfg, 4, 21, mesh=_RankView((2, 2)), device="meta")
-    with pytest.raises(ValueError, match="do not divide the batch"):
-        tT.init_cache(tcfg, 3, 20, mesh=_RankView((2, 2)), device="meta")
+    for batch, max_seq in ((4, 21), (3, 20)):
+        whole = tT.init_cache(tcfg, batch, max_seq, mesh=AbstractMesh((2, 2), ("data", "model")),
+                              device="meta")
+        mine = tT.init_cache(tcfg, batch, max_seq, mesh=_RankView((2, 2)), device="meta")
+        for (key, w), (_, m) in zip(tree_flatten_with_path(whole)[0],
+                                    tree_flatten_with_path(mine)[0]):
+            b_dim = w.dim() - (3 if key.endswith("['conv']") else 4)
+            assert m.shape[b_dim] == (2 if batch == 4 else 3), key
+            if key.endswith("['k']") or key.endswith("['v']"):
+                assert m.shape[-3] == w.shape[-3] if max_seq == 21 else True, key
 
 
 class _RankView:

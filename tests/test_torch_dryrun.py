@@ -333,10 +333,13 @@ def test_one_production_cell_traces(tmp_path):
     mem = art["memory"]
     assert 0 < mem["peak_bytes_est"] < 80e9  # fits an H100
     assert mem["peak_bytes_est"] == mem["argument_bytes"] + mem["temp_bytes"]
-    # each rank's model replicas all-reduce the sequence-parallel
-    # attention's partials over model; nothing else moves
-    assert art["collectives"]["all-reduce"] > 0
-    assert sum(art["collectives"].values()) == art["collectives"]["all-reduce"]
+    # over model, each rank all-reduces the sequence-parallel attention's
+    # partials and the row-parallel products' (wo, the MLP's wd, the
+    # vocab-parallel embedding), and all-gathers the q/k/v heads and the
+    # last position's vocab blocks; nothing else moves
+    c = art["collectives"]
+    assert c["all-reduce"] > 0 and c["all-gather"] > 0
+    assert sum(c.values()) == c["all-reduce"] + c["all-gather"]
     assert art["cost"]["flops"] > 0 and art["kernels"] == {}
     assert "ok] qwen1.5-0.5b × decode_32k × single" in r.stdout
     assert "done: 1 ok, 0 skipped, 0 errors" in r.stdout

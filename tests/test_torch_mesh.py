@@ -27,7 +27,9 @@ Tolerances:
   data shard (each shard routes with its own capacity): ``2e-5`` absolute
   on the output and ``aux``, gradients ``1e-4`` relative to their largest
   entry;
-* the split SSD against the port's unsplit SSD on the same rank: bitwise;
+* the tensor-parallel SSD against the port's unsplit SSD on the same
+  rank: its state and conv tail bitwise, its output (the ranks' partial
+  ``out_proj`` products summed) within ``8·√k·eps·max|y|``;
 * the train step at (2, 2) against the reference's
   ``make_train_step(mesh=None)`` on the padded weights and the global
   batch: loss and grad norm relative ``1e-5``, each parameter's update
@@ -132,22 +134,42 @@ def _data_sum(x, mesh):
     return C.all_reduce(x.detach(), mesh.group("data"))
 
 
+def _layer_specs(cfg, mesh, part):
+    """The held specs of one layer's ``part`` (``"attn"``, ``"ssm"``,
+    ``"moe"``): a scanned stack's specs without their layer dim."""
+    from repro_torch.parallel.sharding import P, held, param_specs
+
+    specs = held(param_specs(mesh, cfg), cfg, mesh)["layers"][part]
+    return {k: P(*s[1:]) for k, s in specs.items()}
+
+
+def _block_of(p, specs, mesh, grad=False):
+    """This rank's blocks of a layer's whole weights under ``specs``."""
+    from repro_torch.parallel.sharding import local_block
+
+    return {k: (local_block(_t(v), mesh, specs[k]).clone().requires_grad_(True) if grad
+                else local_block(_t(v), mesh, specs[k]).clone()) for k, v in p.items()}
+
+
 def _case_cp(meshes, inp):
     from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import gather
 
     cfg = _cfgs("hymba-1.5b", "repro_torch")
     out = {}
     for name in ("2x2", "1x4"):
         mesh = meshes[name]
+        specs = _layer_specs(cfg, mesh, "attn")
         for w in (None, 8):
-            p = {k: _t(v, True) for k, v in inp["cp"]["p"].items()}
+            p = _block_of(inp["cp"]["p"], specs, mesh, grad=True)
             x = _rows(_t(inp["cp"]["x"]), mesh).clone().requires_grad_(True)
             y, (k, v) = L.attention_train_cp(p, x, cfg, mesh, window=w, return_kv=True)
             loss = (y * _rows(_t(inp["cp"]["r"]), mesh)).sum()
             grads = torch.autograd.grad(loss, [*p.values(), x])
             out[(name, w)] = dict(
                 y=_np(_all_rows(y, mesh)), k=_np(_all_rows(k, mesh)), v=_np(_all_rows(v, mesh)),
-                grads={key: _np(_data_sum(g, mesh)) for key, g in zip(p, grads)},
+                grads={key: _np(gather(_data_sum(g, mesh), mesh, specs[key]))
+                       for key, g in zip(p, grads)},
                 gx=_np(_all_rows(grads[-1], mesh)))
     return out
 
@@ -162,7 +184,7 @@ def _case_sp(meshes, inp):
         mesh = meshes[name]
         spec = P("data", "model")
         for wcase, (w, pos) in inp["sp"]["cases"].items():
-            p = {k: _t(v) for k, v in inp["sp"]["p"].items()}
+            p = _block_of(inp["sp"]["p"], _layer_specs(cfg, mesh, "attn"), mesh)
             ck = local_block(_t(inp["sp"]["ck"]), mesh, spec).clone()
             cv = local_block(_t(inp["sp"]["cv"]), mesh, spec).clone()
             y, ck, cv = L.attention_decode_sp(p, _rows(_t(inp["sp"]["x"]), mesh), cfg, ck, cv,
@@ -178,7 +200,7 @@ def _held_params(cfg, tree, mesh):
     from repro_torch.runtime.elastic import reshard_tree
 
     full = params_from_reference(cfg, tree, device="cpu", mesh=mesh)
-    return reshard_tree(full, mesh, held(param_specs(mesh, cfg), cfg))
+    return reshard_tree(full, mesh, held(param_specs(mesh, cfg), cfg, mesh))
 
 
 def _case_hybrid(meshes, inp):
@@ -192,6 +214,8 @@ def _case_hybrid(meshes, inp):
     with torch.no_grad():
         logits, _ = T.forward_train(params, {"tokens": toks}, cfg, mesh,
                                     compute_dtype=torch.float32)
+    # the rank's vocab block of the logits, gathered
+    logits = T.gather_vocab(logits, cfg, mesh, T.padded_vocab(cfg, mesh))
     prefill = make_prefill_step(cfg, mesh, torch.float32, cache_len=HYB_S + 4)
     decode = make_decode_step(cfg, mesh, torch.float32, sp_decode=True)
     lg, cache = prefill(params, {"tokens": toks})
@@ -205,6 +229,7 @@ def _case_hybrid(meshes, inp):
 
 def _case_ssd(meshes, inp):
     from repro_torch.models import ssm as SSM
+    from repro_torch.parallel.sharding import local_block
 
     out = {}
     for name, cfg in (("2x2", _cfgs("hymba-1.5b", "repro_torch")),
@@ -214,7 +239,9 @@ def _case_ssd(meshes, inp):
         p = SSM.init_ssm(gen, cfg, device="cpu")
         x = torch.randn((2, 40, cfg.d_model), generator=gen)
         y1, (h1, c1) = SSM.ssm_train(p, x, cfg, return_state=True)
-        y2, (h2, c2) = SSM.ssm_train(p, x, cfg, return_state=True, mesh=mesh)
+        specs = _layer_specs(cfg, mesh, "ssm")
+        mine = {k: local_block(v, mesh, specs[k]).clone() for k, v in p.items()}
+        y2, (h2, c2) = SSM.ssm_train(mine, x, cfg, return_state=True, mesh=mesh)
         dim, m = SSM._split(cfg, mesh)
         j = mesh.axis_index("model")
         n, nc = h1.shape[dim] // m, c1.shape[-1] // m
@@ -222,7 +249,9 @@ def _case_ssd(meshes, inp):
                          y=bool(torch.equal(y1, y2)),
                          h=bool(torch.equal(h1.narrow(dim, j * n, n), h2)),
                          conv=bool(torch.equal(c1[..., j * nc:(j + 1) * nc], c2)),
-                         y_max_diff=float((y1 - y2).abs().max()))
+                         y_max_diff=float((y1 - y2).abs().max()),
+                         h_max_diff=float((h1.narrow(dim, j * n, n) - h2).abs().max()),
+                         y_max=float(y1.abs().max()), h_max=float(h1.abs().max()))
     return out
 
 
@@ -237,8 +266,10 @@ def _case_moe(meshes, inp):
         cfg = _moe_tp(cfg) if tp else cfg
         key = (name, "tp" if tp else "ep")
         full = {k: _t(v) for k, v in inp["moe"][key]["p"].items()}
-        espec = P("model") if not tp else P()
-        p = {k: (local_block(v, mesh, espec) if k in ("wg", "wu", "wd") else v)
+        especs = ({k: P("model") for k in ("wg", "wu", "wd")} if not tp else
+                  {"wg": P(None, None, "model"), "wu": P(None, None, "model"),
+                   "wd": P(None, "model")})
+        p = {k: (local_block(v, mesh, especs[k]) if k in especs else v)
              .clone().requires_grad_(True) for k, v in full.items()}
         x = _rows(_t(inp["moe"][key]["x"]), mesh).clone().requires_grad_(True)
         y, aux = MOE.moe_layer(p, x, cfg, mesh)
@@ -247,7 +278,7 @@ def _case_moe(meshes, inp):
         # averaged over the data ranks (as the train step does)
         loss = (y * _rows(_t(inp["moe"][key]["r"]), mesh)).sum() + AUX_COEF * aux
         grads = torch.autograd.grad(loss, [*p.values(), x])
-        g = {k: gather(_data_sum(gr, mesh) / d, mesh, espec if k in ("wg", "wu", "wd") else P())
+        g = {k: gather(_data_sum(gr, mesh) / d, mesh, especs.get(k, P()))
              for k, gr in zip(p, grads)}
         out[key] = dict(
             y=_np(_all_rows(y, mesh)), aux=float(aux), grads={k: _np(v) for k, v in g.items()},
@@ -299,7 +330,7 @@ def _case_train(meshes, inp, ckpt_dir):
             bitwise=all(torch.equal(a, b) if torch.is_tensor(a) else a == b
                         for (_, a), (_, b) in zip(got, want)),
             block=tuple(restored["opt"]["m"]["embed"].shape),
-            full=tuple(state["params"]["embed"].shape))
+            full=tuple(gather_tree(state["params"], mesh, specs["params"])["embed"].shape))
     return out
 
 
@@ -315,7 +346,8 @@ def _case_optim(meshes, inp):
     from repro_torch.optim import build
     from repro_torch.optim.shampoo import shampoo
     from repro_torch.optim.schedules import warmup_cosine
-    from repro_torch.parallel.sharding import local_block, spec_leaves
+    from repro_torch.parallel.sharding import (gather_tree, held, local_block, param_specs,
+                                               spec_leaves)
     from repro_torch.runtime.elastic import reshard_tree
     from repro_torch.train.train_step import held_state_specs
 
@@ -330,8 +362,11 @@ def _case_optim(meshes, inp):
             else:
                 opt = shampoo(warmup_cosine(1e-3, 2, 50), block=OPT_BLOCK, update_every=2,
                               precond_p=2)
-            params = _held_params(cfg, inp["train"]["qwen1.5-0.5b"]["params"], mesh)
-            specs = held_state_specs(cfg, mesh, run, opt, params)["opt"]
+            blocks = _held_params(cfg, inp["train"]["qwen1.5-0.5b"]["params"], mesh)
+            specs = held_state_specs(cfg, mesh, run, opt, blocks)["opt"]
+            # the optimizer sees whole leaves (the train step gathers the
+            # tensor-parallel blocks before the update)
+            params = gather_tree(blocks, mesh, held(param_specs(mesh, cfg), cfg, mesh))
             s_full = opt.init(params)
             s_blk = reshard_tree(s_full, mesh, specs)
             m_specs = spec_leaves(specs["m"])
@@ -608,10 +643,16 @@ def test_hybrid_forward_and_decode_at_2x2(world):
 
 @pytest.mark.parametrize("mesh_name,split", [("2x2", "heads"), ("1x4", "p")])
 def test_split_ssd_is_bitwise(world, mesh_name, split):
+    """The state and conv tail of the tensor-parallel SSD are bitwise the
+    unsplit SSD's blocks (the scan is per head and per P channel); its
+    output sums the ranks' partial ``out_proj`` products, so it is held to
+    ``8·√k·eps·max|y|`` with ``k`` = ``d_inner``."""
     for r in world["ranks"]:
         got = r["ssd"][mesh_name]
         assert got["split"] == split
-        assert got["y"] and got["h"] and got["conv"], got
+        assert got["h"] and got["conv"], got
+        k = 96 if split == "p" else 128
+        assert got["y_max_diff"] <= 8 * np.sqrt(k) * np.finfo(np.float32).eps * got["y_max"]
 
 
 @pytest.mark.parametrize("mesh_name,mode", [("2x2", "ep"), ("1x4", "ep"), ("2x2", "tp")])

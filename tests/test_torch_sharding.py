@@ -252,8 +252,12 @@ def test_elastic_equals_the_reference():
 
 
 def test_named_and_held_specs():
-    """``named`` pairs a mesh with each spec; ``held`` keeps the ``model``
-    entries only on the expert-parallel expert weights."""
+    """``named`` pairs a mesh with each spec; ``held`` keeps every entry of
+    ``param_specs`` where the ``model`` axis divides the dim (the dense
+    weights as tensor-parallel blocks, the experts as the rank's experts),
+    and drops a ``model`` entry where it does not."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_smoke
     from repro_torch.parallel.sharding import NamedSharding, P, held, named, param_specs
 
@@ -262,7 +266,13 @@ def test_named_and_held_specs():
     specs = param_specs(mesh, cfg)
     ns = named(mesh, specs)
     assert isinstance(ns["embed"], NamedSharding) and ns["embed"] == (mesh, P("model", None))
-    h = held(specs, cfg)
-    assert h["embed"] == P(None, None)
+    h = held(specs, cfg, mesh)
+    assert h == specs
+    assert h["embed"] == P("model", None)
     assert h["layers"]["moe"]["wg"] == P(None, "model", None, None)
-    assert h["layers"]["attn"]["wq"] == P(None, None, None, None)
+    assert h["layers"]["attn"]["wq"] == P(None, None, "model", None)
+    assert h["layers"]["shared_mlp"]["wd"] == P(None, "model", None)
+    odd = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_shared=1, d_ff_expert=97))
+    h = held(param_specs(mesh, odd), odd, mesh)
+    assert h["layers"]["shared_mlp"]["wg"] == P(None, None, None)
+    assert h["layers"]["attn"]["wq"] == P(None, None, "model", None)

@@ -222,11 +222,12 @@ def test_make_train_step_takes_an_optimizer():
 
 
 def test_a_mesh_is_not_ported_yet():
-    """The meshed step's departure: a global batch the data axes do not
-    divide raises ``ValueError`` before any collective (the reference
-    shards the sequence instead). The meshed step itself is
-    ``tests/test_torch_mesh.py``'s."""
-    _, trun = _runs("qwen1.5-0.5b", "adamw")
+    """A global batch the data axes do not divide is cut along its
+    sequence, as the reference shards it (``batch_input_specs``): the
+    meshed step's ``local_batch`` gives rank 0 of a (data=2, model=1) mesh
+    the first half of each sequence. The meshed step itself is
+    ``tests/test_torch_mesh.py``'s and ``tests/test_torch_tp.py``'s."""
+    from repro_torch.parallel.sharding import batch_input_specs, local_block
 
     class RankView:          # rank 0 of a (data=2, model=1) mesh, no process group
         axis_names = ("data", "model")
@@ -240,11 +241,15 @@ def test_a_mesh_is_not_ported_yet():
         def axis_index(self, axes):
             return 0
 
-        def group(self, axes):
-            return None
+        def local_block(self, x, spec):
+            from repro_torch.launch.mesh import Mesh
 
-    step, _ = tts.make_train_step(tsmoke("qwen1.5-0.5b"), RankView(), trun)
+            return Mesh.local_block(self, x, spec)
+
     batch = {k: torch.as_tensor(v) for k, v in _batch("qwen1.5-0.5b", 0).items()}
     odd = {k: v[:3] for k, v in batch.items()}
-    with pytest.raises(ValueError, match="do not divide the batch"):
-        step({"params": None}, odd)
+    specs = batch_input_specs(RankView(), odd)
+    assert all(tuple(s) == (None, "data") for s in specs.values())
+    mine = {k: local_block(x, RankView(), specs[k]) for k, x in odd.items()}
+    for k, x in odd.items():
+        assert torch.equal(mine[k], x[:, :x.shape[1] // 2])

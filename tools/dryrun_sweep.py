@@ -1,8 +1,11 @@
-"""Trace every (arch × shape) cell of one production mesh with the port's
-dry-run, a few cells at a time, and print the sweep table.
+"""Trace every (arch × shape) cell of the production meshes with the port's
+dry-run, a few cells at a time, and print the sweep tables.
 
-    PYTHONPATH=src python3 tools/dryrun_sweep.py [--mesh single] [--workers 6]
+    PYTHONPATH=src python3 tools/dryrun_sweep.py [--mesh both] [--workers 6]
         [--device cuda] [--out results/dryrun] [--no-analysis] [--timeout 900]
+
+``--mesh`` is ``single`` (16×16), ``multi`` (2×16×16) or ``both`` (the
+default: every cell of one mesh, then of the other, one table each).
 
 Each cell is one ``python -m repro_torch.launch.dryrun --arch A --shape S``
 process (rank 0 on fake tensors over the fake process group: nothing is
@@ -31,9 +34,9 @@ CARD_BYTES = 80e9   # one H100's memory (data sheet)
 
 
 def _run(cell, args):
-    arch, shape = cell
+    arch, shape, mesh = cell
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-           "--mesh", args.mesh, "--device", args.device, "--out", args.out]
+           "--mesh", mesh, "--device", args.device, "--out", args.out]
     if args.no_analysis:
         cmd.append("--no-analysis")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -46,11 +49,11 @@ def _run(cell, args):
     except subprocess.TimeoutExpired:
         tail, code = [f"killed after {args.timeout} s"], None
         # a cell cut by the time limit is an error row of the tables
-        with open(os.path.join(args.out, f"{arch}__{shape}__{args.mesh}.json"), "w") as f:
-            json.dump({"arch": arch, "shape": shape, "mesh": args.mesh, "mode": "-",
+        with open(os.path.join(args.out, f"{arch}__{shape}__{mesh}.json"), "w") as f:
+            json.dump({"arch": arch, "shape": shape, "mesh": mesh, "mode": "-",
                        "variant_tag": "", "status": "error", "error": tail[0],
                        "wall_s": args.timeout}, f)
-    print(f"{arch} × {shape}: exit {code} in {time.perf_counter() - t0:.1f} s; {tail}",
+    print(f"{arch} × {shape} × {mesh}: exit {code} in {time.perf_counter() - t0:.1f} s; {tail}",
           flush=True)
 
 
@@ -86,7 +89,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="results/dryrun")
@@ -94,19 +97,23 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=900.0, help="seconds a cell")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    cells = [(arch, shape) for arch in sorted(ARCHS) for shape in SHAPES]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    cells = [(arch, shape, mesh) for mesh in meshes for arch in sorted(ARCHS)
+             for shape in SHAPES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(args.workers) as pool:
         for f in [pool.submit(_run, c, args) for c in cells]:
             f.result()
     print(f"swept {len(cells)} cells in {time.perf_counter() - t0:.1f} s with "
           f"{args.workers} workers")
-    recs = [r for r in load_cells(args.out) if r["mesh"] == args.mesh]
-    table = sweep_table(recs)
-    print(table)
-    print(dryrun_table(recs))
-    with open(os.path.join(args.out, f"sweep_{args.mesh}.md"), "w") as f:
-        f.write(table)
+    for mesh in meshes:
+        recs = [r for r in load_cells(args.out) if r["mesh"] == mesh]
+        table = sweep_table(recs)
+        print(f"mesh {mesh}:")
+        print(table)
+        print(dryrun_table(recs))
+        with open(os.path.join(args.out, f"sweep_{mesh}.md"), "w") as f:
+            f.write(table)
 
 
 if __name__ == "__main__":
