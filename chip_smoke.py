@@ -46,9 +46,12 @@ phase fails):
 7. cg      — ``lstsq(a, b, ridge=1e-3, method="cg")`` on the lstsq
              phase's data under ``torch.cuda.set_sync_debug_mode("error")``
              (no host sync in the loop), within 1e-3 of the float64
-             solution, exactly ``iters + 1`` gemm_tn launches; the device
-             time of one (16384, 4096, 8) gemm_tn beside
-             ``torch.matmul(a.T, ap)`` and its bound;
+             solution, exactly ``iters + 1`` gemm_tn launches, every one on
+             the narrow-output kernel (``csrc/tn_narrow.cu``); that kernel
+             at (16384, 4096, 8) (``narrow_case``): bitwise equal to
+             ``gemm_tn_fused`` on W = 1 tables on float32 and bfloat16
+             operands, within tolerance of its plain version, its device
+             time beside ``torch.matmul(a.T, ap)``'s and its bound;
 8. obs     — fused ata 8192² with spans off and on: times, span counts,
              outputs bitwise equal, the metrics snapshot validated;
 9. tune    — the planner (``repro_torch.tune``, cuda machine): the analytic
@@ -83,7 +86,8 @@ phase fails):
              updates, stats and preconditioners, the stats finite and the
              updates of at least 6 leaves finite; PowerSGD rank 4 on wg and wd (two rounds), its
              rank-sufficient reconstruction within 1e-3, and its narrow
-             ``strassen_tn(G, P)`` beside ``torch.matmul``; one AdamW step
+             ``GᵀP`` on wg (24576, 2816, 4) and wd (67584, 1024, 4) by
+             ``narrow_case`` beside ``strassen_tn(G, P)``; one AdamW step
              over the whole tree.
 
 11. distributed — (``repro_torch.core.distributed`` on
@@ -934,6 +938,8 @@ def phase_lstsq(ops):
     x = lstsq(a, b, ridge=ridge, method="factor")
     torch.cuda.synchronize()
     counts = dict(ops.launches)
+    # of the gemm_tn launches, those on the narrow kernel (Aᵀb's leaves)
+    counts["gemm_tn_narrow"] = ops.narrow_launches["gemm_tn_narrow"]
     log(f"  launches {counts}")
     if min(counts[k] for k in ("syrk", "gemm_tn", "potrf", "trsm")) <= 0:
         raise AssertionError(f"lstsq: a kernel was never launched: {counts}")
@@ -1096,11 +1102,59 @@ def phase_ata_dtypes(ops):
         raise AssertionError(f"ata float64: card and CPU differ by {err} > {tol}")
 
 
+def narrow_case(checks, ops, plain, label, a, b):
+    """gemm_tn's narrow-output kernel (``csrc/tn_narrow.cu``) on ``Aᵀb`` at
+    the main path's shape: bitwise equal to ``gemm_tn_fused`` on W = 1
+    tables of the same operands (the tile engine's fmaf chain) on float32
+    and on bfloat16 operands, within ``scaled_tol`` of the plain version,
+    and timed in CUDA graphs of 50 launches beside ``torch.matmul(a.T, b)``
+    and the bound, with the launched instance's resources."""
+    import torch
+
+    from repro_torch.core.strassen import _slot_tables
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm_tn import narrow_max_k
+
+    (m, n), k = a.shape, b.shape[1]
+    if k > narrow_max_k():
+        raise AssertionError(f"{label}: k = {k} is not the narrow kernel's")
+
+    def bits(x):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+    res = {}
+    for name, (x, y) in (("float32", (a, b)), ("bfloat16", (a.bfloat16(), b.bfloat16()))):
+        before = ops.narrow_launches["gemm_tn_narrow"]
+        got = ops.gemm_tn(x, y)
+        if ops.narrow_launches["gemm_tn_narrow"] != before + 1:
+            raise AssertionError(f"{label} {name}: the narrow kernel did not launch")
+        lead = (None,) * 3
+        fused = ops.gemm_tn_fused(x[lead], y[lead], _slot_tables(0)).reshape(n, k)
+        if not torch.equal(bits(got), bits(fused)):
+            raise AssertionError(f"{label} {name}: narrow gemm_tn != W = 1 gemm_tn_fused, bitwise")
+        res[f"max_abs_err_{name}"] = checks.compare(f"{label} {name} operands", got,
+                                                    plain["gemm_tn"](x, y), m)
+        del got, fused
+    bms, by = bound(2 * m * n * k, 4 * (m * n + m * k + n * k))
+    res.update(
+        shape=[m, n, k], bitwise_to_engine=True, bound_ms=bms, bound_by=by,
+        device_ms=graph_ms(lambda: ops.gemm_tn(a, b)),
+        matmul_device_ms=graph_ms(lambda: torch.matmul(a.T, b)),
+        ms=time_ms(lambda: ops.gemm_tn(a, b), runs=20),
+        matmul_ms=time_ms(lambda: torch.matmul(a.T, b), runs=20),
+        resources=_build.resources("gemm_tn_narrow_info", n, k, 1))
+    log(f"  {label} ({m},{n},{k}): bitwise == W = 1 gemm_tn_fused (float32, bfloat16); "
+        f"device_ms={res['device_ms']:.4f} torch.matmul device_ms={res['matmul_device_ms']:.4f} "
+        f"bound_ms={bms:.4f} ({by}); one call ms={res['ms']:.4f} (torch.matmul "
+        f"{res['matmul_ms']:.4f}); resources {json.dumps(res['resources'])}")
+    return res
+
+
 def phase_cg(checks, ops, plain):
     """lstsq(method='cg') at 16384×4096×8 on the lstsq phase's data: error
-    against the float64 solution, ms, gemm_tn launches per solve, all
-    under sync debug mode 'error'; the narrow gemm_tn held against its
-    plain version and timed on the device."""
+    against the float64 solution, ms, gemm_tn launches per solve (every one
+    the narrow kernel), all under sync debug mode 'error'; the narrow
+    gemm_tn by ``narrow_case``."""
     import numpy as np
     import torch
 
@@ -1124,9 +1178,13 @@ def phase_cg(checks, ops, plain):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     counts = dict(ops.launches)
-    log(f"  launches {counts} (under set_sync_debug_mode('error'): no host sync)")
+    narrow = ops.narrow_launches["gemm_tn_narrow"]
+    log(f"  launches {counts}, {narrow} of them the narrow kernel "
+        f"(under set_sync_debug_mode('error'): no host sync)")
     if counts["gemm_tn"] != iters + 1 or sum(counts.values()) != iters + 1:
         raise AssertionError(f"cg: launches {counts}, expected {iters + 1} gemm_tn only")
+    if narrow != iters + 1:
+        raise AssertionError(f"cg: {narrow} narrow launches, expected {iters + 1}")
     if x.shape != (4096, 8) or not bool(torch.isfinite(x).all()):
         raise AssertionError("cg: output not finite or of the wrong shape")
     ad, bd = a.double(), b.double()
@@ -1138,23 +1196,14 @@ def phase_cg(checks, ops, plain):
     if not rel <= 1e-3:
         raise AssertionError(f"cg: relative error {rel} > 1e-3")
     ms = time_ms(lambda: lstsq(a, b, ridge=ridge, method="cg"), runs=3)
+    rate = iters * cg_iteration_flops(16384, 4096, 8) / ms / 1e9
+    log(f"  ms={ms:.2f} ({iters} iterations, {rate:.2f} TFLOP/s by cg_iteration_flops)")
     # the narrow gemm_tn of each iteration, alone: Aᵀ(A·p) at (16384, 4096, 8)
     ap = a @ x
-    tn_err = checks.compare("gemm_tn narrow (16384,4096,8)", ops.gemm_tn(a, ap),
-                            plain["gemm_tn"](a, ap), 16384)
-    tn_ms = graph_ms(lambda: ops.gemm_tn(a, ap))
-    mm_ms = graph_ms(lambda: torch.matmul(a.T, ap))
-    mm_call_ms = time_ms(lambda: torch.matmul(a.T, ap), runs=20)
-    bms, by = bound(2 * 16384 * 4096 * 8, 4 * (16384 * 4096 + 16384 * 8 + 4096 * 8))
-    rate = iters * cg_iteration_flops(16384, 4096, 8) / ms / 1e9
-    log(f"  ms={ms:.2f} ({iters} iterations, {rate:.2f} TFLOP/s by cg_iteration_flops); "
-        f"gemm_tn (16384,4096,8) device_ms={tn_ms:.4f} torch.matmul(a.T, ap) "
-        f"device_ms={mm_ms:.4f} (one call: ms={mm_call_ms:.4f}) bound_ms={bms:.4f} ({by}) "
-        f"(CUDA graphs of 50 launches)")
+    tn = narrow_case(checks, ops, plain, "gemm_tn narrow: CG's Aᵀ(A·p)", a, ap)
+    tn["plain_ms"] = time_ms(lambda: plain["gemm_tn"](a, ap), runs=20)
     return counts, dict(ms=ms, rel_err=rel, iters=iters, gemm_tn_launches=counts["gemm_tn"],
-                        narrow_gemm_tn_max_abs_err=tn_err,
-                        narrow_gemm_tn_device_ms=tn_ms, narrow_matmul_device_ms=mm_ms,
-                        narrow_matmul_ms=mm_call_ms, narrow_bound_ms=bms, narrow_bound_by=by)
+                        narrow_launches=narrow, narrow_16384x4096x8=tn)
 
 
 def obs_hooks_removed(ops):
@@ -1591,7 +1640,7 @@ def phase_optim(checks, ops, plain):
     from repro_torch import tune
     from repro_torch.configs.qwen15_05b import CONFIG
     from repro_torch.core import ata_batched, strassen_tn
-    from repro_torch.core.reference import classical_gemm_flops, classical_syrk_flops
+    from repro_torch.core.reference import classical_syrk_flops
     from repro_torch.core.strassen import tree_depth
     from repro_torch.core.symmetric import SymmetricMatrix
     from repro_torch.optim import _tree, adamw, constant, powersgd, shampoo
@@ -1947,7 +1996,7 @@ def phase_optim(checks, ops, plain):
     torch.cuda.empty_cache()
 
     # (e) PowerSGD at rank 4 on wg and wd as _plan reshapes them
-    res["powersgd"] = {}
+    res["powersgd"], narrow = {}, {}
     for key, path in (("wg", ("layers", "mlp", "wg")), ("wd", ("layers", "mlp", "wd"))):
         g = grads[path[0]][path[1]][path[2]]
         pt = _plan(tuple(g.shape), OPTIM_BLOCK)
@@ -1972,8 +2021,7 @@ def phase_optim(checks, ops, plain):
             rounds.append(dict(ms=start.elapsed_time(end), rel_residual=rel, ortho_err=ortho,
                                launches={k: v for k, v in ops.launches.items() if v}))
         res["powersgd"][key] = dict(shape=list(g2.shape), rounds=rounds)
-        if key == "wg":
-            narrow = (g2, p_)
+        narrow[key] = (g2, p_)
         log(f"  (e) PowerSGD rank 4 {key} {tuple(g2.shape)}: "
             + "; ".join(f"round {i}: ms={r['ms']:.3f} ‖G−PQᵀ‖/‖G‖={r['rel_residual']:.4f} "
                         f"‖PᵀP−I‖max={r['ortho_err']:.1e} launches {r['launches']}"
@@ -1993,21 +2041,13 @@ def phase_optim(checks, ops, plain):
         raise AssertionError("optim: PowerSGD rank-sufficient reconstruction out of band")
     res["powersgd"]["rank_sufficient"] = dict(excess=rec, max_error=err)
     del g, g_hat, st, p_, q_, u_, v_
-    g, p_ = narrow
-    tn_err = checks.compare("gemm_tn narrow (24576,2816,4): PowerSGD's GᵀP", ops.gemm_tn(g, p_),
-                            plain["gemm_tn"](g, p_), 24576)
-    tn_ms = graph_ms(lambda: ops.gemm_tn(g, p_))
-    st_ms = time_ms(lambda: strassen_tn(g, p_), runs=10)
-    mm_ms = graph_ms(lambda: torch.matmul(g.T, p_))
-    mm_call_ms = time_ms(lambda: torch.matmul(g.T, p_), runs=10)
-    bms, by = bound(classical_gemm_flops(24576, 2816, 4), 4 * (24576 * 2816 + 24576 * 4 + 2816 * 4))
-    res["powersgd"]["narrow_tn"] = dict(shape=[24576, 2816, 4], gemm_tn_device_ms=tn_ms,
-                                        strassen_tn_ms=st_ms, matmul_device_ms=mm_ms,
-                                        matmul_ms=mm_call_ms, bound_ms=bms, bound_by=by,
-                                        max_abs_err=tn_err)
-    log(f"  (e) strassen_tn(G, P) (24576, 2816)ᵀ×(24576, 4), planned: ms={st_ms:.4f}; gemm_tn "
-        f"device_ms={tn_ms:.4f}; torch.matmul(G.T, P) device_ms={mm_ms:.4f} (one call "
-        f"{mm_call_ms:.4f}); bound_ms={bms:.4f} ({by})")
+    # (e) the narrow gemm_tn of a round, GᵀP, alone on wg's and wd's shapes
+    for key, (g, p_) in narrow.items():
+        tn = narrow_case(checks, ops, plain, f"(e) gemm_tn narrow: PowerSGD's GᵀP on {key}", g,
+                         p_)
+        tn["strassen_tn_ms"] = time_ms(lambda: strassen_tn(g, p_), runs=10)
+        log(f"  (e) strassen_tn(G, P) on {key}, planned: ms={tn['strassen_tn_ms']:.4f}")
+        res["powersgd"][f"narrow_tn_{key}"] = tn
     del g, p_, narrow
 
     # (f) AdamW, one step over the whole tree
@@ -3909,6 +3949,12 @@ def serve_yardstick(spec, a, b, ridge):
     return time_ms(lib), graph_ms(lib_capturable, launches=10)
 
 
+# kernel -> the names its launches take in a profile (gemm_tn's are the
+# tile engine's or, for k ≤ 64, the narrow-output kernel's)
+SERVE_PROFILED = {"syrk": ("syrk_kernel",), "potrf": ("potrf_kernel",), "trsm": ("trsm_kernel",),
+                  "gemm_tn": ("gemm_tn_kernel", "gemm_tn_narrow_kernel")}
+
+
 def serve_profile(program):
     """Kernel names and counts of one replay of ``program``'s graph, from a
     ``torch.profiler`` trace of the card (CUPTI)."""
@@ -4033,8 +4079,8 @@ def phase_serve(ops):
         fn, sp = server.bucket_callable(spec)
         a, b, ridge = fn._inputs()
         names = serve_profile(fn)
-        launched = {k: sum(v for name, v in names.items() if f"{k}_kernel" in name)
-                    for k in ("syrk", "potrf", "trsm", "gemm_tn")}
+        launched = {k: sum(v for name, v in names.items() if any(p in name for p in kernel_names))
+                    for k, kernel_names in SERVE_PROFILED.items()}
         names_seen |= {k for k, v in launched.items() if v}
         if launched != {k: fn.capture_launches[k] for k in launched}:
             failed.append(f"{spec.label()}: profiled replay {launched} != capture "
@@ -4703,10 +4749,6 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     cg_counts, cg_res = phase_cg(checks, ops, plain)
     checks.rows["gemm_tn"]["cg_launches"] = cg_counts["gemm_tn"]
-    checks.rows["gemm_tn"]["narrow_16384x4096x8"] = {
-        k: cg_res[k] for k in ("narrow_gemm_tn_max_abs_err", "narrow_gemm_tn_device_ms",
-                               "narrow_matmul_device_ms", "narrow_matmul_ms", "narrow_bound_ms",
-                               "narrow_bound_by")}
     torch.cuda.empty_cache()
     obs_res = phase_obs(ops)
     torch.cuda.empty_cache()
@@ -4755,6 +4797,22 @@ def main(argv) -> int:
         "syrk_gather": ("syrk.cu", "src/repro/kernels/syrk.py:259", fused_counts),
     }
     kernels = []
+    # the narrow-output kernel that gemm_tn launches for k ≤ narrow_max_k():
+    # its launches in phase cg's solve, its numbers at CG's shape, and at
+    # PowerSGD's two shapes beside them
+    cg_tn = cg_res["narrow_16384x4096x8"]
+    kernels.append({
+        "name": "gemm_tn_narrow", "route": "cuda", "source": "src/repro_torch/csrc/tn_narrow.cu",
+        "replaces": "src/repro/kernels/gemm_tn.py:78", "launches": cg_res["narrow_launches"],
+        "lstsq_factor_launches": counts["gemm_tn_narrow"],
+        "max_abs_err": cg_tn["max_abs_err_float32"], "ms": cg_tn["ms"],
+        "plain_ms": cg_tn["plain_ms"], "bound_ms": cg_tn["bound_ms"],
+        "bound_by": cg_tn["bound_by"], "library_ms": cg_tn["matmul_ms"],
+        "device_ms": cg_tn["device_ms"], "library_device_ms": cg_tn["matmul_device_ms"],
+        "narrow": {"cg_16384x4096x8": cg_tn,
+                   **{f"powersgd_{key}": optim_res["powersgd"][f"narrow_tn_{key}"]
+                      for key in ("wg", "wd")}},
+    })
     for name, (src, replaces, path_counts) in table.items():
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

@@ -127,10 +127,12 @@ def _dot_tn(a, b, acc_dtype):
     an ``acc_dtype`` accumulator, ``Aᵀ`` never formed.
 
     On a CUDA device, float32 or bfloat16 operands of at most
-    ``UNSPLIT_MAX_ROWS`` rows go to the ``gemm_tn`` kernel (``ops.gemm_tn``):
-    it sums each output as one ``fmaf`` chain over ascending rows, and each
-    column of ``B`` on its own, so zero rows and zero columns leave every
-    other output's bits as they were. The serving layer bands ``m`` and
+    ``UNSPLIT_MAX_ROWS`` rows go to ``ops.gemm_tn``, which launches the
+    narrow-output kernel (``csrc/tn_narrow.cu``) for ``B`` of at most 64
+    columns and the tile engine (``csrc/tn_tile.cuh``) above: both sum each
+    output as one ``fmaf`` chain over ascending rows, and each column of
+    ``B`` on its own, so zero rows and zero columns leave every other
+    output's bits as they were, whichever kernel a padded shape lands on. The serving layer bands ``m`` and
     ``r`` on that (``repro_torch.serve.bucketing``). Above it, or in
     float64, ``torch.matmul``: cuBLAS picks its split of the contraction
     from the shape, and a serving bucket keeps ``m`` and ``r`` exact there.

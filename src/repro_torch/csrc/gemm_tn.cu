@@ -1,7 +1,10 @@
 // gemm_tn: C[b] = alpha * A[b]^T B[b], summed in float32, for a whole batch in one launch.
 //
 // Replaces: gemm_tn_pallas in src/repro/kernels/gemm_tn.py:78 (the Pallas TN
-// matmul that is the leaf of every Strassen product).
+// matmul that is the leaf of every Strassen product). A narrow B (k <=
+// kNarrowMaxK columns: CG's, PowerSGD's and serving's products) goes to the
+// narrow kernel of tn_narrow.cu instead, which sums each output in the same
+// order; the tile engine below takes every wider k.
 //
 // What bounds it on the H100: operations. A Strassen leaf is 512 x 512 x 512
 // (2 * 512^3 = 268 MFLOP on 3 MiB), far above the card's float32 balance
@@ -30,6 +33,7 @@
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
+#include "tn_narrow.cuh"
 #include "tn_tile.cuh"
 
 namespace repro_torch {
@@ -84,6 +88,9 @@ template <typename T, typename TO>
 static int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
                   long long sab, long long lda, long long sbb, long long ldb, float alpha,
                   int vec16, cudaStream_t stream) {
+  if (k <= kNarrowMaxK)
+    return tn_narrow_launch<T, TO>(a, b, c, batch, m, n, k, sab, lda, sbb, ldb, alpha, vec16,
+                                   stream);
   cudaError_t err = vec16 ? opt_in<T, TO, true>() : opt_in<T, TO, false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((k + kTile - 1) / kTile, (n + kTile - 1) / kTile, batch < 65535 ? batch : 65535);

@@ -45,7 +45,10 @@
 // l = l0, l0 + 1, ... in ascending order, over the depth-8 slabs that start
 // below l1 (rows past l1 being exact zeros), whatever the tile, the batch
 // index, the batch size or kSlab. gemm_tn calls it with [0, m): every
-// output is one chain. syrk splits m into K(m, n) ranges and adds the K
+// output is one chain. For k <= kNarrowMaxK gemm_tn runs tn_narrow.cu's
+// kernel instead, which sums the same chain over [0, m) and then adds the
+// one +0 of the zero rows that end the engine's last depth-8 slab, so either
+// kernel gives the same bits. syrk splits m into K(m, n) ranges and adds the K
 // chains in one fixed order (syrk.cu), K being a function of (m, n) alone.
 // Two launches that see the same operands therefore give bitwise-equal
 // outputs; gemm_tn_fused.cu runs the same depth-8 chain on its combined

@@ -3,7 +3,11 @@
 * ``gemm_tn``: port of ``repro.kernels.gemm_tn.gemm_tn_pallas``; the kernel
   is ``csrc/gemm_tn.cu``. ``A: (m, n)`` or ``(B, m, n)``, ``B: (m, k)`` or
   ``(B, m, k)``; a leading batch dim is the kernel's ``blockIdx.z``, so a
-  whole Strassen leaf stack is one launch.
+  whole Strassen leaf stack is one launch. Its one C entry point launches
+  the 128 × 128 tile engine, or for ``k ≤`` :func:`narrow_max_k` the
+  narrow-output kernel of ``csrc/tn_narrow.cu`` (CG's ``Aᵀ(A·p)``,
+  PowerSGD's ``GᵀP``, serving's ``Aᵀb``), which sums every output in the
+  engine's order: the bits do not depend on which one ran.
 * ``gemm_tn_fused``: port of ``gemm_tn_fused_pallas``; the kernel is
   ``csrc/gemm_tn_fused.cu``. The operands are block-major leaf grids
   ``(G, R, C, [B,] mb, ·)`` (any strides, unit column stride) and six
@@ -19,6 +23,8 @@ the card (``backend.kernel_dtypes``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,10 +32,25 @@ from repro_torch.backend import device_cached, kernel_dtypes
 from repro_torch.tune.defaults import GEMM_BLOCKS as DEFAULT_BLOCKS
 
 __all__ = ["DEFAULT_BLOCKS", "gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
-           "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS"]
+           "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS",
+           "narrow_max_k", "narrow_launches"]
 
 # slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
 FUSED_MAX_SLOTS = 32
+
+# CUDA launches of the narrow-output kernel since the last
+# ops.reset_launches(); each is also one of ops.launches["gemm_tn"]
+narrow_launches = {"gemm_tn_narrow": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_max_k() -> int:
+    """The widest ``B`` (columns) that ``gemm_tn``'s C entry point hands to
+    the narrow-output kernel (``kNarrowMaxK`` in ``csrc/tn_narrow.cuh``, read
+    from the built library)."""
+    from repro_torch.kernels import _build
+
+    return _build.resources("gemm_tn_narrow_info", 1, 1, 1)["max_k"]
 
 
 def check_tn_shapes(a, b):
@@ -73,7 +94,8 @@ def vec16(x, *strides) -> bool:
 
 
 def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
-    """Launch ``csrc/gemm_tn.cu`` once on the current stream."""
+    """Launch ``csrc/gemm_tn.cu`` once on the current stream: the tile
+    engine, or the narrow-output kernel for ``k ≤ narrow_max_k()``."""
     from repro_torch.kernels import _build
 
     check_tn_shapes(a, b)
@@ -97,6 +119,8 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
                                     sab, lda, sbb, ldb, float(alpha), int(v16), dtypes,
                                     torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gemm_tn")
+    if k <= narrow_max_k():
+        narrow_launches["gemm_tn_narrow"] += 1
     return c
 
 

@@ -29,8 +29,9 @@ it and, like ``blocks``, is read for output geometry only (the packed
 block size of ``syrk``): each CUDA kernel chooses its own CTA tile. The
 operators count their CUDA launches in :data:`launches` (plain ints,
 incremented right after a launch and nowhere else), so a run can show that
-its path went through the kernels. That differs from the reference's
-counter, which this module keeps too: ``obs.metrics`` counter
+its path went through the kernels; :data:`narrow_launches` counts those
+``gemm_tn`` launches that ran the narrow-output kernel. That differs from
+the reference's counter, which this module keeps too: ``obs.metrics`` counter
 ``kernels.launch.<name>`` counts every wrapper call, on the card, on the
 CPU or in a trace, as ``repro.kernels.ops`` counts every call whether
 Pallas runs compiled or in interpret mode. Each call also opens one
@@ -51,18 +52,20 @@ from repro_torch.kernels import potrf as _potrf
 from repro_torch.kernels import syrk as _syrk
 from repro_torch.kernels import trsm as _trsm
 from repro_torch.kernels._library import OPS, dtype_code, launches
+from repro_torch.kernels.gemm_tn import narrow_launches
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
 __all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
-           "reset_launches", "split_launches", "TILE", "Bases", "bases", "PLAIN"]
+           "narrow_launches", "reset_launches", "split_launches", "TILE", "Bases", "bases", "PLAIN"]
 
 # the widest potrf/trsm tile one launch takes (csrc/potrf.cu, csrc/trsm.cu)
 TILE = _potrf.MAX_N
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, narrow_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 # kernel name -> (counter, span, copy counter)

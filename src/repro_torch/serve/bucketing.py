@@ -53,10 +53,12 @@ things decide the reduction order, and padding can move it:
   padding in 1 of 8 at ``(512, 256, 8)``, 6 of 7 at ``(8192, 512, 64)``
   and 3 of 3 at whiten ``(4096, 1024, 64)``.
 
-So ``Aᵀb`` (``core.strassen._dot_tn``) runs on the ``gemm_tn`` kernel
-wherever ``m ≤ UNSPLIT_MAX_ROWS``: one ``fmaf`` chain over ascending rows
-per output, each column of ``b`` its own, so zero rows and zero columns
-leave the other outputs' bits as they were (the same tool: 8 of 8
+So ``Aᵀb`` (``core.strassen._dot_tn``) runs on ``gemm_tn`` wherever
+``m ≤ UNSPLIT_MAX_ROWS``: its narrow-output kernel for ``r ≤ 64``
+(``csrc/tn_narrow.cu``) and its tile engine above both sum one ``fmaf``
+chain over ascending rows per output, each column of ``b`` its own, so
+zero rows and zero columns leave the other outputs' bits as they were,
+whichever of the two a padded width lands on (the same tool: 8 of 8
 requests at ``(512, 256)`` kept their bits under row padding, column
 padding and batching alike). A bucket is then ``exact_m``
 where ``syrk`` splits, and ``exact_r`` where ``n`` spans more than one

@@ -205,3 +205,4 @@ def test_cpu_cg_launches_no_kernel():
     ops.reset_launches()
     cg_lstsq(torch.as_tensor(a.astype(np.float32)), torch.ones(100), iters=4)
     assert all(v == 0 for v in ops.launches.values())
+    assert ops.narrow_launches == {"gemm_tn_narrow": 0}

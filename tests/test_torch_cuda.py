@@ -67,16 +67,23 @@ def test_gemm_tn_kernel_matches_plain(dev, b, m, n, k):
     _close(ops.gemm_tn(a[0, :, 1:], c[0]), gemm_tn_plain(a[0, :, 1:], c[0]), m)
 
 
+# (n, k) with k <= narrow_max_k() = 64 run the narrow-output kernel
+# (csrc/tn_narrow.cu), the rest the tile engine; k = 65 is the engine's
+NARROW_EDGES = ((127, 1), (1, 8), (129, 4), (4096, 8), (127, 32), (129, 33), (127, 64))
+
+
 @pytest.mark.parametrize("m", [1, 7, 8, 9, 15, 17, 33, 513])
 def test_gemm_tn_kernel_depths_and_ragged_edges(dev, m):
     """Contraction lengths around the depth-8 summation slabs and the
     depth-16 ring stages; n and k of 1 and one short of and one past a
-    128 tile; a batch of 2. Within tolerance of the plain version, bitwise
+    128 tile, the narrow kernel's shapes (a partial strip, one or two
+    columns of B short of a pair or of 16 bytes, k at the threshold and one
+    past it); a batch of 2. Within tolerance of the plain version, bitwise
     equal to gemm_tn_fused on W = 1 tables of the same operands (the same
     fmaf chain over the same depth-8 slabs), and bitwise equal to each batch
     entry launched alone."""
     rng = np.random.default_rng(m)
-    for n, k in ((1, 129), (127, 1), (129, 127), (127, 129)):
+    for n, k in ((1, 129), (129, 127), (127, 129), (129, 65)) + NARROW_EDGES:
         a, b = _t(rng, (2, m, n), dev), _t(rng, (2, m, k), dev)
         got = ops.gemm_tn(a, b, alpha=0.75)
         _close(got, gemm_tn_plain(a, b, alpha=0.75), m)
@@ -487,15 +494,119 @@ def test_gemm_tn_kernel_mixed_operands_widen(dev):
 
 @pytest.mark.parametrize("k", [1, 8, 9])
 def test_gemm_tn_kernel_narrow_output_at_lstsq_depth(dev, k):
-    """lstsq's CG products: A (16384, 4096) against k columns — one CTA
-    column of 128 with 1, 8 or 9 live ones."""
+    """lstsq's CG products: A (16384, 4096) against k columns, on the
+    narrow kernel: within tolerance of the plain version and bitwise equal
+    to gemm_tn_fused on W = 1 tables (the tile engine's chain), in float32
+    and on bfloat16 operands."""
     rng = np.random.default_rng(k)
     a, p = _t(rng, (16384, 4096), dev), _t(rng, (16384, k), dev)
     got = ops.gemm_tn(a, p)
     assert got.shape == (4096, k)
     _close(got, gemm_tn_plain(a, p), 16384)
+    assert _bits_equal(got, _fused_w1(a, p))
     a16, p16 = a.bfloat16(), p.bfloat16()
-    _close_dt(ops.gemm_tn(a16, p16), gemm_tn_plain(a16, p16), 16384, torch.float32)
+    got16 = ops.gemm_tn(a16, p16)
+    _close_dt(got16, gemm_tn_plain(a16, p16), 16384, torch.float32)
+    assert _bits_equal(got16, _fused_w1(a16, p16))
+
+
+def _fused_w1(a, b, alpha=1.0, out_dtype=torch.float32):
+    """gemm_tn_fused on W = 1 tables of the same operands: the tile engine's
+    fmaf chain, whatever kernel gemm_tn picks."""
+    lead = (None,) * 3
+    out = ops.gemm_tn_fused(a[lead], b[lead], _slot_tables(0), alpha=alpha, out_dtype=out_dtype)
+    return out.reshape(*a.shape[:-2], a.shape[-1], b.shape[-1])
+
+
+def _bits_equal(x, y):
+    """Bit patterns equal (torch.equal takes -0 for +0)."""
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return x.dtype == y.dtype and torch.equal(x.view(view), y.view(view))
+
+
+@pytest.mark.parametrize("m", [5, 8])
+def test_gemm_tn_narrow_keeps_the_engines_signed_zero(dev, m):
+    """Products that underflow make a sum of -0. The engine's zero rows up
+    to its next depth-8 slab add +0 to it, which gives +0 when m is not a
+    multiple of 8: the narrow kernel gives the same bit patterns."""
+    a = torch.full((m, 40), -2.0 ** -100, device=dev)
+    b = torch.full((m, 3), 2.0 ** -100, device=dev)
+    b[:, 1] = -b[:, 1]   # a column of +0 sums beside the -0 ones
+    got = ops.gemm_tn(a, b)
+    assert _bits_equal(got, _fused_w1(a, b))
+    assert bool(torch.signbit(got[:, 0]).all()) == (m % 8 == 0)
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("m,n,k", [(513, 129, 4), (100, 4096, 8), (37, 127, 32), (8, 1, 1)])
+def test_gemm_tn_narrow_bf16_bitwise_to_the_engine(dev, m, n, k, out):
+    """bfloat16 operands, float32 or bfloat16 output, on the narrow kernel:
+    bitwise equal to the W = 1 fused launch, within tolerance of the plain
+    version, a batch entry bitwise equal to its single launch."""
+    rng = np.random.default_rng(m + n + k)
+    a, b = _bf(rng, (2, m, n), dev), _bf(rng, (2, m, k), dev)
+    got = ops.gemm_tn(a, b, alpha=-0.5, out_dtype=out)
+    _close_dt(got, gemm_tn_plain(a, b, alpha=-0.5, out_dtype=out), m, out)
+    assert _bits_equal(got, _fused_w1(a, b, alpha=-0.5, out_dtype=out))
+    assert _bits_equal(got[1], ops.gemm_tn(a[1], b[1], alpha=-0.5, out_dtype=out))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gemm_tn_narrow_unaligned_views(dev, dt):
+    """A base 4 bytes off a 16-byte boundary and odd row strides: the narrow
+    kernel copies elements instead of bulk rows; the same bits as the
+    aligned operands (bulk copies) and as the W = 1 fused launch."""
+    rng = np.random.default_rng(23)
+    m, n, k = 300, 200, 8
+    a, b = _t(rng, (2, m, n), dev).to(dt), _t(rng, (2, m, k), dev).to(dt)
+    assert vec16(a, a.stride(0), a.stride(1)) and vec16(b, b.stride(0), b.stride(1))
+    want = ops.gemm_tn(a, b)
+    shift = 4 // a.element_size()
+    ua = torch.empty(a.numel() + shift, device=dev, dtype=dt)[shift:].view(a.shape)
+    ua.copy_(a)
+    wide = torch.empty(2, m, k + 1, device=dev, dtype=dt)[..., :k]   # row stride 9
+    wide.copy_(b)
+    assert not vec16(ua, ua.stride(0), ua.stride(1))
+    assert not vec16(wide, wide.stride(0), wide.stride(1))
+    for x, y in ((ua, wide), (ua, b), (a, wide)):
+        got = ops.gemm_tn(x, y)
+        _close_dt(got, gemm_tn_plain(a, b), m, torch.float32)
+        assert _bits_equal(got, want)
+    assert _bits_equal(want, _fused_w1(a, b))
+
+
+def test_gemm_tn_narrow_batch_past_grid_limit(dev):
+    """65,537 entries of (40, 70)ᵀ × (40, 8) on the narrow kernel: the
+    grid's z extent stops at 65,535 and the rest of the stack strides over
+    it, its ring's stages running on across entries."""
+    rng = np.random.default_rng(24)
+    a, b = _t(rng, (65537, 40, 70), dev), _t(rng, (65537, 40, 8), dev)
+    got = ops.gemm_tn(a, b)
+    _close(got, gemm_tn_plain(a, b), 40)
+    for e in (0, 1, 65534, 65535, 65536):
+        assert _bits_equal(got[e], ops.gemm_tn(a[e], b[e])), e
+        assert _bits_equal(got[e], _fused_w1(a[e], b[e])), e
+
+
+def test_gemm_tn_narrow_info_and_launch_count(dev):
+    """The narrow kernel's plan at the three timed shapes (a grid that
+    covers the SMs), no spills; gemm_tn counts a narrow launch for k <= 64
+    only, and one gemm_tn launch either way."""
+    from repro_torch.kernels.gemm_tn import narrow_max_k
+
+    assert narrow_max_k() == 64
+    for (n, k), w in (((4096, 8), 32), ((2816, 4), 16), ((1024, 4), 8)):
+        r = _build.resources("gemm_tn_narrow_info", n, k, 1)
+        assert r["strip_columns"] == w and r["ctas"] == -(-n // w), r
+        assert r["local_bytes"] == 0 and r["ctas_per_sm"] >= 1, r
+        assert r["max_k"] == 64 and r["ring_stages"] * r["stage_rows"] >= 8, r
+    rng = np.random.default_rng(25)
+    a = _t(rng, (64, 100), dev)
+    for k, narrow in ((64, 1), (65, 0)):
+        ops.reset_launches()
+        ops.gemm_tn(a, _t(rng, (64, k), dev))
+        assert ops.launches["gemm_tn"] == 1
+        assert ops.narrow_launches["gemm_tn_narrow"] == narrow, k
 
 
 @pytest.mark.parametrize("out", OUTS)

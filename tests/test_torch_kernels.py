@@ -50,7 +50,9 @@ def _spd(rng, batch, n):
 
 
 @pytest.mark.parametrize("shape", [(8, 128, 128), (40, 100, 60), (3, 70, 200, 130),
-                                   (2, 257, 129, 65), (5, 64, 96, 48)])
+                                   (2, 257, 129, 65), (5, 64, 96, 48),
+                                   # narrow outputs (the card's tn_narrow.cu)
+                                   (600, 300, 8), (2, 257, 130, 4)])
 def test_gemm_tn_plain_matches_pallas(shape):
     *bt, m, n, k = shape
     rng = np.random.default_rng(sum(shape))

@@ -1,10 +1,25 @@
 #!/usr/bin/env python3
-"""Time variants of the gemm_tn tile engine and ablations of the trsm and
-syrk kernels.
+"""Time variants of the gemm_tn tile engine, the narrow kernel's crossover,
+and ablations of the trsm and syrk kernels.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py [tn] [trsm] [syrk]
+    PYTHONPATH=src python3 tools/kernel_variants.py [tn] [narrow] [trsm] [syrk]
 
-(no argument: all three parts).
+(no argument: all four parts).
+
+For gemm_tn's narrow-output kernel (``csrc/tn_narrow.cu``) it builds two
+libraries with the threshold ``kNarrowMaxK`` rewritten: 0 (every k on the
+tile engine) and 64 (the narrow kernel up to k = 64), holds the two
+bitwise equal at (m, n) = (16384, 4096) with k in {4, 8, 16, 32, 64} and
+at PowerSGD's (24576, 2816, 4) and (67584, 1024, 4), and prints their
+device times (CUDA graphs of 20 launches) beside ``torch.matmul(a.T,
+b)``'s, taken in turns: the evidence for the threshold. Beside them it
+times builds of the narrow kernel with one choice changed
+(``NARROW_ABLATIONS``): the ring's streaming alone, the chains alone, 8 or
+3 stages, 1 or 4 copying warps, 1 or 2 of A's columns a thread, operands
+made in registers instead of loaded, and a build in which consumer thread
+0 of CTA 0 counts its cycles (waiting for stages, in the chains, handing
+stages back), printed as cycles a row; those in ``NARROW_EXACT`` keep the
+product and are held bitwise against the engine too.
 
 The tile engine (``src/repro_torch/csrc/tn_tile.cuh``) fixes its copy ring
 at compile time: ``kStages`` stages of ``kSlab`` rows. This script copies
@@ -58,6 +73,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 SLAB, STAGES = "constexpr int kSlab = 32;", "constexpr int kStages = 3;"
+# gemm_tn.cu launches tn_narrow.cu's kernel for narrow k: a gemm_tn build holds both
+TN_SOURCES = ("gemm_tn.cu", "tn_narrow.cu")
 # name -> (rows a stage, stages); the first is the shipped shape
 SHAPES = {"32x3": (32, 3), "32x2": (32, 2), "16x4": (16, 4), "16x3": (16, 3), "8x4": (8, 4)}
 # name -> textual edit of tn_tile.cuh timed beside the shapes but not held
@@ -67,6 +84,68 @@ ENGINE_ABLATIONS = {
     "half_x_reads": ("const T* xr = xs + kk * kTile",
                      "const T* xr = xs + (kk & ~1) * kTile"),
 }
+# name -> gemm_tn's narrow threshold (csrc/tn_narrow.cuh) of a crossover build
+NARROW_MAX_K = "constexpr int kNarrowMaxK = 64;"
+NARROW = {"engine": 0, "narrow": 64}
+# name -> textual edits of tn_narrow.cu on the k <= 64 build, timed beside it
+# (a wrong product: only the time is read): the ring without the chains,
+# the chains on whatever the ring holds, and half as many stages of twice
+# the rows
+NARROW_CHAIN = """      narrow_chain<W, P>(st.a + i0, st.bt + jp * pl.bp, min(pl.rows, g.m - s * pl.rows), acc);
+"""
+NARROW_COPIES = """          mbar_arrive_tx(&full[slot], pl.rows * W * static_cast<int>(sizeof(T)));
+          tma_load(st.a, &g.ta, c0, l0, bt, &full[slot]);
+"""
+NARROW_COPY_B = "          copy_pair(st.bt + jp * pl.bp + 2 * r, bb + r * g.ldb + 2 * jp);\n"
+NARROW_STAGES = "constexpr int kNarrowStages = 4;"
+NARROW_COPIERS = ("pl.copiers = 32 * (kq / 2 < 2 ? 2 : kq / 2 > kNarrowMaxCopyWarps ? "
+                  "kNarrowMaxCopyWarps : kq / 2);")
+NARROW_LOAD_A = "  for (int u = 0; u < kNarrowGroup; ++u) ld_vec<P>(xa + (r + u) * W, fa[u]);\n"
+NARROW_LOAD_B = ("  for (int u = 0; u < kNarrowGroup; u += 2) "
+                 "ld_rows2(xb + (r + u) * 2, fb[u], fb[u + 1]);\n")
+NARROW_P = "auto cols = [kq](int w) { return w / 2 * kq >= 64 ? 2 : 1; };"
+NARROW_ABLATIONS = {
+    "stream_only": {"tn_narrow.cu": [(NARROW_CHAIN, "")]},
+    # the copies replaced by an arrival: the chains on whatever the ring holds
+    "chains_only": {"tn_narrow.cu": [(NARROW_COPIES, "          mbar_arrive(&full[slot]);\n"),
+                                     (NARROW_COPY_B, "          (void)jp;\n")]},
+    # the same ring in 8 or 3 stages
+    "stages8": {"tn_narrow.cu": [(NARROW_STAGES, "constexpr int kNarrowStages = 8;")]},
+    "stages3": {"tn_narrow.cu": [(NARROW_STAGES, "constexpr int kNarrowStages = 3;")]},
+    # one or four warps copying, whatever k (2 to 4 shipped)
+    "copiers1": {"tn_narrow.cu": [(NARROW_COPIERS, "pl.copiers = 32;")]},
+    "copiers4": {"tn_narrow.cu": [(NARROW_COPIERS, "pl.copiers = 128;")]},
+    # one or two of A's columns a thread, whatever k
+    "p1": {"tn_narrow.cu": [(NARROW_P, "auto cols = [](int) { return 1; };")]},
+    "p2": {"tn_narrow.cu": [(NARROW_P, "auto cols = [](int) { return 2; };")]},
+    # the operands made in registers: the chains and the loop alone
+    "registers_only": {"tn_narrow.cu": [
+        (NARROW_LOAD_B, "  for (int u = 0; u < kNarrowGroup; ++u) "
+                        "fb[u][0] = fb[u][1] = __int_as_float(0x3f800000 + r + u);\n"),
+        (NARROW_LOAD_A, "  for (int u = 0; u < kNarrowGroup; ++u) "
+                        "fa[u][0] = fa[u][P - 1] = __int_as_float(0x3f7f0000 + r + u);\n")]},
+}
+# consumer thread 0 of CTA 0 counts its cycles waiting for stages, in the
+# chains and handing stages back, and stores them in C[0, 0:3]
+NARROW_TIMED_LOOP = """      mbar_wait(&full[slot], (gs / S) & 1);
+      const NarrowStage<T, W> st(ring, pl, slot);
+""" + NARROW_CHAIN + """      mbar_arrive(&empty[slot]);
+"""
+NARROW_TIMED = NARROW_TIMED_LOOP.replace(
+    "      mbar_wait", "      long long t0 = clock64();\n      mbar_wait").replace(
+    "      const NarrowStage", "      long long t1 = clock64();\n      const NarrowStage").replace(
+    "      mbar_arrive", "      long long t2 = clock64();\n      mbar_arrive") + (
+    "      cyc[0] += t1 - t0, cyc[1] += t2 - t1, cyc[2] += clock64() - t2;\n")
+NARROW_TIMED_END = "        store1(cb + (long long)i * g.k + j, g.alpha * v);\n      }\n    }\n"
+NARROW_ABLATIONS["timed"] = {"tn_narrow.cu": [
+    (NARROW_TIMED_LOOP, NARROW_TIMED),
+    ("    float acc[P][2];\n", "    float acc[P][2];\n    long long cyc[3] = {0, 0, 0};\n"),
+    (NARROW_TIMED_END, NARROW_TIMED_END + "    if (tid == 0 && blockIdx.x == 0 && bt == 0)\n"
+     "      for (int e = 0; e < 3; ++e) store1(static_cast<TO*>(g.c) + e, float(cyc[e]));\n")]}
+# ablations that keep the product (held bitwise against the engine)
+NARROW_EXACT = ("stages8", "stages3", "copiers1", "copiers4", "p1", "p2")
+NARROW_SHAPES = [(16384, 4096, k) for k in (4, 8, 16, 32, 64)] + [(24576, 2816, 4),
+                                                                  (67584, 1024, 4)]
 # name -> textual edits of trsm.cu; the first is the shipped kernel
 TRSM = {
     "full": [],
@@ -140,7 +219,8 @@ def sources(name, edits):
 
     out = os.path.join(ROOT, "build", "kernels", "variants", name)
     os.makedirs(out, exist_ok=True)
-    for f in ("dtype.cuh", "tn_tile.cuh", "gemm_tn.cu", "trsm.cu", "syrk.cu"):
+    for f in ("dtype.cuh", "tn_tile.cuh", "tn_narrow.cuh", "gemm_tn.cu", "tn_narrow.cu",
+              "trsm.cu", "syrk.cu"):
         text = (_build.CSRC / f).read_text()
         for old, new in edits.get(f, ()):
             if f == "syrk.cu" and (old, new) == SYRK_EPILOGUE:  # splice between two anchors
@@ -188,6 +268,47 @@ def time_tn(libs, cs, rng):
     for name in list(runs) + list(runs)[::-1]:
         times.setdefault(name, []).append(cs.time_ms(runs[name]))
     print("gemm_tn (1430,512,512)² ms, in turns: " + json.dumps(times), flush=True)
+
+
+def time_narrow(libs, cs, rng):
+    """gemm_tn on the tile engine alone against the narrow kernel up to
+    k = 64, bitwise and in device time, beside torch.matmul."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    for m, n, k in NARROW_SHAPES:
+        a = cs.cuda_tensor(rng, (m, n))
+        b = cs.cuda_tensor(rng, (m, k))
+        outs, runs = {}, {}
+        for name in (*NARROW, *NARROW_ABLATIONS):
+            fn = libs[("narrow", name)].gemm_tn_f32
+            fn.argtypes = list(_build.SIGNATURES["gemm_tn_f32"])
+            c = torch.empty((n, k), device="cuda")
+
+            def run(fn=fn, c=c):
+                err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, m, n, k, 0, n, 0, k, 1.0, 1,
+                         0, torch.cuda.current_stream().cuda_stream)
+                _build.check(err, "gemm_tn crossover build")
+            run()
+            torch.cuda.synchronize()
+            outs[name], runs[name] = c, run
+        for name in ("narrow", *NARROW_EXACT):
+            if not torch.equal(outs["engine"].view(torch.int32), outs[name].view(torch.int32)):
+                raise AssertionError(f"narrow kernel {name} differs from the engine at {(m, n, k)}")
+        runs["torch.matmul"] = lambda: torch.matmul(a.T, b)
+        times = {}
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault(name, []).append(round(cs.graph_ms(runs[name], 20), 5))
+        cyc = [round(float(x)) for x in outs["timed"].flatten()[:3]]
+        print(f"gemm_tn {(m, n, k)} timed: consumer 0 of CTA 0, cycles waiting for stages "
+              f"{cyc[0]}, in the chains {cyc[1]} ({cyc[1] / m:.2f} a row), handing stages "
+              f"back {cyc[2]}", flush=True)
+        bms, by = cs.bound(2 * m * n * k, 4 * (m * n + m * k + n * k))
+        print(f"gemm_tn {(m, n, k)} bitwise engine == narrow; device ms, in turns: "
+              + json.dumps(times) + f"; bound_ms {bms:.4f} ({by})", flush=True)
+        del a, b, outs, runs
+        torch.cuda.empty_cache()
 
 
 def time_trsm(libs, cs, rng):
@@ -268,8 +389,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build
 
-    parts = set(sys.argv[1:]) or {"tn", "trsm", "syrk"}
-    if not parts <= {"tn", "trsm", "syrk"}:
+    parts = set(sys.argv[1:]) or {"tn", "narrow", "trsm", "syrk"}
+    if not parts <= {"tn", "narrow", "trsm", "syrk"}:
         print(f"kernel_variants: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -282,21 +403,32 @@ def main() -> int:
             d = sources("tn_" + name, {"tn_tile.cuh": [
                 (SLAB, f"constexpr int kSlab = {slab};"),
                 (STAGES, f"constexpr int kStages = {stages};")]})
-            jobs[("tn", name)] = (d, "gemm_tn.cu")
+            jobs[("tn", name)] = (d, TN_SOURCES)
         for name, edit in ENGINE_ABLATIONS.items():
-            jobs[("tn", name)] = (sources("tn_" + name, {"tn_tile.cuh": [edit]}), "gemm_tn.cu")
+            jobs[("tn", name)] = (sources("tn_" + name, {"tn_tile.cuh": [edit]}), TN_SOURCES)
+    if "narrow" in parts:
+        for name, max_k in NARROW.items():
+            d = sources("narrow_" + name, {"tn_narrow.cuh": [
+                (NARROW_MAX_K, f"constexpr int kNarrowMaxK = {max_k};")]})
+            jobs[("narrow", name)] = (d, TN_SOURCES)
+        for name, edits in NARROW_ABLATIONS.items():
+            edits = dict(edits)
+            edits["tn_narrow.cuh"] = edits.get("tn_narrow.cuh", []) + [
+                (NARROW_MAX_K, "constexpr int kNarrowMaxK = 64;")]
+            jobs[("narrow", name)] = (sources("narrow_" + name, edits), TN_SOURCES)
     if "trsm" in parts:
         for name, edits in TRSM.items():
-            jobs[("trsm", name)] = (sources("trsm_" + name, {"trsm.cu": edits}), "trsm.cu")
+            jobs[("trsm", name)] = (sources("trsm_" + name, {"trsm.cu": edits}), ("trsm.cu",))
     if "syrk" in parts:
         _build.load()
         for name, edits in SYRK.items():
             if edits is not None:
-                jobs[("syrk", name)] = (sources("syrk_" + name, {"syrk.cu": edits}), "syrk.cu")
+                jobs[("syrk", name)] = (sources("syrk_" + name, {"syrk.cu": edits}), ("syrk.cu",))
     procs = {key: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d, os.path.join(d, src), "-o",
-         os.path.join(d, "lib.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for key, (d, src) in jobs.items()}
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d,
+         *(os.path.join(d, src) for src in srcs), "-o", os.path.join(d, "lib.so")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, (d, srcs) in jobs.items()}
     libs = {}
     for key, proc in procs.items():
         log, _ = proc.communicate()
@@ -311,6 +443,8 @@ def main() -> int:
     if "tn" in parts:
         time_tn(libs, cs, rng)
         torch.cuda.empty_cache()
+    if "narrow" in parts:
+        time_narrow(libs, cs, rng)
     if "trsm" in parts:
         time_trsm(libs, cs, rng)
     if "syrk" in parts:
