@@ -37,21 +37,37 @@ phase fails):
 6. dtypes  — (after kernels) each of the six kernels on bfloat16 operands
              at the shapes of phase 2, storing float32 and bfloat16,
              against its plain version (the bound above, plus one
-             bfloat16 ulp for a bfloat16 store), with device times; ata
-             4096² in bfloat16 under the three dispatches within 2e-2
-             (the reference's bfloat16 rtol, normwise) of the float64
-             product, unrolled == batched bitwise; ata 4096² in float64 on
-             the card (plain bases, no launch) within ``8·√k·eps64`` of the
-             same call on the CPU;
+             bfloat16 ulp for a bfloat16 store), with device times beside
+             the bfloat16 bound (989 TFLOP/s) and the library's bfloat16
+             call ("none" where torch has none on CUDA); gemm_tn and
+             gemm_tn_fused counted on their tensor-core (wgmma) kernels,
+             fused bitwise equal to gemm_tn on the bfloat16 combined
+             operands, the wgmma instances' resources; ata 4096² and
+             strassen_tn 2048³ and 4096³ in bfloat16 under the three
+             dispatches (the bfloat16 main path, its wgmma launches
+             counted, ata's syrk / syrk_gather launched) bitwise equal,
+             ata and strassen_tn 2048³ within 2e-2 (the reference's
+             bfloat16 rtol, normwise) of the float64 product and
+             strassen_tn 4096³ within ``PLAIN_RTOL`` (normwise) of the same
+             recursion on plain bases (three levels of bfloat16 operand
+             sums put both at the band's edge: their errors against
+             float64 are recorded); ata 8192² in bfloat16,
+             fused, batched and ``torch.matmul(a.mT, a)``: wall and
+             device-busy ms (``tools/profile_ata.py``); ata 4096² in
+             float64 on the card (plain bases, no launch) within
+             ``8·√k·eps64`` of the same call on the CPU;
+             ``python3 chip_smoke.py dtypes`` runs the build and this
+             phase alone;
 7. cg      — ``lstsq(a, b, ridge=1e-3, method="cg")`` on the lstsq
              phase's data under ``torch.cuda.set_sync_debug_mode("error")``
              (no host sync in the loop), within 1e-3 of the float64
              solution, exactly ``iters + 1`` gemm_tn launches, every one on
-             the narrow-output kernel (``csrc/tn_narrow.cu``); that kernel
-             at (16384, 4096, 8) (``narrow_case``): bitwise equal to
-             ``gemm_tn_fused`` on W = 1 tables on float32 and bfloat16
-             operands, within tolerance of its plain version, its device
-             time beside ``torch.matmul(a.T, ap)``'s and its bound;
+             the narrow-output kernel (``csrc/tn_narrow.cu``); gemm_tn at
+             (16384, 4096, 8) (``narrow_case``): bitwise equal to
+             ``gemm_tn_fused`` on W = 1 tables on float32 operands (the
+             narrow kernel) and bfloat16 ones (the wgmma kernel), within
+             tolerance of its plain version, its device times in both
+             types beside ``torch.matmul(a.T, ap)``'s and the bounds;
 8. obs     — fused ata 8192² with spans off and on: times, span counts,
              outputs bitwise equal, the metrics snapshot validated;
 9. tune    — the planner (``repro_torch.tune``, cuda machine): the analytic
@@ -112,8 +128,8 @@ phase fails):
              shape) in 4 row shards of 6144 within 1e-3 (normwise Ĝ and Q) of
              ``compress`` on one rank, P orthonormal within 1e-3, and rank 8
              on a rank-4 gradient reconstructed within 1e-3. Per case and
-             rank: ms (median of CUDA events over 3 runs after a checked
-             run), the collectives' ms (one run with tracing on) and bytes
+             rank: ms (CUDA events over ``DIST_REPS`` = 1 run after a
+             checked run), the collectives' ms (one run with tracing on) and bytes
              by kind, kernel launches and peak memory. Each of the six
              kernels must be launched by the ranks' checked runs.
 
@@ -143,7 +159,8 @@ phase fails):
 13. check  — the contract checker (``repro_torch.check``) on the card:
              ``python -m repro_torch.check --json`` (the canonical grid on
              fake CUDA tensors, planned on ``cuda_h100``), ``--quick`` and
-             ``--serve``, each exiting 0 with zero findings; for every plan
+             ``--serve``, each exiting 0 with zero findings (the three at
+             once, in the background beside phase train); for every plan
              of the grid, the ``repro_torch.*`` nodes of its trace equal
              the ``ops.launches`` of one real run of the same callable;
              traces at full width with zero findings, each beside a real
@@ -237,7 +254,8 @@ phase fails):
              train CLI (qwen1.5-0.5b; under gloo ``--layers 1``) at ``--mesh 2x2`` for 3
              steps saving step 2, then step 3 again at ``--mesh 4x1``
              through ``restore_sharded``, the losses within phase train's
-             bfloat16 bound; the serve CLI (hymba-1.5b) at ``--mesh 1x4``:
+             bfloat16 bound; the serve CLI (hymba-1.5b) at ``--mesh 1x4``,
+             beside the train CLIs:
              each greedy float32 token within ``MESH_SERVE_MARGIN`` of the
              largest logit of one rank's float32 ``forward_train`` over the
              same tokens. Every rank computes with its tensor-parallel
@@ -307,19 +325,27 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
-# cores and HBM3 bandwidth. Used only for the bound column.
+# cores, dense bfloat16 on the tensor cores and HBM3 bandwidth. Used only
+# for the bound columns.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 EPS32 = 1.19e-7
 EPS64 = 2.2e-16
 BF16_ULP = 2.0 ** -7
 # the reference's bfloat16 band (tests/test_kernels.py): rtol, here normwise
 BF16_RTOL = 2e-2
+# strassen_tn 4096³ in bfloat16 against the same recursion on plain bases,
+# normwise: scaled_tol's factor at the 512-deep leaves (their float32 sums
+# are all that differ; the CPU's plain version against float64 leaves
+# differs by 2.4e-7 at 1024³ on 128² leaves)
+PLAIN_RTOL = 8 * math.sqrt(512) * EPS32
 SEED = 0
 # the static cutoff: the phases before `tune` pin it, so they keep measuring
 # the dispatches they name now that unpinned calls are planned
@@ -328,6 +354,32 @@ DEFAULT_N_BASE = 512
 
 def log(*args):
     print(*args, flush=True)
+
+
+class Background:
+    """``fn()`` in a thread of this process, for work that waits on
+    subprocesses while the script goes on: ``result()`` joins it and
+    returns what ``fn`` returned, or raises what it raised. Whoever starts
+    one calls ``result()`` on every path, so no subprocess outlives the
+    script."""
+
+    def __init__(self, fn):
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as exc:  # handed to result()
+                self._out["error"] = exc
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def card_line() -> str:
@@ -399,6 +451,13 @@ def burst_ms(fn, launches: int = 20) -> float:
 def bound(flops: float, nbytes: float):
     """(least time in ms, what bounds it) for the work on an H100."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_bf16(flops: float, nbytes: float):
+    """(least time in ms, what bounds it) for work on bfloat16 inputs: the
+    operations at the tensor cores' bfloat16 rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -974,43 +1033,88 @@ def phase_lstsq(ops):
 def phase_dtypes(checks, ops, plain):
     """bfloat16 through each of the six kernels at the main path's shapes,
     stored as float32 and as bfloat16, against the plain versions, with
-    device times beside the float32 ones; then ata 4096² in bfloat16 under
-    the three dispatches and in float64 on the card."""
+    device times beside the float32 ones, the bfloat16 bound (the tensor
+    cores' rate) and the library's bfloat16 call ("none" where torch has no
+    bfloat16 call on CUDA); gemm_tn and gemm_tn_fused on the tensor-core
+    kernels (counted), fused bitwise equal to gemm_tn on the bfloat16
+    combined operands; then ata 4096² and strassen_tn 4096³ in bfloat16
+    under the three dispatches and ata in float64 on the card. Returns the
+    wgmma launches of the bfloat16 main path (phase_ata_dtypes)."""
     import numpy as np
     import torch
 
     from repro_torch.core.ata import _level_tables
+    from repro_torch.core.reference import classical_gemm_flops, potrf_flops, trsm_flops
     from repro_torch.core.strassen import _to_blocks
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm_tn import combine_fused_operands
 
     log("phase dtypes: bfloat16 operands (float32 accumulation), float32 / bfloat16 stores")
     rng = np.random.default_rng(SEED + 4)
     bf16, f32 = torch.bfloat16, torch.float32
+    def library(timer, call):
+        """The library call's (device ms, ms of one call), or "none" twice
+        where torch has no bfloat16 call on CUDA (it raises)."""
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"    (no bfloat16 library call: {str(exc).splitlines()[0][:100]})")
+            return "none", "none"
+        return timer(call), time_ms(call)
 
-    def both_outs(name, label, k, call, plain_call, timer=None):
+    def both_outs(name, label, k, call, plain_call, timer, work, lib_call, wgmma=None):
         """The kernel on bfloat16 operands into float32 and bfloat16, each
-        against its plain version; device time of the float32 store."""
+        against its plain version (and counted on the tensor-core kernel
+        ``wgmma`` where named); device time of the float32 store beside the
+        bfloat16 bound of ``work`` (flops, bytes) and the library's bfloat16
+        call."""
         row = {}
         for out in (f32, bf16):
+            before = ops.wgmma_launches[wgmma] if wgmma else 0
             got = call(out)
+            if wgmma and ops.wgmma_launches[wgmma] != before + 1:
+                raise AssertionError(f"{name} bf16: the {wgmma} kernel did not launch")
             row[f"max_abs_err_{str(out)[6:]}"] = checks.compare(
                 f"{name} bf16->{str(out)[6:]} {label}", got, plain_call(out), k)
             del got
-        if timer is not None:
-            row["device_ms"] = timer(lambda: call(f32))
-            log(f"  {name} bf16 {label}: device_ms={row['device_ms']:.4f} "
-                f"(float32: {checks.rows[name].get('device_ms', 'not measured')})")
+        row["device_ms"] = timer(lambda: call(f32))
+        row["ms"] = time_ms(lambda: call(f32))
+        row["plain_ms"] = time_ms(lambda: plain_call(f32), runs=3)
+        row["bound_ms"], row["bound_by"] = bound_bf16(*work)
+        row["library_device_ms"], row["library_ms"] = library(timer, lib_call)
+        log(f"  {name} bf16 {label}: device_ms={row['device_ms']:.4f} "
+            f"(float32: {checks.rows[name].get('device_ms', 'not measured')}) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, bfloat16 peak) "
+            f"library_device_ms={row['library_device_ms']}")
         checks.rows[name]["bf16"] = row
         torch.cuda.empty_cache()
+        return row
 
     a = cuda_tensor(rng, (1430, 512, 512)).to(bf16)
     b = cuda_tensor(rng, (1430, 512, 512)).to(bf16)
-    both_outs("gemm_tn", "(1430,512,512)^2", 512, lambda o: ops.gemm_tn(a, b, out_dtype=o),
-              lambda o: plain["gemm_tn"](a, b, out_dtype=o),
-              lambda f: graph_ms(f, launches=10))
+    row = both_outs("gemm_tn", "(1430,512,512)^2", 512, lambda o: ops.gemm_tn(a, b, out_dtype=o),
+                    lambda o: plain["gemm_tn"](a, b, out_dtype=o),
+                    lambda f: graph_ms(f, launches=10),
+                    (1430 * classical_gemm_flops(512, 512, 512), 1430 * 512 * 512 * (2 + 2 + 4)),
+                    lambda: torch.bmm(a.transpose(1, 2), b), wgmma="gemm_tn_wgmma")
+    # the kernel's bfloat16 store against torch.bmm's (which stores bfloat16)
+    row["device_ms_bf16_store"] = graph_ms(lambda: ops.gemm_tn(a, b, out_dtype=bf16),
+                                           launches=10)
+    row["bound_ms_bf16_store"] = bound_bf16(1430 * classical_gemm_flops(512, 512, 512),
+                                            1430 * 512 * 512 * 6)[0]
+    one = ops.gemm_tn(a[3], b[3])
+    if not torch.equal(ops.gemm_tn(a[:8], b[:8])[3], one):
+        raise AssertionError("gemm_tn bf16: batch entry differs from its single launch")
+    log(f"  gemm_tn bf16 store: device_ms={row['device_ms_bf16_store']:.4f} "
+        f"(torch.bmm bf16: {row['library_device_ms']}) bound_ms={row['bound_ms_bf16_store']:.4f}; "
+        f"batch entry == single launch: bitwise")
     del a, b
     a = cuda_tensor(rng, (256, 512, 512)).to(bf16)
     both_outs("syrk", "(256,512,512) dense", 512, lambda o: ops.syrk(a, out_dtype=o),
-              lambda o: plain["syrk"](a, out_dtype=o), lambda f: graph_ms(f, launches=20))
+              lambda o: plain["syrk"](a, out_dtype=o), lambda f: graph_ms(f, launches=20),
+              (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
+              lambda: torch.matmul(a.transpose(1, 2), a))
     x = cuda_tensor(rng, (2048, 512)).to(bf16)
     packed = ops.syrk(x, out="packed")
     err = checks.compare("syrk bf16 single (2048,512) packed", packed.blocks,
@@ -1023,67 +1127,178 @@ def phase_dtypes(checks, ops, plain):
     root = cuda_tensor(rng, (8192, 8192)).to(bf16)
     ab = _to_blocks(root, 4)
     tables = _level_tables(4, 1)
-    both_outs("gemm_tn_fused", "ata 8192² level 1", 512,
-              lambda o: ops.gemm_tn_fused(ab[None], ab[None], tables, out_dtype=o),
-              lambda o: plain["gemm_tn_fused"](ab[None], ab[None], tables, out_dtype=o),
-              lambda f: graph_ms(f, launches=10))
+    xa = combine_fused_operands(ab[None], *tables[0])
+    xb = combine_fused_operands(ab[None], *tables[1])
+    live = sum(len({(int(r), int(c)) for r, c, g in zip(*(t.ravel() for t in side)) if g})
+               for side in tables)
+    leaves = tables[0][0].shape[0]
+    row = both_outs("gemm_tn_fused", "ata 8192² level 1", 512,
+                    lambda o: ops.gemm_tn_fused(ab[None], ab[None], tables, out_dtype=o),
+                    lambda o: plain["gemm_tn_fused"](ab[None], ab[None], tables, out_dtype=o),
+                    lambda f: graph_ms(f, launches=10),
+                    (leaves * classical_gemm_flops(512, 512, 512),
+                     2 * 512 * 512 * live + 4 * 512 * 512 * leaves),
+                    lambda: torch.bmm(xa.transpose(1, 2), xb), wgmma="gemm_tn_fused_wgmma")
+    if xa.dtype != bf16 or not torch.equal(ops.gemm_tn_fused(ab[None], ab[None], tables),
+                                           ops.gemm_tn(xa, xb)):
+        raise AssertionError("gemm_tn_fused bf16 != gemm_tn on the bfloat16 combined operands")
+    row["gemm_tn_on_combined_device_ms"] = graph_ms(lambda: ops.gemm_tn(xa, xb), launches=10)
+    log(f"  gemm_tn_fused bf16 == gemm_tn on the bfloat16 combined operands: bitwise; "
+        f"gemm_tn on them device_ms={row['gemm_tn_on_combined_device_ms']:.4f} "
+        f"(torch.bmm on them: {row['library_device_ms']})")
+    del xa, xb
+    res = {"gemm_tn_wgmma": _build.resources("gemm_tn_wgmma_info"),
+           "gemm_tn_fused_wgmma": {w: _build.resources("gemm_tn_fused_wgmma_info", w)
+                                   for w in (1, 2, 4, 8, 16, 32)}}
+    checks.rows["gemm_tn"]["bf16"]["resources"] = res["gemm_tn_wgmma"]
+    checks.rows["gemm_tn_fused"]["bf16"]["resources"] = res["gemm_tn_fused_wgmma"]
+    log("  resources bf16 wgmma (gemm_tn; gemm_tn_fused by slot count W) " + json.dumps(res))
     s = np.arange(256)
+    D = ab.transpose(0, 1).reshape(256, *ab.shape[-2:])
     both_outs("syrk_gather", "R=16 S=256", 512,
               lambda o: ops.syrk_gather(ab, s % 16, s // 16, out_dtype=o),
-              lambda o: plain["syrk_gather"](ab, s % 16, s // 16, out_dtype=o), burst_ms)
-    del root, ab
+              lambda o: plain["syrk_gather"](ab, s % 16, s // 16, out_dtype=o), burst_ms,
+              (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
+              lambda: torch.matmul(D.transpose(1, 2), D))
+    del root, ab, D
     torch.cuda.empty_cache()
     s1 = spd_tiles(rng, 1, 128)[0].to(bf16)
     both_outs("potrf", "(128,128)", 128, lambda o: ops.potrf(s1, out_dtype=o),
-              lambda o: plain["potrf"](s1, out_dtype=o), graph_ms)
+              lambda o: plain["potrf"](s1, out_dtype=o), graph_ms,
+              (potrf_flops(128), 128 * 128 * (2 + 4)), lambda: torch.linalg.cholesky_ex(s1))
     for nb_, n_ in ((32, 104), (8, 256)):
         st = spd_tiles(rng, nb_, n_).to(bf16)
         checks.compare(f"potrf bf16 ({nb_},{n_},{n_})", ops.potrf(st), plain["potrf"](st), n_)
     lx = plain["potrf"](spd_tiles(rng, 1, 128)[0]).to(bf16).expand(31, 128, 128)
     p = cuda_tensor(rng, (31, 128, 128)).to(bf16)
+    lu = lx[0].transpose(0, 1)
     both_outs("trsm", "(128,128) expanded x (31,128,128)", 128,
               lambda o: ops.trsm(lx, p, out_dtype=o),
-              lambda o: plain["trsm"](lx, p, out_dtype=o), graph_ms)
+              lambda o: plain["trsm"](lx, p, out_dtype=o), graph_ms,
+              (31 * trsm_flops(128, 128), 2 * (128 * 128 + 31 * 128 * 128) + 4 * 31 * 128 * 128),
+              lambda: torch.linalg.solve_triangular(lu, p, upper=True, left=False))
     r8 = cuda_tensor(rng, (8, 128)).to(bf16)
     checks.compare("trsm bf16 r=8 (8,128) transpose=False",
                    ops.trsm(lx[0], r8, transpose=False),
                    plain["trsm"](lx[0], r8, transpose=False), 128)
-    phase_ata_dtypes(ops)
+    return phase_ata_dtypes(ops)
 
 
 def phase_ata_dtypes(ops):
-    """ata 4096² on the card in bfloat16 (three dispatches) and float64."""
+    """ata 4096² and strassen_tn 4096³ on the card in bfloat16 under the
+    three dispatches (the bfloat16 main path: bitwise equal, within the
+    reference's bfloat16 rtol of float64 — strassen_tn 4096³ within
+    PLAIN_RTOL of its plain bases —, the gemm_tn / gemm_tn_fused launches
+    on the tensor-core kernels counted, ata's syrk / syrk_gather launched),
+    ata 8192² in bfloat16 timed by dispatch (tools/profile_ata.py, in a
+    process of its own), and ata 4096² in float64. Returns the wgmma
+    launches of the bfloat16 main path by kernel, and the timing."""
     import numpy as np
     import torch
 
+    from repro_torch.core import strassen_tn
     from repro_torch.core.ata import ata
+    from repro_torch.kernels.gemm_tn import gemm_tn_plain
 
-    log("  ata 4096x4096, packed: bfloat16 under the three dispatches, float64")
+    log("  ata 4096x4096 packed and strassen_tn 4096³ in bfloat16 under the three dispatches; "
+        "float64")
     rng = np.random.default_rng(SEED + 5)
     a = cuda_tensor(rng, (4096, 4096)).bfloat16()
+    wgmma = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0}
+    # the wgmma kernel each dispatch's gemm_tn leaves run on
+    leaf_kernel = {"unrolled": "gemm_tn_wgmma", "batched": "gemm_tn_wgmma",
+                   "fused": "gemm_tn_fused_wgmma"}
+
+    def dispatches(label, call, exact, expect=None, plain=None):
+        """The three dispatches of ``call`` bitwise equal, their gemm_tn /
+        gemm_tn_fused launches all on wgmma and each kernel of ``expect``
+        (dispatch -> name) launched. Each within BF16_RTOL of ``exact``;
+        where ``plain`` (the same call on plain bases) is given, within
+        PLAIN_RTOL of it normwise instead, its error against ``exact``
+        recorded. Returns the errors against ``exact`` by dispatch (and
+        ``plain``'s)."""
+        results, errors = {}, {}
+        if plain is not None:
+            errors["plain"] = float(torch.linalg.norm(plain - exact) / torch.linalg.norm(exact))
+        for ld in ("unrolled", "batched", "fused"):
+            ops.reset_launches()
+            results[ld] = call(ld)
+            torch.cuda.synchronize()
+            counts = dict(ops.launches)
+            tc = dict(ops.wgmma_launches)
+            got = results[ld]
+            got = torch.tril(got.to_dense().double()) if hasattr(got, "blocks") else got.double()
+            rel = float(torch.linalg.norm(got - exact) / torch.linalg.norm(exact))
+            line = (f"  {label} bf16 {ld}: rel Frobenius error vs float64 {rel:.6e}")
+            if plain is None:
+                line += f" (limit {BF16_RTOL})"
+                ok = rel <= BF16_RTOL
+            else:
+                to_plain = float(torch.linalg.norm(got - plain) / torch.linalg.norm(plain))
+                line += (f" (the plain bases': {errors['plain']:.6e}), vs the plain bases "
+                         f"{to_plain:.3e} (limit {PLAIN_RTOL:.3e})")
+                ok = to_plain <= PLAIN_RTOL
+            errors[ld] = rel
+            del got
+            log(line + f" launches {counts} wgmma {tc}")
+            if not ok:
+                raise AssertionError(f"{label} bf16 {ld}: off its reference: {line}")
+            kernel = leaf_kernel[ld]
+            total = counts["gemm_tn_fused" if ld == "fused" else "gemm_tn"]
+            if total < 1 or tc[kernel] != total:
+                raise AssertionError(f"{label} bf16 {ld}: {tc[kernel]} {kernel} launches of "
+                                     f"{total}")
+            if expect and counts[expect[ld]] < 1:
+                raise AssertionError(f"{label} bf16 {ld}: no {expect[ld]} launch")
+            wgmma[kernel] += tc[kernel]
+        blocks = {ld: getattr(r, "blocks", r) for ld, r in results.items()}
+        if not (torch.equal(blocks["unrolled"], blocks["batched"])
+                and torch.equal(blocks["unrolled"], blocks["fused"])):
+            raise AssertionError(f"{label} bf16: the three dispatches differ")
+        log(f"  {label} bf16 unrolled == batched == fused: bitwise")
+        return errors
+
     exact = torch.tril(a.double().T @ a.double())
-    results = {}
-    for ld in ("unrolled", "batched", "fused"):
-        ops.reset_launches()
-        results[ld] = ata(a, out="packed", leaf_dispatch=ld, n_base=DEFAULT_N_BASE)
-        torch.cuda.synchronize()
-        counts = dict(ops.launches)
-        rel = float(torch.linalg.norm(torch.tril(results[ld].to_dense().double()) - exact)
-                    / torch.linalg.norm(exact))
-        ms = time_ms(lambda: ata(a, out="packed", leaf_dispatch=ld, n_base=DEFAULT_N_BASE),
-                     runs=3)
-        log(f"  ata bf16 {ld}: rel Frobenius error vs float64 {rel:.3e} (limit {BF16_RTOL}) "
-            f"ms={ms:.2f} launches {counts}")
-        if not rel <= BF16_RTOL:
-            raise AssertionError(f"ata bf16 {ld}: relative error {rel} > {BF16_RTOL}")
-        kernel = "syrk_gather" if ld == "fused" else "syrk"
-        if counts[kernel] < 1:
-            raise AssertionError(f"ata bf16 {ld}: no {kernel} launch")
-    if not torch.equal(results["unrolled"].blocks, results["batched"].blocks):
-        raise AssertionError("ata bf16: unrolled != batched")
-    log("  ata bf16 unrolled == batched: bitwise (fused combines in float32: no bitwise contract)")
-    del results, exact
+    dispatches("ata 4096²", lambda ld: ata(a, out="packed", leaf_dispatch=ld,
+                                             n_base=DEFAULT_N_BASE), exact,
+               expect={"unrolled": "syrk", "batched": "syrk", "fused": "syrk_gather"})
+    del exact
+    # strassen_tn in bfloat16: at 2048³ (two Strassen levels at the pinned
+    # cutoff) within the band; at 4096³ (three levels, phase strassen's
+    # shape) each level rounds the operand sums to bfloat16 and three reach
+    # the band's edge, in the plain version as in the kernels (the CPU's
+    # plain version: 2.0e-2 at 1024³ on 128² leaves), so 4096³ is held to
+    # the same recursion on plain bases (torch.matmul in float32 on the
+    # same bfloat16 leaf operands): they differ only in the leaves'
+    # summation order
+    b = cuda_tensor(rng, (4096, 4096)).bfloat16()
+    exact = a[:2048, :2048].double().T @ b[:2048, :2048].double()
+    h, g = a[:2048, :2048].contiguous(), b[:2048, :2048].contiguous()
+    dispatches("strassen_tn 2048³", lambda ld: strassen_tn(h, g, leaf_dispatch=ld,
+                                                             n_base=DEFAULT_N_BASE), exact)
+    exact = a.double().T @ b.double()
+    plain_l3 = strassen_tn(a, b, leaf_dispatch="unrolled", n_base=DEFAULT_N_BASE,
+                           base_dot=lambda x, y: gemm_tn_plain(x, y)).double()
+    strassen_l3 = dispatches("strassen_tn 4096³",
+                             lambda ld: strassen_tn(a, b, leaf_dispatch=ld,
+                                                    n_base=DEFAULT_N_BASE),
+                             exact, plain=plain_l3)
+    del exact, b, h, g, plain_l3
     torch.cuda.empty_cache()
+
+    # ata 8192² in bfloat16 by dispatch: wall ms and device-busy ms
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "profile_ata.py"),
+                           "--dtype", "bfloat16"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"dtypes: tools/profile_ata.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    timing = json.loads(proc.stdout.strip().splitlines()[-1])
+    timing["strassen_tn_4096_bf16_rel_err"] = strassen_l3
+    log("  ata 8192² bfloat16, n_base=512 (tools/profile_ata.py): " + ", ".join(
+        f"{k} wall {timing[k]['wall_ms']:.2f} ms, events {timing[k]['events_ms']:.2f} ms, "
+        f"device busy {timing[k]['device_busy_ms']:.2f} ms, {timing[k]['kernels']:.0f} kernels"
+        for k in ("fused", "batched", "matmul")))
 
     a64 = a.double()
     f64 = dict(out="packed", acc_dtype=torch.float64, n_base=DEFAULT_N_BASE)
@@ -1100,15 +1315,18 @@ def phase_ata_dtypes(ops):
         f"{err:.3e} tol {tol:.3e} ms={ms:.2f}")
     if not err <= tol:
         raise AssertionError(f"ata float64: card and CPU differ by {err} > {tol}")
+    return wgmma, timing
 
 
 def narrow_case(checks, ops, plain, label, a, b):
-    """gemm_tn's narrow-output kernel (``csrc/tn_narrow.cu``) on ``Aᵀb`` at
-    the main path's shape: bitwise equal to ``gemm_tn_fused`` on W = 1
-    tables of the same operands (the tile engine's fmaf chain) on float32
-    and on bfloat16 operands, within ``scaled_tol`` of the plain version,
-    and timed in CUDA graphs of 50 launches beside ``torch.matmul(a.T, b)``
-    and the bound, with the launched instance's resources."""
+    """gemm_tn at a narrow ``k`` (≤ ``narrow_max_k()``) on ``Aᵀb`` at the
+    main path's shape: float32 operands on the narrow-output kernel
+    (``csrc/tn_narrow.cu``), bfloat16 ones on the tensor-core kernel
+    (``csrc/tn_wgmma.cuh``), each counted, bitwise equal to
+    ``gemm_tn_fused`` on W = 1 tables of the same operands (the same
+    summation order), within ``scaled_tol`` of the plain version, and timed
+    in CUDA graphs of 50 launches beside ``torch.matmul(a.T, b)`` on the
+    same operands and the bound, with the narrow instance's resources."""
     import torch
 
     from repro_torch.core.strassen import _slot_tables
@@ -1123,30 +1341,40 @@ def narrow_case(checks, ops, plain, label, a, b):
         return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
 
     res = {}
-    for name, (x, y) in (("float32", (a, b)), ("bfloat16", (a.bfloat16(), b.bfloat16()))):
-        before = ops.narrow_launches["gemm_tn_narrow"]
+    operands = {"float32": (a, b), "bfloat16": (a.bfloat16(), b.bfloat16())}
+    for name, (x, y) in operands.items():
+        counter, key = ((ops.narrow_launches, "gemm_tn_narrow") if name == "float32"
+                        else (ops.wgmma_launches, "gemm_tn_wgmma"))
+        before = counter[key]
         got = ops.gemm_tn(x, y)
-        if ops.narrow_launches["gemm_tn_narrow"] != before + 1:
-            raise AssertionError(f"{label} {name}: the narrow kernel did not launch")
+        if counter[key] != before + 1:
+            raise AssertionError(f"{label} {name}: the {key} kernel did not launch")
         lead = (None,) * 3
         fused = ops.gemm_tn_fused(x[lead], y[lead], _slot_tables(0)).reshape(n, k)
         if not torch.equal(bits(got), bits(fused)):
-            raise AssertionError(f"{label} {name}: narrow gemm_tn != W = 1 gemm_tn_fused, bitwise")
+            raise AssertionError(f"{label} {name}: gemm_tn != W = 1 gemm_tn_fused, bitwise")
         res[f"max_abs_err_{name}"] = checks.compare(f"{label} {name} operands", got,
                                                     plain["gemm_tn"](x, y), m)
         del got, fused
     bms, by = bound(2 * m * n * k, 4 * (m * n + m * k + n * k))
+    x, y = operands["bfloat16"]
     res.update(
         shape=[m, n, k], bitwise_to_engine=True, bound_ms=bms, bound_by=by,
         device_ms=graph_ms(lambda: ops.gemm_tn(a, b)),
         matmul_device_ms=graph_ms(lambda: torch.matmul(a.T, b)),
         ms=time_ms(lambda: ops.gemm_tn(a, b), runs=20),
         matmul_ms=time_ms(lambda: torch.matmul(a.T, b), runs=20),
+        bf16_device_ms=graph_ms(lambda: ops.gemm_tn(x, y)),
+        bf16_matmul_device_ms=graph_ms(lambda: torch.matmul(x.T, y)),
+        bf16_bound_ms=bound_bf16(2 * m * n * k, 2 * (m * n + m * k) + 4 * n * k)[0],
         resources=_build.resources("gemm_tn_narrow_info", n, k, 1))
-    log(f"  {label} ({m},{n},{k}): bitwise == W = 1 gemm_tn_fused (float32, bfloat16); "
-        f"device_ms={res['device_ms']:.4f} torch.matmul device_ms={res['matmul_device_ms']:.4f} "
-        f"bound_ms={bms:.4f} ({by}); one call ms={res['ms']:.4f} (torch.matmul "
-        f"{res['matmul_ms']:.4f}); resources {json.dumps(res['resources'])}")
+    log(f"  {label} ({m},{n},{k}): bitwise == W = 1 gemm_tn_fused (float32 on the narrow "
+        f"kernel, bfloat16 on wgmma); float32 device_ms={res['device_ms']:.4f} torch.matmul "
+        f"device_ms={res['matmul_device_ms']:.4f} bound_ms={bms:.4f} ({by}); bfloat16 "
+        f"device_ms={res['bf16_device_ms']:.4f} torch.matmul device_ms="
+        f"{res['bf16_matmul_device_ms']:.4f} bound_ms={res['bf16_bound_ms']:.4f}; one call "
+        f"ms={res['ms']:.4f} (torch.matmul {res['matmul_ms']:.4f}); resources "
+        f"{json.dumps(res['resources'])}")
     return res
 
 
@@ -2644,7 +2872,9 @@ DIST_RANKS = 4
 DIST_N = 8192
 DIST_NB = 8                 # the pinned stripe grid: w = 1024, T = 36
 DIST_MESHES = (((4,), ("model",)), ((2, 2), ("model", "data")))
-DIST_REPS = 3
+# timed runs a case (after its checked run): the four ranks share card 0,
+# so the times are time-sliced and one run says what three did
+DIST_REPS = 1
 
 
 def _dist_inputs():
@@ -3695,7 +3925,14 @@ def phase_mesh(ops):
         failed.append("(g) the global routing is off one rank's")
 
     # (d) the CLIs: 3 steps at 2x2, checkpointed at step 2 (the unbroken
-    # run), then step 3 again at 4x1 from that checkpoint
+    # run), then step 3 again at 4x1 from that checkpoint; the serve CLI
+    # at 1x4 beside them (the train CLIs' time is their checkpoints' I/O)
+    serve_args = ["repro_torch.launch.serve", "--arch", "hymba-1.5b", "--requests", "4",
+                  "--batch", "4", "--prompt-len", "32", "--gen-len", "4", "--temperature", "0",
+                  "--compute-dtype", "float32"]
+    o = os.path.join(ROOT, "build", "mesh_serve.json")
+    serve_cli = Background(lambda: _mesh_cli(serve_args + ["--mesh", "1x4", "--out", o],
+                                             "serve --mesh 1x4"))
     out = os.path.join(ROOT, "build", "mesh_cli")
     shutil.rmtree(out, ignore_errors=True)
     layers = QWEN.num_layers if backend == "nccl" else 1
@@ -3727,17 +3964,13 @@ def phase_mesh(ops):
             failed.append("(d) the resumed step is off the unbroken run's")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    serve_args = ["repro_torch.launch.serve", "--arch", "hymba-1.5b", "--requests", "4",
-                  "--batch", "4", "--prompt-len", "32", "--gen-len", "4", "--temperature", "0",
-                  "--compute-dtype", "float32"]
-    o = os.path.join(ROOT, "build", "mesh_serve.json")
-    _, secs = _mesh_cli(serve_args + ["--mesh", "1x4", "--out", o], "serve --mesh 1x4")
+        _, secs = serve_cli.result()
     with open(o) as f:
         served = json.load(f)
     os.remove(o)
     res["d serve"] = dict(_serve_margins(served), seconds=secs)
-    log("  (d) serve CLI hymba-1.5b (32 layers) --mesh 1x4, greedy float32, against one "
-        "rank's float32 forward: " + json.dumps(res["d serve"]))
+    log("  (d) serve CLI hymba-1.5b (32 layers) --mesh 1x4 (beside the train CLIs), greedy "
+        "float32, against one rank's float32 forward: " + json.dumps(res["d serve"]))
     if not res["d serve"]["ok"]:
         failed.append("(d) the 1x4 server's tokens are not float32's greedy choices")
 
@@ -3950,9 +4183,10 @@ def serve_yardstick(spec, a, b, ridge):
 
 
 # kernel -> the names its launches take in a profile (gemm_tn's are the
-# tile engine's or, for k ≤ 64, the narrow-output kernel's)
+# tile engine's or, for k ≤ 64, the narrow-output kernel's in float32, the
+# tensor-core kernel's in bfloat16)
 SERVE_PROFILED = {"syrk": ("syrk_kernel",), "potrf": ("potrf_kernel",), "trsm": ("trsm_kernel",),
-                  "gemm_tn": ("gemm_tn_kernel", "gemm_tn_narrow_kernel")}
+                  "gemm_tn": ("gemm_tn_kernel", "gemm_tn_narrow_kernel", "gemm_tn_wgmma_kernel")}
 
 
 def serve_profile(program):
@@ -4129,8 +4363,42 @@ def phase_serve(ops):
 CHECK_SPLIT_N = 512     # the packed block of phase check's lstsq (two 256 tiles)
 
 
-def phase_check(checks, ops):
-    """Phase 13 (module docstring): the contract checker on the card."""
+def check_clis():
+    """Phase check's (a): the checker's CLI on the card three times — the
+    grid (JSON), the quick subset and the serve layer —, the three at once.
+    Returns ``(seconds for the three, [(argv, exit code, output)])``; main
+    runs this in the background beside phase train's CLI runs."""
+    import tempfile
+    import time
+
+    out_json = os.path.join(ROOT, "build", "check_report.json")
+    os.makedirs(os.path.dirname(out_json), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = []
+    runs = []
+    try:
+        for argv in (["--json", out_json], ["--quick"], ["--serve"]):
+            f = tempfile.TemporaryFile(mode="w+")
+            procs.append((argv, f, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.check", *argv], cwd=ROOT, env=env,
+                stdout=f, stderr=subprocess.STDOUT, text=True)))
+        for argv, f, proc in procs:
+            proc.wait(timeout=600)
+            f.seek(0)
+            runs.append((argv, proc.returncode, f.read()))
+    finally:
+        for _, f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    return time.perf_counter() - t0, runs
+
+
+def phase_check(checks, ops, clis=None):
+    """Phase 13 (module docstring): the contract checker on the card.
+    ``clis``: (a)'s runs (``check_clis()``) when main ran them earlier."""
     import dataclasses
     import time
 
@@ -4151,19 +4419,16 @@ def phase_check(checks, ops):
     res = {}
 
     # (a) the CLI: the grid (JSON), the quick subset and the serve layer
-    out_json = os.path.join(ROOT, "build", "check_report.json")
-    os.makedirs(os.path.dirname(out_json), exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for argv in (["--json", out_json], ["--quick"], ["--serve"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.check", *argv], cwd=ROOT,
-                              env=env, capture_output=True, text=True, timeout=600)
-        summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("repro_torch.check:")]
-        log(f"  python -m repro_torch.check {' '.join(argv)}: exit {proc.returncode}, "
-            f"{time.perf_counter() - t0:.1f} s, {summary}")
-        if proc.returncode or not summary or " 0 findings" not in summary[0]:
-            raise AssertionError(f"check {argv} failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    secs, runs = check_clis() if clis is None else clis
+    log(f"  (a) the three CLI runs together: {secs:.1f} s"
+        + (" (beside phase train)" if clis is not None else ""))
+    for argv, rc, out in runs:
+        summary = [ln for ln in out.splitlines() if ln.startswith("repro_torch.check:")]
+        log(f"  python -m repro_torch.check {' '.join(argv)}: exit {rc}, {summary}")
+        if rc or not summary or " 0 findings" not in summary[0]:
+            raise AssertionError(f"check {argv} failed:\n{out[-6000:]}")
         res["grid" if argv[0] == "--json" else argv[0].lstrip("-")] = summary[0]
+    out_json = runs[0][0][1]
     with open(out_json) as f:
         report = json.load(f)
     if report["counts"]["findings"] or report["meta"]["backend"] != "cuda":
@@ -4432,6 +4697,38 @@ def _dryrun_tp_rank(rank: int, world: int) -> dict:
     return dict(rank=rank, art=art, peak=peak - base, launches=dict(ops.launches), loss=loss)
 
 
+def _dryrun_tp_traced_and_run():
+    """(d): each rank's step traced over a fake (1, 4) group, then four
+    gloo ranks on card 0 run it. Returns (the ranks' results, the seconds
+    of their spawn and run, the traced artifacts)."""
+    import time
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, spawn
+    from repro_torch.train.train_step import init_state
+
+    fakes = []
+    for r in range(math.prod(DRYRUN_TP_MESH)):
+        mesh = fake_mesh(DRYRUN_TP_MESH, ("data", "model"), rank=r, device="cuda")
+        try:
+            cfg_d, shape_d, run_d, step_d, opt_d = _dryrun_tp_setup(mesh)
+            with FakeTensorMode():
+                params = dryrun._abstract_params(cfg_d, mesh)
+                state = init_state(cfg_d, mesh, run_d, opt_d, params)
+                del params
+                batch = dryrun._abstract_batch(cfg_d, shape_d, "train", mesh, local=False)
+                fakes.append(dryrun._artifact(step_d, state, batch, device="cuda"))
+                del state, batch
+        finally:
+            torch.distributed.destroy_process_group()
+    t0 = time.perf_counter()
+    ranks = spawn(_dryrun_tp_rank, math.prod(DRYRUN_TP_MESH), backend="gloo", timeout_s=300.0)
+    return ranks, time.perf_counter() - t0, fakes
+
+
 def _dryrun_band(label, predicted, measured):
     ratio = measured / predicted
     ok = DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]
@@ -4469,7 +4766,7 @@ def phase_dryrun(ops):
     from repro_torch.launch.mesh import fake_mesh, spawn
     from repro_torch.models.transformer import init
     from repro_torch.optim._tree import tree_map
-    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.train.train_step import make_train_step
 
     t_phase = time.perf_counter()
     log("phase dryrun")
@@ -4549,7 +4846,8 @@ def phase_dryrun(ops):
         torch.cuda.empty_cache()
 
         # (c) ata_tile_parallel on (2, 2): each rank traced over a fake group
-        # here, then the four ranks run for real (gloo, all on card 0)
+        # here, then the four ranks run for real (gloo, all on card 0), in
+        # the background while (d) is traced and its four ranks run
         m, n = DRYRUN_GRAM
         p_data, _ = DRYRUN_MESH
         fakes = []
@@ -4562,13 +4860,23 @@ def phase_dryrun(ops):
                     del a
             finally:
                 torch.distributed.destroy_process_group()
-        t0 = time.perf_counter()
-        ranks = spawn(_dryrun_gram_rank, math.prod(DRYRUN_MESH), backend="gloo",
-                      timeout_s=300.0)
+        fakes_c = fakes
+
+        def gram_ranks():
+            t0 = time.perf_counter()
+            ranks = spawn(_dryrun_gram_rank, math.prod(DRYRUN_MESH), backend="gloo",
+                          timeout_s=300.0)
+            return ranks, time.perf_counter() - t0
+
+        gram = Background(gram_ranks)
+        try:
+            tp_ranks, tp_s, fakes_d = _dryrun_tp_traced_and_run()
+        finally:
+            ranks, gram_s = gram.result()
         log(f"  (c) ata_tile_parallel {m}x{n} on {DRYRUN_MESH} (rows over data), four gloo "
-            f"ranks on card 0: spawn and run {time.perf_counter() - t0:.1f} s")
+            f"ranks on card 0 (beside (d)'s): spawn and run {gram_s:.1f} s")
         res["gram"] = []
-        for f, rk in zip(fakes, ranks):
+        for f, rk in zip(fakes_c, ranks):
             r = rk["rank"]
             log(f"  (c) rank {r}: traced in {f['trace_s']} s, ran in {rk['art']['trace_s']} s; "
                 f"predicted {json.dumps({k: f[k] for k in ('memory', 'cost', 'collectives')})}")
@@ -4589,30 +4897,13 @@ def phase_dryrun(ops):
                 ratio=_dryrun_band(f"(c) rank {r}", f["memory"]["peak_bytes_est"],
                                    rk["peak"])))
 
-        # (d) qwen1.5-0.5b's tensor-parallel train step on (1, 4): each rank
-        # traced over a fake (1, 4) group, then four gloo ranks on card 0
-        fakes = []
-        for r in range(math.prod(DRYRUN_TP_MESH)):
-            mesh = fake_mesh(DRYRUN_TP_MESH, ("data", "model"), rank=r, device="cuda")
-            try:
-                cfg_d, shape_d, run_d, step_d, opt_d = _dryrun_tp_setup(mesh)
-                with FakeTensorMode():
-                    params = dryrun._abstract_params(cfg_d, mesh)
-                    state = init_state(cfg_d, mesh, run_d, opt_d, params)
-                    del params
-                    batch = dryrun._abstract_batch(cfg_d, shape_d, "train", mesh, local=False)
-                    fakes.append(dryrun._artifact(step_d, state, batch, device="cuda"))
-                    del state, batch
-            finally:
-                torch.distributed.destroy_process_group()
-        t0 = time.perf_counter()
-        ranks = spawn(_dryrun_tp_rank, math.prod(DRYRUN_TP_MESH), backend="gloo",
-                      timeout_s=300.0)
+        # (d) qwen1.5-0.5b's tensor-parallel train step on (1, 4): traced and
+        # run above, beside (c)'s ranks
         log(f"  (d) {CONFIG.name} tensor-parallel train step ({DRYRUN_TP_LAYERS} layers, "
             f"{DRYRUN_TP_BATCH} x {DRYRUN_TP_SEQ}, remat dots, AdamW) on {DRYRUN_TP_MESH}, "
-            f"four gloo ranks on card 0: spawn and run {time.perf_counter() - t0:.1f} s")
+            f"four gloo ranks on card 0 (beside (c)'s): spawn and run {tp_s:.1f} s")
         res["tp_train"] = []
-        for f, rk in zip(fakes, ranks):
+        for f, rk in zip(fakes_d, tp_ranks):
             r = rk["rank"]
             log(f"  (d) rank {r}: traced in {f['trace_s']} s, ran in {rk['art']['trace_s']} s, "
                 f"loss {rk['loss']!r}; predicted "
@@ -4675,9 +4966,10 @@ def main(argv) -> int:
     t_start = time.perf_counter()
 
     if argv not in ([], ["distributed"], ["serve"], ["check"], ["train"], ["decode"], ["mesh"],
-                    ["dryrun"]):
+                    ["dryrun"], ["dtypes"]):
         print(f"chip_smoke: unknown arguments {argv}; the only ones are 'distributed', "
-              "'serve', 'check', 'train', 'decode', 'mesh' and 'dryrun'", file=sys.stderr)
+              "'serve', 'check', 'train', 'decode', 'mesh', 'dryrun' and 'dtypes'",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4737,39 +5029,59 @@ def main(argv) -> int:
              "trsm": trsm_plain, "gemm_tn_fused": gemm_tn_fused_plain,
              "syrk_gather": syrk_gather_plain}
     checks = Checks(ops.launches)
+    if argv == ["dtypes"]:
+        checks.rows = {name: {} for name in plain}
+        _, ata16 = phase_dtypes(checks, ops, plain)
+        log("end_to_end " + json.dumps({"dtypes": checks.rows, "ata_8192_bf16": ata16},
+                                       default=str))
+        return 0
+    def at(name):
+        """The script's clock at the start of a phase (the phases' own
+        timings do not cover them all)."""
+        torch.cuda.empty_cache()
+        log(f"[{time.perf_counter() - t_start:.1f} s] {name}")
+
+    at("kernels")
     phase_kernels(checks, ops, plain)
-    torch.cuda.empty_cache()
-    phase_dtypes(checks, ops, plain)
-    torch.cuda.empty_cache()
+    at("dtypes")
+    wgmma_counts, ata16 = phase_dtypes(checks, ops, plain)
+    at("ata")
     fused_counts, ata_res = phase_ata(ops)
-    torch.cuda.empty_cache()
+    at("strassen")
     strassen_res = phase_strassen(ops)
-    torch.cuda.empty_cache()
+    at("lstsq")
     counts, lstsq_res = phase_lstsq(ops)
-    torch.cuda.empty_cache()
+    at("cg")
     cg_counts, cg_res = phase_cg(checks, ops, plain)
     checks.rows["gemm_tn"]["cg_launches"] = cg_counts["gemm_tn"]
-    torch.cuda.empty_cache()
+    at("obs")
     obs_res = phase_obs(ops)
-    torch.cuda.empty_cache()
+    at("tune")
     tune_res = phase_tune(ops)
-    torch.cuda.empty_cache()
+    at("optim")
     optim_counts, optim_res = phase_optim(checks, ops, plain)
-    torch.cuda.empty_cache()
-    train_counts, train_res = phase_train(ops)
-    torch.cuda.empty_cache()
+    at("train")
+    # phase check's CLI runs, beside phase train (whose CLI runs leave the
+    # card and the host's cores mostly idle)
+    clis = Background(check_clis)
+    try:
+        train_counts, train_res = phase_train(ops)
+    finally:
+        clis = clis.result()
+    at("decode")
     decode_counts, decode_res = phase_decode(ops)
-    torch.cuda.empty_cache()
+    at("distributed")
     dist_counts, dist_res = phase_distributed(ops)
-    torch.cuda.empty_cache()
+    at("mesh")
     mesh_counts, mesh_res = phase_mesh(ops)
-    torch.cuda.empty_cache()
+    at("serve")
     serve_warm, serve_workload, serve_flush, serve_res = phase_serve(ops)
-    torch.cuda.empty_cache()
-    check_res = phase_check(checks, ops)
-    torch.cuda.empty_cache()
+    at("check")
+    check_res = phase_check(checks, ops, clis)
+    at("dryrun")
     dryrun_counts, dryrun_res = phase_dryrun(ops)
-    log("end_to_end " + json.dumps({"ata_8192": ata_res, "strassen_tn_4096": strassen_res,
+    log("end_to_end " + json.dumps({"ata_8192": ata_res, "ata_8192_bf16": ata16,
+                                    "strassen_tn_4096": strassen_res,
                                     "lstsq_16384x4096x8": lstsq_res,
                                     "lstsq_cg_16384x4096x8": cg_res, "obs": obs_res,
                                     "tune": tune_res, "optim": optim_res, "train": train_res,
@@ -4813,6 +5125,23 @@ def main(argv) -> int:
                    **{f"powersgd_{key}": optim_res["powersgd"][f"narrow_tn_{key}"]
                       for key in ("wg", "wd")}},
     })
+    # the bfloat16 tensor-core kernels that gemm_tn and gemm_tn_fused launch
+    # for bfloat16 operands: their launches on the bfloat16 main path (ata
+    # 4096² and strassen_tn 4096³ under the three dispatches, phase dtypes),
+    # their numbers at the shapes of phase 2 in bfloat16
+    for name, src, line, base in (("gemm_tn_wgmma", "gemm_tn.cu", 121, "gemm_tn"),
+                                  ("gemm_tn_fused_wgmma", "gemm_tn_fused.cu", 290,
+                                   "gemm_tn_fused")):
+        row = checks.rows[base]["bf16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/gemm_tn.py:{line}", "launches": wgmma_counts[name],
+            "max_abs_err": row["max_abs_err_float32"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+            "shape": checks.rows[base].get("shape"), "bf16": row,
+        })
     for name, (src, replaces, path_counts) in table.items():
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

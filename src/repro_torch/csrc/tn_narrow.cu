@@ -43,17 +43,31 @@
 // * No tensor cores (TF32 would change every rounding) and no split of the
 //   contraction (it would change the order of summation).
 //
-// Operands are float32 or bfloat16 (a bfloat16 element converted on the
-// read), the output float32 or bfloat16: alpha * sum, rounded once to its
-// type, as the engine's epilogue.
+// Operands are float32 (gemm_tn.cu sends bfloat16 operands to its
+// tensor-core kernel at every k, so the kernel is instantiated for float32
+// operands only), the output float32 or bfloat16: alpha * sum, rounded
+// once to its type, as the engine's epilogue.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
 #include "tn_narrow.cuh"
 #include "tn_tile.cuh"
+#include "tn_wgmma.cuh"
 
 namespace repro_torch {
+
+// the mbarrier, TMA and tensor-map helpers of the tensor-core kernels: a
+// lost arrival traps (a launch error) after about ten seconds of one stall
+// instead of hanging the card
+using wg::encode_tiled;
+using wg::EncodeTiled;
+using wg::mbar_arrive;
+using wg::mbar_arrive_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::smem_u32;
+using wg::tma_load;
 
 constexpr int kNarrowStages = 4;            // ring depth: 3 stages in flight
 constexpr int kNarrowRingBytes = 96 * 1024; // two CTAs an SM
@@ -76,10 +90,6 @@ struct NarrowPlan {
   int smem;       // dynamic shared bytes: the ring
 };
 
-// a lost arrival traps (a launch error) instead of hanging the card: about
-// ten seconds of one stall
-constexpr long long kNarrowHangCycles = 1LL << 34;
-
 // A kernel argument (__grid_constant__: the tensor maps stay in parameter
 // space, where the copy engine reads them).
 struct NarrowArgs {
@@ -93,60 +103,6 @@ struct NarrowArgs {
   int tma;  // A arrives by tensor copies and B by pair copies; element copies otherwise
   NarrowPlan plan;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar, int bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kNarrowHangCycles) __trap();
-}
-
-// One box of a 3-D tiled map, at element (x, y, z), into shared memory; it
-// completes on the barrier with the box's bytes (out-of-range elements land
-// as zeros and count too).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // The barrier's arrival once this thread's earlier cp.async copies landed
 // (counted in the barrier's initial count).
@@ -167,29 +123,11 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&v)[P]) {
   }
 }
 
-template <int P>
-__device__ __forceinline__ void ld_vec(const bf16* p, float (&v)[P]) {
-  if constexpr (P == 2) {
-    const unsigned x = *reinterpret_cast<const unsigned*>(p);
-    v[0] = __uint_as_float(x << 16);
-    v[1] = __uint_as_float(x & 0xffff0000u);
-  } else {
-    v[0] = __uint_as_float(static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
-                           << 16);
-  }
-}
-
 // Rows r and r + 1 of a thread's two columns of B from the pair-major
 // block (p aligned to 4 elements): one load for two rows.
 __device__ __forceinline__ void ld_rows2(const float* p, float (&b0)[2], float (&b1)[2]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   b0[0] = x.x, b0[1] = x.y, b1[0] = x.z, b1[1] = x.w;
-}
-
-__device__ __forceinline__ void ld_rows2(const bf16* p, float (&b0)[2], float (&b1)[2]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  b0[0] = __uint_as_float(x.x << 16), b0[1] = __uint_as_float(x.x & 0xffff0000u);
-  b1[0] = __uint_as_float(x.y << 16), b1[1] = __uint_as_float(x.y & 0xffff0000u);
 }
 
 // kNarrowGroup rows of a thread's operands from the ring, starting at row r:
@@ -472,26 +410,6 @@ static int narrow_threads(const NarrowPlan& pl) {
   return (pl.consumers + 31) / 32 * 32 + pl.copiers;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link
-// to libcuda); null where libcuda has none.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-D tiled map of an operand of `batch` entries of rows x cols (row
 // stride ld, entry stride sb, in elements), boxes of box_cols x box_rows x 1;
 // false where the encoding refuses the layout.
@@ -541,15 +459,9 @@ int tn_narrow_launch(const void* a, const void* b, void* c, int batch, int m, in
 template int tn_narrow_launch<float, float>(const void*, const void*, void*, int, int, int, int,
                                             long long, long long, long long, long long, float,
                                             int, cudaStream_t);
-template int tn_narrow_launch<bf16, float>(const void*, const void*, void*, int, int, int, int,
-                                           long long, long long, long long, long long, float, int,
-                                           cudaStream_t);
 template int tn_narrow_launch<float, bf16>(const void*, const void*, void*, int, int, int, int,
                                            long long, long long, long long, long long, float, int,
                                            cudaStream_t);
-template int tn_narrow_launch<bf16, bf16>(const void*, const void*, void*, int, int, int, int,
-                                          long long, long long, long long, long long, float, int,
-                                          cudaStream_t);
 
 }  // namespace repro_torch
 

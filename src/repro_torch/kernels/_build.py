@@ -37,16 +37,20 @@ LIB_NAME = "librepro_torch_kernels.so"
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (all return a cudaError_t as int). The
 # launches (*_f32: float32 accumulation) take a dtypes int before the
-# stream (bit 0 bfloat16 operands, bit 1 bfloat16 output; csrc/dtype.cuh).
+# stream (bit 0 bfloat16 operands, bit 1 bfloat16 output; csrc/dtype.cuh);
+# gemm_tn_f32 then the kernel the wrapper chose (kernels.gemm_tn.tn_route).
 # The *_info entry points fill an int array with the resources of a
 # kernel's float32 instance (gemm_tn_narrow_info: the instance and plan
-# gemm_tn_f32 launches at (n, k, batch) for k up to its max_k).
+# gemm_tn_f32 launches at (n, k, batch) for k up to its max_k; the *_wgmma_
+# ones: the bfloat16 tensor-core instances, float32 output).
 SIGNATURES = {
-    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, I, P),
+    "gemm_tn_f32": (P, P, P, I, I, I, I, LL, LL, LL, LL, F, I, I, I, P),
     "gemm_tn_info": (I, P),
+    "gemm_tn_wgmma_info": (P,),
     "gemm_tn_narrow_info": (I, I, I, P),
     "gemm_tn_fused_f32": (P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, I, I, P),
     "gemm_tn_fused_info": (I, P),
+    "gemm_tn_fused_wgmma_info": (I, P),
     "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, I, I, P),
     "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, I, I, P),
     "syrk_info": (I, I, P),
@@ -59,6 +63,8 @@ SIGNATURES = {
 RESOURCE_FIELDS = {
     "gemm_tn_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                      "ctas_per_sm", "ring_stages", "stage_rows"),
+    "gemm_tn_wgmma_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                           "ctas_per_sm", "ring_stages", "stage_rows", "threads"),
     "gemm_tn_narrow_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                             "local_bytes", "ctas_per_sm", "threads", "strip_columns",
                             "columns_a_thread", "stage_rows", "ring_stages", "ctas", "max_k",
@@ -66,6 +72,9 @@ RESOURCE_FIELDS = {
     "gemm_tn_fused_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                            "local_bytes", "ctas_per_sm", "active_clusters", "ring_stages",
                            "cluster_edge", "stage_slabs"),
+    "gemm_tn_fused_wgmma_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                                 "local_bytes", "ctas_per_sm", "active_clusters", "ring_stages",
+                                 "cluster_edge", "stage_steps"),
     "syrk_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                   "ctas_per_sm", "cluster_size", "active_clusters"),
     "potrf_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",

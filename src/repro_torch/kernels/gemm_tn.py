@@ -4,7 +4,9 @@
   is ``csrc/gemm_tn.cu``. ``A: (m, n)`` or ``(B, m, n)``, ``B: (m, k)`` or
   ``(B, m, k)``; a leading batch dim is the kernel's ``blockIdx.z``, so a
   whole Strassen leaf stack is one launch. Its one C entry point launches
-  the 128 × 128 tile engine, or for ``k ≤`` :func:`narrow_max_k` the
+  the one of three kernels that :func:`tn_route` names: on bfloat16 operands the
+  tensor-core kernel (``csrc/tn_wgmma.cuh``) at every ``k``; on float32 the
+  128 × 128 tile engine, or for ``k ≤`` :func:`narrow_max_k` the
   narrow-output kernel of ``csrc/tn_narrow.cu`` (CG's ``Aᵀ(A·p)``,
   PowerSGD's ``GᵀP``, serving's ``Aᵀb``), which sums every output in the
   engine's order: the bits do not depend on which one ran.
@@ -14,7 +16,10 @@
   ``(T, W)`` slot tables; leaf ``g·T + t`` multiplies the balanced ± sums of
   its ``W`` slot blocks, combined inside the kernel. The wrapper turns the
   tables into per-(leaf, slot) element offsets on the host, so the kernel
-  reads views of the caller's operand without a copy.
+  reads views of the caller's operand without a copy. bfloat16 slot blocks
+  are combined in bfloat16 (each pairwise add rounded, as the unrolled
+  recursion's adds of bfloat16 tensors are) and multiplied by the same
+  tensor-core main loop as ``gemm_tn``'s.
 
 Both kernels load float32 or bfloat16 operands, sum in float32 and store
 ``out_dtype`` (float32 or bfloat16); a float64 operand or output raises on
@@ -33,24 +38,48 @@ from repro_torch.tune.defaults import GEMM_BLOCKS as DEFAULT_BLOCKS
 
 __all__ = ["DEFAULT_BLOCKS", "gemm_tn_plain", "gemm_tn_cuda", "check_tn_shapes", "vec16", "combine_fused_operands",
            "gemm_tn_fused_plain", "gemm_tn_fused_cuda", "fused_launch_tables", "FUSED_MAX_SLOTS",
-           "narrow_max_k", "narrow_launches"]
+           "narrow_max_k", "narrow_launches", "wgmma_launches", "tn_route", "TN_KERNELS"]
 
 # slot counts the fused kernel is instantiated for (csrc/gemm_tn_fused.cu)
 FUSED_MAX_SLOTS = 32
 
+# gemm_tn's kernels, by the index its C entry point takes (kTnTile,
+# kTnNarrow, kTnWgmma of csrc/tn_narrow.cuh)
+TN_KERNELS = ("tile", "narrow", "wgmma")
+
 # CUDA launches of the narrow-output kernel since the last
 # ops.reset_launches(); each is also one of ops.launches["gemm_tn"]
 narrow_launches = {"gemm_tn_narrow": 0}
+# CUDA launches of the bfloat16 tensor-core kernels since the last
+# ops.reset_launches(); each is also one of ops.launches["gemm_tn"] or
+# ops.launches["gemm_tn_fused"]
+wgmma_launches = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0}
 
 
 @functools.lru_cache(maxsize=None)
 def narrow_max_k() -> int:
-    """The widest ``B`` (columns) that ``gemm_tn``'s C entry point hands to
-    the narrow-output kernel (``kNarrowMaxK`` in ``csrc/tn_narrow.cuh``, read
-    from the built library)."""
+    """The widest float32 ``B`` (columns) that ``gemm_tn`` runs on the
+    narrow-output kernel (``kNarrowMaxK`` in ``csrc/tn_narrow.cuh``, read
+    from the built library): the kernel's limit, which its C entry point
+    enforces, and :func:`tn_route`'s threshold."""
     from repro_torch.kernels import _build
 
     return _build.resources("gemm_tn_narrow_info", 1, 1, 1)["max_k"]
+
+
+def tn_route(dtype, k: int, aligned, max_k: int):
+    """What ``gemm_tn``'s C entry point is told to run, as ``(kernel,
+    vec16)``: the kernel (:data:`TN_KERNELS`) and its copy mask. bfloat16
+    operands run ``"wgmma"`` at every ``k``, each operand by TMA where it is
+    aligned (mask bit 0 A, bit 1 B); float32 operands ``"narrow"`` for
+    ``k ≤ max_k`` (:func:`narrow_max_k`), else the tile engine ``"tile"``,
+    both by TMA / 16-byte copies where both are aligned (mask 3), else by
+    element copies (0). ``aligned`` is :func:`vec16` of ``(A, B)``."""
+    if dtype == torch.bfloat16:
+        return "wgmma", int(aligned[0]) | int(aligned[1]) << 1
+    if dtype != torch.float32:
+        raise TypeError(f"gemm_tn kernels take float32 or bfloat16 operands, got {dtype}")
+    return ("narrow" if k <= max_k else "tile"), (3 if all(aligned) else 0)
 
 
 def check_tn_shapes(a, b):
@@ -86,16 +115,19 @@ def _operand(x):
 
 def vec16(x, *strides) -> bool:
     """Whether the tile engine (``csrc/tn_tile.cuh``) may fill its ring from
-    ``x`` in 16-byte copies: a 16-byte aligned base and every stride (row,
-    batch, entry offsets) a multiple of 16 bytes — 4 float32 or 8 bfloat16
-    elements. Otherwise it copies elements."""
+    ``x`` in 16-byte copies, and the tensor-core and narrow kernels theirs
+    by TMA: a 16-byte aligned base and every stride (row, batch, entry
+    offsets) a multiple of 16 bytes — 4 float32 or 8 bfloat16 elements.
+    Otherwise they copy elements."""
     per = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(int(s) % per == 0 for s in strides)
 
 
 def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
-    """Launch ``csrc/gemm_tn.cu`` once on the current stream: the tile
-    engine, or the narrow-output kernel for ``k ≤ narrow_max_k()``."""
+    """Launch ``csrc/gemm_tn.cu`` once on the current stream: the kernel
+    :func:`tn_route` names (bfloat16: the tensor-core kernel; float32: the
+    tile engine, or the narrow-output kernel for ``k ≤ narrow_max_k()``),
+    counted in :data:`wgmma_launches` / :data:`narrow_launches`."""
     from repro_torch.kernels import _build
 
     check_tn_shapes(a, b)
@@ -114,12 +146,16 @@ def gemm_tn_cuda(a, b, *, alpha: float = 1.0, out_dtype=torch.float32):
         with torch.cuda.device(a.device):
             return gemm_tn_cuda(a, b, alpha=alpha, out_dtype=out_dtype)
     c = torch.empty((*a.shape[:-2], n, k), dtype=out_dtype, device=a.device)
-    v16 = vec16(a, sab, lda) and vec16(b, sbb, ldb)
+    kernel, mask = tn_route(a.dtype, k, (vec16(a, sab, lda), vec16(b, sbb, ldb)),
+                            narrow_max_k())
     err = _build.load().gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
-                                    sab, lda, sbb, ldb, float(alpha), int(v16), dtypes,
+                                    sab, lda, sbb, ldb, float(alpha), mask, dtypes,
+                                    TN_KERNELS.index(kernel),
                                     torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gemm_tn")
-    if k <= narrow_max_k():
+    if kernel == "wgmma":
+        wgmma_launches["gemm_tn_wgmma"] += 1
+    elif kernel == "narrow":
         narrow_launches["gemm_tn_narrow"] += 1
     return c
 
@@ -176,14 +212,20 @@ def combine_fused_operands(blocks, rows, cols, sgn, dtype=None):
     return x[:, :, 0].reshape(G * T, *x.shape[3:])
 
 
+def _combine_dtype(dtype, acc):
+    return torch.bfloat16 if dtype == torch.bfloat16 else acc
+
+
 def gemm_tn_fused_plain(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
                         out_dtype=torch.float32):
     """Plain PyTorch fused leaf launch: combine every leaf operand, then
-    one batched TN matmul. Returns ``(G·T, [B,] n, k)``."""
+    one batched TN matmul. Returns ``(G·T, [B,] n, k)``. bfloat16 blocks
+    are combined in bfloat16, as the kernel and the reference combine them
+    (each add rounded); others in the accumulation dtype."""
     (sa, sb), _, _ = _fused_tables(a_blocks, b_blocks, tables)
     acc = _acc_dtype(a_blocks.dtype, b_blocks.dtype, out_dtype)
-    xa = combine_fused_operands(a_blocks, *sa, acc)
-    xb = combine_fused_operands(b_blocks, *sb, acc)
+    xa = combine_fused_operands(a_blocks, *sa, _combine_dtype(a_blocks.dtype, acc))
+    xb = combine_fused_operands(b_blocks, *sb, _combine_dtype(b_blocks.dtype, acc))
     lead = xa.shape[:-2]
     out = gemm_tn_plain(xa.reshape(-1, *xa.shape[-2:]), xb.reshape(-1, *xb.shape[-2:]),
                         alpha=alpha, out_dtype=out_dtype)
@@ -289,4 +331,6 @@ def gemm_tn_fused_cuda(a_blocks, b_blocks, tables, *, alpha: float = 1.0,
                                     sb[0], ld[0], sb[1], ld[1], float(alpha), int(vec16),
                                     dtypes, stream)
     _build.check(err, "gemm_tn_fused")
+    if dtypes & 1:   # bfloat16 blocks: the tensor-core kernel
+        wgmma_launches["gemm_tn_fused_wgmma"] += 1
     return c

@@ -30,7 +30,9 @@ block size of ``syrk``): each CUDA kernel chooses its own CTA tile. The
 operators count their CUDA launches in :data:`launches` (plain ints,
 incremented right after a launch and nowhere else), so a run can show that
 its path went through the kernels; :data:`narrow_launches` counts those
-``gemm_tn`` launches that ran the narrow-output kernel. That differs from
+``gemm_tn`` launches that ran the narrow-output kernel and
+:data:`wgmma_launches` those ``gemm_tn`` and ``gemm_tn_fused`` launches
+that ran the bfloat16 tensor-core kernels. That differs from
 the reference's counter, which this module keeps too: ``obs.metrics`` counter
 ``kernels.launch.<name>`` counts every wrapper call, on the card, on the
 CPU or in a trace, as ``repro.kernels.ops`` counts every call whether
@@ -52,18 +54,18 @@ from repro_torch.kernels import potrf as _potrf
 from repro_torch.kernels import syrk as _syrk
 from repro_torch.kernels import trsm as _trsm
 from repro_torch.kernels._library import OPS, dtype_code, launches
-from repro_torch.kernels.gemm_tn import narrow_launches
+from repro_torch.kernels.gemm_tn import narrow_launches, wgmma_launches
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
 __all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
-           "narrow_launches", "reset_launches", "split_launches", "TILE", "Bases", "bases", "PLAIN"]
+           "narrow_launches", "wgmma_launches", "reset_launches", "split_launches", "TILE", "Bases", "bases", "PLAIN"]
 
 # the widest potrf/trsm tile one launch takes (csrc/potrf.cu, csrc/trsm.cu)
 TILE = _potrf.MAX_N
 
 
 def reset_launches() -> None:
-    for counts in (launches, narrow_launches):
+    for counts in (launches, narrow_launches, wgmma_launches):
         for name in counts:
             counts[name] = 0
 

@@ -456,24 +456,32 @@ def _bf(rng, shape, dev):
 
 
 @pytest.mark.parametrize("out", OUTS)
-@pytest.mark.parametrize("m", [1, 7, 8, 9, 15, 17, 33, 513])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 15, 16, 17, 33, 64, 65, 513])
 def test_gemm_tn_kernel_bf16_depths_and_ragged_edges(dev, m, out):
-    """bfloat16 operands (16-byte copies of 8 elements), float32 or
-    bfloat16 output, at the depth and edge shapes of the float32 sweep;
-    a batch entry bitwise equal to its single launch."""
+    """bfloat16 operands on the tensor-core kernel (TMA stages of 64 rows,
+    k16 steps), float32 or bfloat16 output, at the depth and edge shapes of
+    the float32 sweep and the narrow ones (every k runs wgmma in
+    bfloat16): within tolerance of the plain version, one wgmma launch a
+    call, bitwise equal to the W = 1 fused launch and a batch entry
+    bitwise equal to its single launch."""
     rng = np.random.default_rng(m)
-    for n, k in ((1, 129), (127, 1), (129, 127), (127, 129)):
+    for n, k in ((1, 129), (127, 1), (129, 127), (127, 129), (129, 65)) + NARROW_EDGES:
         a, b = _bf(rng, (2, m, n), dev), _bf(rng, (2, m, k), dev)
+        ops.reset_launches()
         got = ops.gemm_tn(a, b, alpha=0.75, out_dtype=out)
+        assert ops.wgmma_launches["gemm_tn_wgmma"] == 1, (n, k)
+        assert ops.narrow_launches["gemm_tn_narrow"] == 0, (n, k)
         _close_dt(got, gemm_tn_plain(a, b, alpha=0.75, out_dtype=out), m, out)
+        assert _bits_equal(got, _fused_w1(a, b, alpha=0.75, out_dtype=out)), (n, k)
         assert torch.equal(got[1], ops.gemm_tn(a[1], b[1], alpha=0.75, out_dtype=out)), (n, k)
 
 
 @pytest.mark.parametrize("out", OUTS)
 def test_gemm_tn_kernel_bf16_unaligned_views(dev, out):
     """A bfloat16 base off a 16-byte boundary or a row stride that is not a
-    multiple of 8 elements: element loads instead of 16-byte copies, the
-    same product."""
+    multiple of 8 elements: the tensor-core kernel's producer warp fills
+    the swizzled stages by element loads instead of TMA, the same product
+    bit for bit."""
     rng = np.random.default_rng(21)
     a, b = _bf(rng, (3, 70, 201), dev), _bf(rng, (3, 70, 136), dev)
     assert vec16(a[..., :200], a.stride(0), a.stride(1)) is False
@@ -482,6 +490,26 @@ def test_gemm_tn_kernel_bf16_unaligned_views(dev, out):
     got = ops.gemm_tn(a[..., 1:], b[..., 1:], out_dtype=out)
     _close_dt(got, gemm_tn_plain(a[..., 1:], b[..., 1:], out_dtype=out), 70, out)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out", OUTS)
+def test_gemm_tn_bf16_copies_chosen_per_operand(dev, out):
+    """PowerSGD's B of 4 bfloat16 columns has 8-byte rows, which TMA cannot
+    take: the tensor-core kernel takes the aligned operand by TMA and fills
+    the other's side by element copies. Every mix of the two gives the bits
+    of both operands by TMA (B padded to a 16-byte row stride)."""
+    rng = np.random.default_rng(26)
+    m, n, k = 700, 300, 4
+    a, b = _bf(rng, (2, m, n), dev), _bf(rng, (2, m, k), dev)
+    padded = torch.zeros(2, m, 8, device=dev, dtype=torch.bfloat16)[..., :k].copy_(b)
+    ua = torch.empty(a.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(a.shape).copy_(a)
+    assert vec16(padded, padded.stride(0), padded.stride(1)) and not vec16(b, b.stride(0), b.stride(1))
+    want = ops.gemm_tn(a, padded, out_dtype=out)
+    _close_dt(want, gemm_tn_plain(a, b, out_dtype=out), m, out)
+    for x, y in ((a, b), (ua, padded), (ua, b)):
+        ops.reset_launches()
+        assert _bits_equal(ops.gemm_tn(x, y, out_dtype=out), want)
+        assert ops.wgmma_launches["gemm_tn_wgmma"] == 1
 
 
 def test_gemm_tn_kernel_mixed_operands_widen(dev):
@@ -494,10 +522,11 @@ def test_gemm_tn_kernel_mixed_operands_widen(dev):
 
 @pytest.mark.parametrize("k", [1, 8, 9])
 def test_gemm_tn_kernel_narrow_output_at_lstsq_depth(dev, k):
-    """lstsq's CG products: A (16384, 4096) against k columns, on the
-    narrow kernel: within tolerance of the plain version and bitwise equal
-    to gemm_tn_fused on W = 1 tables (the tile engine's chain), in float32
-    and on bfloat16 operands."""
+    """lstsq's CG products: A (16384, 4096) against k columns, in float32
+    on the narrow kernel and on bfloat16 operands on the tensor-core
+    kernel: within tolerance of the plain version and bitwise equal to
+    gemm_tn_fused on W = 1 tables (the same summation order: the tile
+    engine's chain in float32, the k16 steps in bfloat16)."""
     rng = np.random.default_rng(k)
     a, p = _t(rng, (16384, 4096), dev), _t(rng, (16384, k), dev)
     got = ops.gemm_tn(a, p)
@@ -505,14 +534,17 @@ def test_gemm_tn_kernel_narrow_output_at_lstsq_depth(dev, k):
     _close(got, gemm_tn_plain(a, p), 16384)
     assert _bits_equal(got, _fused_w1(a, p))
     a16, p16 = a.bfloat16(), p.bfloat16()
+    ops.reset_launches()
     got16 = ops.gemm_tn(a16, p16)
+    assert ops.wgmma_launches["gemm_tn_wgmma"] == 1 and ops.narrow_launches["gemm_tn_narrow"] == 0
     _close_dt(got16, gemm_tn_plain(a16, p16), 16384, torch.float32)
     assert _bits_equal(got16, _fused_w1(a16, p16))
 
 
 def _fused_w1(a, b, alpha=1.0, out_dtype=torch.float32):
     """gemm_tn_fused on W = 1 tables of the same operands: the tile engine's
-    fmaf chain, whatever kernel gemm_tn picks."""
+    fmaf chain (float32) or the k16 steps (bfloat16), whatever kernel
+    gemm_tn picks."""
     lead = (None,) * 3
     out = ops.gemm_tn_fused(a[lead], b[lead], _slot_tables(0), alpha=alpha, out_dtype=out_dtype)
     return out.reshape(*a.shape[:-2], a.shape[-1], b.shape[-1])
@@ -540,12 +572,15 @@ def test_gemm_tn_narrow_keeps_the_engines_signed_zero(dev, m):
 @pytest.mark.parametrize("out", OUTS)
 @pytest.mark.parametrize("m,n,k", [(513, 129, 4), (100, 4096, 8), (37, 127, 32), (8, 1, 1)])
 def test_gemm_tn_narrow_bf16_bitwise_to_the_engine(dev, m, n, k, out):
-    """bfloat16 operands, float32 or bfloat16 output, on the narrow kernel:
-    bitwise equal to the W = 1 fused launch, within tolerance of the plain
-    version, a batch entry bitwise equal to its single launch."""
+    """bfloat16 operands at the narrow kernel's shapes, float32 or bfloat16
+    output, now on the tensor-core kernel (bfloat16 takes wgmma at every
+    k): bitwise equal to the W = 1 fused launch, within tolerance of the
+    plain version, a batch entry bitwise equal to its single launch."""
     rng = np.random.default_rng(m + n + k)
     a, b = _bf(rng, (2, m, n), dev), _bf(rng, (2, m, k), dev)
+    ops.reset_launches()
     got = ops.gemm_tn(a, b, alpha=-0.5, out_dtype=out)
+    assert ops.wgmma_launches["gemm_tn_wgmma"] == 1 and ops.narrow_launches["gemm_tn_narrow"] == 0
     _close_dt(got, gemm_tn_plain(a, b, alpha=-0.5, out_dtype=out), m, out)
     assert _bits_equal(got, _fused_w1(a, b, alpha=-0.5, out_dtype=out))
     assert _bits_equal(got[1], ops.gemm_tn(a[1], b[1], alpha=-0.5, out_dtype=out))
@@ -553,9 +588,11 @@ def test_gemm_tn_narrow_bf16_bitwise_to_the_engine(dev, m, n, k, out):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gemm_tn_narrow_unaligned_views(dev, dt):
-    """A base 4 bytes off a 16-byte boundary and odd row strides: the narrow
-    kernel copies elements instead of bulk rows; the same bits as the
-    aligned operands (bulk copies) and as the W = 1 fused launch."""
+    """A base 4 bytes off a 16-byte boundary and odd row strides: the kernel
+    copies elements instead of bulk rows (float32: the narrow kernel;
+    bfloat16: the tensor-core kernel's element fill instead of TMA); the
+    same bits as the aligned operands (bulk copies) and as the W = 1 fused
+    launch."""
     rng = np.random.default_rng(23)
     m, n, k = 300, 200, 8
     a, b = _t(rng, (2, m, n), dev).to(dt), _t(rng, (2, m, k), dev).to(dt)
@@ -636,8 +673,10 @@ def test_syrk_kernel_bf16_split_edges(dev, m, n, out):
 @pytest.mark.parametrize("L", [0, 1, 2, 3, 4, 5])
 def test_gemm_tn_fused_kernel_bf16_every_slot_count(dev, L, aligned, out):
     """bfloat16 slot blocks with W = 1 … 32, quad (8-byte) and element
-    copies: the combine runs in float32 as in the plain version, so the two
-    differ by the multiply's summation order alone."""
+    copies, on the tensor-core kernel: the combine rounds each add to
+    bfloat16 as the plain version does, so the two differ by the multiply's
+    summation order alone, and the launch is bitwise equal to gemm_tn on
+    the materialized bfloat16 combined operands."""
     rng = np.random.default_rng(L + 40)
     x = _bf(rng, (9 << L, 5 << L), dev)
     if not aligned:
@@ -645,9 +684,17 @@ def test_gemm_tn_fused_kernel_bf16_every_slot_count(dev, L, aligned, out):
         x = flat[1:].view(x.shape).copy_(x)
     ab = _to_blocks(x, L)[None]
     assert aligned or not _vec16(ab, ab, _slot_tables(L))
-    got = ops.gemm_tn_fused(ab, ab, _slot_tables(L), alpha=0.5, out_dtype=out)
-    _close_dt(got, gemm_tn_fused_plain(ab, ab, _slot_tables(L), alpha=0.5, out_dtype=out),
+    tables = _slot_tables(L)
+    ops.reset_launches()
+    got = ops.gemm_tn_fused(ab, ab, tables, alpha=0.5, out_dtype=out)
+    assert ops.wgmma_launches["gemm_tn_fused_wgmma"] == 1
+    _close_dt(got, gemm_tn_fused_plain(ab, ab, tables, alpha=0.5, out_dtype=out),
               ab.shape[-2], out)
+    xa, xb = combine_fused_operands(ab, *tables[0]), combine_fused_operands(ab, *tables[1])
+    assert xa.dtype == torch.bfloat16
+    want = ops.gemm_tn(xa.reshape(-1, *xa.shape[-2:]), xb.reshape(-1, *xb.shape[-2:]),
+                       alpha=0.5, out_dtype=out)
+    assert _bits_equal(got, want.reshape(got.shape))
 
 
 def test_gemm_tn_fused_kernel_bf16_then_float32_at_one_offset(dev):
@@ -760,10 +807,12 @@ def test_float64_computes_on_card_with_plain_bases(dev):
 
 
 def test_ata_bf16_dispatches_on_card(dev):
-    """bfloat16 ata: unrolled == batched bitwise (the same bfloat16
-    combinations, batch-independent kernels); all three within the
-    reference's bfloat16 rtol (2e-2, normwise) of the exact product of the
-    same values; fused launches its two kernels only."""
+    """bfloat16 ata and strassen_tn: unrolled == batched == fused bitwise
+    (the same bfloat16 combinations — the fused kernel rounds each add to
+    bfloat16 as the recursion does — and one summation order of the
+    tensor-core kernels); all within the reference's bfloat16 rtol (2e-2,
+    normwise) of the exact product of the same values; fused launches its
+    two kernels only, its gemm_tn_fused on wgmma."""
     rng = np.random.default_rng(25)
     a = _bf(rng, (1500, 1100), dev)
     exact = a.double().T @ a.double()
@@ -777,7 +826,74 @@ def test_ata_bf16_dispatches_on_card(dev):
         if ld == "fused":
             assert ops.launches["gemm_tn_fused"] > 0 and ops.launches["syrk_gather"] == 1
             assert ops.launches["gemm_tn"] == ops.launches["syrk"] == 0
+            assert ops.wgmma_launches["gemm_tn_fused_wgmma"] == ops.launches["gemm_tn_fused"]
+        else:
+            assert ops.wgmma_launches["gemm_tn_wgmma"] == ops.launches["gemm_tn"] > 0
     assert torch.equal(out["unrolled"], out["batched"])
+    assert torch.equal(out["unrolled"], out["fused"])
+    x, y = _bf(rng, (700, 520), dev), _bf(rng, (700, 390), dev)
+    exact = x.double().T @ y.double()
+    st = {ld: strassen_tn(x, y, n_base=64, leaf_dispatch=ld)
+          for ld in ("unrolled", "batched", "fused")}
+    for ld, got in st.items():
+        rel = float(torch.linalg.norm(got.double() - exact) / torch.linalg.norm(exact))
+        assert rel <= 2e-2, (ld, rel)
+    assert torch.equal(st["unrolled"], st["batched"]) and torch.equal(st["unrolled"], st["fused"])
+
+
+@pytest.mark.parametrize("k", [1, 64, 65, 512])
+def test_wgmma_launches_counted_by_operand_type(dev, k):
+    """bfloat16 operands launch the tensor-core kernels at every k, float32
+    the narrow kernel (k <= 64) or the tile engine, each counted once; the
+    wgmma instances spill nothing and fit on an SM."""
+    rng = np.random.default_rng(k + 27)
+    a, b = _t(rng, (3, 96, 130), dev), _t(rng, (3, 96, k), dev)
+    for dt, tc, narrow in ((torch.bfloat16, 1, 0), (torch.float32, 0, int(k <= 64))):
+        ops.reset_launches()
+        ops.gemm_tn(a.to(dt), b.to(dt))
+        assert ops.launches["gemm_tn"] == 1
+        assert ops.wgmma_launches == {"gemm_tn_wgmma": tc, "gemm_tn_fused_wgmma": 0}, dt
+        assert ops.narrow_launches["gemm_tn_narrow"] == narrow, dt
+        ab = _to_blocks(a.to(dt), 1)[None]
+        ops.reset_launches()
+        ops.gemm_tn_fused(ab, ab, _slot_tables(1))
+        assert ops.wgmma_launches == {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": tc}, dt
+    r = _build.resources("gemm_tn_wgmma_info")
+    assert r["local_bytes"] == 0 and r["ctas_per_sm"] >= 1, r
+    for w in (1, 2, 4, 8, 16, 32):
+        r = _build.resources("gemm_tn_fused_wgmma_info", w)
+        assert r["local_bytes"] == 0 and r["ctas_per_sm"] >= 1 and r["active_clusters"] >= 1, r
+
+
+def test_gemm_tn_entry_refuses_a_kernel_that_cannot_take_the_operands(dev):
+    """gemm_tn's C entry point launches the kernel the wrapper names
+    (``tn_route``) and refuses, launching nothing, a tensor-core kernel for
+    float32 operands, any other for bfloat16 ones, the narrow kernel past
+    kNarrowMaxK and an unknown kernel index."""
+    from repro_torch.kernels.gemm_tn import TN_KERNELS
+
+    rng = np.random.default_rng(29)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dt, k, kernel, ok in ((torch.float32, 64, "narrow", True),
+                              (torch.float32, 65, "narrow", False),
+                              (torch.float32, 8, "tile", True),
+                              (torch.float32, 8, "wgmma", False),
+                              (torch.bfloat16, 8, "wgmma", True),
+                              (torch.bfloat16, 8, "tile", False),
+                              (torch.bfloat16, 8, "narrow", False),
+                              (torch.float32, 8, 3, False)):
+        a, b = _t(rng, (40, 24), dev).to(dt), _t(rng, (40, k), dev).to(dt)
+        c = torch.zeros(24, k, device=dev)
+        index = TN_KERNELS.index(kernel) if isinstance(kernel, str) else kernel
+        err = lib.gemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, 40, 24, k, 0, 24, 0,
+                              k, 1.0, 3, int(dt == torch.bfloat16), index, stream)
+        torch.cuda.synchronize()
+        assert (err == 0) == ok, (dt, k, kernel, err)
+        if ok:
+            _close(c, gemm_tn_plain(a, b), 40)
+        else:
+            assert not c.any(), (dt, k, kernel)
 
 
 def test_cg_lstsq_never_syncs_with_the_host(dev):

@@ -52,7 +52,7 @@ from repro_torch.core import ata, strassen_tn
 from repro_torch.core.ata import _level_tables
 from repro_torch.core.strassen import _pad_root, _slot_tables, _to_blocks
 from repro_torch.kernels import ops
-from repro_torch.kernels.gemm_tn import _device_launch_tables
+from repro_torch.kernels.gemm_tn import _device_launch_tables, combine_fused_operands
 from repro_torch.kernels.syrk import syrk_plain
 from repro_torch.solve import cholesky
 
@@ -287,13 +287,22 @@ def test_kernel_dtypes_rule():
 
 def test_level_tables_unchanged_by_dtype():
     """The fused level launch reads the same slot tables whatever the
-    element type: only the load and the store change."""
+    element type: only the load, the combine's rounding (bfloat16 blocks
+    are combined in bfloat16, each add rounded, as the reference's kernel
+    and the unrolled recursion do) and the store change. Each launch is
+    gemm_tn on its own type's combined operands of the same tables, and
+    the two lie within the reference's band for the fused bfloat16 launch
+    of each other."""
     a16 = torch.as_tensor(_f32((64, 48), 66)).bfloat16()
-    got = ops.gemm_tn_fused(_to_blocks(a16, 2)[None], _to_blocks(a16, 2)[None],
-                            _level_tables(2, 1))
-    want = ops.gemm_tn_fused(_to_blocks(a16.float(), 2)[None], _to_blocks(a16.float(), 2)[None],
-                             _level_tables(2, 1))
-    assert torch.equal(got, want)
+    tables = _level_tables(2, 1)
+    b16, b32 = _to_blocks(a16, 2)[None], _to_blocks(a16.float(), 2)[None]
+    got = ops.gemm_tn_fused(b16, b16, tables)
+    want = ops.gemm_tn_fused(b32, b32, tables)
+    for blocks, out in ((b16, got), (b32, want)):
+        xa, xb = (combine_fused_operands(blocks, *side) for side in tables)
+        assert xa.dtype == blocks.dtype
+        assert torch.equal(out, ops.gemm_tn(xa, xb))
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_FUSED)
 
 
 def _offset_view(shape, dtype, nbytes):

@@ -2,17 +2,18 @@
 """Time variants of the gemm_tn tile engine, the narrow kernel's crossover,
 and ablations of the trsm and syrk kernels.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py [tn] [narrow] [trsm] [syrk]
+    PYTHONPATH=src python3 tools/kernel_variants.py [tn] [narrow] [trsm] [syrk] [wgmma]
+    PYTHONPATH=src python3 tools/kernel_variants.py narrow_bf16 --earlier=DIR
 
-(no argument: all four parts).
+(no argument: the first five parts).
 
-For gemm_tn's narrow-output kernel (``csrc/tn_narrow.cu``) it builds two
-libraries with the threshold ``kNarrowMaxK`` rewritten: 0 (every k on the
-tile engine) and 64 (the narrow kernel up to k = 64), holds the two
-bitwise equal at (m, n) = (16384, 4096) with k in {4, 8, 16, 32, 64} and
-at PowerSGD's (24576, 2816, 4) and (67584, 1024, 4), and prints their
-device times (CUDA graphs of 20 launches) beside ``torch.matmul(a.T,
-b)``'s, taken in turns: the evidence for the threshold. Beside them it
+For gemm_tn's narrow-output kernel (``csrc/tn_narrow.cu``) it launches
+the tile engine and the narrow kernel of one build (the C entry point's
+kernel argument) and holds the two bitwise equal at (m, n) = (16384, 4096)
+with k in {4, 8, 16, 32, 64} and at PowerSGD's (24576, 2816, 4) and
+(67584, 1024, 4), and prints their device times (CUDA graphs of 20
+launches) beside ``torch.matmul(a.T, b)``'s, taken in turns: the evidence
+for the threshold ``kNarrowMaxK``. Beside them it
 times builds of the narrow kernel with one choice changed
 (``NARROW_ABLATIONS``): the ring's streaming alone, the chains alone, 8 or
 3 stages, 1 or 4 copying warps, 1 or 2 of A's columns a thread, operands
@@ -57,6 +58,25 @@ every global store of the epilogue (a wrong answer; only the time is
 read): what the output writes cost. Device times are CUDA graphs of 20
 launches, taken in turns.
 
+For gemm_tn's bfloat16 tensor-core kernel (``csrc/gemm_tn.cu``'s
+``gemm_tn_wgmma_kernel``) it times the ring shapes (``WGMMA_SHAPES``: rows
+a stage × stages, held bitwise against the shipped one) and ablations
+(``WGMMA_ABLATIONS``, wrong products: the epilogue's stores left out, the
+wgmma left out, both — the TMA loads alone —, and the grid capped at the
+resident CTAs so each walks several batch entries, which computes the
+shipped product and is held bitwise) on the ata 8192² leaf stack
+(1430, 512, 512)² in bfloat16 with a float32 store, beside ``torch.bmm``,
+device times in CUDA graphs of 10, in turns.
+
+``narrow_bf16`` times gemm_tn on bfloat16 operands at k ≤ 64 (CG's
+(16384, 4096, 8), PowerSGD's (24576, 2816, 4) and (67584, 1024, 4), float32
+store) as this tree runs it (the tensor-core kernel) beside a build of an
+earlier tree's kernel sources (``--earlier=DIR``: its ``csrc`` directory,
+e.g. unpacked by ``git archive``), whose C entry point takes no kernel
+argument (there bfloat16 at k ≤ 64 ran the narrow kernel, converting on the
+read), and ``torch.matmul``: each within tolerance of the plain version,
+device times in CUDA graphs of 20, in turns.
+
 It needs an NVIDIA Hopper card and nvcc.
 """
 
@@ -84,9 +104,9 @@ ENGINE_ABLATIONS = {
     "half_x_reads": ("const T* xr = xs + kk * kTile",
                      "const T* xr = xs + (kk & ~1) * kTile"),
 }
-# name -> gemm_tn's narrow threshold (csrc/tn_narrow.cuh) of a crossover build
-NARROW_MAX_K = "constexpr int kNarrowMaxK = 64;"
-NARROW = {"engine": 0, "narrow": 64}
+# name -> the kernel gemm_tn_f32 is told to run (kernels.gemm_tn.TN_KERNELS),
+# both from one build
+NARROW = {"engine": "tile", "narrow": "narrow"}
 # name -> textual edits of tn_narrow.cu on the k <= 64 build, timed beside it
 # (a wrong product: only the time is read): the ring without the chains,
 # the chains on whatever the ring holds, and half as many stages of twice
@@ -146,6 +166,8 @@ NARROW_ABLATIONS["timed"] = {"tn_narrow.cu": [
 NARROW_EXACT = ("stages8", "stages3", "copiers1", "copiers4", "p1", "p2")
 NARROW_SHAPES = [(16384, 4096, k) for k in (4, 8, 16, 32, 64)] + [(24576, 2816, 4),
                                                                   (67584, 1024, 4)]
+# bfloat16 at k <= 64 on the main path's shapes: CG's, PowerSGD's wg and wd
+NARROW_BF16_SHAPES = [(16384, 4096, 8), (24576, 2816, 4), (67584, 1024, 4)]
 # name -> textual edits of trsm.cu; the first is the shipped kernel
 TRSM = {
     "full": [],
@@ -212,6 +234,25 @@ SYRK = {
 SYRK_WRONG = ("no_mirror", "no_global_stores")
 SYRK_SHAPES = {"single (2048,512)": (2048, 512), "single (512,512)": (512, 512),
                "batched (256,512,512)": (256, 512, 512)}
+# gemm_tn's bfloat16 kernel: name -> (rows a stage, stages); the first is shipped
+WG_ROWS, WG_STAGES = "constexpr int kWgRows = 64;", "constexpr int kWgStages = 3;"
+WGMMA_SHAPES = {"64x3": (64, 3), "32x4": (32, 4), "32x6": (32, 6), "64x4": (64, 4),
+                "128x2": (128, 2)}
+WG_STORE = ("    wg::store_tile(static_cast<TO*>(g.c) + (long long)bt * g.n * g.k, acc, r0 + 64 * wgi, c0,\n"
+            "                   g.n, g.k, g.alpha);\n")
+WG_KEEP = "    if (acc[0] == 123.0f) store1(static_cast<TO*>(g.c), acc[1]);  // keeps acc live\n"
+WG_MMA = "      wg::mma_stage(acc, xs, xs + kWgSide, kWgRows, wgi, n16);\n"
+WG_GRID = ("  const dim3 grid((k + wg::kTileN - 1) / wg::kTileN, (n + wg::kTileM - 1) / wg::kTileM,\n"
+           "                  batch < 65535 ? batch : 65535);\n")
+WG_RESIDENT = ("  int sms = 0;\n  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);\n"
+               "  const int tk = (k + 127) / 128, tn = (n + 127) / 128;\n"
+               "  const int fit = 2 * sms / (tk * tn) < 1 ? 1 : 2 * sms / (tk * tn);\n"
+               "  const dim3 grid(tk, tn, batch < fit ? batch : fit);\n")
+WGMMA_ABLATIONS = {"no_stores": [(WG_STORE, WG_KEEP)], "no_wgmma": [(WG_MMA, "")],
+                   "loads_only": [(WG_STORE, WG_KEEP), (WG_MMA, "")],
+                   "resident_grid": [(WG_GRID, WG_RESIDENT)]}
+# ablations that keep the shipped product: held bitwise
+WGMMA_EXACT = ("resident_grid",)
 
 
 def sources(name, edits):
@@ -219,8 +260,8 @@ def sources(name, edits):
 
     out = os.path.join(ROOT, "build", "kernels", "variants", name)
     os.makedirs(out, exist_ok=True)
-    for f in ("dtype.cuh", "tn_tile.cuh", "tn_narrow.cuh", "gemm_tn.cu", "tn_narrow.cu",
-              "trsm.cu", "syrk.cu"):
+    for f in ("dtype.cuh", "tn_tile.cuh", "tn_narrow.cuh", "tn_wgmma.cuh", "gemm_tn.cu",
+              "tn_narrow.cu", "trsm.cu", "syrk.cu"):
         text = (_build.CSRC / f).read_text()
         for old, new in edits.get(f, ()):
             if f == "syrk.cu" and (old, new) == SYRK_EPILOGUE:  # splice between two anchors
@@ -242,6 +283,7 @@ def time_tn(libs, cs, rng):
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm_tn import TN_KERNELS
 
     a = cs.cuda_tensor(rng, (1430, 512, 512))
     b = cs.cuda_tensor(rng, (1430, 512, 512))
@@ -253,7 +295,8 @@ def time_tn(libs, cs, rng):
 
         def run(fn=fn):
             err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1430, 512, 512, 512, 512 * 512, 512,
-                     512 * 512, 512, 1.0, 1, 0, torch.cuda.current_stream().cuda_stream)
+                     512 * 512, 512, 1.0, 3, 0, TN_KERNELS.index("tile"),
+                     torch.cuda.current_stream().cuda_stream)
             _build.check(err, "gemm_tn variant")
         run()
         torch.cuda.synchronize()
@@ -270,25 +313,65 @@ def time_tn(libs, cs, rng):
     print("gemm_tn (1430,512,512)² ms, in turns: " + json.dumps(times), flush=True)
 
 
+def time_wgmma(libs, cs, rng):
+    """gemm_tn's bfloat16 kernel: ring shapes and ablations on the ata 8192²
+    leaf stack, bfloat16 operands, float32 store."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm_tn import TN_KERNELS
+
+    a = cs.cuda_tensor(rng, (1430, 512, 512)).bfloat16()
+    b = cs.cuda_tensor(rng, (1430, 512, 512)).bfloat16()
+    c = torch.empty(1430, 512, 512, device="cuda")
+    runs, want = {}, None
+    for name in (*WGMMA_SHAPES, *WGMMA_ABLATIONS):
+        fn = libs[("wgmma", name)].gemm_tn_f32
+        fn.argtypes = list(_build.SIGNATURES["gemm_tn_f32"])
+
+        def run(fn=fn):
+            err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1430, 512, 512, 512, 512 * 512, 512,
+                     512 * 512, 512, 1.0, 3, 1, TN_KERNELS.index("wgmma"),
+                     torch.cuda.current_stream().cuda_stream)
+            _build.check(err, "gemm_tn wgmma variant")
+        run()
+        torch.cuda.synchronize()
+        want = c.clone() if want is None else want
+        if (name in WGMMA_SHAPES or name in WGMMA_EXACT) and not torch.equal(c, want):
+            raise AssertionError(f"wgmma variant {name} differs from {next(iter(WGMMA_SHAPES))}")
+        runs[name] = run
+    print("every wgmma ring shape and the resident grid bitwise equal to the shipped one",
+          flush=True)
+    del want
+    runs["torch.bmm"] = lambda: torch.bmm(a.transpose(1, 2), b)
+    times = {}
+    for name in list(runs) + list(runs)[::-1]:
+        times.setdefault(name, []).append(cs.graph_ms(runs[name], launches=10))
+    print("gemm_tn bf16 (1430,512,512)² device ms, float32 store, in turns: "
+          + json.dumps(times), flush=True)
+
+
 def time_narrow(libs, cs, rng):
     """gemm_tn on the tile engine alone against the narrow kernel up to
     k = 64, bitwise and in device time, beside torch.matmul."""
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm_tn import TN_KERNELS
 
     for m, n, k in NARROW_SHAPES:
         a = cs.cuda_tensor(rng, (m, n))
         b = cs.cuda_tensor(rng, (m, k))
         outs, runs = {}, {}
         for name in (*NARROW, *NARROW_ABLATIONS):
-            fn = libs[("narrow", name)].gemm_tn_f32
+            fn = libs[("narrow", "narrow" if name in NARROW else name)].gemm_tn_f32
             fn.argtypes = list(_build.SIGNATURES["gemm_tn_f32"])
             c = torch.empty((n, k), device="cuda")
+            kernel = TN_KERNELS.index(NARROW.get(name, "narrow"))
 
-            def run(fn=fn, c=c):
-                err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, m, n, k, 0, n, 0, k, 1.0, 1,
-                         0, torch.cuda.current_stream().cuda_stream)
+            def run(fn=fn, c=c, kernel=kernel):
+                err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, m, n, k, 0, n, 0, k, 1.0, 3,
+                         0, kernel, torch.cuda.current_stream().cuda_stream)
                 _build.check(err, "gemm_tn crossover build")
             run()
             torch.cuda.synchronize()
@@ -308,6 +391,52 @@ def time_narrow(libs, cs, rng):
         print(f"gemm_tn {(m, n, k)} bitwise engine == narrow; device ms, in turns: "
               + json.dumps(times) + f"; bound_ms {bms:.4f} ({by})", flush=True)
         del a, b, outs, runs
+        torch.cuda.empty_cache()
+
+
+def time_narrow_bf16(libs, cs, rng):
+    """gemm_tn on bfloat16 operands at k ≤ 64: this tree's kernel (through
+    ``ops.gemm_tn``) against the earlier build's, both into float32, each
+    within tolerance of the plain version, beside torch.matmul."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.gemm_tn import gemm_tn_plain, vec16
+
+    fn = libs[("narrow_bf16", "earlier")].gemm_tn_f32
+    argtypes = list(_build.SIGNATURES["gemm_tn_f32"])
+    del argtypes[-2]   # the earlier entry point takes no kernel argument
+    fn.argtypes = argtypes
+    for m, n, k in NARROW_BF16_SHAPES:
+        a = cs.cuda_tensor(rng, (m, n)).bfloat16()
+        b = cs.cuda_tensor(rng, (m, k)).bfloat16()
+        c = torch.empty((n, k), device="cuda")
+        v16 = int(vec16(a, n) and vec16(b, k))
+
+        def earlier_run():
+            err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, m, n, k, 0, n, 0, k, 1.0, v16,
+                     1, torch.cuda.current_stream().cuda_stream)
+            _build.check(err, "earlier gemm_tn build")
+        earlier_run()
+        ops.reset_launches()
+        now = ops.gemm_tn(a, b)
+        torch.cuda.synchronize()
+        if ops.wgmma_launches["gemm_tn_wgmma"] != 1:
+            raise AssertionError(f"gemm_tn bf16 {(m, n, k)} did not launch the wgmma kernel")
+        ref = gemm_tn_plain(a, b)
+        checks = cs.Checks({})
+        errs = {"this tree": checks.compare(f"gemm_tn bf16 {(m, n, k)} this tree", now, ref, m),
+                "earlier": checks.compare(f"gemm_tn bf16 {(m, n, k)} earlier", c, ref, m)}
+        runs = {"this tree": lambda: ops.gemm_tn(a, b), "earlier": earlier_run,
+                "torch.matmul": lambda: torch.matmul(a.T, b)}
+        times = {}
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault(name, []).append(round(cs.graph_ms(runs[name], 20), 5))
+        bms, by = cs.bound_bf16(2 * m * n * k, 2 * (m * n + m * k) + 4 * n * k)
+        print(f"gemm_tn bf16 {(m, n, k)} float32 store: max_abs_err {json.dumps(errs)}; "
+              f"device ms, in turns: {json.dumps(times)}; bound_ms {bms:.4f} ({by})",
+              flush=True)
+        del a, b, c, now, ref
         torch.cuda.empty_cache()
 
 
@@ -389,8 +518,11 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build
 
-    parts = set(sys.argv[1:]) or {"tn", "narrow", "trsm", "syrk"}
-    if not parts <= {"tn", "narrow", "trsm", "syrk"}:
+    earlier = next((os.path.abspath(x.split("=", 1)[1]) for x in sys.argv[1:]
+                    if x.startswith("--earlier=")), None)
+    parts = {x for x in sys.argv[1:] if not x.startswith("--earlier=")} or {
+        "tn", "narrow", "trsm", "syrk", "wgmma"}
+    if not parts <= {"tn", "narrow", "trsm", "syrk", "wgmma", "narrow_bf16"}:
         print(f"kernel_variants: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -407,15 +539,23 @@ def main() -> int:
         for name, edit in ENGINE_ABLATIONS.items():
             jobs[("tn", name)] = (sources("tn_" + name, {"tn_tile.cuh": [edit]}), TN_SOURCES)
     if "narrow" in parts:
-        for name, max_k in NARROW.items():
-            d = sources("narrow_" + name, {"tn_narrow.cuh": [
-                (NARROW_MAX_K, f"constexpr int kNarrowMaxK = {max_k};")]})
-            jobs[("narrow", name)] = (d, TN_SOURCES)
+        jobs[("narrow", "narrow")] = (sources("narrow_narrow", {}), TN_SOURCES)
         for name, edits in NARROW_ABLATIONS.items():
-            edits = dict(edits)
-            edits["tn_narrow.cuh"] = edits.get("tn_narrow.cuh", []) + [
-                (NARROW_MAX_K, "constexpr int kNarrowMaxK = 64;")]
             jobs[("narrow", name)] = (sources("narrow_" + name, edits), TN_SOURCES)
+    if "narrow_bf16" in parts:
+        if earlier is None:
+            print("kernel_variants: narrow_bf16 needs --earlier=DIR (an earlier csrc)",
+                  file=sys.stderr)
+            return 2
+        jobs[("narrow_bf16", "earlier")] = (earlier, TN_SOURCES)
+    if "wgmma" in parts:
+        for name, (rows, stages) in WGMMA_SHAPES.items():
+            d = sources("wgmma_" + name, {"gemm_tn.cu": [
+                (WG_ROWS, f"constexpr int kWgRows = {rows};"),
+                (WG_STAGES, f"constexpr int kWgStages = {stages};")]})
+            jobs[("wgmma", name)] = (d, TN_SOURCES)
+        for name, edits in WGMMA_ABLATIONS.items():
+            jobs[("wgmma", name)] = (sources("wgmma_" + name, {"gemm_tn.cu": edits}), TN_SOURCES)
     if "trsm" in parts:
         for name, edits in TRSM.items():
             jobs[("trsm", name)] = (sources("trsm_" + name, {"trsm.cu": edits}), ("trsm.cu",))
@@ -445,6 +585,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "narrow" in parts:
         time_narrow(libs, cs, rng)
+    if "wgmma" in parts:
+        time_wgmma(libs, cs, rng)
+        torch.cuda.empty_cache()
+    if "narrow_bf16" in parts:
+        time_narrow_bf16(libs, cs, rng)
+        torch.cuda.empty_cache()
     if "trsm" in parts:
         time_trsm(libs, cs, rng)
     if "syrk" in parts:
