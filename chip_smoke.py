@@ -39,13 +39,17 @@ phase fails):
              against its plain version (the bound above, plus one
              bfloat16 ulp for a bfloat16 store), with device times beside
              the bfloat16 bound (989 TFLOP/s) and the library's bfloat16
-             call ("none" where torch has none on CUDA); gemm_tn and
-             gemm_tn_fused counted on their tensor-core (wgmma) kernels,
-             fused bitwise equal to gemm_tn on the bfloat16 combined
-             operands, the wgmma instances' resources; ata 4096² and
+             call ("none" where torch has none on CUDA); gemm_tn,
+             gemm_tn_fused, syrk and syrk_gather counted on their
+             tensor-core (wgmma) kernels, fused bitwise equal to gemm_tn
+             on the bfloat16 combined operands, syrk_gather to syrk on
+             the stacked leaves, syrk's bfloat16 store and lstsq's single
+             leaf beside their bounds, the wgmma instances' resources (no
+             spills); ata 4096² and
              strassen_tn 2048³ and 4096³ in bfloat16 under the three
              dispatches (the bfloat16 main path, its wgmma launches
-             counted, ata's syrk / syrk_gather launched) bitwise equal,
+             counted, every syrk / syrk_gather launch of ata on the
+             tensor cores) bitwise equal,
              ata and strassen_tn 2048³ within 2e-2 (the reference's
              bfloat16 rtol, normwise) of the float64 product and
              strassen_tn 4096³ within ``PLAIN_RTOL`` (normwise) of the same
@@ -1048,6 +1052,7 @@ def phase_dtypes(checks, ops, plain):
     from repro_torch.core.strassen import _to_blocks
     from repro_torch.kernels import _build
     from repro_torch.kernels.gemm_tn import combine_fused_operands
+    from repro_torch.kernels.syrk import syrk_splits
 
     log("phase dtypes: bfloat16 operands (float32 accumulation), float32 / bfloat16 stores")
     rng = np.random.default_rng(SEED + 4)
@@ -1111,18 +1116,30 @@ def phase_dtypes(checks, ops, plain):
         f"batch entry == single launch: bitwise")
     del a, b
     a = cuda_tensor(rng, (256, 512, 512)).to(bf16)
-    both_outs("syrk", "(256,512,512) dense", 512, lambda o: ops.syrk(a, out_dtype=o),
-              lambda o: plain["syrk"](a, out_dtype=o), lambda f: graph_ms(f, launches=20),
-              (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
-              lambda: torch.matmul(a.transpose(1, 2), a))
+    row = both_outs("syrk", "(256,512,512) dense", 512, lambda o: ops.syrk(a, out_dtype=o),
+                    lambda o: plain["syrk"](a, out_dtype=o), lambda f: graph_ms(f, launches=20),
+                    (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
+                    lambda: torch.matmul(a.transpose(1, 2), a), wgmma="syrk_wgmma")
+    row.update(syrk_bf16_store(ops, 256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 2),
+                               lambda f: graph_ms(f, launches=20),
+                               lambda o: ops.syrk(a, out_dtype=o)))
     x = cuda_tensor(rng, (2048, 512)).to(bf16)
     packed = ops.syrk(x, out="packed")
     err = checks.compare("syrk bf16 single (2048,512) packed", packed.blocks,
                          plain["syrk"](x, out="packed", bn=packed.bn), 2048)
-    checks.rows["syrk"]["bf16"]["single_2048x512"] = dict(
-        max_abs_err=err, device_ms=graph_ms(lambda: ops.syrk(x)))
-    log(f"  syrk bf16 single (2048,512): device_ms="
-        f"{checks.rows['syrk']['bf16']['single_2048x512']['device_ms']:.4f}")
+    if not torch.equal(packed.to_dense(), ops.syrk(x)):
+        raise AssertionError("syrk bf16 single (2048,512): packed != dense")
+    bound, by = bound_bf16(2048 * 512 * 513, 2048 * 512 * 2 + 512 * 512 * 4)
+    row["single_2048x512"] = dict(
+        max_abs_err=err, device_ms=graph_ms(lambda: ops.syrk(x)), bound_ms=bound, bound_by=by,
+        library_device_ms=graph_ms(lambda: torch.matmul(x.T, x)))
+    log(f"  syrk bf16 single (2048,512) K={syrk_splits(2048, 512)}: packed == dense bitwise; "
+        f"device_ms={row['single_2048x512']['device_ms']:.4f} bound_ms={bound:.4f} ({by}) "
+        f"torch.matmul {row['single_2048x512']['library_device_ms']:.4f}")
+    row["resources"] = {k: _build.resources("syrk_wgmma_info", k) for k in (1, 2, 4, 8)}
+    log("  resources bf16 wgmma (syrk, syrk_gather; by split K) " + json.dumps(row["resources"]))
+    if any(r["local_bytes"] for r in row["resources"].values()):
+        raise AssertionError("syrk's wgmma instances use local memory (spills)")
     del a, x
     root = cuda_tensor(rng, (8192, 8192)).to(bf16)
     ab = _to_blocks(root, 4)
@@ -1155,11 +1172,19 @@ def phase_dtypes(checks, ops, plain):
     log("  resources bf16 wgmma (gemm_tn; gemm_tn_fused by slot count W) " + json.dumps(res))
     s = np.arange(256)
     D = ab.transpose(0, 1).reshape(256, *ab.shape[-2:])
-    both_outs("syrk_gather", "R=16 S=256", 512,
-              lambda o: ops.syrk_gather(ab, s % 16, s // 16, out_dtype=o),
-              lambda o: plain["syrk_gather"](ab, s % 16, s // 16, out_dtype=o), burst_ms,
-              (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
-              lambda: torch.matmul(D.transpose(1, 2), D))
+    row = both_outs("syrk_gather", "R=16 S=256", 512,
+                    lambda o: ops.syrk_gather(ab, s % 16, s // 16, out_dtype=o),
+                    lambda o: plain["syrk_gather"](ab, s % 16, s // 16, out_dtype=o), burst_ms,
+                    (256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 4)),
+                    lambda: torch.matmul(D.transpose(1, 2), D), wgmma="syrk_gather_wgmma")
+    row.update(syrk_bf16_store(ops, 256 * 512 * 512 * 513, 256 * 512 * 512 * (2 + 2),
+                               burst_ms, lambda o: ops.syrk_gather(ab, s % 16, s // 16,
+                                                                    out_dtype=o)))
+    for out in (f32, bf16):
+        if not torch.equal(ops.syrk_gather(ab, s % 16, s // 16, out_dtype=out),
+                           ops.syrk(D.contiguous(), out_dtype=out)):
+            raise AssertionError(f"syrk_gather bf16 != syrk on the stacked leaves ({out})")
+    log("  syrk_gather bf16 == syrk on the stacked leaves, float32 and bfloat16 stores: bitwise")
     del root, ab, D
     torch.cuda.empty_cache()
     s1 = spd_tiles(rng, 1, 128)[0].to(bf16)
@@ -1184,6 +1209,25 @@ def phase_dtypes(checks, ops, plain):
     return phase_ata_dtypes(ops)
 
 
+def syrk_bf16_store(ops, flops, nbytes, timer, call):
+    """The bfloat16 store of a syrk launch on the tensor-core kernel: its
+    device ms beside its bound (``nbytes`` with a 2-byte output), and no
+    tensor map refused on these aligned operands."""
+    import torch
+
+    from repro_torch.kernels.syrk import tma_refused
+
+    ops.reset_launches()
+    call(torch.bfloat16)
+    torch.cuda.synchronize()
+    if any(tma_refused.values()):
+        raise AssertionError(f"syrk bf16: the card refused the tensor map {tma_refused}")
+    bound, by = bound_bf16(flops, nbytes)
+    ms = timer(lambda: call(torch.bfloat16))
+    log(f"    bfloat16 store: device_ms={ms:.4f} bound_ms={bound:.4f} ({by}); tensor maps taken")
+    return {"device_ms_bf16_store": ms, "bound_ms_bf16_store": bound}
+
+
 def phase_ata_dtypes(ops):
     """ata 4096² and strassen_tn 4096³ on the card in bfloat16 under the
     three dispatches (the bfloat16 main path: bitwise equal, within the
@@ -1204,7 +1248,8 @@ def phase_ata_dtypes(ops):
         "float64")
     rng = np.random.default_rng(SEED + 5)
     a = cuda_tensor(rng, (4096, 4096)).bfloat16()
-    wgmma = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0}
+    wgmma = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0, "syrk_wgmma": 0,
+             "syrk_gather_wgmma": 0}
     # the wgmma kernel each dispatch's gemm_tn leaves run on
     leaf_kernel = {"unrolled": "gemm_tn_wgmma", "batched": "gemm_tn_wgmma",
                    "fused": "gemm_tn_fused_wgmma"}
@@ -1250,6 +1295,12 @@ def phase_ata_dtypes(ops):
                                      f"{total}")
             if expect and counts[expect[ld]] < 1:
                 raise AssertionError(f"{label} bf16 {ld}: no {expect[ld]} launch")
+            # every syrk / syrk_gather launch of the bfloat16 path on the tensor cores
+            for name in ("syrk", "syrk_gather"):
+                if tc[f"{name}_wgmma"] != counts[name]:
+                    raise AssertionError(f"{label} bf16 {ld}: {tc[f'{name}_wgmma']} of "
+                                         f"{counts[name]} {name} launches on the tensor cores")
+                wgmma[f"{name}_wgmma"] += counts[name]
             wgmma[kernel] += tc[kernel]
         blocks = {ld: getattr(r, "blocks", r) for ld, r in results.items()}
         if not (torch.equal(blocks["unrolled"], blocks["batched"])
@@ -4182,6 +4233,8 @@ def serve_yardstick(spec, a, b, ridge):
     return time_ms(lib), graph_ms(lib_capturable, launches=10)
 
 
+# seconds of idle card at each end of a profiled window (serve_profile)
+PROFILE_PAD_S = 0.05
 # kernel -> the names its launches take in a profile (gemm_tn's are the
 # tile engine's or, for k ≤ 64, the narrow-output kernel's in float32, the
 # tensor-core kernel's in bfloat16)
@@ -4191,16 +4244,25 @@ SERVE_PROFILED = {"syrk": ("syrk_kernel",), "potrf": ("potrf_kernel",), "trsm": 
 
 def serve_profile(program):
     """Kernel names and counts of one replay of ``program``'s graph, from a
-    ``torch.profiler`` trace of the card (CUPTI)."""
+    ``torch.profiler`` trace of the card (CUPTI).
+
+    The trace keeps only device activity whose timestamps, converted to the
+    host's clock, fall inside its window; a replay launched the moment the
+    window opens can lose its first kernels that way. So the replay starts
+    ``PROFILE_PAD_S`` after the window opens and the window closes
+    ``PROFILE_PAD_S`` after the replay has finished."""
     import collections
+    import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         program._graph.replay()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     names = collections.Counter()
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -5125,17 +5187,20 @@ def main(argv) -> int:
                    **{f"powersgd_{key}": optim_res["powersgd"][f"narrow_tn_{key}"]
                       for key in ("wg", "wd")}},
     })
-    # the bfloat16 tensor-core kernels that gemm_tn and gemm_tn_fused launch
-    # for bfloat16 operands: their launches on the bfloat16 main path (ata
-    # 4096² and strassen_tn 4096³ under the three dispatches, phase dtypes),
-    # their numbers at the shapes of phase 2 in bfloat16
-    for name, src, line, base in (("gemm_tn_wgmma", "gemm_tn.cu", 121, "gemm_tn"),
-                                  ("gemm_tn_fused_wgmma", "gemm_tn_fused.cu", 290,
-                                   "gemm_tn_fused")):
+    # the bfloat16 tensor-core kernels that gemm_tn, gemm_tn_fused, syrk and
+    # syrk_gather launch for bfloat16 operands: their launches on the
+    # bfloat16 main path (ata 4096² and strassen_tn 4096³ under the three
+    # dispatches, phase dtypes), their numbers at the shapes of phase 2 in
+    # bfloat16
+    for name, src, replaced, base in (
+            ("gemm_tn_wgmma", "gemm_tn.cu", "gemm_tn.py:121", "gemm_tn"),
+            ("gemm_tn_fused_wgmma", "gemm_tn_fused.cu", "gemm_tn.py:290", "gemm_tn_fused"),
+            ("syrk_wgmma", "syrk.cu", "syrk.py:222", "syrk"),
+            ("syrk_gather_wgmma", "syrk.cu", "syrk.py:331", "syrk_gather")):
         row = checks.rows[base]["bf16"]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-            "replaces": f"src/repro/kernels/gemm_tn.py:{line}", "launches": wgmma_counts[name],
+            "replaces": f"src/repro/kernels/{replaced}", "launches": wgmma_counts[name],
             "max_abs_err": row["max_abs_err_float32"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

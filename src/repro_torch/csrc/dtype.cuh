@@ -6,11 +6,14 @@
 // and trsm casting any input to float32 and storing out_dtype
 // (src/repro/kernels/potrf.py, src/repro/kernels/trsm.py).
 //
-// The load type is a template parameter of each kernel (it sits in the hot
-// loop). The store type is one too in gemm_tn and syrk, whose float32
-// epilogues ran measurably slower on the H100 with a run-time flag (a
-// branch on every store keeps the loads of a warp's blocks from being in
-// flight together; development runs, PERF.md); gemm_tn_fused branches once
+// The load type chooses the kernel or instance (it sits in the hot loop):
+// bfloat16 operands of gemm_tn, gemm_tn_fused, syrk and syrk_gather run the
+// tensor-core kernels (tn_wgmma.cuh), float32 ones the FMA kernels; potrf
+// and trsm take it as a template parameter. The store type is a template
+// parameter in gemm_tn and syrk, whose float32 epilogues ran measurably
+// slower on the H100 with a run-time flag (a branch on every store keeps
+// the loads of a warp's blocks from being in flight together; development
+// runs, PERF.md); gemm_tn_fused branches once
 // per tile on a run-time flag, potrf and trsm once per output (two
 // instances a shape, not four). Either way the (load, store)
 // pairs {float32, bfloat16}^2 all run, and nothing else is instantiated.

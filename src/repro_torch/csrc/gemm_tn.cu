@@ -147,35 +147,6 @@ struct WgArgs {
   int tma_a, tma_b;  // the operand's stages arrive by TMA; by the producer warp's copies otherwise
 };
 
-// The producer warp's copy of one operand's side of a stage without TMA:
-// rows l0 + [0, kWgRows) and columns col0 + [0, 128) of p, zero at or past
-// (m, lim), in the swizzled layout TMA writes, 8 elements (16 bytes) a store.
-// Groups of 8 columns wholly at or past lim are zero in every stage, so
-// they are stored only where `zeros` (a ring slot's first fill): B of 4
-// columns then costs one group a row.
-__device__ __forceinline__ void wg_fill_side(unsigned char* side, const bf16* p, long long ld,
-                                             int col0, int lim, int l0, int m, int lane,
-                                             bool zeros) {
-  constexpr int kGroups = wg::kTileN / 8;
-  const int live = min(kGroups, max(0, (lim - col0 + 7) / 8));
-  const int groups = zeros ? kGroups : live;
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(p);
-  for (int q = lane; q < kWgRows * groups; q += 32) {
-    const int r = q / groups, col = (q % groups) * 8, l = l0 + r;
-    unsigned w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = col0 + col + 2 * e;
-      const bool row = l < m;
-      const unsigned lo = (row && j < lim) ? src[(long long)l * ld + j] : 0u;
-      const unsigned hi = (row && j + 1 < lim) ? src[(long long)l * ld + j + 1] : 0u;
-      w[e] = lo | (hi << 16);
-    }
-    *reinterpret_cast<uint4*>(side + wg::swizzled(kWgRows, r, col)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 template <typename TO>
 __global__ void __launch_bounds__(kWgThreads, 2)
     gemm_tn_wgmma_kernel(const __grid_constant__ WgArgs g) {
@@ -223,8 +194,10 @@ __global__ void __launch_bounds__(kWgThreads, 2)
         }
       }
       if (fills) {
-        if (!g.tma_a) wg_fill_side(xs, g.a + bt * g.sab, g.lda, r0, g.n, l0, g.m, lane, gi < S);
-        if (!g.tma_b) wg_fill_side(ys, g.b + bt * g.sbb, g.ldb, c0, g.k, l0, g.m, lane, gi < S);
+        if (!g.tma_a)
+          wg::fill_side<kWgRows>(xs, g.a + bt * g.sab, g.lda, r0, g.n, l0, g.m, lane, gi < S);
+        if (!g.tma_b)
+          wg::fill_side<kWgRows>(ys, g.b + bt * g.sbb, g.ldb, c0, g.k, l0, g.m, lane, gi < S);
         wg::fence_async_cta();
         wg::mbar_arrive(&full[slot]);
       }

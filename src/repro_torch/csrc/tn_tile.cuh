@@ -31,12 +31,10 @@
 //   (96 KiB) measured fastest on the H100 among 2 to 4 stages of 8, 16 and
 //   32 rows (PERF.md): deeper stages cost fewer barriers. 16-byte copies
 //   where the host found every base, row stride and batch stride a
-//   multiple of 16 bytes (kVec16: 4 float32 or 8 bfloat16 elements),
+//   multiple of 16 bytes (kVec16: 4 float32 elements),
 //   element copies otherwise. Rows at or past m and columns at or past a
 //   limit are zero-filled through the copy's source size, so the loop has
 //   no mask branch.
-// * Operands of float32 or bfloat16 (the template's T), summed in float32;
-//   the ring holds T and the multiply converts what it reads (TnOperand).
 // * The epilogues use TnMap: gemm_tn stores float4 rows from the registers,
 //   syrk stages the tile in the ring's shared memory first (syrk.cu).
 //
@@ -82,12 +80,8 @@ constexpr int kStageElems = 2 * kSlab * kTile;
 constexpr int kTnSmemBytes = kStages * kStageElems * static_cast<int>(sizeof(float));
 constexpr int kMaxDevices = 64;
 
-// The operands' element type T, float or bf16 (dtype.cuh). The ring holds
-// T as loaded: cp.async copies bytes and cannot convert, and converting on
-// the way into shared memory would need a second pass over each stage and
-// a barrier. So a bfloat16 element is converted on the read, in the
-// multiply (load4: one 8-byte load and one integer op an element, beside
-// the FMAs); a bfloat16 ring fills half of the kTnSmemBytes a CTA holds.
+// The operands' element type T is float: bfloat16 operands run the
+// tensor-core kernels (tn_wgmma.cuh).
 template <typename T>
 struct TnOperand {
   const T* p;      // element (0, 0) of this batch entry
@@ -130,12 +124,13 @@ __device__ __forceinline__ void tn_wait() {
 
 // One thread's share of a stage of one operand: rows rr, rr + kRowsPerPass,
 // ... of the slab, the kVec columns starting at col0 + cq. A 16-byte copy
-// holds kVec elements: 4 float32 or 8 bfloat16.
+// holds kVec = 4 float32 elements.
 template <typename T>
 struct TnCopy {
+  static_assert(sizeof(T) == 4, "the tile engine loads float32");
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kLanesPerRow = kTile / kVec;          // 32 or 16
-  static constexpr int kRowsPerPass = kThreads / kLanesPerRow;  // 8 or 16
+  static constexpr int kLanesPerRow = kTile / kVec;          // 32
+  static constexpr int kRowsPerPass = kThreads / kLanesPerRow;  // 8
 
   const T* base;  // the operand's element (0, 0): a valid source for empty copies
   const T* src;   // element (0, col0 + cq), or base if no column is live
@@ -150,29 +145,20 @@ struct TnCopy {
     src = avail ? o.p + o.col0 + cq : o.p;
   }
 
-  // Rows at or past m and columns past avail land as zeros: through the
-  // copy's source size in bytes (sizeof(T) a live element), or as stored
-  // zeros where the element copies are plain loads.
+  // Rows at or past m and columns past avail land as zeros, through the
+  // copy's source size in bytes (sizeof(T) a live element).
   template <bool kVec16>
   __device__ __forceinline__ void stage(T* dst, int l, int m) const {
     const bool live = l < m && avail > 0;
     const T* row = live ? src + (long long)l * ld : base;
     if constexpr (kVec16) {
       tn_copy16(dst, row, live ? static_cast<int>(sizeof(T)) * avail : 0);
-    } else if constexpr (sizeof(T) == 4) {
+    } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const bool on = live && e < avail;
         tn_copy4(dst + e, on ? row + e : base, on ? 4 : 0);
       }
-    } else {
-      // cp.async copies 4, 8 or 16 bytes: an unaligned bfloat16 operand is
-      // read with plain 2-byte loads (ordered by the stage's barriers like
-      // the copies)
-      const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
-      unsigned short* d = reinterpret_cast<unsigned short*>(dst);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) d[e] = (live && e < avail) ? r[e] : 0;
     }
   }
 };

@@ -1,18 +1,25 @@
-// Shared Hopper tensor-core main loop of gemm_tn and gemm_tn_fused on
-// bfloat16 operands: C = alpha * X^T Y summed in float32 by wgmma.
+// Shared Hopper tensor-core main loop of gemm_tn, gemm_tn_fused, syrk and
+// syrk_gather on bfloat16 operands: C = alpha * X^T Y summed in float32 by
+// wgmma.
 //
 // Replaces the bfloat16 case of the inner loop of gemm_tn_pallas and
-// gemm_tn_fused_pallas (src/repro/kernels/gemm_tn.py:54-58 and :184-188:
-// dot_general of bfloat16 blocks with preferred_element_type=float32, which
-// the TPU runs on its matrix unit). The float32 operands keep the FMA tile
-// engine of tn_tile.cuh (and tn_narrow.cu): TF32 would change the rounding
-// of every float32 leaf, and the tensor cores take float32 only as TF32.
+// gemm_tn_fused_pallas (src/repro/kernels/gemm_tn.py:54-58 and :184-188)
+// and of syrk_pallas and syrk_gather_pallas (src/repro/kernels/syrk.py:
+// 92-97): dot_general of bfloat16 blocks with preferred_element_type=
+// float32, which the TPU runs on its matrix unit. The float32 operands keep
+// the FMA tile engine of tn_tile.cuh (and tn_narrow.cu): TF32 would change
+// the rounding of every float32 leaf, and the tensor cores take float32
+// only as TF32.
 //
 // What bounds it on the H100: bytes. A Strassen leaf stack (1430 leaves of
 // 512^3) is 3.84e11 flops, 0.388 ms at the 989 TFLOP/s of bfloat16 on the
 // tensor cores, against 1.5 GB read and 1.5 GB of float32 written, 0.895
 // ms at 3.35 TB/s. The FMA engine converted each bfloat16 element on the
-// read and ran at 9% of that bound (PERF.md).
+// read and ran at 9% of that bound (PERF.md). syrk's diagonal leaves are
+// the same case: (256, 512, 512) is 0.04 ms of lower-tile flops against
+// 0.12 ms of bytes, the float32 output twice the input; syrk.cu stages
+// each tile's partial and writes it with its mirror (its header says what
+// bounds that and what the kernel does about it).
 //
 // The design, shared by both kernels:
 // * A CTA makes a 128 x 128 float32 tile of X^T Y: C rows [r0, r0 + 128)
@@ -36,9 +43,10 @@
 //   adds (scale-d = 1). How rows are grouped into stages does not enter, so
 //   a batch entry equals its single launch, and gemm_tn_fused (whose stages
 //   hold 16 R rows) equals gemm_tn (64 rows) on the same combined operands.
-// * The epilogue stores alpha * acc, rounded once to the output type,
-//   straight from the registers (two neighbouring columns a thread: 8-byte
-//   float32 or 4-byte bfloat16 stores where k is even).
+// * gemm_tn's epilogue stores alpha * acc, rounded once to the output
+//   type, straight from the registers (two neighbouring columns a thread:
+//   8-byte float32 or 4-byte bfloat16 stores where k is even); syrk's
+//   stages it in shared memory for its dual write.
 #pragma once
 
 #include <cuda.h>
@@ -252,6 +260,49 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// The same for a 5-D tiled map, at element (x, y, z, u, v).
+__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                          int u, int v, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z), "r"(u), "r"(v),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The producer warp's fill of one side of a stage of kRows rows where TMA
+// cannot take the operand (a base or a stride that is not a multiple of 16
+// bytes): rows l0 + [0, kRows) and columns col0 + [0, 128) of p (row stride
+// ld), zero at or past (m, lim), in the swizzled layout TMA writes, 8
+// elements (16 bytes) a store. Groups of 8 columns wholly at or past lim
+// are zero in every stage, so they are stored only where `zeros` (the
+// first fill of a ring slot since its memory last held anything else): B
+// of 4 columns then costs one group a row. The caller fences the stores
+// for the async proxy (fence_async_cta) before it hands the stage over.
+template <int kRows>
+__device__ __forceinline__ void fill_side(unsigned char* side, const bf16* p, long long ld,
+                                          int col0, int lim, int l0, int m, int lane,
+                                          bool zeros) {
+  constexpr int kGroups = kTileN / 8;
+  const int live = min(kGroups, max(0, (lim - col0 + 7) / 8));
+  const int groups = zeros ? kGroups : live;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(p);
+  for (int q = lane; q < kRows * groups; q += 32) {
+    const int r = q / groups, col = (q % groups) * 8, l = l0 + r;
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = col0 + col + 2 * e;
+      const bool row = l < m;
+      const unsigned lo = (row && j < lim) ? src[(long long)l * ld + j] : 0u;
+      const unsigned hi = (row && j + 1 < lim) ? src[(long long)l * ld + j + 1] : 0u;
+      w[e] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(side + swizzled(kRows, r, col)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -289,6 +340,33 @@ inline bool encode_swizzled(CUtensorMap* map, const void* base, int cols, int ro
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 5-D tiled map of a bfloat16 operand: dims[0] columns, dims[1] rows,
+// then three outer dims (a batch, a block grid's columns and rows), and
+// strides[i] the element stride of dims[i + 1]. An outer dim of extent 1
+// is never stepped: its stride is replaced by the extent of the dims below
+// it, rounded up to 16 bytes, so that it is a valid one. Boxes of 64
+// columns x box_rows rows (one entry of each outer dim) in the 128-byte
+// swizzle; false where the encoding refuses the layout.
+inline bool encode_swizzled5(CUtensorMap* map, const void* base, const long long (&dims)[5],
+                             const long long (&strides)[4], int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t d[5], s[4];
+  for (int i = 0; i < 5; ++i) d[i] = static_cast<cuuint64_t>(dims[i]);
+  long long stride = strides[0];
+  s[0] = static_cast<cuuint64_t>(stride * 2);
+  for (int i = 1; i < 4; ++i) {
+    stride = dims[i + 1] > 1 ? strides[i] : (stride * dims[i] + 7) / 8 * 8;
+    s[i] = static_cast<cuuint64_t>(stride * 2);
+  }
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(kBox), static_cast<cuuint32_t>(box_rows), 1,
+                             1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), d, s, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -38,7 +38,9 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (all return a cudaError_t as int). The
 # launches (*_f32: float32 accumulation) take a dtypes int before the
 # stream (bit 0 bfloat16 operands, bit 1 bfloat16 output; csrc/dtype.cuh);
-# gemm_tn_f32 then the kernel the wrapper chose (kernels.gemm_tn.tn_route).
+# gemm_tn_f32 then the kernel the wrapper chose (kernels.gemm_tn.tn_route);
+# syrk_wgmma / syrk_gather_wgmma (bfloat16 operands, kernels.syrk.syrk_route)
+# then an int out-pointer (whether the stages arrived by TMA) before it.
 # The *_info entry points fill an int array with the resources of a
 # kernel's float32 instance (gemm_tn_narrow_info: the instance and plan
 # gemm_tn_f32 launches at (n, k, batch) for k up to its max_k; the *_wgmma_
@@ -54,6 +56,9 @@ SIGNATURES = {
     "syrk_f32": (P, P, I, I, I, LL, LL, F, I, I, I, I, I, P),
     "syrk_gather_f32": (P, P, P, I, I, I, I, LL, LL, F, I, I, I, P),
     "syrk_info": (I, I, P),
+    "syrk_wgmma": (P, P, I, I, I, LL, LL, F, I, I, I, I, I, P, P),
+    "syrk_gather_wgmma": (P, P, P, P, I, I, I, I, LL, LL, I, I, LL, LL, F, I, I, I, P, P),
+    "syrk_wgmma_info": (I, P),
     "potrf_f32": (P, P, I, I, I, P),
     "potrf_info": (I, P),
     "trsm_f32": (P, P, P, I, I, I, LL, I, I, P),
@@ -77,6 +82,9 @@ RESOURCE_FIELDS = {
                                  "cluster_edge", "stage_steps"),
     "syrk_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                   "ctas_per_sm", "cluster_size", "active_clusters"),
+    "syrk_wgmma_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+                        "ctas_per_sm", "cluster_size", "active_clusters", "ring_stages",
+                        "stage_rows", "threads"),
     "potrf_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
                    "ctas_per_sm"),
     "trsm_info": ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",

@@ -51,9 +51,11 @@ TN_KERNELS = ("tile", "narrow", "wgmma")
 # ops.reset_launches(); each is also one of ops.launches["gemm_tn"]
 narrow_launches = {"gemm_tn_narrow": 0}
 # CUDA launches of the bfloat16 tensor-core kernels since the last
-# ops.reset_launches(); each is also one of ops.launches["gemm_tn"] or
-# ops.launches["gemm_tn_fused"]
-wgmma_launches = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0}
+# ops.reset_launches(); each is also one of ops.launches["gemm_tn"],
+# ["gemm_tn_fused"], ["syrk"] or ["syrk_gather"] (the syrk pair counted by
+# kernels.syrk)
+wgmma_launches = {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": 0, "syrk_wgmma": 0,
+                  "syrk_gather_wgmma": 0}
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,8 +31,10 @@ operators count their CUDA launches in :data:`launches` (plain ints,
 incremented right after a launch and nowhere else), so a run can show that
 its path went through the kernels; :data:`narrow_launches` counts those
 ``gemm_tn`` launches that ran the narrow-output kernel and
-:data:`wgmma_launches` those ``gemm_tn`` and ``gemm_tn_fused`` launches
-that ran the bfloat16 tensor-core kernels. That differs from
+:data:`wgmma_launches` those ``gemm_tn``, ``gemm_tn_fused``, ``syrk`` and
+``syrk_gather`` launches that ran the bfloat16 tensor-core kernels
+(``kernels.syrk.tma_refused``, also cleared by :func:`reset_launches`,
+those syrk ones whose tensor map the card refused). That differs from
 the reference's counter, which this module keeps too: ``obs.metrics`` counter
 ``kernels.launch.<name>`` counts every wrapper call, on the card, on the
 CPU or in a trace, as ``repro.kernels.ops`` counts every call whether
@@ -55,6 +57,7 @@ from repro_torch.kernels import syrk as _syrk
 from repro_torch.kernels import trsm as _trsm
 from repro_torch.kernels._library import OPS, dtype_code, launches
 from repro_torch.kernels.gemm_tn import narrow_launches, wgmma_launches
+from repro_torch.kernels.syrk import tma_refused
 from repro_torch.tune.defaults import SYRK_BLOCKS
 
 __all__ = ["syrk", "gemm_tn", "gemm_tn_fused", "syrk_gather", "potrf", "trsm", "launches",
@@ -65,7 +68,7 @@ TILE = _potrf.MAX_N
 
 
 def reset_launches() -> None:
-    for counts in (launches, narrow_launches, wgmma_launches):
+    for counts in (launches, narrow_launches, wgmma_launches, tma_refused):
         for name in counts:
             counts[name] = 0
 

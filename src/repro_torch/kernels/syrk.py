@@ -24,22 +24,36 @@ Both launches split the contraction over :func:`syrk_splits` ``(m, n)``
 CTAs per output tile (a thread-block cluster), the one input that decides
 the kernel's summation order besides the operands.
 
-The kernel loads float32 or bfloat16, sums in float32 and stores
-``out_dtype`` (float32 or bfloat16); float64 raises on the card.
+The kernels load float32 or bfloat16, sum in float32 and store
+``out_dtype`` (float32 or bfloat16); float64 raises on the card. Which
+kernel runs is :func:`syrk_route`'s answer, by the operand type alone:
+float32 operands the FMA tile engine (``syrk_f32`` /
+``syrk_gather_f32``), bfloat16 ones the tensor-core kernel
+(``syrk_wgmma`` / ``syrk_gather_wgmma``, counted in
+``gemm_tn.wgmma_launches``), which reads the gathered leaves by TMA at
+box coordinates ``(rows[s], cols[s])`` from a second device table kept
+beside the offsets.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from repro_torch.backend import device_table, kernel_dtypes
 from repro_torch.core.symmetric import SymmetricMatrix, sym_tile
-from repro_torch.kernels.gemm_tn import vec16
+from repro_torch.kernels.gemm_tn import vec16, wgmma_launches
 from repro_torch.tune.defaults import SYRK_BLOCKS as DEFAULT_BLOCKS
 
 __all__ = ["DEFAULT_BLOCKS", "tri_coords", "syrk_splits", "syrk_plain", "syrk_cuda", "syrk_gather_plain",
-           "syrk_gather_cuda"]
+           "syrk_gather_cuda", "syrk_route", "gather_coords", "tma_refused"]
+
+# tensor-core launches since the last ops.reset_launches() whose operand
+# the wrapper found aligned but whose tensor map the card refused to encode
+# (so the producer warp filled the stages by element loads: the same bits)
+tma_refused = {"syrk_wgmma": 0, "syrk_gather_wgmma": 0}
 
 # The split rule's constants (tools/kernel_variants.py times the choices).
 RESIDENT_CTAS = 264     # 132 SMs x 2 CTAs (96 KiB of ring each)
@@ -62,6 +76,23 @@ def syrk_splits(m: int, n: int) -> int:
     tiles = nb * (nb + 1) // 2
     k = max(1, min(MAX_SPLITS, m // SPLIT_ROWS, RESIDENT_CTAS // tiles))
     return 1 << (k.bit_length() - 1)
+
+
+def syrk_route(dtype, aligned: bool):
+    """What the syrk launches run, as ``(kernel, copies)``: the kernel and
+    its copy flag. bfloat16 operands run the tensor-core kernel
+    ``"wgmma"`` (``syrk_wgmma`` / ``syrk_gather_wgmma``), by TMA where
+    ``aligned`` (1) and by the producer warp's element loads otherwise (0);
+    float32 operands the FMA tile engine ``"fma"`` (``syrk_f32`` /
+    ``syrk_gather_f32``), by 16-byte copies where ``aligned`` (1), element
+    copies otherwise (0).
+    ``aligned`` is :func:`~repro_torch.kernels.gemm_tn.vec16` of the operand
+    with its strides (and, gathered, its entry offsets)."""
+    if dtype == torch.bfloat16:
+        return "wgmma", int(aligned)
+    if dtype != torch.float32:
+        raise TypeError(f"syrk kernels take float32 or bfloat16 operands, got {dtype}")
+    return "fma", int(aligned)
 
 
 def tri_coords(t):
@@ -124,13 +155,22 @@ def syrk_cuda(a, *, alpha: float = 1.0, out_dtype=torch.float32, out="dense", bn
         bn = 0
         c = torch.empty((*lead, n, n), dtype=out_dtype, device=a.device)
     lib = _build.load()
-    v16 = vec16(a, sab, a.stride(-2))
+    kernel, copies = syrk_route(a.dtype, vec16(a, sab, a.stride(-2)))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
-                           float(alpha), int(out == "packed"), bn, syrk_splits(m, n), int(v16),
-                           dtypes, stream)
+        if kernel == "wgmma":
+            used = ctypes.c_int(0)
+            err = lib.syrk_wgmma(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
+                                 float(alpha), int(out == "packed"), bn, syrk_splits(m, n),
+                                 copies, dtypes, ctypes.byref(used), stream)
+        else:
+            err = lib.syrk_f32(a.data_ptr(), c.data_ptr(), batch, m, n, sab, a.stride(-2),
+                               float(alpha), int(out == "packed"), bn, syrk_splits(m, n), copies,
+                               dtypes, stream)
     _build.check(err, "syrk")
+    if kernel == "wgmma":
+        wgmma_launches["syrk_wgmma"] += 1
+        tma_refused["syrk_wgmma"] += int(copies and not used.value)
     return c
 
 
@@ -156,9 +196,17 @@ def syrk_gather_plain(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=tor
     return out.reshape(*stacked.shape[:-2], *out.shape[-2:])
 
 
+def gather_coords(rows, cols):
+    """The tensor-core launch's table of box coordinates: ``(S, 2)`` int32,
+    entry ``s`` holding ``(rows[s], cols[s])``, the block of the grid whose
+    element offset is ``rows[s]·stride(0) + cols[s]·stride(1)``."""
+    return np.stack([np.asarray(rows, np.int64), np.asarray(cols, np.int64)], 1).astype(np.int32)
+
+
 def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torch.float32):
     """Launch the gathered entry of ``csrc/syrk.cu`` once on the current
-    stream: the dense syrk grid with a per-entry base offset."""
+    stream: the dense syrk grid with a per-entry base offset (float32), or
+    per-entry box coordinates in the grid's tensor map (bfloat16)."""
     from repro_torch.kernels import _build
 
     rows, cols = _gather_index(a_blocks, rows, cols)
@@ -178,12 +226,26 @@ def syrk_gather_cuda(a_blocks, rows, cols, *, alpha: float = 1.0, out_dtype=torc
     lead = (S, batch) if a_blocks.ndim == 5 else (S,)
     c = torch.empty((*lead, n, n), dtype=out_dtype, device=dev)
     lib = _build.load()
-    v16 = vec16(a_blocks, sab, a_blocks.stride(-2)) \
-        and not (off_host % (16 // a_blocks.element_size())).any()
+    kernel, copies = syrk_route(a_blocks.dtype, vec16(a_blocks, sab, a_blocks.stride(-2))
+                                and not (off_host % (16 // a_blocks.element_size())).any())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S, batch,
-                                  m, n, sab, a_blocks.stride(-2), float(alpha),
-                                  syrk_splits(m, n), int(v16), dtypes, stream)
+        if kernel == "wgmma":
+            coords = device_table(("syrk_gather_coords", rows.tobytes(), cols.tobytes()), dev,
+                                  lambda: gather_coords(rows, cols))
+            used = ctypes.c_int(0)
+            R, C = a_blocks.shape[:2]
+            err = lib.syrk_gather_wgmma(a_blocks.data_ptr(), off.data_ptr(), coords.data_ptr(),
+                                        c.data_ptr(), S, batch, m, n, sab, a_blocks.stride(-2),
+                                        R, C, a_blocks.stride(0), a_blocks.stride(1),
+                                        float(alpha), syrk_splits(m, n), copies, dtypes,
+                                        ctypes.byref(used), stream)
+        else:
+            err = lib.syrk_gather_f32(a_blocks.data_ptr(), off.data_ptr(), c.data_ptr(), S,
+                                      batch, m, n, sab, a_blocks.stride(-2), float(alpha),
+                                      syrk_splits(m, n), copies, dtypes, stream)
     _build.check(err, "syrk_gather")
+    if kernel == "wgmma":
+        wgmma_launches["syrk_gather_wgmma"] += 1
+        tma_refused["syrk_gather_wgmma"] += int(copies and not used.value)
     return c

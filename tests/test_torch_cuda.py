@@ -852,17 +852,126 @@ def test_wgmma_launches_counted_by_operand_type(dev, k):
         ops.reset_launches()
         ops.gemm_tn(a.to(dt), b.to(dt))
         assert ops.launches["gemm_tn"] == 1
-        assert ops.wgmma_launches == {"gemm_tn_wgmma": tc, "gemm_tn_fused_wgmma": 0}, dt
+        assert ops.wgmma_launches == {"gemm_tn_wgmma": tc, "gemm_tn_fused_wgmma": 0,
+                                      "syrk_wgmma": 0, "syrk_gather_wgmma": 0}, dt
         assert ops.narrow_launches["gemm_tn_narrow"] == narrow, dt
         ab = _to_blocks(a.to(dt), 1)[None]
         ops.reset_launches()
         ops.gemm_tn_fused(ab, ab, _slot_tables(1))
-        assert ops.wgmma_launches == {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": tc}, dt
+        assert ops.wgmma_launches == {"gemm_tn_wgmma": 0, "gemm_tn_fused_wgmma": tc,
+                                      "syrk_wgmma": 0, "syrk_gather_wgmma": 0}, dt
     r = _build.resources("gemm_tn_wgmma_info")
     assert r["local_bytes"] == 0 and r["ctas_per_sm"] >= 1, r
     for w in (1, 2, 4, 8, 16, 32):
         r = _build.resources("gemm_tn_fused_wgmma_info", w)
         assert r["local_bytes"] == 0 and r["ctas_per_sm"] >= 1 and r["active_clusters"] >= 1, r
+
+
+def _syrk_counts():
+    from repro_torch.kernels.syrk import tma_refused
+
+    return ({k: ops.wgmma_launches[k] for k in ("syrk_wgmma", "syrk_gather_wgmma")},
+            dict(tma_refused))
+
+
+def test_syrk_bf16_runs_on_the_tensor_cores(dev):
+    """bfloat16 syrk (dense and packed) and syrk_gather launch the
+    tensor-core kernel, each counted once in ``wgmma_launches`` and, on
+    aligned operands, by TMA (no tensor map refused); float32 never does.
+    Every wgmma instance spills nothing and is resident two CTAs an SM."""
+    rng = np.random.default_rng(61)
+    x = _t(rng, (2, 300, 260), dev)
+    ab = _to_blocks(_t(rng, (512, 512), dev), 1)
+    rows, cols = np.array([0, 1]), np.array([0, 1])
+    for dt, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for call, key in ((lambda: ops.syrk(x.to(dt)), "syrk_wgmma"),
+                          (lambda: ops.syrk(x.to(dt), out="packed"), "syrk_wgmma"),
+                          (lambda: ops.syrk_gather(ab.to(dt), rows, cols), "syrk_gather_wgmma")):
+            ops.reset_launches()
+            call()
+            torch.cuda.synchronize()
+            want = {"syrk_wgmma": 0, "syrk_gather_wgmma": 0}
+            want[key] = tc
+            assert _syrk_counts() == (want, {"syrk_wgmma": 0, "syrk_gather_wgmma": 0}), (dt, key)
+            assert ops.launches["syrk" if key == "syrk_wgmma" else "syrk_gather"] == 1
+    for k in (1, 2, 4, 8):
+        r = _build.resources("syrk_wgmma_info", k)
+        assert r["local_bytes"] == 0 and r["ctas_per_sm"] == 2 and r["cluster_size"] == k, r
+        assert r["active_clusters"] >= 1, r
+
+
+@pytest.mark.parametrize("out", OUTS)
+@pytest.mark.parametrize("case", ["split_m", "ata_8192", "unaligned"])
+def test_syrk_gather_bf16_equals_syrk_on_stacked_leaves(dev, case, out):
+    """The gathered leaves, read in place by box coordinates (TMA) or from
+    their offsets by element loads (an unaligned grid), sum in the order of
+    syrk on the stacked leaves, bitwise: at a split m (m = 1050, K > 1),
+    at ata 8192²'s diagonal gather (R = 16, S = 256) and on a grid whose
+    base is off a 16-byte boundary."""
+    from repro_torch.kernels.syrk import tma_refused
+
+    rng = np.random.default_rng(62)
+    if case == "split_m":
+        ab = _to_blocks(_pad_root(_bf(rng, (2, 2100, 300), dev), 1), 1)
+        rows, cols = np.array([0, 1, 1, 0]), np.array([0, 0, 1, 1])
+        assert ab.shape[-2] == 1050 and syrk_splits(*ab.shape[-2:]) > 1
+    elif case == "ata_8192":
+        ab = _to_blocks(_bf(rng, (8192, 8192), dev), 4)
+        s = np.arange(256)
+        rows, cols = s % 16, s // 16
+    else:
+        x = _bf(rng, (700, 260), dev)
+        flat = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)
+        ab = _to_blocks(flat[1:].view(x.shape).copy_(x), 1)
+        rows, cols = np.array([1, 0, 1]), np.array([1, 0, 0])
+        assert not vec16(ab, ab.stride(-2))
+    ops.reset_launches()
+    got = ops.syrk_gather(ab, rows, cols, alpha=0.5, out_dtype=out)
+    assert ops.wgmma_launches["syrk_gather_wgmma"] == 1 and tma_refused["syrk_gather_wgmma"] == 0
+    _close_dt(got, syrk_gather_plain(ab, rows, cols, alpha=0.5, out_dtype=out), ab.shape[-2], out)
+    stacked = ab[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)]
+    want = ops.syrk(stacked.reshape(-1, *ab.shape[-2:]).contiguous(), alpha=0.5, out_dtype=out)
+    assert _bits_equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("n,req", [(300, 104), (500, 256)])
+@pytest.mark.parametrize("m,splits", [(300, 1), (600, 2), (1100, 4), (2100, 8)])
+def test_syrk_bf16_packed_equals_dense_at_every_split(dev, m, splits, n, req):
+    """Packed blocks of edge 104 and 256 against dense, bitwise, at K = 1,
+    2, 4 and 8: a tile's columns past its block's edge (bn = 104) now arrive
+    as values, and only make entries that are never written; the pad
+    entries stay exact zeros. Batch entries equal their single launches."""
+    rng = np.random.default_rng(m + req)
+    assert syrk_splits(m, n) == splits
+    a = _bf(rng, (2, m, n), dev)
+    dense = ops.syrk(a, alpha=-0.5)
+    assert _bits_equal(dense, dense.transpose(-1, -2).contiguous())
+    packed = ops.syrk(a, alpha=-0.5, blocks=(512, req), out="packed")
+    assert packed.bn == req
+    _close_dt(packed.blocks, syrk_plain(a, alpha=-0.5, out="packed", bn=req), m, torch.float32)
+    assert _bits_equal(packed.to_dense(), dense)
+    nb = -(-n // req)
+    last = packed.blocks[:, -1]   # the corner block: rows and columns past n are pad
+    edge = n - (nb - 1) * req
+    assert not last[:, edge:].any() and not last[:, :, edge:].any()
+    assert _bits_equal(ops.syrk(a[1].contiguous(), alpha=-0.5), dense[1])
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_syrk_bf16_batch_past_grid_limit(dev, aligned):
+    """65,537 entries: a CTA runs a second entry after its first partial was
+    staged over the ring (the producer refills it only after the epilogue),
+    by TMA or by element loads (whose dead columns' zeros are stored anew);
+    each entry equals its single launch."""
+    rng = np.random.default_rng(63)
+    a = _bf(rng, (65537, 40, 72), dev)
+    if not aligned:
+        a = a[..., 1:]
+    assert vec16(a, a.stride(0), a.stride(1)) == aligned
+    got = ops.syrk(a)
+    _close_dt(got, syrk_plain(a), 40, torch.float32)
+    for e in (0, 65534, 65535, 65536):
+        assert _bits_equal(got[e], ops.syrk(a[e])), e
 
 
 def test_gemm_tn_entry_refuses_a_kernel_that_cannot_take_the_operands(dev):

@@ -4,6 +4,7 @@ and ablations of the trsm and syrk kernels.
 
     PYTHONPATH=src python3 tools/kernel_variants.py [tn] [narrow] [trsm] [syrk] [wgmma]
     PYTHONPATH=src python3 tools/kernel_variants.py narrow_bf16 --earlier=DIR
+    PYTHONPATH=src python3 tools/kernel_variants.py syrk_bf16 [--earlier=DIR]
 
 (no argument: the first five parts).
 
@@ -76,6 +77,21 @@ e.g. unpacked by ``git archive``), whose C entry point takes no kernel
 argument (there bfloat16 at k ≤ 64 ran the narrow kernel, converting on the
 read), and ``torch.matmul``: each within tolerance of the plain version,
 device times in CUDA graphs of 20, in turns.
+
+``syrk_bf16`` times syrk's bfloat16 tensor-core kernel (``csrc/syrk.cu``'s
+``syrk_wgmma_kernel``) at the ata 8192² diagonal leaves (256, 512, 512)
+dense with a float32 and a bfloat16 store, their gather (R = 16, S = 256)
+and lstsq's single (2048, 512) leaf (K = 8), beside builds with one choice
+changed (``SYRK_BF16``): one CTA an SM (``__launch_bounds__(288, 1)``,
+no register cap), the epilogue's loop not unrolled, the ring's shape, a
+diagonal tile loading both sides, and ablations that leave out the wgmma, the epilogue,
+its mirror stores or every global store (wrong products: only the time is
+read), and, with ``--earlier=DIR``, an earlier tree's syrk build (whose
+``syrk_f32`` ran bfloat16 operands on the FMA engine), and
+``torch.matmul``. It prints each build's registers, stack and spill bytes
+(``-Xptxas -v``) and resident CTAs an SM; the exact variants are held
+bitwise against the shipped kernel. Device times in CUDA graphs of 20
+(the gather: bursts of 20), in turns.
 
 It needs an NVIDIA Hopper card and nvcc.
 """
@@ -187,11 +203,11 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
       TO* dst;
       int ld, ilim, i0, j0;
       if (g.packed) {
-        dst = static_cast<TO*>(g.c) + ((long long)bt * t_total + t) * g.bn * g.bn;
-        ld = ilim = g.bn, i0 = p * kTile, j0 = q * kTile;
+        dst = static_cast<TO*>(g.c) + ((long long)bt * t_total + tl.t) * g.bn * g.bn;
+        ld = ilim = g.bn, i0 = tl.p * kTile, j0 = tl.q * kTile;
       } else {
         dst = static_cast<TO*>(g.c) + (long long)bt * g.n * g.n;
-        ld = ilim = g.n, i0 = r0, j0 = c0;
+        ld = ilim = g.n, i0 = tl.r0, j0 = tl.c0;
       }
 #pragma unroll
       for (int ii = 0; ii < kMicro; ++ii) {
@@ -202,9 +218,9 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
           const int j = j0 + map.col(jj);
           if (j >= ilim) continue;
           const float v = __fmul_rn(g.alpha, acc[ii][jj]);
-          if (!sym) {
+          if (!tl.sym) {
             store1(dst + (long long)i * ld + j, v);
-          } else if (!diag || i >= j) {
+          } else if (!tl.diag || i >= j) {
             store1(dst + (long long)i * ld + j, v);
             store1(dst + (long long)j * ld + i, v);
           }
@@ -213,10 +229,10 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
     }
     __syncthreads();
 """
-SYRK_LOOP = """    if (diag)
-      tn_tile<T, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+SYRK_LOOP = """    if (tl.diag)
+      tn_tile<float, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
     else
-      tn_tile<T, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<float, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
 """
 SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
                  "      __syncthreads();     // the next entry refills the ring\n")
@@ -224,10 +240,10 @@ SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
 SYRK = {
     "shipped": None,
     "no_quadrant_skip": [
-        (SYRK_LOOP, "    tn_tile<T, kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
+        (SYRK_LOOP, "    tn_tile<float, kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
     "full_unroll": [(SYRK_LOOP, SYRK_LOOP.replace(", true>", ">"))],
     "register_epilogue": [SYRK_EPILOGUE],
-    "no_mirror": [("      if (sym) {\n", "      if (false) {\n")],
+    "no_mirror": [("      if (tl.sym) {\n", "      if (false) {\n")],
     "no_global_stores": [("  if (i >= t.lim) return;", "  return;")],
 }
 # ablations that compute a wrong answer: timed, not held bitwise
@@ -253,6 +269,37 @@ WGMMA_ABLATIONS = {"no_stores": [(WG_STORE, WG_KEEP)], "no_wgmma": [(WG_MMA, "")
                    "resident_grid": [(WG_GRID, WG_RESIDENT)]}
 # ablations that keep the shipped product: held bitwise
 WGMMA_EXACT = ("resident_grid",)
+
+
+# syrk's bfloat16 kernel: name -> textual edits of syrk.cu (None: the
+# shipped library); those in SYRK_BF16_EXACT keep the product
+SW_BOUNDS = "__global__ void __launch_bounds__(kSwThreads, 2)\n    syrk_wgmma_kernel"
+SW_ROWS, SW_STAGES = "constexpr int kSwRows = 64;", "constexpr int kSwStages = 3;"
+SW_MMA = "      wg::mma_stage(acc, xs, tl.diag ? xs : xs + kSwSide, kSwRows, wgi, n16);\n"
+SW_EPILOGUE = ("    write_tile<TO, kSplits>(g, s_tile, partial, bt, "
+               "(long long)gridDim.x / kSplits, who / 32,\n                            who % 32);\n")
+SW_DIAG = [("tl.diag ? kSwSide : kSwStageBytes", "kSwStageBytes"),
+           ("            if (!tl.diag) {\n              wg::tma_load5(ys",
+            "            if (true) {\n              wg::tma_load5(ys"),
+           ("          if (!tl.diag)\n            wg::fill_side",
+            "          if (true)\n            wg::fill_side"),
+           ("tl.diag ? xs : xs + kSwSide", "xs + kSwSide")]
+SYRK_BF16 = {
+    "shipped": None,
+    "one_cta_bound": [(SW_BOUNDS, SW_BOUNDS.replace("(kSwThreads, 2)", "(kSwThreads, 1)"))],
+    "epi_unroll1": [("#pragma unroll\n  for (int u = 0;", "#pragma unroll 1\n  for (int u = 0;")],
+    "rows32x6": [(SW_ROWS, "constexpr int kSwRows = 32;"),
+                 (SW_STAGES, "constexpr int kSwStages = 6;")],
+    "rows32x4": [(SW_ROWS, "constexpr int kSwRows = 32;"),
+                 (SW_STAGES, "constexpr int kSwStages = 4;")],
+    "diag_both_sides": SW_DIAG,
+    "no_wgmma": [(SW_MMA, "")],
+    "no_epilogue": [(SW_EPILOGUE, "")],
+    "loads_only": [(SW_MMA, ""), (SW_EPILOGUE, "")],
+    "no_mirror": [("      if (tl.sym) {\n", "      if (false) {\n")],
+    "no_global_stores": [("  if (i >= t.lim) return;", "  return;")],
+}
+SYRK_BF16_EXACT = ("one_cta_bound", "epi_unroll1", "rows32x6", "rows32x4", "diag_both_sides")
 
 
 def sources(name, edits):
@@ -511,6 +558,120 @@ def time_syrk(libs, cs, rng):
         torch.cuda.empty_cache()
 
 
+def _wgmma_ptxas(log):
+    """(registers, stack frame, spill store bytes) of each syrk_wgmma_kernel
+    instance in an nvcc -Xptxas -v log, by its mangled name's tail."""
+    out, name, frame = {}, None, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("for")[-1].strip()
+        elif name and "bytes stack frame" in line:
+            frame = line.strip()
+        elif name and "Used" in line and "syrk_wgmma_kernel" in name:
+            out[name[-24:]] = (line.split("Used")[-1].split(",")[0].strip(), frame)
+            name = None
+    return out
+
+
+def time_syrk_bf16(libs, cs, rng):
+    """syrk's bfloat16 kernel: variants and ablations at the ata 8192² diagonal
+    leaves (dense and gathered) and lstsq's (2048, 512) leaf, beside the
+    earlier build (``--earlier``) and torch.matmul."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.strassen import _to_blocks
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.syrk import gather_coords, syrk_plain, syrk_splits
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    bf16 = torch.bfloat16
+    built = [name for name in SYRK_BF16 if SYRK_BF16[name] is None or ("syrk_bf16", name) in libs]
+    for name in built:
+        lib = _build.load() if SYRK_BF16[name] is None else libs[("syrk_bf16", name)]
+        fn = lib.syrk_wgmma_info
+        fn.argtypes = list(_build.SIGNATURES["syrk_wgmma_info"])
+        for k in (1, 8):
+            out = (ctypes.c_int * 10)()
+            _build.check(fn(k, out), f"syrk_wgmma_info {name}")
+            print(f"syrk_bf16 {name} K={k}: " + json.dumps(
+                dict(zip(_build.RESOURCE_FIELDS["syrk_wgmma_info"], out))), flush=True)
+    root = cs.cuda_tensor(rng, (8192, 8192)).to(bf16)
+    ab = _to_blocks(root, 4)
+    s = np.arange(256)
+    offs = torch.as_tensor(s % 16 * ab.stride(0) + s // 16 * ab.stride(1), device="cuda")
+    coords = torch.as_tensor(gather_coords(s % 16, s // 16), device="cuda")
+    cases = {"dense (256,512,512)": (ab.transpose(0, 1).reshape(256, 512, 512).contiguous(), 0),
+             "dense (256,512,512) bf16 store": (None, 2),
+             "gather R=16 S=256": (None, 0),
+             "single (2048,512)": (cs.cuda_tensor(rng, (2048, 512)).to(bf16), 0)}
+    cases["dense (256,512,512) bf16 store"] = (cases["dense (256,512,512)"][0], 2)
+    for label, (a, store) in cases.items():
+        gather = a is None
+        x = cases["dense (256,512,512)"][0] if gather else a
+        m, n = x.shape[-2:]
+        batch = x.shape[0] if x.ndim == 3 else 1
+        k = syrk_splits(m, n)
+        c = torch.empty((batch, n, n), device="cuda", dtype=bf16 if store else torch.float32)
+        ref = syrk_plain(x, out_dtype=c.dtype)
+        runs, shipped = {}, None
+        names = built + (["earlier"] if ("syrk_bf16", "earlier") in libs else [])
+        for name in names:
+            lib = _build.load() if SYRK_BF16.get(name, 0) is None else libs[("syrk_bf16", name)]
+            if name == "earlier":
+                fn = lib.syrk_gather_f32 if gather else lib.syrk_f32
+                fn.argtypes = list(_build.SIGNATURES["syrk_gather_f32" if gather else "syrk_f32"])
+                if gather:
+                    def run(fn=fn):
+                        _build.check(fn(ab.data_ptr(), offs.data_ptr(), c.data_ptr(), 256, 1, m,
+                                        n, 0, 8192, 1.0, k, 1, 1 | store, stream()), name)
+                else:
+                    def run(fn=fn):
+                        _build.check(fn(x.data_ptr(), c.data_ptr(), batch, m, n, m * n, n, 1.0,
+                                        0, 0, k, 1, 1 | store, stream()), name)
+            elif gather:
+                fn = lib.syrk_gather_wgmma
+                fn.argtypes = list(_build.SIGNATURES["syrk_gather_wgmma"])
+
+                def run(fn=fn):
+                    used = ctypes.c_int(0)
+                    _build.check(fn(ab.data_ptr(), offs.data_ptr(), coords.data_ptr(),
+                                    c.data_ptr(), 256, 1, m, n, 0, 8192, 16, 16, ab.stride(0),
+                                    ab.stride(1), 1.0, k, 1, 1 | store, ctypes.byref(used),
+                                    stream()), name)
+                    if not used.value:
+                        raise AssertionError(f"syrk_gather {name}: the tensor map was refused")
+            else:
+                fn = lib.syrk_wgmma
+                fn.argtypes = list(_build.SIGNATURES["syrk_wgmma"])
+
+                def run(fn=fn):
+                    used = ctypes.c_int(0)
+                    _build.check(fn(x.data_ptr(), c.data_ptr(), batch, m, n, m * n, n, 1.0, 0,
+                                    0, k, 1, 1 | store, ctypes.byref(used), stream()), name)
+                    if not used.value:
+                        raise AssertionError(f"syrk {name}: the tensor map was refused")
+            run()
+            torch.cuda.synchronize()
+            if name == "shipped":
+                cs.Checks({}).compare(f"syrk bf16 {label} K={k}", c.reshape(ref.shape), ref, m)
+                shipped = c.clone()
+            elif name in SYRK_BF16_EXACT and not torch.equal(c, shipped):
+                raise AssertionError(f"syrk bf16 {name} {label} differs from the shipped kernel")
+            elif name == "earlier":
+                cs.Checks({}).compare(f"syrk bf16 {label} earlier", c.reshape(ref.shape), ref, m)
+            runs[name] = run
+        runs["torch.matmul"] = lambda: torch.matmul(x.transpose(-1, -2), x)
+        timer = cs.burst_ms if gather else (lambda f: cs.graph_ms(f, 20))
+        times = {}
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault(name, []).append(round(timer(runs[name]), 5))
+        print(f"syrk bf16 {label} (K = {k}) device ms, in turns: " + json.dumps(times),
+              flush=True)
+        del c, ref, shipped
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -522,7 +683,7 @@ def main() -> int:
                     if x.startswith("--earlier=")), None)
     parts = {x for x in sys.argv[1:] if not x.startswith("--earlier=")} or {
         "tn", "narrow", "trsm", "syrk", "wgmma"}
-    if not parts <= {"tn", "narrow", "trsm", "syrk", "wgmma", "narrow_bf16"}:
+    if not parts <= {"tn", "narrow", "trsm", "syrk", "wgmma", "narrow_bf16", "syrk_bf16"}:
         print(f"kernel_variants: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -564,6 +725,14 @@ def main() -> int:
         for name, edits in SYRK.items():
             if edits is not None:
                 jobs[("syrk", name)] = (sources("syrk_" + name, {"syrk.cu": edits}), ("syrk.cu",))
+    if "syrk_bf16" in parts:
+        _build.load()
+        for name, edits in SYRK_BF16.items():
+            if edits is not None:
+                jobs[("syrk_bf16", name)] = (sources("syrk_bf16_" + name, {"syrk.cu": edits}),
+                                             ("syrk.cu",))
+        if earlier is not None:
+            jobs[("syrk_bf16", "earlier")] = (earlier, ("syrk.cu",))
     procs = {key: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d,
          *(os.path.join(d, src) for src in srcs), "-o", os.path.join(d, "lib.so")],
@@ -572,11 +741,17 @@ def main() -> int:
     libs = {}
     for key, proc in procs.items():
         log, _ = proc.communicate()
+        if proc.returncode and key[0] == "syrk_bf16" and key[1] != "earlier":
+            print(f"{key[0]} {key[1]}: nvcc failed, left out:\n{log[-2000:]}", flush=True)
+            continue
         if proc.returncode:
             print(log)
             raise RuntimeError(f"nvcc failed on {key}")
-        regs = [ln.split(":")[-1].strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"{key[0]} {key[1]}: {regs}", flush=True)
+        if key[0] == "syrk_bf16":
+            print(f"{key[0]} {key[1]}: {json.dumps(_wgmma_ptxas(log))}", flush=True)
+        else:
+            regs = [ln.split(":")[-1].strip() for ln in log.splitlines() if "Used" in ln]
+            print(f"{key[0]} {key[1]}: {regs}", flush=True)
         libs[key] = ctypes.CDLL(os.path.join(jobs[key][0], "lib.so"))
 
     rng = np.random.default_rng(0)
@@ -595,6 +770,9 @@ def main() -> int:
         time_trsm(libs, cs, rng)
     if "syrk" in parts:
         time_syrk(libs, cs, rng)
+    if "syrk_bf16" in parts:
+        print("syrk_bf16 shipped: " + json.dumps(_wgmma_ptxas(_build.build()[2])), flush=True)
+        time_syrk_bf16(libs, cs, rng)
     return 0
 
 

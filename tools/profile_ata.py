@@ -46,10 +46,14 @@ def measure(fn, calls: int = 1) -> dict:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         events.append(start.elapsed_time(end))
+    # the trace drops device activity whose converted timestamps fall outside
+    # its window: idle the card briefly at both ends so no kernel is lost
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     kernels, busy_us = 0, 0.0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
