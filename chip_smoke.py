@@ -138,20 +138,20 @@ phase fails):
              kernels must be launched by the ranks' checked runs.
 
 12. serve  — the serving layer (``repro_torch.serve``): (a) the smoke
-             lattice (``smoke_config``) under the card's rule and the CLI's
-             mixed workload of 100 requests, every served slice bitwise equal
-             to its per-request twin on the card, none refused by the card's
-             rule, zero recaptures; (b) a lattice at the sizes users serve
-             (lstsq n ∈ {256, 512} over m bands {512, 8192}, r bands
-             {1, 8, 64}, B = 8; whiten n = 1024, m = 4096, r = 64, B = 4):
-             256 seeded requests back to back, every slice bitwise equal to
-             its twin, two requests of every bucket against float64 (the
-             backward error within (m + n)·eps32, the forward error within
-             max(1e-3, 2·κ·(m + n)·eps32)), zero recaptures, the share of
-             the reference lattice's request shapes the card's rule admits;
+             lattice (``smoke_config``) and the CLI's mixed workload of 100
+             requests, every served slice bitwise equal to its per-request
+             twin on the card, zero recaptures; (b) a lattice at the sizes
+             users serve (lstsq n ∈ {256, 512} over m bands {512, 8192}, r
+             bands {1, 8, 64}, B = 8; whiten n = 1024, m = 4096, r = 64,
+             B = 4), served as the reference's lattice (all 1,048,640 of
+             its request shapes admitted): 256 seeded requests back to
+             back, ragged in m and r across every band, every slice bitwise
+             equal to its twin, two requests of every bucket against
+             float64 (the backward error within (m + n)·eps32, the forward
+             error within max(1e-3, 2·κ·(m + n)·eps32)), zero recaptures;
              (c) a ``torch.profiler`` trace of one replay per bucket naming
-             csrc's syrk, potrf, trsm and (m ≤ 512 lstsq buckets) gemm_tn
-             kernels as many times as the capture launched them; (d) per
+             csrc's syrk, potrf, trsm and gemm_tn kernels as many times as
+             the capture launched them, and no library product; (d) per
              bucket: warm seconds (eager run, capture), the cold first
              request of a fresh server, replay ms, request p50/p95/p99 (a
              bucket's ~20 requests, arriving back to back), the same batch
@@ -4039,16 +4039,17 @@ def phase_mesh(ops):
 # ---------------------------------------------------------------------------
 
 # (b)'s lattice: lstsq at n ∈ {256, 512} over m bands {512, 8192} and r bands
-# {8, 64} (r = 1 added: the card's rule makes every bucket of n ≥ 256 exact in
-# r — n spans two packed blocks or more —, so a vector right-hand side needs a
-# bucket of its own), and whiten at qwen1.5-0.5b's Shampoo block n = 1024
-# (phase optim); 256 requests.
+# {1, 8, 64} (a vector right-hand side has a bucket of its own), and whiten at
+# qwen1.5-0.5b's Shampoo block n = 1024 (phase optim; exact in m, its gram
+# recurses); 256 requests. The card serves the reference's lattice as it
+# stands: SERVE_ADMITTED request shapes.
 SERVE_LSTSQ = dict(ops=("lstsq",), n_values=(256, 512), m_bands=(512, 8192),
                    r_bands=(1, 8, 64), batch=8)
 SERVE_WHITEN = dict(ops=("whiten",), n_values=(1024,), m_bands=(4096,), r_bands=(64,),
                     batch=4)
 SERVE_REQUESTS = 256
 SERVE_RIDGES = (0.0, 1e-3, 1e-2)
+SERVE_ADMITTED = 1_048_640   # lstsq: 2 n × 8192 m × 64 r; whiten (exact m): 64 r
 
 
 def serve_one(op, a, b, twin, ridge=0.0):
@@ -4152,19 +4153,17 @@ def admitted_shapes(specs) -> int:
     total = 0
     for group in groups.values():
         for m in range(1, max(s.m for s in group) + 1):
-            rs = set()
-            for s in group:
-                if m == s.m if s.exact_m else m <= s.m:
-                    rs |= {s.r} if s.exact_r else set(range(1, s.r + 1))
-            total += len(rs)
+            total += max((s.r for s in group if (m == s.m if s.exact_m else m <= s.m)),
+                         default=0)
     return total
 
 
 def serve_requests(lattice, rng, count):
     """(b)'s workload: buckets drawn uniformly, ragged m and r inside each
-    band where the bucket bands them (``m = spec.m`` where it is exact_m,
-    ``r = spec.r`` where exact_r), a quarter of the requests with a vector
-    right-hand side (routed to r = 1 buckets), ridges from
+    band (``m = spec.m`` where it is exact_m; m above the band below and r
+    above the r band below, so each request lands in the bucket drawn), a
+    quarter of the requests with a vector right-hand side (routed to the
+    r = 1 bucket of the drawn m band, where there is one), ridges from
     ``SERVE_RIDGES``."""
     from repro_torch.serve.__main__ import _make_request
 
@@ -4172,13 +4171,14 @@ def serve_requests(lattice, rng, count):
     reqs = []
     for i in range(count):
         vector = i % 4 == 3
-        pool = [s for s in specs if s.r == 1 or not s.exact_r] if vector else \
-            [s for s in specs if s.r > 1]
+        pool = specs if vector else [s for s in specs if s.r > 1]
         s = pool[int(rng.integers(len(pool)))]
         lower = max([t.m for t in specs if (t.op, t.n) == (s.op, s.n) and t.m < s.m],
                     default=s.n - 1)
+        r_lower = max([t.r for t in specs if (t.op, t.n, t.m) == (s.op, s.n, s.m)
+                       and t.r < s.r], default=0)
         m = s.m if s.exact_m else int(rng.integers(lower + 1, s.m + 1))
-        r = 0 if vector else (s.r if s.exact_r else int(rng.integers(1, s.r + 1)))
+        r = 0 if vector else int(rng.integers(r_lower + 1, s.r + 1))
         ridge = SERVE_RIDGES[int(rng.integers(len(SERVE_RIDGES)))]
         reqs.append(_make_request(rng, s.op, m, s.n, r, ridge))
     return reqs
@@ -4240,6 +4240,16 @@ PROFILE_PAD_S = 0.05
 # tensor-core kernel's in bfloat16)
 SERVE_PROFILED = {"syrk": ("syrk_kernel",), "potrf": ("potrf_kernel",), "trsm": ("trsm_kernel",),
                   "gemm_tn": ("gemm_tn_kernel", "gemm_tn_narrow_kernel", "gemm_tn_wgmma_kernel")}
+# name fragments of the library's (cuBLAS's) product kernels: a flush runs none
+LIBRARY_PRODUCTS = ("gemm", "gemv", "xmma", "cutlass", "splitK", "dot_kernel")
+
+
+def library_products(names) -> int:
+    """Launches in a profile (``serve_profile``) of kernels whose names are
+    the library's products', not the port's."""
+    ours = [p for kernel_names in SERVE_PROFILED.values() for p in kernel_names]
+    return sum(v for name, v in names.items()
+               if any(p in name for p in LIBRARY_PRODUCTS) and not any(p in name for p in ours))
 
 
 def serve_profile(program):
@@ -4281,7 +4291,7 @@ def phase_serve(ops):
     import torch
 
     from repro_torch.serve import metrics as serve_metrics
-    from repro_torch.serve.__main__ import _mixed_workload, _refused_by_rule, _run_workload
+    from repro_torch.serve.__main__ import _mixed_workload, _run_workload
     from repro_torch.serve.bucketing import make_buckets
     from repro_torch.serve.engine import Server, ServeConfig, smoke_config
 
@@ -4290,26 +4300,23 @@ def phase_serve(ops):
     res = {}
     failed = []
 
-    # (a) the smoke lattice under the card's rule, the CLI's mixed workload
+    # (a) the smoke lattice, the CLI's mixed workload
     server = Server(smoke_config())
     server.warm()
     reqs = list(_mixed_workload(100, SEED))
     served, rejected = _run_workload(server, reqs)
-    refused = _refused_by_rule(server, reqs)
     bad = serve_check_twins(server, served)
     res["smoke"] = dict(buckets=[s.label() for s in server.buckets], served=len(served),
-                        rejected=rejected, refused_by_card_rule=refused,
-                        recaptures=server.retraces(), twin_mismatches=len(bad))
+                        rejected=rejected, recaptures=server.retraces(),
+                        twin_mismatches=len(bad))
     log(f"  (a) smoke ({time.perf_counter() - t_phase:.1f} s): " + json.dumps(res["smoke"]))
     failed += bad[:5]
     if server.retraces() or not all(t.done() for t in served) or not served:
         failed.append("smoke: recaptures, unserved tickets or nothing served")
-    if refused:
-        failed.append(f"smoke: the card's rule refused {refused} requests the reference admits")
     del server
     torch.cuda.empty_cache()
 
-    # (b) the lattice at the sizes users serve; the server adds the card's rule
+    # (b) the lattice at the sizes users serve, as the reference serves it
     buckets = make_buckets(**SERVE_LSTSQ) + make_buckets(**SERVE_WHITEN)
     cfg = ServeConfig(buckets=buckets, capacity=2 * SERVE_REQUESTS, max_wait_s=0.005)
     torch.cuda.reset_peak_memory_stats()
@@ -4336,11 +4343,19 @@ def phase_serve(ops):
         f"{len(served)} served, {rejected} rejected in {wall:.3f} s "
         f"({len(served) / wall:.1f} requests/s); recaptures {server.retraces()}; "
         f"graphs and buffers held {held} B, warm peak {peak} B; launches of warm "
-        f"{warm_counts}, replayed by the workload {workload_counts}; the card's rule admits "
-        f"{shapes_card} of the reference lattice's {shapes_ref} request shapes "
-        f"({shapes_card / shapes_ref:.4%}): " + ", ".join(s.label() for s in server.buckets))
+        f"{warm_counts}, replayed by the workload {workload_counts}; the card admits "
+        f"{shapes_card} request shapes, the reference lattice {shapes_ref}: "
+        + ", ".join(s.label() for s in server.buckets))
     if rejected or server.retraces() or not all(t.done() for t in served):
         failed.append(f"(b): {rejected} rejected, {server.retraces()} recaptures")
+    if server.buckets != buckets or not shapes_card == shapes_ref == SERVE_ADMITTED:
+        failed.append(f"(b): the card admits {shapes_card} request shapes, the reference "
+                      f"lattice {shapes_ref} (expected {SERVE_ADMITTED})")
+    banded = [t for t in served if t.request.a.shape[0] < t.bucket.m
+              and t.request.b.ndim == 2 and t.request.b.shape[-1] < t.bucket.r]
+    log(f"  (b) {len(banded)} of {len(served)} requests padded in both m and r")
+    if not banded:
+        failed.append("(b): no request was padded in both m and r")
     if dict(ops.launches) != warm_counts:
         failed.append(f"(b): the workload launched kernels outside the graphs: {ops.launches}")
     bad = serve_check_twins(server, served)
@@ -4381,6 +4396,10 @@ def phase_serve(ops):
         if launched != {k: fn.capture_launches[k] for k in launched}:
             failed.append(f"{spec.label()}: profiled replay {launched} != capture "
                           f"{fn.capture_launches}")
+        blas = library_products(names)
+        if blas:
+            failed.append(f"{spec.label()}: a replay ran {blas} library products: "
+                          + ", ".join(sorted(names)))
         replay_ms = time_ms(fn._graph.replay, runs=10)
         eager_ms = time_ms(lambda: fn.run(a, b, ridge), runs=5)
         # B per-request lstsq calls on the batch's slices (what batching saves)
@@ -4403,7 +4422,7 @@ def phase_serve(ops):
             eager_batch_ms=eager_ms, per_request_loop_ms=loop_ms, library_ms=lib_ms,
             library_device_ms=lib_device_ms, bound_ms=bms, bound_by=by,
             flushes=fn.replays, launches_per_flush=fn.capture_launches,
-            profiled=launched, requests=lat.get("count", 0),
+            profiled=launched, library_products=blas, requests=lat.get("count", 0),
             latency_ms={k: lat[k] * 1e3 for k in ("p50", "p95", "p99")} if lat else None)
         log(f"  {spec.label()} ({time.perf_counter() - t_phase:.1f} s): "
             + json.dumps(per[spec.label()], default=str))

@@ -286,26 +286,24 @@ def run_distributed(*, world: int = 4, allowlist: Optional[Sequence[Allow]] = No
 
 
 def _serve_expected_dots(spec, sp, device) -> int:
-    """Closed-form count of library product nodes of one bucket program.
-
-    The gram is one batched dispatch whose count is the unbatched gram's
-    (the batch dim rides every product; none on the kernel path); the
-    Cholesky walk and the substitutions run per batch entry (the engine's
-    bitwise contract with the per-request twin), each entry the solve
-    closed form's factor band, plus for lstsq one ``Aᵀb`` — a product
-    unless the card's ``gemm_tn`` kernel takes it (≤ ``UNSPLIT_MAX_ROWS``
-    rows). Whiten buckets take ONE substitution pass and no ``Aᵀb``.
+    """Closed-form count of library product nodes of one bucket program,
+    the reference's batched pipeline: each stage is one batched dispatch
+    whose count is the unbatched one's. The gram takes the gram plan's
+    (none on the kernel path); the Cholesky walk and the substitutions
+    take the solve closed form's factor band, plus for lstsq one ``Aᵀb``;
+    whiten buckets take ONE substitution pass and no ``Aᵀb``. On the card
+    ``Aᵀb`` and every Schur product are ``gemm_tn`` launches, no product
+    node, at every ``m``.
     """
-    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
-
     gram_plan = dataclasses.replace(sp, op="ata", k=sp.n)
     gram = 0 if sp.use_kernels else _rules.expected_dots(gram_plan)
+    if device.type == "cuda":
+        return gram
     nbk = -(-sp.n // _rules._packed_bn(sp))
     band = (nbk - 1) + max(nbk - 2, 0)
     if spec.op == "lstsq":
-        rhs = 0 if (device.type == "cuda" and spec.m <= UNSPLIT_MAX_ROWS) else 1
-        return gram + spec.batch * (rhs + band + 2 * (nbk - 1))
-    return gram + spec.batch * (band + (nbk - 1))
+        return gram + 1 + band + 2 * (nbk - 1)
+    return gram + band + (nbk - 1)
 
 
 # the serve-path rule set: the packed/structural contracts the bucket

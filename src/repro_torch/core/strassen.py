@@ -126,28 +126,25 @@ def _dot_tn(a, b, acc_dtype):
     """Plain ``AᵀB`` over the last two dims (leading dims are batch), with
     an ``acc_dtype`` accumulator, ``Aᵀ`` never formed.
 
-    On a CUDA device, float32 or bfloat16 operands of at most
-    ``UNSPLIT_MAX_ROWS`` rows go to ``ops.gemm_tn``, which launches the
-    narrow-output kernel (``csrc/tn_narrow.cu``) for ``B`` of at most 64
-    columns and the tile engine (``csrc/tn_tile.cuh``) above: both sum each
-    output as one ``fmaf`` chain over ascending rows, and each column of
-    ``B`` on its own, so zero rows and zero columns leave every other
-    output's bits as they were, whichever kernel a padded shape lands on. The serving layer bands ``m`` and
-    ``r`` on that (``repro_torch.serve.bucketing``). Above it, or in
-    float64, ``torch.matmul``: cuBLAS picks its split of the contraction
-    from the shape, and a serving bucket keeps ``m`` and ``r`` exact there.
+    On a CUDA device float32 or bfloat16 operands go to ``ops.gemm_tn`` at
+    every ``m``: the narrow-output kernel (``csrc/tn_narrow.cu``) for ``B``
+    of at most 64 columns, the tile engine (``csrc/tn_tile.cuh``) above.
+    Both sum each output as one ``fmaf`` chain over ascending rows, and each
+    column of ``B`` on its own, so zero rows, zero columns and the batch
+    index leave every other output's bits as they were, whichever kernel a
+    padded shape lands on: the serving layer bands ``m`` and ``r`` on that
+    (``repro_torch.serve.bucketing``). float64 takes the plain product.
 
     On the CPU a one-column ``B`` is the first column of a two-column
     product: MKL sums a matrix-vector product in another order than a
     matrix product, so a vector right-hand side would otherwise round
     differently from the same column inside a wider ``B``."""
     if a.is_cuda:
+        if torch.float64 in (a.dtype, b.dtype, acc_dtype):
+            return gemm_tn_plain(a, b, out_dtype=acc_dtype)
         from repro_torch.kernels import ops
-        from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
 
-        if a.shape[-2] <= UNSPLIT_MAX_ROWS and torch.float64 not in (a.dtype, b.dtype, acc_dtype):
-            return ops.gemm_tn(a, b, out_dtype=acc_dtype)
-        return gemm_tn_plain(a, b, out_dtype=acc_dtype)
+        return ops.gemm_tn(a, b, out_dtype=acc_dtype)
     if b.shape[-1] == 1:
         return gemm_tn_plain(a, F.pad(b, (0, 1)), out_dtype=acc_dtype)[..., :1]
     return gemm_tn_plain(a, b, out_dtype=acc_dtype)

@@ -37,16 +37,24 @@
 //   scalar stores of the same runs otherwise. A diagonal target writes sym
 //   of the lower half (T[max(i,j)][min(i,j)]), so the output is bitwise
 //   symmetric with no pass over the square afterwards.
-// * A cluster-split contraction when the grid is small. m is split into K
-//   row ranges [r*chunk, (r+1)*chunk), chunk a multiple of 32; the K CTAs
-//   of one output tile form a thread-block cluster along x (grid
-//   (T*K, sub^2, batch)). Each runs the engine over its range and stages its
-//   partial; after one cluster barrier, CTA r sums its share of the tile's
-//   4 x 4 blocks over all K partials through distributed shared memory and
-//   writes them. No workspace in global memory, no second launch. K is a
-//   template parameter (one instance each for 1, 2, 4, 8), so the
-//   epilogue's loops are unrolled. lstsq's single (2048, 512) leaf has 10
-//   tiles: 10 CTAs on 132 SMs unsplit, 80 at K = 8.
+// * A cluster-split contraction when the grid is small. m is cut into
+//   chunks of kChunkRows rows, and CTA r of the K that share an output tile
+//   sums chunks r, r + K, r + 2K, ... as one chain; the K CTAs form a
+//   thread-block cluster along x (grid (T*K, sub^2, batch)). Each runs the
+//   engine over its chunks and stages its partial; after one cluster
+//   barrier, CTA r sums its share of the tile's 4 x 4 blocks over all K
+//   partials through distributed shared memory and writes them. No
+//   workspace in global memory, no second launch. K is a template
+//   parameter (one instance each for 1, 2, 4, 8), so the epilogue's loops
+//   are unrolled. lstsq's single (2048, 512) leaf has 10 tiles: 10 CTAs on
+//   132 SMs unsplit, 40 at its K = 4 (four chunks).
+// * Row ranges that padding cannot move. The chunks are cut at multiples of
+//   a constant, not of m / K, and K (repro_torch.kernels.syrk.syrk_splits)
+//   is min(F(n), the power of two at or above the chunk count): with at
+//   most F(n) chunks each sits alone first in CTA c, with more every K is
+//   F(n). So zero rows appended to A only add exact +0 terms to chains and
+//   +0 partials in the rank sum, and a request padded into a serving
+//   bucket's band keeps its gram's bits (repro_torch.serve.bucketing).
 //
 // bfloat16, what bounds it on the H100: bytes. The ata 8192² diagonal
 // leaves (256, 512, 512) are 43 GFLOP of lower tiles, 0.04 ms at the
@@ -83,15 +91,17 @@
 // CTA only partly hide (without them the kernel runs near its loads).
 //
 // Summation order, the contract of every output: with p_r the partial over
-// rows [r*chunk, min(m, (r+1)*chunk)) — float32: the engine's fmaf chain
-// (tn_tile.cuh); bfloat16: wgmma's k16 steps in ascending rows from +0
-// (tn_wgmma.cuh), chunk being a multiple of 16 —
+// the rows of chunks r, r + K, r + 2K, ... below m (chunk c: rows
+// [c*kChunkRows, (c+1)*kChunkRows)) as one chain in ascending rows —
+// float32: the engine's fmaf chain (tn_tile.cuh); bfloat16: wgmma's k16
+// steps in ascending rows from +0 (tn_wgmma.cuh), kChunkRows being a
+// multiple of 64 —
 //   C = (...((alpha*p_0 + alpha*p_1) + alpha*p_2) ... + alpha*p_{K-1}),
 // rank order, each product and sum rounded once (__fmul_rn, __fadd_rn).
 // K = splits is chosen by the wrapper (repro_torch.kernels.syrk.syrk_splits)
-// from (m, n) alone, and chunk from (m, K) here, so a batch entry equals its
-// single launch, packed equals dense, and syrk_gather equals syrk on the
-// stacked leaves, bitwise. At K = 1 an output is alpha * p_0. An element
+// from (m, n) alone, so a batch entry equals its single launch, packed
+// equals dense, and syrk_gather equals syrk on the stacked leaves, bitwise.
+// At K = 1 an output is alpha * p_0, one chain over [0, m). An element
 // (i, j), i > j, is always made with column i of A on the tile's row side,
 // whatever the grid (dense, packed, gathered), and the upper half is its
 // mirror.
@@ -131,6 +141,9 @@
 namespace repro_torch {
 
 constexpr int kWarps = kThreads / 32;
+// rows of one chunk of the split contraction (repro_torch.kernels.syrk.CHUNK_ROWS)
+constexpr int kChunkRows = 512;
+static_assert(kChunkRows % kSlab == 0, "a chunk is whole stages of the FMA engine");
 constexpr int kBlocks = kTile / 4;                       // 4 x 4 blocks a tile edge
 constexpr int kGroups = (kBlocks / 4) * (kBlocks / 8);   // warp groups of 4 x 8 blocks
 
@@ -143,7 +156,6 @@ struct SyrkArgs {
   int m, n;
   float alpha;
   int packed, bn, sub;    // packed: storage block edge, 128-tiles a block edge
-  int chunk;              // CTA r of a cluster of K sums rows [r*chunk, (r+1)*chunk)
   int vec_out;            // ld a multiple of 4 and c aligned to 4 elements: vector stores
 };
 
@@ -316,8 +328,6 @@ __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   SyrkTile tl;
   if (!syrk_tile<kSplits>(g, tl, blockIdx.x, blockIdx.y)) return;  // the whole cluster
-  const int l0 = tl.rank * g.chunk;
-  const int l1 = max(l0, min(g.m, l0 + g.chunk));
   const long long t_total = (long long)gridDim.x / kSplits;
 
   for (int bt = blockIdx.z; bt < g.batch; bt += gridDim.z) {
@@ -326,10 +336,15 @@ __global__ void __launch_bounds__(kThreads, 2) syrk_kernel(const SyrkArgs g) {
                              : a + (long long)bt * g.sab;
     float acc[kMicro][kMicro];
     const TnOperand<float> x{ab, g.lda, tl.r0, tl.rlim}, y{ab, g.lda, tl.c0, tl.clim};
+    // CTA rank's partial: its chunks rank, rank + K, ... as one chain; at
+    // K = 1 the rows [0, m) in order
+    constexpr int kRun = kSplits > 1 ? kChunkRows : 0;
+    const int l0 = kSplits > 1 ? tl.rank * kChunkRows : 0;
     if (tl.diag)
-      tn_tile<float, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<float, kVec16, true, true, kRun, kSplits * kChunkRows>(x, y, l0, g.m, smem, map, acc);
     else
-      tn_tile<float, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<float, kVec16, false, true, kRun, kSplits * kChunkRows>(x, y, l0, g.m, smem, map,
+                                                                      acc);
     __syncthreads();  // every warp is done with the ring: stage the partial over it
 #pragma unroll
     for (int ii = 0; ii < kMicro; ++ii)
@@ -400,11 +415,8 @@ static void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, dim3 g
   cfg.numAttrs = splits > 1;  // K = 1: a plain launch, no cluster
 }
 
-// The chunk rule and the output's vector stores, shared by both kernels:
-// chunk = ceil(m / K) rounded up to 32 rows (a multiple of the k16 step).
-static void plan(SyrkArgs& g, int splits, int dtypes) {
-  const int per = (g.m + splits - 1) / splits;
-  g.chunk = (per + kSlab - 1) / kSlab * kSlab;
+// The output's vector stores, shared by both kernels.
+static void plan(SyrkArgs& g, int dtypes) {
   const int ld = g.packed ? g.bn : g.n;
   g.vec_out = ld % 4 == 0 && reinterpret_cast<std::uintptr_t>(g.c) % (4 * out_bytes(dtypes)) == 0;
 }
@@ -420,7 +432,7 @@ static int launch(int dtypes, int vec16, long long tiles, int sub, int splits, S
   const SyrkKernel kernel = instance(dtypes, vec16, splits, &err);
   if (kernel == nullptr) return static_cast<int>(err);
   if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  plan(g, splits, dtypes);
+  plan(g, dtypes);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   configure(cfg, attr, grid_of(tiles, sub, splits, g.batch), splits, kThreads, kTnSmemBytes,
@@ -442,7 +454,27 @@ constexpr int kSwSmemBytes = kSwStages * kSwStageBytes + 1024;  // + the 1024-by
 constexpr int kSwThreads = wg::kConsumers + 32;        // two warpgroups and the producer warp
 static_assert(kTile * kTile * 4 <= kSwStages * kSwStageBytes, "the partial fits over the ring");
 static_assert(wg::kConsumers == kThreads, "write_tile's lane map takes the 8 consumer warps");
-static_assert(kSlab % wg::kStep == 0, "a split's chunk is whole k16 steps");
+static_assert(kChunkRows % kSwRows == 0, "a chunk is whole stages of the tensor-core ring");
+
+// The stages of kSwRows rows that CTA `rank` of K = kSplits sums: those of
+// its chunks rank, rank + K, ... below m, every one whole but the last
+// chunk of the contraction.
+template <int kSplits>
+__device__ __forceinline__ int chunk_stages(int m, int rank) {
+  const int chunks = (m + kChunkRows - 1) / kChunkRows;
+  if (rank >= chunks) return 0;
+  const int mine = (chunks - 1 - rank) / kSplits + 1;
+  const int last = (rank + (mine - 1) * kSplits) * kChunkRows;  // its last chunk's first row
+  return (mine - 1) * (kChunkRows / kSwRows) + (min(m, last + kChunkRows) - last + kSwRows - 1) /
+                                                   kSwRows;
+}
+
+// The first row of stage s of CTA `rank`'s sequence (chunk_stages).
+template <int kSplits>
+__device__ __forceinline__ int chunk_row(int s, int rank) {
+  constexpr int per = kChunkRows / kSwRows;
+  return (rank + (s / per) * kSplits) * kChunkRows + (s % per) * kSwRows;
+}
 
 // threadIdx.x, read where it is called: the epilogue's shared-memory
 // addresses derive from it after the main loop's last barrier, so the
@@ -514,10 +546,16 @@ __global__ void __launch_bounds__(kSwThreads, 2)
   __syncthreads();
   unsigned char* ring = wg::align1024(sw_smem);
   float* partial = reinterpret_cast<float*>(ring);  // the staged tile, over the ring
-  const int l0 = tl.rank * g.chunk;
-  const int l1 = max(l0, min(g.m, l0 + g.chunk));
-  const int stages = (l1 - l0 + kSwRows - 1) / kSwRows;
-  const int steps = (l1 - l0 + wg::kStep - 1) / wg::kStep;  // k16 steps of the range
+  // the CTA's chunks as one sequence of stages, the ring's phases running on
+  // across them
+  const int stages = chunk_stages<kSplits>(g.m, tl.rank);
+  // k16 steps of the last stage, those that start below m (every other
+  // stage is whole: only the contraction's last chunk is short, and it is
+  // the last of its CTA's)
+  const int tail = stages ? min(kSwRows / wg::kStep,
+                                (g.m - chunk_row<kSplits>(stages - 1, tl.rank) + wg::kStep - 1) /
+                                    wg::kStep)
+                          : 0;
   unsigned gs = 0;  // stages filled (the producer) or consumed (the consumers) so far
 
   // The producer warp and the consumer warpgroups run their own loops over
@@ -536,7 +574,7 @@ __global__ void __launch_bounds__(kSwThreads, 2)
       const bf16* base = static_cast<const bf16*>(g.a) +
                          (g.offs ? g.offs[s_] + (long long)b * g.sab : (long long)bt * g.sab);
       for (int s = 0; s < stages; ++s, ++gs) {
-        const int slot = gs % S, l = l0 + s * kSwRows;
+        const int slot = gs % S, l = chunk_row<kSplits>(s, tl.rank);
         if (gs >= S) wg::mbar_wait(&empty[slot], (gs / S - 1) & 1);
         unsigned char* xs = ring + slot * kSwStageBytes;
         unsigned char* ys = xs + kSwSide;
@@ -578,7 +616,7 @@ __global__ void __launch_bounds__(kSwThreads, 2)
       const int slot = gs % S;
       wg::mbar_wait(&full[slot], (gs / S) & 1);
       const unsigned xs = wg::smem_u32(ring + slot * kSwStageBytes);
-      const int n16 = min(kSwRows / wg::kStep, steps - s * (kSwRows / wg::kStep));
+      const int n16 = s + 1 < stages ? kSwRows / wg::kStep : tail;
       wg::hold(acc);
       wg::fence();
       wg::mma_stage(acc, xs, tl.diag ? xs : xs + kSwSide, kSwRows, wgi, n16);
@@ -654,7 +692,7 @@ static int launch_wgmma(int dtypes, long long tiles, int sub, int splits, SyrkWg
   const SyrkWgKernel kernel = wgmma_instance(dtypes, splits, &err);
   if (kernel == nullptr) return static_cast<int>(err);
   if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  plan(w.g, splits, dtypes);
+  plan(w.g, dtypes);
   w.tma = tma && wg::encode_swizzled5(&w.map, w.g.a, dims, strides, kSwRows);
   if (tma_used) *tma_used = w.tma;
   cudaLaunchConfig_t cfg;

@@ -46,8 +46,10 @@
 // output is one chain. For k <= kNarrowMaxK gemm_tn runs tn_narrow.cu's
 // kernel instead, which sums the same chain over [0, m) and then adds the
 // one +0 of the zero rows that end the engine's last depth-8 slab, so either
-// kernel gives the same bits. syrk splits m into K(m, n) ranges and adds the K
-// chains in one fixed order (syrk.cu), K being a function of (m, n) alone.
+// kernel gives the same bits. syrk cuts m into chunks of a fixed number of
+// rows, sums chunks r, r + K, r + 2K, ... as CTA r's one chain (the engine's
+// kRun / kStride) and adds the K chains in one fixed order (syrk.cu), K
+// being a function of (m, n) alone.
 // Two launches that see the same operands therefore give bitwise-equal
 // outputs; gemm_tn_fused.cu runs the same depth-8 chain on its combined
 // slabs and is bitwise equal to gemm_tn; and because fmaf(x, y, s) ==
@@ -165,13 +167,20 @@ struct TnCopy {
 
 // acc[ii][jj] = sum_{l0 <= l < l1} X(l, x.col0 + map.row(ii)) * Y(l, y.col0 + map.col(jj)),
 // X(l, col) being 0 for col >= x.col_lim (Y likewise); l0 <= l1, l0 a
-// multiple of kSlab. smem holds kTnSmemBytes. The caller meets a
-// __syncthreads() between two calls, and before it overwrites the ring (the
-// next call's copies land in stages the last one may still read).
-template <typename T, bool kVec16, bool kSkipUpper = false, bool kCompact = false>
+// multiple of kSlab. With kRun > 0 the sum runs over chunks of kRun rows
+// instead, those starting at l0, l0 + kStride, l0 + 2*kStride, ... below
+// l1, as the one chain in ascending rows (syrk's split CTA); the stage loop
+// walks them, so the caller keeps no state but acc. smem holds kTnSmemBytes.
+// The caller meets a __syncthreads() between two calls, and before it
+// overwrites the ring (the next call's copies land in stages the last one
+// may still read).
+template <typename T, bool kVec16, bool kSkipUpper = false, bool kCompact = false, int kRun = 0,
+          int kStride = 0>
 __device__ __forceinline__ void tn_tile(const TnOperand<T> x, const TnOperand<T> y, int l0,
                                         int l1, float* smem, const TnMap& map,
                                         float acc[kMicro][kMicro]) {
+  static_assert(kRun % kSlab == 0 && (kRun == 0 || kStride >= kRun), "whole slabs, no overlap");
+  constexpr int kRunSlabs = kRun / kSlab;
   using Copy = TnCopy<T>;
   T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x;
@@ -183,20 +192,33 @@ __device__ __forceinline__ void tn_tile(const TnOperand<T> x, const TnOperand<T>
 #pragma unroll
     for (int jj = 0; jj < kMicro; ++jj) acc[ii][jj] = 0.0f;
 
-  // stage s holds slab rows l0 + [s*kSlab, (s+1)*kSlab) of X, then of Y
+  // the first row of slab s: l0 + s*kSlab, or slab s % kRunSlabs of chunk s / kRunSlabs
+  auto slab_row = [&](int s) {
+    if constexpr (kRun == 0) return l0 + s * kSlab;
+    else return l0 + (s / kRunSlabs) * kStride + (s % kRunSlabs) * kSlab;
+  };
+  // stage s holds slab rows slab_row(s) + [0, kSlab) of X, then of Y
   auto copy = [&](int s) {
     T* xs = ring + (s % kStages) * kStageElems;
     T* ys = xs + kSlab * kTile;
+    const int l_s = slab_row(s);
 #pragma unroll
     for (int u = 0; u < kSlab / Copy::kRowsPerPass; ++u) {
-      const int r = rr + Copy::kRowsPerPass * u, l = l0 + s * kSlab + r;
+      const int r = rr + Copy::kRowsPerPass * u, l = l_s + r;
       cx.template stage<kVec16>(xs + r * kTile + cq, l, l1);
       cy.template stage<kVec16>(ys + r * kTile + cq, l, l1);
     }
   };
 
   const int rows = l1 - l0;
-  const int slabs = (rows + kSlab - 1) / kSlab;
+  int slabs = 0;
+  if constexpr (kRun == 0) {
+    slabs = (rows + kSlab - 1) / kSlab;
+  } else if (rows > 0) {
+    // the chunks before the last are whole; the last ends at l1 or after kRun rows
+    const int before = (rows - 1) / kStride, last = l0 + before * kStride;
+    slabs = before * kRunSlabs + (min(l1, last + kRun) - last + kSlab - 1) / kSlab;
+  }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs) copy(s);
@@ -211,7 +233,12 @@ __device__ __forceinline__ void tn_tile(const TnOperand<T> x, const TnOperand<T>
     const T* ys = xs + kSlab * kTile;
 #pragma unroll (kCompact ? 1 : kSlab / kDepth)
     for (int h = 0; h < kSlab / kDepth; ++h) {
-      if (s * kSlab + h * kDepth >= rows) break;  // only the depth-8 slabs that start below l1
+      // only the depth-8 slabs that start below l1
+      if constexpr (kRun == 0) {
+        if (s * kSlab + h * kDepth >= rows) break;
+      } else {
+        if (slab_row(s) + h * kDepth >= l1) break;
+      }
 #pragma unroll
       for (int kk = h * kDepth; kk < (h + 1) * kDepth; ++kk) {
         const T* xr = xs + kk * kTile + 4 * map.ty;

@@ -22,7 +22,11 @@ dispatch is never copied and a repeated call copies nothing to the card.
 
 Both launches split the contraction over :func:`syrk_splits` ``(m, n)``
 CTAs per output tile (a thread-block cluster), the one input that decides
-the kernel's summation order besides the operands.
+the kernel's summation order besides the operands: the rows are cut into
+chunks of :data:`CHUNK_ROWS`, and CTA ``r`` of ``K`` sums chunks ``r, r +
+K, r + 2K, …`` as one chain. Neither the chunks nor the CTA that holds a
+chunk move when zero rows are appended, so a serving bucket may pad ``m``
+(:mod:`repro_torch.serve.bucketing`).
 
 The kernels load float32 or bfloat16, sum in float32 and store
 ``out_dtype`` (float32 or bfloat16); float64 raises on the card. Which
@@ -57,25 +61,29 @@ tma_refused = {"syrk_wgmma": 0, "syrk_gather_wgmma": 0}
 
 # The split rule's constants (tools/kernel_variants.py times the choices).
 RESIDENT_CTAS = 264     # 132 SMs x 2 CTAs (96 KiB of ring each)
-SPLIT_ROWS = 256        # rows a CTA sums at least, once split
-UNSPLIT_MAX_ROWS = 512  # m at or below this runs unsplit (K = 1)
+CHUNK_ROWS = 512        # rows of one chunk of the contraction (kChunkRows, csrc/syrk.cu)
 MAX_SPLITS = 8          # the portable cluster size
 
 
 def syrk_splits(m: int, n: int) -> int:
     """CTAs ``K`` (a power of two in [1, 8]) that share each output tile of
-    the syrk kernels, each summing a range of ``≥ SPLIT_ROWS`` of the ``m``
-    rows, as long as the ``K·T`` CTAs of one entry (``T`` lower 128-tile
-    pairs of ``n``) fit on the card at once. A function of ``(m, n)`` alone
-    — never of the batch, the output mode or the gather — so every dispatch
-    that computes a leaf sums it in the same order. Does not fall as ``m``
-    grows."""
-    if m <= UNSPLIT_MAX_ROWS:
-        return 1
+    the syrk kernels: ``min(F(n), next_pow2(ceil(m / CHUNK_ROWS)))``, with
+    ``F(n)`` the most CTAs of one entry (``T`` lower 128-tile pairs of
+    ``n``, ``K·T`` of them) that fit on the card at once. A function of
+    ``(m, n)`` alone — never of the batch, the output mode or the gather —
+    so every dispatch that computes a leaf sums it in the same order. Does
+    not fall as ``m`` grows, and ``m ≤ CHUNK_ROWS`` runs unsplit.
+
+    With the kernel's chunks (module docstring) the rule is
+    padding-invariant: a request with at most ``F(n)`` chunks has each of
+    them alone and first in CTA ``c`` under any ``K`` that large, and one
+    with more runs at ``K = F(n)`` whatever its padding."""
     nb = -(-n // 128)
     tiles = nb * (nb + 1) // 2
-    k = max(1, min(MAX_SPLITS, m // SPLIT_ROWS, RESIDENT_CTAS // tiles))
-    return 1 << (k.bit_length() - 1)
+    cap = max(1, min(MAX_SPLITS, RESIDENT_CTAS // tiles))
+    cap = 1 << (cap.bit_length() - 1)
+    chunks = max(1, -(-m // CHUNK_ROWS))
+    return min(cap, 1 << (chunks - 1).bit_length())
 
 
 def syrk_route(dtype, aligned: bool):

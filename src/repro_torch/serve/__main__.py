@@ -6,11 +6,10 @@
     python -m repro_torch.serve --replay spec.json # run a recorded workload
 
 The server runs on the card unless ``--device cpu`` is given. ``--smoke``
-is the CI gate: it warms the shared smoke lattice (``engine.smoke_config``;
-on the card under the card's rule, ``serve.bucketing``), replays a
-deterministic mixed workload (``--requests``, default 100) of ragged
-lstsq/whiten shapes through the queue, then **fails loudly** (nonzero
-exit) unless every contract holds:
+is the CI gate: it warms the shared smoke lattice (``engine.smoke_config``),
+replays a deterministic mixed workload (``--requests``, default 100) of
+ragged lstsq/whiten shapes through the queue, then **fails loudly**
+(nonzero exit) unless every contract holds:
 
 * every admitted request completed (drain leaves nothing behind),
 * zero steady-state recaptures (``serve.retraces == 0``),
@@ -18,10 +17,6 @@ exit) unless every contract holds:
   the request twin of the bucket plan, on the server's device,
 * the obs snapshot validates and carries ``serve.*`` counters and the
   published percentile gauges.
-
-Beside the gates it reports how many requests the device's rule refused
-(``refused_by_device_rule``: admitted by the config's lattice, refused by
-the server's; 0 on the CPU).
 
 A replay spec is JSON: ``{"seed": 0, "requests": [{"op", "m", "n", "r",
 "ridge"?, "deadline_s"?}, ...], "buckets": [BucketSpec.to_json(), ...]?}``
@@ -94,18 +89,6 @@ def _parity_spot_check(server, served, sample_every=7):
                 f"ticket {ticket.id} ({ticket.bucket.label()}, m={m}, r={r})"
                 f" max|Δ|={np.abs(np.asarray(ref) - np.asarray(got)).max():.3e}")
     return checked, failures
-
-
-def _refused_by_rule(server, requests):
-    """How many of ``requests`` the server's lattice refuses that its
-    config's own lattice (the reference's, without the device's rule of
-    ``bucketing.for_device``) admits: the card rule's cost in a workload,
-    0 on the CPU."""
-    from repro_torch.serve.bucketing import BucketLattice
-
-    own = BucketLattice(server.config.buckets)
-    return sum(1 for q in requests if server.lattice.bucket_for(*q.shape_key()) is None
-               and own.bucket_for(*q.shape_key()) is not None)
 
 
 def _run_workload(server, requests):
@@ -187,7 +170,6 @@ def main(argv=None) -> int:
             for d in replay_spec["requests"]
         ]
         served, rejected = _run_workload(server, reqs)
-    refused_by_rule = _refused_by_rule(server, reqs)
 
     if args.smoke or args.replay:
         not_done = [t.id for t in served if not t.done()]
@@ -205,8 +187,7 @@ def main(argv=None) -> int:
         except ValueError as e:
             failures.append(f"obs snapshot invalid: {e}")
         summary = serve_metrics.percentiles("request") or {}
-        print(f"served {len(served)} requests ({rejected} rejected, "
-              f"{refused_by_rule} of them by the device's rule), "
+        print(f"served {len(served)} requests ({rejected} rejected), "
               f"{server.retraces()} recaptures, parity {parity_checked} checked")
         if summary:
             print("request latency: "
@@ -222,7 +203,6 @@ def main(argv=None) -> int:
             "warm_seconds": warm_report,
             "served": len(served),
             "rejected": rejected,
-            "refused_by_device_rule": refused_by_rule,
             "parity_checked": parity_checked,
             "failures": failures,
             "stats": server.stats(),

@@ -28,52 +28,13 @@ never have). The reference's rules, which the port keeps on every device:
   zero columns solve to zero columns and the crop is exact.
 * ``dtype`` is an exact key (it is part of the plan key).
 
-**The card's rule — the one place where the port's lattice departs from
-the reference's.** On a CUDA device (:func:`card_exact_axes`) two more
-things decide the reduction order, and padding can move it:
-
-* the ``syrk`` kernel splits the gram's contraction over
-  ``K = syrk_splits(m, n)`` CTAs once ``m > UNSPLIT_MAX_ROWS`` (512), with
-  row ranges cut from ``m``: a request padded from 1500 to 2048 rows is
-  summed as 8 partials, its twin as 4. A bucket with ``K > 1`` at its
-  capacity (``K`` does not fall as ``m`` grows, so ``K = 1`` there means
-  ``K = 1`` across the band) is ``exact_m``. At ``K = 1`` the kernel sums
-  each output as one ``fmaf`` chain over ascending rows, which zero rows
-  extend exactly;
-* the plain float32 products outside the kernels go to cuBLAS, which picks
-  its kernel and split of the contraction from the shape and the batch.
-  ``tools/serve_invariance.py`` (on an NVIDIA H100 80GB HBM3 at 700 W,
-  torch 2.11, CUDA 12.8) padded ragged requests into ``chip_smoke.py``
-  phase ``serve``'s buckets and compared each stage with the request's
-  own: ``Aᵀb`` on cuBLAS changed its bits under zero-row padding in 3 of 7
-  requests at ``(m, n, r) = (512, 256, 64)`` and in all 14 at
-  ``m = 8192``, and under zero-column padding in 6 of 7 at ``(512, 256,
-  64)``; the substitutions' Schur products (``solve/triangular.py``, one
-  product of ``r`` columns a block step) changed theirs under zero-column
-  padding in 1 of 8 at ``(512, 256, 8)``, 6 of 7 at ``(8192, 512, 64)``
-  and 3 of 3 at whiten ``(4096, 1024, 64)``.
-
-So ``Aᵀb`` (``core.strassen._dot_tn``) runs on ``gemm_tn`` wherever
-``m ≤ UNSPLIT_MAX_ROWS``: its narrow-output kernel for ``r ≤ 64``
-(``csrc/tn_narrow.cu``) and its tile engine above both sum one ``fmaf``
-chain over ascending rows per output, each column of ``b`` its own, so
-zero rows and zero columns leave the other outputs' bits as they were,
-whichever of the two a padded width lands on (the same tool: 8 of 8
-requests at ``(512, 256)`` kept their bits under row padding, column
-padding and batching alike). A bucket is then ``exact_m``
-where ``syrk`` splits, and ``exact_r`` where ``n`` spans more than one
-packed block (with one block the substitution is one ``trsm`` launch,
-whose right-hand sides are independent); an ``lstsq`` bucket above
-``UNSPLIT_MAX_ROWS`` rows, whose ``Aᵀb`` is cuBLAS's, is exact in both.
-
-The same runs showed the batched Schur products of the Cholesky walk
-(``n ≥ 512``) and the batched ``Aᵀb`` to differ from the unbatched ones in
-their last bits; the engine therefore runs the factor, ``Aᵀb`` and the
-solves one batch entry at a time inside the bucket's program
-(:mod:`repro_torch.serve.engine`). On the CPU the lattice is the
-reference's, field for field; its bitwise contract there rests on MKL's
+The rules hold on the card as they stand: every stage of the bucket
+program sums an entry in an order that zero rows, zero right-hand-side
+columns and the batch leave alone (:mod:`repro_torch.serve.engine`;
+``tools/serve_invariance.py`` holds each stage of the lattice's bucket
+shapes against the request's own). On the CPU the contract rests on MKL's
 products keeping their bits under the padding, which the CPU tests show at
-the smoke lattice's shapes (it does not hold at ``(8192, 256)``:
+the smoke lattice's shapes (it does not hold from ``(512, 256)`` up:
 ``tools/serve_invariance.py --device cpu``).
 
 The parity reference for a request ``(m, n, r)`` served by bucket ``spec``
@@ -88,15 +49,12 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 __all__ = [
     "OPS",
     "BucketSpec",
     "BucketLattice",
     "make_buckets",
-    "card_exact_axes",
-    "for_device",
     "pad_operands",
     "crop_result",
 ]
@@ -113,10 +71,9 @@ class BucketSpec:
 
     ``m``/``r`` are *capacities* (requests pad up to them); ``n`` is exact.
     ``batch`` is the static flush width B of the bucket's program.
-    ``exact_m`` marks buckets where zero-row m-padding would move a
-    reduction (a recursing gram, ``n > n_base``; on the card also the rule
-    of :func:`card_exact_axes`) — those admit only ``m == spec.m``. ``exact_r``
-    (the card's rule only) admits only ``r == spec.r``.
+    ``exact_m`` marks buckets whose gram recurses (``n > n_base``), where
+    zero-row m-padding would move the recursion's row split and break the
+    bitwise contract — those admit only ``m == spec.m``.
     """
 
     op: str
@@ -126,7 +83,6 @@ class BucketSpec:
     batch: int
     dtype: str = "float32"
     exact_m: bool = False
-    exact_r: bool = False
 
     def __post_init__(self):
         if self.op not in OPS:
@@ -146,7 +102,7 @@ class BucketSpec:
     def label(self) -> str:
         """Stable metric/artifact label: ``lstsq:m96:n64:r8:float32:b4``."""
         tag = f"{self.op}:m{self.m}:n{self.n}:r{self.r}:{self.dtype}:b{self.batch}"
-        return tag + (":exact_m" if self.exact_m else "") + (":exact_r" if self.exact_r else "")
+        return tag + (":exact_m" if self.exact_m else "")
 
     def admits(self, op: str, m: int, n: int, r: int, dtype: str) -> bool:
         """Can a ``(op, m, n, r, dtype)`` request be served by this bucket?"""
@@ -154,49 +110,14 @@ class BucketSpec:
             return False
         if m != self.m if self.exact_m else m > self.m:
             return False
-        return r == self.r if self.exact_r else r <= self.r
+        return r <= self.r
 
     def to_json(self) -> dict:
-        """The reference's fields; ``exact_r`` only where it is set."""
-        d = dataclasses.asdict(self)
-        if not self.exact_r:
-            del d["exact_r"]
-        return d
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_json(cls, d: dict) -> "BucketSpec":
         return cls(**d)
-
-
-def card_exact_axes(op: str, m: int, n: int, *,
-                    packed_block: Optional[int] = None) -> Tuple[bool, bool]:
-    """``(exact_m, exact_r)`` that the card's rule (module docstring) asks
-    of a bucket of capacity ``m``: ``m`` where ``syrk_splits(m, n) > 1``,
-    ``r`` where ``n`` spans more than one block of ``packed_block``
-    (default: the planner's ``DEFAULT_PACKED_BLOCK``), so that the
-    substitutions run Schur products of ``r`` columns; both for an
-    ``lstsq`` bucket above ``UNSPLIT_MAX_ROWS`` rows, whose ``Aᵀb`` is a
-    cuBLAS product at the bucket's ``(m, r)``."""
-    from repro_torch.core.symmetric import default_block_size
-    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS, syrk_splits
-    from repro_torch.tune.defaults import DEFAULT_PACKED_BLOCK
-
-    bn = default_block_size(n, packed_block or DEFAULT_PACKED_BLOCK)
-    blas = op == "lstsq" and m > UNSPLIT_MAX_ROWS
-    return syrk_splits(m, n) > 1 or blas, n > bn or blas
-
-
-def for_device(spec: BucketSpec, device, *, packed_block: Optional[int] = None) -> BucketSpec:
-    """``spec`` as a server on ``device`` serves it: on a CUDA device with
-    the card's rule (:func:`card_exact_axes`) added to its flags, elsewhere
-    unchanged. Flags are only ever added, so a lattice read from JSON keeps
-    its own. :class:`~repro_torch.serve.engine.Server` applies it to every
-    bucket of its config; nothing else does."""
-    if torch.device(device).type != "cuda":
-        return spec
-    exact_m, exact_r = card_exact_axes(spec.op, spec.m, spec.n, packed_block=packed_block)
-    return dataclasses.replace(spec, exact_m=spec.exact_m or exact_m,
-                               exact_r=spec.exact_r or exact_r)
 
 
 def make_buckets(
@@ -213,9 +134,6 @@ def make_buckets(
 
     ``n_base`` (default: the planner's ``DEFAULT_N_BASE``) decides which
     buckets recurse and therefore carry ``exact_m`` (see module docstring).
-    This is the reference's lattice on every device; a
-    :class:`~repro_torch.serve.engine.Server` adds its device's rule
-    (:func:`for_device`).
     """
     if n_base is None:
         from repro_torch.tune.defaults import DEFAULT_N_BASE

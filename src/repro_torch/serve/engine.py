@@ -11,21 +11,24 @@ bucket plan (``tests/test_torch_serve.py`` holds the property suite):
     a32  = a.to(float32)                       # lstsq's own cast
     gram = ata_batched(a32, plan=⟨bucket ata plan, batch=B⟩, out='packed')
     gram = gram.add_scaled_identity(ridge[:, None, None, None])
-    for each batch entry i:                    # inside the one program
-        L    = cholesky(gram[i], plan=sp)      # packed blocked walk
-        rhs  = Aᵢᵀbᵢ (core.strassen._dot_tn)   # lstsq's own product
-        x[i] = solve_cholesky(L, rhs, base_trsm=per_slice_trsm)
+    L    = cholesky(gram, plan=sp)             # ONE batched packed walk
+    rhs  = Aᵀb (core.strassen._dot_tn)         # ONE batched product
+    x    = solve_cholesky(L, rhs, base_trsm=per_slice_trsm)   # whiten: forward only
 
-The gram is one ``syrk`` launch over the whole batch: the kernel sums an
-entry in an order that depends on neither the batch index nor the batch
-size. The factor, ``Aᵀb`` and the substitutions run one entry at a time:
-on the card the batched Schur products and the batched ``Aᵀb`` (cuBLAS)
-differ from the unbatched ones in their last bits
-(``tools/serve_invariance.py``), and in a captured graph the per-entry
-launches cost no host time. ``ridge`` is a per-entry input, always
-added: mixing ridges in one flush costs nothing, and adding 0.0 on the
-gram diagonal is bitwise-transparent (gram diagonals are sums of squares,
-never −0.0).
+the reference's batched program, on every device. On the card each stage
+sums an entry in an order that depends on neither the batch index, the
+batch size, the entry's zero rows nor its zero right-hand-side columns:
+the gram is one ``syrk`` launch, whose chunks of rows padding cannot move
+(``kernels.syrk.syrk_splits``); ``Aᵀb`` and every Schur product of the
+walk and of the substitutions are ``gemm_tn`` launches, one ``fmaf`` chain
+per output over ascending rows, each column on its own; ``potrf`` and
+``trsm`` solve a stack entry as a single tile
+(``tools/serve_invariance.py`` holds each stage against the request's
+own). The diagonal substitution solves loop the batch
+(:func:`per_slice_trsm`), as the reference does. ``ridge`` is a per-entry
+input, always added: mixing ridges in one flush costs nothing, and adding
+0.0 on the gram diagonal is bitwise-transparent (gram diagonals are sums
+of squares, never −0.0).
 
 **On a CUDA device the program is one captured CUDA graph** with a private
 memory pool. It reads static device buffers that a flush fills with one
@@ -79,7 +82,6 @@ from repro_torch.serve.bucketing import (
     BucketLattice,
     BucketSpec,
     crop_result,
-    for_device,
     make_buckets,
     pad_operands,
 )
@@ -96,8 +98,7 @@ def per_slice_trsm(l, c, *, transpose: bool):
     The reference loops the batch here because XLA's rank-3 triangular
     solve rounds differently from its rank-2 one. The port's trsm kernel
     solves a stack entry in the same order as a single tile, but the
-    solves stay one call a slice, as in the reference; the bucket
-    program's walks call this with single tiles.
+    solves stay one call a slice, as in the reference.
     """
     from repro_torch.solve.triangular import _left_solve
 
@@ -129,7 +130,7 @@ class ServeConfig:
 def smoke_config(**overrides) -> ServeConfig:
     """The CI-scale config: the reference's small mixed lattice — the CLI
     ``--smoke`` and ``chip_smoke.py`` phase ``serve`` serve exactly these
-    buckets (a server on the card adds the card's rule to them)."""
+    buckets."""
     buckets = (
         make_buckets(ops=("lstsq",), n_values=(32, 64), m_bands=(48, 96),
                      r_bands=(4, 8), batch=4)
@@ -160,7 +161,6 @@ def _pipeline(spec: BucketSpec, sp):
     of ``(a, b, ridge)`` tensors of the bucket's static shapes."""
     from repro_torch.core.ata import ata_batched
     from repro_torch.core.strassen import _dot_tn
-    from repro_torch.core.symmetric import SymmetricMatrix
     from repro_torch.solve.cholesky import cholesky
     from repro_torch.solve.triangular import solve_cholesky, solve_triangular
 
@@ -175,17 +175,12 @@ def _pipeline(spec: BucketSpec, sp):
         b32 = b.to(torch.float32)
         gram = ata_batched(a32, plan=ata_plan, out="packed", packed_block=sp.packed_block)
         gram = gram.add_scaled_identity(ridge.reshape(-1, 1, 1, 1))
-        xs = []
-        for i in range(spec.batch):
-            f = cholesky(SymmetricMatrix(gram.blocks[i], gram.n, gram.bn), plan=sp)
-            if spec.op == "lstsq":
-                rhs = _dot_tn(a32[i], b32[i], torch.float32)   # Aᵀb, Aᵀ never formed
-                xs.append(solve_cholesky(f, rhs, plan=sp, base_trsm=per_slice_trsm))
-            else:
-                # whiten: z = L⁻¹·v — forward substitution only
-                xs.append(solve_triangular(f, b32[i], transpose=False, plan=sp,
-                                           base_trsm=per_slice_trsm))
-        return torch.stack(xs, 0)
+        f = cholesky(gram, plan=sp)
+        if spec.op == "lstsq":
+            rhs = _dot_tn(a32, b32, torch.float32)   # Aᵀb batched, Aᵀ never formed
+            return solve_cholesky(f, rhs, plan=sp, base_trsm=per_slice_trsm)
+        # whiten: z = L⁻¹·v — forward substitution only
+        return solve_triangular(f, b32, transpose=False, plan=sp, base_trsm=per_slice_trsm)
 
     return run
 
@@ -193,8 +188,8 @@ def _pipeline(spec: BucketSpec, sp):
 def _slots(shape, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(flat, view)``: a float32 buffer and its ``shape`` view. A
     ``(B, rows, cols)`` view's entries start 256 bytes apart at least, so
-    that each entry's ``Aᵀb`` meets cuBLAS with the alignment of a fresh
-    tensor, as its twin's does. The flat buffer is what a flush copies."""
+    that each entry meets the kernels with the alignment of a fresh tensor,
+    as its twin's does. The flat buffer is what a flush copies."""
     if len(shape) == 1:
         flat = torch.zeros(shape, dtype=torch.float32, **kw)
         return flat, flat
@@ -308,17 +303,14 @@ class Server:
     """Gram-as-a-service: submit → bucket → micro-batch → one replay.
 
     ``device`` (None: ``backend.DEFAULT_DEVICE``, the card) is where every
-    bucket program runs; a server on a CUDA device serves its lattice under
-    the card's rule (``bucketing.for_device``)."""
+    bucket program runs; it serves its config's lattice as it stands."""
 
     def __init__(self, config: ServeConfig, *,
                  clock: Callable[[], float] = time.perf_counter, device=None):
         self.config = config
         self.clock = clock
         self.device = backend.resolve_device(device)
-        self.buckets: Tuple[BucketSpec, ...] = tuple(
-            for_device(s, self.device, packed_block=config.packed_block)
-            for s in config.buckets)
+        self.buckets: Tuple[BucketSpec, ...] = tuple(config.buckets)
         self.lattice = BucketLattice(self.buckets)
         self.queue = MicroBatchQueue(
             self.lattice, capacity=config.capacity,

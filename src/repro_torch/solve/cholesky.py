@@ -3,13 +3,27 @@
 
 ``cholesky`` factors an SPD :class:`SymmetricMatrix` (or a dense square,
 packed first) into a :class:`CholeskyFactor` on the same ``(..., T, bn,
-bn)`` geometry; no dense ``(n, n)`` is formed:
+bn)`` geometry; no dense ``(n, n)`` of the gram or the factor is formed:
 
     for block column j:
         S_jj   = A[j,j] − Σ_{k<j} L[j,k]·L[j,k]ᵀ   (one float32 einsum)
         L[j,j] = potrf(sym_tile(S_jj))              (diagonal kernel)
         S_ij   = A[i,j] − Σ_{k<j} L[i,k]·L[j,k]ᵀ   (one float32 einsum)
         L[i,j] = trsm(L[j,j], S_ij)  for all i > j  (ONE batched launch)
+
+On a walk that runs on kernels (a CUDA float32 or bfloat16 gram whose
+plan uses kernels, or no plan) the Σ terms of block column j are ONE
+``ops.gemm_tn`` launch instead (:func:`_tn`): the diagonal's and the
+panel's rows stacked, each output one ``fmaf`` chain over the stacked
+``(k, b)`` axis in ascending order, the subtraction rounded once. That
+order depends on neither the batch index nor the batch size, so a batched
+walk equals its entries' own walks bitwise (``repro_torch.serve``);
+cuBLAS, which the einsums reach, picks its kernel from the batch. The
+launch's operand is a view of one float32 buffer that holds ``Lᵀ``'s
+strict upper block triangle: each finished panel ``L[i,k]`` is written
+there transposed, once, when its ``trsm`` made it, so no step copies the
+panels again (an ``(n, n)``-sized scratch of the walk; the factor stays
+packed). On the CPU and in float64 the einsums stay, as in the reference.
 
 Base engines follow the plan, as in the reference: with
 ``plan.use_kernels`` (and with no plan) ``ops.potrf``/``ops.trsm``, which
@@ -114,6 +128,26 @@ def _acc(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _kernel_walk(x, plan) -> bool:
+    """Whether a walk over ``x`` (a block tensor) runs its Schur products
+    on ``ops.gemm_tn``: a CUDA float32 or bfloat16 tensor under a plan that
+    uses kernels, or no plan."""
+    return (x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)
+            and (plan is None or plan.use_kernels))
+
+
+def _tn(x, y):
+    """``XᵀY`` of stacks ``(..., K, p)`` and ``(..., K, q)`` in float32, as
+    ONE ``ops.gemm_tn`` launch: each output one ``fmaf`` chain over the K
+    rows in ascending order, whatever the batch. Leading dims broadcast and
+    ride the kernel's batch."""
+    from repro_torch.kernels import ops
+
+    lead = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+    x, y = (_acc(t).expand(*lead, *t.shape[-2:]) for t in (x, y))
+    return _flat_call(lambda xf, yf: ops.gemm_tn(xf, yf, out_dtype=torch.float32), x, y)
+
+
 def _flat_call(fn: Callable, *ops_):
     """Call a base kernel with all leading dims flattened into the one
     leading batch dim of the kernels (2-D operands pass through)."""
@@ -198,30 +232,47 @@ def cholesky(
     nb, bn, n = a.nb, a.bn, a.n
     pad = nb * bn - n
     i_idx, j_idx = tri_block_indices(nb)
+    kernels = _kernel_walk(a.blocks, plan)
+    lead = tuple(a.blocks.shape[:-3])
     out = {}
+    if kernels and nb > 1:
+        # row block k, column block i - 1: L[i,k]ᵀ (i > k)
+        lt = a.blocks.new_empty((*lead, (nb - 1) * bn, (nb - 1) * bn), dtype=torch.float32)
     for j in range(nb):
         s = a.block(j, j)
-        if j:
+        rows = range(j + 1, nb)
+        p = torch.movedim(a.col_panel(j), -3, 0) if rows else None
+        if j and kernels:
+            # rows (k, b), columns (i, a): L[i,k]ᵀ for i ≥ j, k < j
+            z = lt[..., :j * bn, (j - 1) * bn:]
+            schur = _tn(z, z[..., :bn])                        # (..., (nb-j)·bn, bn)
+            s = s - schur[..., :bn, :]
+            if rows:
+                p = p - torch.movedim(schur[..., bn:, :].reshape(*lead, len(rows), bn, bn),
+                                      -3, 0)
+        elif j:
             lrow = torch.stack([out[(j, k)] for k in range(j)], dim=0)
             s = s - torch.einsum("k...ab,k...cb->...ac", _acc(lrow), _acc(lrow))
+            if rows:
+                li = torch.stack([torch.stack([out[(i, k)] for k in range(j)], 0)
+                                  for i in rows], 0)
+                p = p - torch.einsum("rk...ab,k...cb->r...ac", _acc(li), _acc(lrow))
         # the lower half of a packed diagonal tile is authoritative; mirror it
         s = sym_tile(s)
         if pad and j == nb - 1:
             valid, eye_pad = _pad_identity_mask(n, nb, bn, s)
             s = s * valid + eye_pad
         out[(j, j)] = _flat_call(base_potrf, s.contiguous())
-
-        rows = range(j + 1, nb)
         if not rows:
             continue
-        p = torch.movedim(a.col_panel(j), -3, 0)
-        if j:
-            li = torch.stack([torch.stack([out[(i, k)] for k in range(j)], 0) for i in rows], 0)
-            p = p - torch.einsum("rk...ab,k...cb->r...ac", _acc(li), _acc(lrow))
         ljj = out[(j, j)].expand(p.shape)
         panel = _flat_call(base_trsm, ljj, p.contiguous())
         for r, i in enumerate(rows):
             out[(i, j)] = panel[r]
+        if kernels:
+            # (R, ..., a, b) -> (..., b, R, a): each tile transposed, once
+            lt[..., j * bn:(j + 1) * bn, j * bn:].unflatten(-1, (len(rows), bn)).copy_(
+                torch.movedim(panel, 0, -3).movedim(-1, -3))
 
     blocks = torch.stack([out[(int(i_idx[t]), int(j_idx[t]))] for t in range(a.t_total)],
                          dim=-3)

@@ -8,8 +8,9 @@ prices the two methods and picks per shape and RHS count:
 
 * ``method='factor'`` — planned ``ata(A, out='packed')`` → packed blocked
   Cholesky → two packed triangular substitutions, with no dense ``(n, n)``
-  anywhere. ``Aᵀb`` is a plain float32 ``torch.matmul`` (the reference
-  leaves it to XLA too).
+  anywhere. ``Aᵀb`` is ``core.strassen._dot_tn``: one ``gemm_tn`` launch
+  on the card, a plain float32 ``torch.matmul`` on the CPU (the reference
+  leaves it to XLA).
 * ``method='cg'`` — matrix-free CG on the gram operator
   (:func:`repro_torch.solve.cg.cg_lstsq`): one TN product pair per
   iteration, the gram never formed.

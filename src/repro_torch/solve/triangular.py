@@ -4,7 +4,15 @@
     forward  (L·y = b):     y_i = L[i,i]⁻¹·(b_i − Σ_{j<i} L[i,j]·y_j)
     backward (Lᵀ·x = y):    x_i = L[i,i]⁻ᵀ·(y_i − Σ_{j>i} L[j,i]ᵀ·x_j)
 
-The Σ terms are one float32 block einsum per step; the diagonal solves go
+The Σ terms are one float32 block einsum per step or, on a walk that runs
+on kernels (``cholesky._kernel_walk``: CUDA float32 or bfloat16 under a
+plan with kernels, or none), ONE ``ops.gemm_tn`` launch per step whose
+contraction is the stacked ``(j, b)`` axis in ascending order, the
+subtraction rounded once: the forward pass reads each ``L[i,j]``
+transposed once (the step that uses it), the backward pass ``L[j,i]`` as
+it is. Each right-hand-side column is summed on its own and in the same
+order whatever the batch, so zero columns and batching leave the other
+columns' bits unchanged (``repro_torch.serve``). The diagonal solves go
 to the plan's trsm engine on the transposed right-hand-side tile: with
 ``plan.use_kernels`` or no plan ``ops.trsm`` (the CUDA kernel on a CUDA
 tensor, its plain version on a CPU one), without kernels the plain
@@ -21,7 +29,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.solve.cholesky import CholeskyFactor, _acc, _flat_call
+from repro_torch.solve.cholesky import CholeskyFactor, _acc, _flat_call, _kernel_walk, _tn
 
 __all__ = ["solve_triangular", "solve_cholesky"]
 
@@ -71,23 +79,23 @@ def solve_triangular(
     r = b.shape[-1]
     bs = b.reshape(*batch, nb, bn, r)
     solve_diag = base_trsm or functools.partial(_left_solve, plan=plan)
+    kernels = _kernel_walk(f.blocks, plan)
 
     xs: dict = {}
     order = range(nb) if not transpose else range(nb - 1, -1, -1)
     for i in order:
         c = bs[..., i, :, :]
-        if not transpose:
-            done = range(i)
-            if done:
-                lt = torch.stack([f.block(i, j) for j in done], dim=0)
-                xt = torch.stack([xs[j] for j in done], dim=0)
-                c = c - torch.einsum("k...ab,k...br->...ar", _acc(lt), _acc(xt))
-        else:
-            done = range(i + 1, nb)
-            if done:
-                lt = torch.stack([f.block(j, i) for j in done], dim=0)
-                xt = torch.stack([xs[j] for j in done], dim=0)
-                c = c - torch.einsum("k...ba,k...br->...ar", _acc(lt), _acc(xt))
+        done = range(i) if not transpose else range(i + 1, nb)
+        if done and kernels:
+            # rows (j, b): L[i,j]ᵀ (forward) or L[j,i] (backward), and x_j
+            lt = [f.block(i, j).mT if not transpose else f.block(j, i) for j in done]
+            c = c - _tn(torch.cat(lt, -2), torch.cat([xs[j] for j in done], -2))
+        elif done:
+            lt = torch.stack([f.block(i, j) if not transpose else f.block(j, i)
+                              for j in done], dim=0)
+            xt = torch.stack([xs[j] for j in done], dim=0)
+            eq = "k...ab,k...br->...ar" if not transpose else "k...ba,k...br->...ar"
+            c = c - torch.einsum(eq, _acc(lt), _acc(xt))
         xs[i] = solve_diag(f.block(i, i), c, transpose=transpose)
 
     x = torch.cat([xs[i] for i in range(nb)], dim=-2)[..., :n, :]

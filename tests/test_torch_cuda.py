@@ -156,7 +156,7 @@ def test_syrk_kernel_split_edges(dev, m, n):
 
 
 def test_syrk_gather_equals_syrk_at_split_m(dev):
-    """Gathered leaves of lstsq's size (m = 2048, K = 8) and a batched grid
+    """Gathered leaves of lstsq's size (m = 2048, K = 4) and a batched grid
     (m = 1050) sum in the order of syrk on the stacked leaves."""
     rng = np.random.default_rng(15)
     for x, L in ((_t(rng, (4096, 1024), dev), 1), (_t(rng, (2, 2100, 300), dev), 1)):
@@ -1365,7 +1365,7 @@ def smoke_server():
 
 
 def test_serve_smoke_bitwise_to_twins_without_recapture(dev, smoke_server):
-    """The smoke lattice under the card's rule: every served slice of the
+    """The smoke lattice, the reference's: every served slice of the
     CLI's mixed workload bitwise equals its twin on the card, each bucket
     was captured once, and no dispatch captured again."""
     from repro_torch.serve.__main__ import _mixed_workload, _run_workload
@@ -1380,85 +1380,157 @@ def test_serve_smoke_bitwise_to_twins_without_recapture(dev, smoke_server):
     assert all(p["builds"] == 1 for p in progs.values())
     used = [p for p in progs.values() if p["replays"]]
     assert used and all(p["launches_per_replay"]["syrk"] == 1 for p in used)
-    # the card's rule adds nothing at these shapes: m and r band as in the
-    # reference, Aᵀb one gemm_tn launch per entry
+    # m and r band as in the reference; one packed block, so the one
+    # gemm_tn launch of an lstsq flush is its batched Aᵀb
     assert smoke_server.buckets == smoke_server.config.buckets
     assert any(t.request.a.shape[0] < t.bucket.m for t in served)
     assert any(t.request.b.ndim == 2 and t.request.b.shape[-1] < t.bucket.r for t in served)
     for s in smoke_server.buckets:
         p = progs.get(s.label())
-        if p and p["replays"] and s.op == "lstsq":
-            assert p["launches_per_replay"]["gemm_tn"] == s.batch
+        if p and p["replays"]:
+            assert p["launches_per_replay"].get("gemm_tn", 0) == (s.op == "lstsq")
 
 
-def test_serve_card_rule_at_the_syrk_split(dev):
-    """A whiten bucket whose m band crosses ``UNSPLIT_MAX_ROWS``: the card's
-    rule makes it exact_m, so a request of fewer rows is refused and one of
-    the bucket's rows is served bitwise equal to its twin. The rule is
-    needed: the gram of a request padded into the band (K splits of the
-    contraction cut from m) differs from its twin's."""
-    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS, syrk_splits
-    from repro_torch.serve.bucketing import BucketSpec, for_device, make_buckets
+def _flush_launches(spec, nb):
+    """Kernel launches of one flush of ``spec`` whose gram spans ``nb``
+    packed blocks: the gram, the batched walk (one potrf a block column, one
+    panel trsm and one Schur gemm_tn a column past the first), ``Aᵀb``
+    (lstsq), and the substitutions (a Schur gemm_tn a block row past the
+    first, the diagonal solves one trsm a batch slice), twice for lstsq."""
+    passes = 2 if spec.op == "lstsq" else 1
+    return {"syrk": 1, "potrf": nb, "trsm": (nb - 1) + passes * nb * spec.batch,
+            "gemm_tn": (nb - 1) + (spec.op == "lstsq") + passes * (nb - 1)}
+
+
+def test_serve_pads_m_and_r_across_the_syrk_split(dev):
+    """Buckets whose m band crosses the syrk chunks (a request of 700 rows
+    splits its gram over 2 CTAs a tile, the band over 4) at an n of two
+    packed blocks: requests of fewer rows and fewer right-hand sides are
+    admitted and served bitwise equal to their twins, each flush one replay
+    of the batched program, whose launches are the batched walk's."""
+    from repro_torch.core.symmetric import default_block_size
+    from repro_torch.serve.bucketing import make_buckets
     from repro_torch.serve.engine import Server, ServeConfig
-    from repro_torch.serve.queue import Rejected, Request
+    from repro_torch.serve.queue import Request
 
-    m_band, n = 2048, 128
-    assert syrk_splits(m_band, n) > syrk_splits(1500, n) > 1 and 1500 > UNSPLIT_MAX_ROWS
-    ref = make_buckets(ops=("whiten",), n_values=(n,), m_bands=(m_band,), r_bands=(4,),
-                       batch=2)[0]
-    assert not ref.exact_m                              # the reference's rule alone
-    spec = for_device(ref, dev)
-    assert spec.exact_m and not spec.exact_r
-    server = Server(ServeConfig(buckets=(ref,), capacity=8))
-    assert server.buckets == (spec,)                    # the server adds the rule itself
+    m_band, n = 2048, 256
+    assert syrk_splits(700, n) < syrk_splits(1500, n) == syrk_splits(m_band, n)
+    buckets = make_buckets(ops=("lstsq", "whiten"), n_values=(n,), m_bands=(m_band,),
+                           r_bands=(4,), batch=2)
+    server = Server(ServeConfig(buckets=buckets, capacity=8))
+    assert server.buckets == buckets
     server.warm()
     rng = np.random.default_rng(60)
-    short = rng.standard_normal((1500, n), dtype=np.float32)
-    with pytest.raises(Rejected):
-        server.submit(Request(op="whiten", a=short, b=rng.standard_normal((n, 3),
-                                                                          dtype=np.float32)))
-    t = server.submit(Request(op="whiten", a=rng.standard_normal((m_band, n), dtype=np.float32),
-                              b=rng.standard_normal((n, 3), dtype=np.float32), ridge=1e-3))
+    served = []
+    for op, m, r in (("whiten", 700, 3), ("whiten", 1500, 4), ("lstsq", 700, 2),
+                     ("lstsq", m_band, 0), ("lstsq", 1500, 4)):
+        rows = m if op == "lstsq" else n
+        b = rng.standard_normal((rows, r) if r else (rows,), dtype=np.float32)
+        served.append(server.submit(Request(op=op, a=rng.standard_normal((m, n), dtype=np.float32),
+                                            b=b, ridge=1e-3)))
     server.drain()
-    np.testing.assert_array_equal(_serve_twin(server, t), t.result())
-    padded = np.zeros((m_band, n), np.float32)
-    padded[:1500] = short
-    g_pad = ata(torch.as_tensor(padded, device=dev), n_base=n, out="packed")
-    g_twin = ata(torch.as_tensor(short, device=dev), n_base=n, out="packed")
-    assert not torch.equal(g_pad.blocks, g_twin.blocks)
+    assert server.retraces() == 0
+    for t in served:
+        np.testing.assert_array_equal(_serve_twin(server, t), t.result(),
+                                      err_msg=f"{t.bucket.label()} m={t.request.a.shape[0]}")
+    for spec in buckets:
+        fn, sp = server.bucket_callable(spec)
+        nb = -(-n // default_block_size(n, sp.packed_block))
+        assert nb > 1
+        launched = {k: v for k, v in fn.capture_launches.items() if v}
+        assert launched == _flush_launches(spec, nb), spec.label()
 
 
-def test_dot_tn_routes_small_m_through_the_kernel(dev):
-    """``Aᵀb`` of at most ``UNSPLIT_MAX_ROWS`` rows is one gemm_tn launch,
-    and zero rows or zero columns appended to the operands leave its bits
-    as they were (what lets a serving bucket band m and r there); above
-    it, cuBLAS, no launch."""
+def _padded(x, rows):
+    """``x`` with zero rows appended up to ``rows`` (leading dims kept)."""
+    out = x.new_zeros((*x.shape[:-2], rows, x.shape[-1]))
+    out[..., :x.shape[-2], :] = x
+    return out
+
+
+# (a request's m, the band it is padded to): across the chunk edges and the
+# cap F(n) of CTAs a tile, 8 at n = 256 and 4 at n = 1024
+SYRK_PADS = ((300, 512), (700, 2048), (1500, 2048), (1500, 8192), (2100, 4096), (4100, 8192))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("m,band", SYRK_PADS)
+def test_syrk_keeps_its_bits_under_zero_row_padding(dev, dt, n, m, band):
+    """syrk dense and packed and syrk_gather: a batch of m-row operands
+    padded with zero rows to the band gives the operands' own grams bitwise,
+    whether or not K(m, n) and K(band, n) differ."""
+    rng = np.random.default_rng(m + n)
+    a = _t(rng, (2, m, n), dev).to(dt)
+    p = _padded(a, band)
+    for out in ("dense", "packed"):
+        got, want = ops.syrk(p, out=out), ops.syrk(a, out=out)
+        if out == "packed":
+            got, want = got.blocks, want.blocks
+        assert _bits_equal(got, want), (out, syrk_splits(m, n), syrk_splits(band, n))
+    grid = torch.stack([a, a.flip(0)])                      # (R, C, m, n)
+    rows, cols = np.array([0, 1, 1]), np.array([0, 0, 1])
+    assert _bits_equal(ops.syrk_gather(_padded(grid, band), rows, cols),
+                       ops.syrk_gather(grid, rows, cols))
+
+
+@pytest.mark.parametrize("m,n,r,mp,rp", [
+    (33, 32, 3, 48, 4), (300, 256, 8, 512, 8), (512, 256, 37, 512, 64), (256, 512, 1, 512, 8),
+    (1500, 256, 5, 8192, 8), (4100, 512, 60, 8192, 64), (700, 256, 40, 2048, 100),
+    (600, 512, 70, 700, 100)])
+def test_dot_tn_keeps_its_bits_under_padding_and_batching(dev, m, n, r, mp, rp):
+    """``Aᵀb`` is one gemm_tn launch at every m (the narrow kernel for r ≤
+    64, the tile engine above), and zero rows, zero columns and the batch
+    leave its bits as they were, whichever kernel each shape lands on."""
     from repro_torch.core.strassen import _dot_tn
-    from repro_torch.kernels.syrk import UNSPLIT_MAX_ROWS
 
-    def dv(x):
-        return torch.as_tensor(x, device=dev)
-
-    rng = np.random.default_rng(64)
-    for m, n, r, mp, rp in ((33, 32, 3, 48, 4), (300, 256, 8, 512, 8), (512, 256, 37, 512, 64),
-                            (256, 512, 1, 512, 8)):
-        a = rng.standard_normal((m, n), dtype=np.float32)
-        b = rng.standard_normal((m, r), dtype=np.float32)
-        ap = np.zeros((mp, n), np.float32)
-        bp = np.zeros((mp, rp), np.float32)
-        ap[:m], bp[:m, :r] = a, b
-        ops.reset_launches()
-        got = _dot_tn(dv(a), dv(b), torch.float32)
-        pad = _dot_tn(dv(ap), dv(bp), torch.float32)
-        assert ops.launches["gemm_tn"] == 2
-        assert torch.equal(got, pad[:, :r]), (m, n, r)
-        _close(got, torch.matmul(dv(a).T, dv(b)), m)
-        vec = _dot_tn(dv(a), dv(b[:, 0])[:, None], torch.float32)
-        assert torch.equal(vec, got[:, :1])
+    rng = np.random.default_rng(m + r)
+    a, b = _t(rng, (m, n), dev), _t(rng, (m, r), dev)
+    ap, bp = _padded(a, mp), torch.zeros((mp, rp), device=dev)
+    bp[:m, :r] = b
     ops.reset_launches()
-    _dot_tn(_t(rng, (UNSPLIT_MAX_ROWS + 1, 64), dev), _t(rng, (UNSPLIT_MAX_ROWS + 1, 4), dev),
-            torch.float32)
-    assert ops.launches["gemm_tn"] == 0
+    got = _dot_tn(a, b, torch.float32)
+    pad = _dot_tn(ap, bp, torch.float32)
+    assert ops.launches["gemm_tn"] == 2
+    assert torch.equal(got, pad[:, :r]), (m, n, r)
+    _close(got, torch.matmul(a.T, b), m)
+    other = _t(rng, (mp, n), dev), _t(rng, (mp, rp), dev)
+    batched = _dot_tn(torch.stack([other[0], ap]), torch.stack([other[1], bp]), torch.float32)
+    assert torch.equal(batched[1, :, :r], got)
+    assert torch.equal(_dot_tn(a, b[:, :1], torch.float32), got[:, :1])
+
+
+@pytest.mark.parametrize("n,bn", [(512, 128), (300, 128), (1024, 256)])
+def test_walk_keeps_its_bits_batched_and_padded_in_r(dev, n, bn):
+    """The packed Cholesky walk of a batch of grams equals each gram's own
+    walk bitwise, one Schur gemm_tn launch a block column past the first;
+    the substitutions, batched and with the right-hand sides padded by zero
+    columns (the diagonal solves a slice at a time, as a bucket runs them),
+    equal each entry's own, the vector right-hand side included."""
+    from repro_torch.serve.engine import per_slice_trsm
+    from repro_torch.solve import solve_cholesky, solve_triangular
+
+    rng = np.random.default_rng(n + bn)
+    B, r, rp = 3, 5, 8
+    s = _spd(rng, B, n, dev)
+    nb = -(-n // bn)
+    ops.reset_launches()
+    f = cholesky(s, packed_block=bn)
+    assert ops.launches["gemm_tn"] == nb - 1 and ops.launches["potrf"] == nb
+    b = _t(rng, (B, n, r), dev)
+    bp = torch.zeros((B, n, rp), device=dev)
+    bp[..., :r] = b
+    x = solve_cholesky(f, bp, base_trsm=per_slice_trsm)
+    z = solve_triangular(f, bp, transpose=False, base_trsm=per_slice_trsm)
+    for i in range(B):
+        fi = cholesky(s[i], packed_block=bn)
+        assert torch.equal(f.blocks[i], fi.blocks), i
+        xi = solve_cholesky(fi, b[i])
+        assert torch.equal(x[i, :, :r], xi), i
+        assert torch.equal(z[i, :, :r], solve_triangular(fi, b[i], transpose=False)), i
+        assert torch.equal(solve_cholesky(fi, b[i, :, 0]), xi[:, 0]), i
+        want = torch.linalg.solve(s[i].double(), b[i].double())
+        assert _normwise(xi, want) <= 1e-4
 
 
 def test_serve_eager_work_on_a_flush_counts_as_a_recapture(dev):
@@ -1474,7 +1546,7 @@ def test_serve_eager_work_on_a_flush_counts_as_a_recapture(dev):
     server.warm()
     fn, _ = server.bucket_callable(spec)
     per_replay = sum(fn.capture_launches.values())
-    assert fn.capture_launches["syrk"] == 1 and fn.capture_launches["gemm_tn"] == spec.batch
+    assert fn.capture_launches["syrk"] == 1 and fn.capture_launches["gemm_tn"] == 1
 
     class EagerGraph:
         def replay(self):

@@ -280,16 +280,53 @@ _SPLIT_MS = sorted({*range(1, 9000, 7), 32, 256, 511, 512, 513, 1024, 2047, 2048
 
 @pytest.mark.parametrize("n", [1, 100, 129, 512, 1000, 1100, 2048, 4096])
 def test_syrk_splits_bounded_and_monotone_in_m(n):
-    """The syrk kernels' split K(m, n) is a power of two in [1, 8] (a portable
-    cluster) and does not fall as m grows."""
-    from repro_torch.kernels.syrk import syrk_splits
+    """The syrk kernels' split K(m, n) is a power of two in [1, 8] (a
+    portable cluster), does not fall as m grows, is 1 up to one chunk of
+    CHUNK_ROWS rows, and is the chunk count rounded up to a power of two
+    until it reaches the card's cap F(n), where it stays."""
+    from repro_torch.kernels.syrk import CHUNK_ROWS, syrk_splits
 
     ks = [syrk_splits(m, n) for m in _SPLIT_MS]
     assert all(1 <= k <= 8 and k & (k - 1) == 0 for k in ks), ks
     assert all(a <= b for a, b in zip(ks, ks[1:])), ks
+    cap = ks[-1]
+    for m, k in zip(_SPLIT_MS, ks):
+        chunks = -(-m // CHUNK_ROWS)
+        assert k == min(cap, 1 << (chunks - 1).bit_length()), (m, k)
+    assert syrk_splits(CHUNK_ROWS, n) == 1
     assert syrk_splits(512, 512) == 1          # the ata 8192² diagonal leaves stay unsplit
     if n <= 512:
-        assert syrk_splits(2048, n) == 8       # lstsq's single leaf fills the card
+        assert syrk_splits(2048, n) == 4       # lstsq's single leaf: its four chunks
+
+
+def _cta_chunks(m, n):
+    """The kernels' assignment (csrc/syrk.cu): CTA r of K = syrk_splits(m, n)
+    sums chunks r, r + K, r + 2K, ... of the ceil(m / CHUNK_ROWS) chunks, in
+    that order, and the K partials are added in rank order."""
+    from repro_torch.kernels.syrk import CHUNK_ROWS, syrk_splits
+
+    k = syrk_splits(m, n)
+    return [list(range(r, -(-m // CHUNK_ROWS), k)) for r in range(k)]
+
+
+# n with F(n) = 8, 8, 4, 2, 1 CTAs a tile at most
+@pytest.mark.parametrize("n", [1, 512, 1024, 1536, 2048])
+@pytest.mark.parametrize("m_req,m_cap", [
+    (1, 512), (300, 513), (512, 513), (513, 2048), (1500, 2048), (1500, 8192), (2048, 2049),
+    (2049, 4096), (4096, 4097), (3000, 5000), (4097, 8192), (5000, 100_000), (700, 700)])
+def test_syrk_split_padding_invariant(n, m_req, m_cap):
+    """A request of m_req rows padded with zero rows to m_cap: every chunk
+    that holds real rows goes to the same CTA, in the same order, under
+    K(m_cap) as under K(m_req), and the CTAs that K(m_cap) adds hold only
+    zero rows — so the padded gram keeps the request's bits."""
+    from repro_torch.kernels.syrk import CHUNK_ROWS
+
+    req, cap = _cta_chunks(m_req, n), _cta_chunks(m_cap, n)
+    real = -(-m_req // CHUNK_ROWS)
+    assert len(cap) >= len(req)
+    for r, chunks in enumerate(cap):
+        assert [c for c in chunks if c < real] == (req[r] if r < len(req) else []), (r, req, cap)
+    assert sorted(c for chunks in req for c in chunks) == list(range(real))
 
 
 @pytest.fixture

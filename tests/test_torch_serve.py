@@ -16,9 +16,10 @@ itself.
   against MKL's, the same blocked algorithm) may part by ``κ·eps``.
 * Bitwise inside the port: every served slice equals the port's own
   per-request twin (``lstsq(plan=request_twin)`` and the whiten pipeline).
-* The card's rule of ``serve.bucketing``, as far as the CPU can evaluate
-  it (which flags it sets); ``tests/test_torch_cuda.py`` holds it on the
-  card.
+* The lattice's surface is the reference's on every device: the spec's
+  fields, the module's names, admission, and a server on a CUDA device
+  serving its config's buckets as they stand (``tests/test_torch_cuda.py``
+  holds the padded stages bitwise on the card).
 """
 
 from __future__ import annotations
@@ -50,9 +51,7 @@ from repro_torch.serve.__main__ import _mixed_workload, _run_workload
 from repro_torch.serve.bucketing import (
     BucketLattice,
     BucketSpec,
-    card_exact_axes,
     crop_result,
-    for_device,
     make_buckets,
     pad_operands,
 )
@@ -94,9 +93,6 @@ def test_bucket_admission_rules():
     exact = BucketSpec(op="lstsq", m=48, n=32, r=4, batch=4, exact_m=True)
     assert exact.admits("lstsq", 48, 32, 2, "float32")
     assert not exact.admits("lstsq", 40, 32, 2, "float32")  # no m banding
-    exact_r = BucketSpec(op="lstsq", m=48, n=32, r=4, batch=4, exact_r=True)
-    assert exact_r.admits("lstsq", 40, 32, 4, "float32")
-    assert not exact_r.admits("lstsq", 40, 32, 3, "float32")  # no r banding
 
 
 def test_make_buckets_marks_recursing_grams_exact_m():
@@ -169,9 +165,6 @@ def test_bucket_spec_json_roundtrip():
     s = BucketSpec(op="whiten", m=96, n=64, r=8, batch=2, dtype="float64",
                    exact_m=True)
     assert BucketSpec.from_json(json.loads(json.dumps(s.to_json()))) == s
-    sr = dataclasses.replace(s, exact_r=True)
-    assert sr.to_json()["exact_r"] is True
-    assert BucketSpec.from_json(json.loads(json.dumps(sr.to_json()))) == sr
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +187,6 @@ def test_lattice_fields_labels_json_equal_reference(kw):
     assert [s.to_json() for s in got] == [dataclasses.asdict(s) for s in ref]
     assert [s.label() for s in got] == [s.label() for s in ref]
     assert [s.key for s in got] == [s.key for s in ref]
-    assert tuple(for_device(s, CPU) for s in got) == got
     # the reference's JSON reads into the port's spec as it is
     assert tuple(BucketSpec.from_json(json.loads(json.dumps(s.to_json()))) for s in ref) == got
     assert [s.key for s in BucketLattice(got).specs] == \
@@ -238,38 +230,38 @@ def test_pad_operands_bits_equal_reference():
 
 
 # ---------------------------------------------------------------------------
-# the card's rule (serve.bucketing's docstring), as the CPU evaluates it
+# the lattice's surface is the reference's on every device
 
 
-def test_card_rule_flags():
-    """On a CUDA device a bucket is exact in m where syrk splits its
-    contraction (m > 512 at n = 1024) and in r where n spans more than one
-    packed block; an lstsq bucket above 512 rows (``Aᵀb`` on cuBLAS) is
-    exact in both. On the CPU, nothing is added."""
-    for op in ("lstsq", "whiten"):
-        assert card_exact_axes(op, 48, 32) == (False, False)
-        assert card_exact_axes(op, 512, 128) == (False, False)
-        assert card_exact_axes(op, 4096, 1024) == (True, True)
-        assert card_exact_axes(op, 256, 129) == (False, True)
-        assert card_exact_axes(op, 256, 129, packed_block=256) == (False, False)
-    assert card_exact_axes("whiten", 513, 128) == (True, False)
-    assert card_exact_axes("lstsq", 513, 128) == (True, True)
-    ref = make_buckets(ops=("lstsq", "whiten"), n_values=(32, 1024), m_bands=(48, 4096),
-                       r_bands=(4,), batch=2)
-    cuda = [for_device(s, "cuda") for s in ref]
-    for s in cuda:
-        assert (s.exact_m, s.exact_r) == tuple(
-            a or b for a, b in zip(card_exact_axes(s.op, s.m, s.n), (s.n > 512, False)))
-    assert [s.key for s in cuda] == [s.key for s in ref]
-    spec = BucketSpec(op="whiten", m=48, n=32, r=4, batch=4, exact_r=True)
-    assert for_device(spec, CPU) is spec
-    assert for_device(spec, "cuda") == spec                     # flags only added
-    # the smoke lattice is the reference's on the card too
-    assert all(for_device(s, "cuda") == s for s in smoke_config().buckets)
-    big = make_buckets(ops=("lstsq",), n_values=(256,), m_bands=(512, 8192), r_bands=(8,),
-                       batch=8)
-    assert [for_device(s, "cuda").label() for s in big] == [
-        "lstsq:m512:n256:r8:float32:b8:exact_r", "lstsq:m8192:n256:r8:float32:b8:exact_m:exact_r"]
+@pytest.mark.parametrize("what", ["fields", "names", "admits", "server_on_cuda"])
+def test_bucketing_surface_equals_reference(what):
+    """``BucketSpec``'s fields (names and defaults), ``serve.bucketing``'s
+    ``__all__`` and every admission decision equal the reference's, and a
+    server on a CUDA device serves its config's buckets as they stand: the
+    card adds no rule of its own to the lattice."""
+    if what == "fields":
+        got = [(f.name, f.default) for f in dataclasses.fields(BucketSpec)]
+        assert got == [(f.name, f.default) for f in dataclasses.fields(ref_bucketing.BucketSpec)]
+    elif what == "names":
+        assert port_bucketing.__all__ == ref_bucketing.__all__
+    elif what == "admits":
+        for s in make_buckets(**LATTICES[2]):
+            rs = ref_bucketing.BucketSpec(**s.to_json())
+            for op in ("lstsq", "whiten"):
+                for m in (1, 16, 17, 128, 129, 700, 701, 4096, 4097):
+                    for r in (1, 7, 8, 9, 64, 65):
+                        args = (op, m, s.n, r, s.dtype)
+                        assert s.admits(*args) == rs.admits(*args), (s.label(), args)
+    else:
+        lattice = (make_buckets(ops=("lstsq",), n_values=(256, 512), m_bands=(512, 8192),
+                                r_bands=(1, 8, 64), batch=8)
+                   + make_buckets(ops=("whiten",), n_values=(1024,), m_bands=(4096,),
+                                  r_bands=(64,), batch=4))
+        server = Server(ServeConfig(buckets=lattice), device="cuda")
+        assert server.buckets == lattice
+        assert [s.key for s in server.lattice.specs] == \
+            [s.key for s in ref_bucketing.BucketLattice(
+                [ref_bucketing.BucketSpec(**s.to_json()) for s in lattice]).specs]
 
 
 def test_dot_tn_one_column_equals_the_column_of_a_wider_product():
@@ -751,7 +743,9 @@ def test_cli_smoke_gate_in_process(tmp_path):
     assert report["parity_checked"] > 0
     assert report["stats"]["counters"].get("serve.retraces", 0) == 0
     assert report["stats"]["device"] == CPU
-    assert report["refused_by_device_rule"] == 0
+    # the reference's report, key for key: the card refuses nothing of the lattice
+    assert set(report) == {"schema", "mode", "warm_seconds", "served", "rejected",
+                           "parity_checked", "failures", "stats"}
 
 
 def test_cli_smoke_subprocess(tmp_path):

@@ -67,6 +67,44 @@ def test_cholesky_matches_reference(m, n, bn):
                                atol=1e-4 * float(np.abs(tg.blocks.numpy()).max()))
 
 
+@pytest.fixture
+def gemm_tn_walk(monkeypatch):
+    """The walk of a CUDA tensor on the CPU: its Schur products through
+    ``ops.gemm_tn`` (here its plain version) over the transposed panels, in
+    place of the einsums."""
+    import importlib
+
+    for name in ("repro_torch.solve.cholesky", "repro_torch.solve.triangular"):
+        monkeypatch.setattr(importlib.import_module(name), "_kernel_walk", lambda x, plan: True)
+
+
+# a pad block, an aligned grid, one block, and a batch of grams
+@pytest.mark.parametrize("m,n,bn,batch", [(150, 100, 32, 1), (80, 41, 16, 1), (96, 64, 32, 1),
+                                          (40, 30, 32, 1), (150, 100, 32, 3)])
+def test_gemm_tn_walk_matches_reference(gemm_tn_walk, m, n, bn, batch):
+    """The card's walk (one ``gemm_tn`` a block column and a substitution
+    step) against the reference's factor and solves, within the tolerances
+    of the einsum walk's tests above; a batch of grams factors and solves
+    entry by entry as each alone."""
+    from repro_torch.obs import metrics
+
+    grams = [_grams(m, n, bn, seed=n + bn + i) for i in range(batch)]
+    b = np.random.default_rng(n).standard_normal((batch, n, 5)).astype(np.float32)
+    tg = SymmetricMatrix(torch.stack([g.blocks for _, g in grams]), n, grams[0][1].bn)
+    calls = metrics.get("kernels.launch.gemm_tn")
+    f = cholesky(tg)
+    x = solve_cholesky(f, torch.as_tensor(b))
+    z = solve_triangular(f, torch.as_tensor(b), transpose=False)
+    assert metrics.get("kernels.launch.gemm_tn") - calls == 4 * (tg.nb - 1)
+    for i, (jg, _) in enumerate(grams):
+        with jax.enable_x64(False):
+            jf = jsolve.cholesky(jg)
+            want_x = np.asarray(jsolve.solve_cholesky(jf, jnp.asarray(b[i])))
+            want_z = np.asarray(jsolve.solve_triangular(jf, jnp.asarray(b[i])))
+        _close(f.blocks[i], np.asarray(jf.blocks), n)
+        assert _rel(x[i], want_x) <= 1e-4 and _rel(z[i], want_z) <= 1e-5
+
+
 def test_cholesky_dense_and_packed_inputs_bitwise():
     """The walk is the same for a dense square and its packed form."""
     _, tg = _grams(120, 72, 32, seed=3)

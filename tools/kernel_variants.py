@@ -5,6 +5,7 @@ and ablations of the trsm and syrk kernels.
     PYTHONPATH=src python3 tools/kernel_variants.py [tn] [narrow] [trsm] [syrk] [wgmma]
     PYTHONPATH=src python3 tools/kernel_variants.py narrow_bf16 --earlier=DIR
     PYTHONPATH=src python3 tools/kernel_variants.py syrk_bf16 [--earlier=DIR]
+    PYTHONPATH=src python3 tools/kernel_variants.py syrk_split [--earlier=DIR]
 
 (no argument: the first five parts).
 
@@ -45,8 +46,9 @@ their device times
 expanded factor and at the r = 8 substitution panel. An ablation computes
 a wrong answer; only its time is read.
 
-For ``csrc/syrk.cu`` it times the split K ∈ {1, 2, 4, 8} (the evidence for
-``syrk_splits``) at lstsq's single (2048, 512) leaf, the ata 8192² diagonal
+For ``csrc/syrk.cu`` it times the split K ∈ {1, 2, 4, 8} (K beyond the
+chunks of ``CHUNK_ROWS`` rows leaves CTAs without rows) at lstsq's single
+(2048, 512) leaf, the ata 8192² diagonal
 leaf alone (512, 512) and its batched stack (256, 512, 512), and three
 variants beside the shipped kernel: without the diagonal tiles' quadrant
 skip (one engine instance for every tile); with the staged epilogue
@@ -81,7 +83,7 @@ device times in CUDA graphs of 20, in turns.
 ``syrk_bf16`` times syrk's bfloat16 tensor-core kernel (``csrc/syrk.cu``'s
 ``syrk_wgmma_kernel``) at the ata 8192² diagonal leaves (256, 512, 512)
 dense with a float32 and a bfloat16 store, their gather (R = 16, S = 256)
-and lstsq's single (2048, 512) leaf (K = 8), beside builds with one choice
+and lstsq's single (2048, 512) leaf (K = ``syrk_splits``), beside builds with one choice
 changed (``SYRK_BF16``): one CTA an SM (``__launch_bounds__(288, 1)``,
 no register cap), the epilogue's loop not unrolled, the ring's shape, a
 diagonal tile loading both sides, and ablations that leave out the wgmma, the epilogue,
@@ -92,6 +94,16 @@ read), and, with ``--earlier=DIR``, an earlier tree's syrk build (whose
 (``-Xptxas -v``) and resident CTAs an SM; the exact variants are held
 bitwise against the shipped kernel. Device times in CUDA graphs of 20
 (the gather: bursts of 20), in turns.
+
+``syrk_split`` times the split at lstsq's single (2048, 512) leaf, a
+serve bucket's gram stack (8, 8192, 512) and the ata 8192² diagonal
+leaves (256, 512, 512) (unsplit), float32 and bfloat16 operands
+(float32 store): this tree's kernels at K ∈ {1, 2, 4, 8} and, with
+``--earlier=DIR`` (an earlier tree's ``csrc``), that tree's ``syrk.cu``
+at the same K (an earlier split rule, whose CTAs summed ``ceil(m/K)``
+rows, gave K = 8 at both shapes), each within tolerance of the plain
+version, beside
+``torch.matmul``; device ms in CUDA graphs of 20, in turns.
 
 It needs an NVIDIA Hopper card and nvcc.
 """
@@ -230,18 +242,22 @@ REGISTER_EPILOGUE = """    __syncthreads();  // register-direct epilogue (ablati
     __syncthreads();
 """
 SYRK_LOOP = """    if (tl.diag)
-      tn_tile<float, kVec16, true, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<float, kVec16, true, true, kRun, kSplits * kChunkRows>(x, y, l0, g.m, smem, map, acc);
     else
-      tn_tile<float, kVec16, false, true>(x, y, l0, l1, smem, map, acc);
+      tn_tile<float, kVec16, false, true, kRun, kSplits * kChunkRows>(x, y, l0, g.m, smem, map,
+                                                                      acc);
 """
+SYRK_OFF_DIAG = ("    tn_tile<float, kVec16, false, true, kRun, kSplits * kChunkRows>(x, y, l0, g.m, smem, "
+                 "map, acc);\n")
+SYRK_TILE = ("tn_tile<float, kVec16, true, true, kRun,", "tn_tile<float, kVec16, false, true, kRun,")
 SYRK_EPILOGUE = ("    __syncthreads();  // every warp is done with the ring",
                  "      __syncthreads();     // the next entry refills the ring\n")
 # name -> textual edits of syrk.cu (None: the shipped library)
 SYRK = {
     "shipped": None,
     "no_quadrant_skip": [
-        (SYRK_LOOP, "    tn_tile<float, kVec16, false, true>(x, y, l0, l1, smem, map, acc);\n")],
-    "full_unroll": [(SYRK_LOOP, SYRK_LOOP.replace(", true>", ">"))],
+        (SYRK_LOOP, SYRK_OFF_DIAG)],
+    "full_unroll": [(t, t.replace(", true, kRun,", ", false, kRun,")) for t in SYRK_TILE],
     "register_epilogue": [SYRK_EPILOGUE],
     "no_mirror": [("      if (tl.sym) {\n", "      if (false) {\n")],
     "no_global_stores": [("  if (i >= t.lim) return;", "  return;")],
@@ -250,6 +266,9 @@ SYRK = {
 SYRK_WRONG = ("no_mirror", "no_global_stores")
 SYRK_SHAPES = {"single (2048,512)": (2048, 512), "single (512,512)": (512, 512),
                "batched (256,512,512)": (256, 512, 512)}
+# syrk_split: lstsq's single leaf, the gram stack of serve's largest bucket
+# and the ata 8192² diagonal leaves
+SPLIT_SHAPES = ((2048, 512), (8, 8192, 512), (256, 512, 512))
 # gemm_tn's bfloat16 kernel: name -> (rows a stage, stages); the first is shipped
 WG_ROWS, WG_STAGES = "constexpr int kWgRows = 64;", "constexpr int kWgStages = 3;"
 WGMMA_SHAPES = {"64x3": (64, 3), "32x4": (32, 4), "32x6": (32, 6), "64x4": (64, 4),
@@ -672,6 +691,55 @@ def time_syrk_bf16(libs, cs, rng):
         torch.cuda.empty_cache()
 
 
+def time_syrk_split(libs, cs, rng):
+    """The split K of this tree's syrk kernels and, with ``--earlier``, an
+    earlier tree's at the same K, float32 and bfloat16 operands."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.syrk import syrk_plain, syrk_splits
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    trees = {"shipped": _build.load()}
+    if ("syrk_split", "earlier") in libs:
+        trees["earlier"] = libs[("syrk_split", "earlier")]
+    for shape in SPLIT_SHAPES:
+        m, n = shape[-2:]
+        batch = shape[0] if len(shape) == 3 else 1
+        for dt in (torch.float32, torch.bfloat16):
+            a = cs.cuda_tensor(rng, shape).to(dt)
+            c = torch.empty((batch, n, n), device="cuda")
+            ref = syrk_plain(a).reshape(c.shape)
+            runs = {}
+            for name, lib in trees.items():
+                entry = "syrk_wgmma" if dt == torch.bfloat16 else "syrk_f32"
+                fn = getattr(lib, entry)
+                fn.argtypes = list(_build.SIGNATURES[entry])
+                for k in (1, 2, 4, 8):
+                    if entry == "syrk_wgmma":
+                        def run(fn=fn, k=k):
+                            used = ctypes.c_int(0)
+                            _build.check(fn(a.data_ptr(), c.data_ptr(), batch, m, n, m * n, n,
+                                            1.0, 0, 0, k, 1, 1, ctypes.byref(used), stream()),
+                                         name)
+                    else:
+                        def run(fn=fn, k=k):
+                            _build.check(fn(a.data_ptr(), c.data_ptr(), batch, m, n, m * n, n,
+                                            1.0, 0, 0, k, 1, 0, stream()), name)
+                    run()
+                    torch.cuda.synchronize()
+                    cs.Checks({}).compare(f"syrk_split {name} {shape} {dt} K={k}", c, ref, m)
+                    runs[f"{name} K={k}"] = run
+            runs["torch.matmul"] = lambda: torch.matmul(a.transpose(-1, -2), a)
+            times = {}
+            for name in list(runs) + list(runs)[::-1]:
+                times.setdefault(name, []).append(round(cs.graph_ms(runs[name], 20), 5))
+            print(f"syrk_split {tuple(shape)} {str(dt)[6:]} (syrk_splits = {syrk_splits(m, n)}) "
+                  "device ms, in turns: " + json.dumps(times), flush=True)
+            del a, c, ref
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -683,7 +751,8 @@ def main() -> int:
                     if x.startswith("--earlier=")), None)
     parts = {x for x in sys.argv[1:] if not x.startswith("--earlier=")} or {
         "tn", "narrow", "trsm", "syrk", "wgmma"}
-    if not parts <= {"tn", "narrow", "trsm", "syrk", "wgmma", "narrow_bf16", "syrk_bf16"}:
+    if not parts <= {"tn", "narrow", "trsm", "syrk", "wgmma", "narrow_bf16", "syrk_bf16",
+                     "syrk_split"}:
         print(f"kernel_variants: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -733,6 +802,10 @@ def main() -> int:
                                              ("syrk.cu",))
         if earlier is not None:
             jobs[("syrk_bf16", "earlier")] = (earlier, ("syrk.cu",))
+    if "syrk_split" in parts:
+        _build.load()
+        if earlier is not None:
+            jobs[("syrk_split", "earlier")] = (earlier, ("syrk.cu",))
     procs = {key: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d,
          *(os.path.join(d, src) for src in srcs), "-o", os.path.join(d, "lib.so")],
@@ -773,6 +846,8 @@ def main() -> int:
     if "syrk_bf16" in parts:
         print("syrk_bf16 shipped: " + json.dumps(_wgmma_ptxas(_build.build()[2])), flush=True)
         time_syrk_bf16(libs, cs, rng)
+    if "syrk_split" in parts:
+        time_syrk_split(libs, cs, rng)
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Which stages of the serve pipeline keep their bits under the lattice's
-padding and batching on this device: the evidence for the card's rule of
-``repro_torch.serve.bucketing``.
+padding and batching on this device: the evidence that the card serves
+the reference's lattice of ``repro_torch.serve.bucketing`` as it stands.
 
     PYTHONPATH=src python3 tools/serve_invariance.py [--device cpu] [--out PATH]
 
@@ -26,7 +26,9 @@ padded shape with the same stage at the request's own shape (the twin's):
 
 It prints one JSON line per bucket and, with ``--out``, writes them all.
 Runs on the card unless ``--device cpu`` is given (about a minute with the
-kernels' build).
+kernels' build). On the card every stage must keep its bits: the script
+exits 1 if any differs (on the CPU MKL's products need not, and it
+reports them).
 """
 
 from __future__ import annotations
@@ -139,7 +141,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(rows_out, fh, indent=1)
-    return 0
+    differ = sum(len(v) for row in rows_out for v in row["differ"].values())
+    print(f"{differ} stage mismatches over {len(rows_out)} bucket shapes", flush=True)
+    return 1 if differ and dev.type == "cuda" else 0
 
 
 if __name__ == "__main__":
